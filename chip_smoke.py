@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port (``cruise_control_tpu_torch``) on one
 GPU: builds the hand-written kernels from ``cruise_control_tpu_torch/csrc``,
 holds each against its plain PyTorch twin at the main path's shapes, drives
-the dry-run rebalance proposal end to end, and checks its quality.
+the dry-run rebalance proposal, the what-if sweep and the move schedule end
+to end, and checks their results.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -12,13 +13,23 @@ Phases (every failure raises; nothing is caught):
 
 1. environment — the card's name and power limit, torch and CUDA versions;
 2. build — compile and load the kernel library;
-3. kernels vs twins — KA (threefry2x32), KB (ordered segment sum) and KC
-   (net broker flow) against their plain versions, with times and bounds;
+3. kernels vs twins — KA (threefry2x32), KB (ordered segment sum, also on
+   the what-if sweep's batched layout), KC (net broker flow) and KD
+   (scenario failover) against their plain versions, with times and
+   bounds; KE (first fit) is held to its twin after phase 4, at the shape
+   of the main path's own schedule;
 4. main path — 100 brokers x 20K partitions at RF 2, the 4-goal chain
    with the off-chain hard-goal audit, seeds 0, 1, 1 (proposals of the two
-   seed-1 runs must be identical; every kernel must have launched);
+   seed-1 runs must be identical; KA, KB and KC must have launched);
 5. self-healing drain — the same cluster with one dead broker;
-6. scale — 1K brokers x 200K partitions at RF 2.
+6. scale — 1K brokers x 200K partitions at RF 2;
+7. what-if — the N-1 sweep of the main-path cluster (cold, then three
+   warm sweeps; KD and KB must have launched, as many times for one
+   scenario as for all), then one batch of every scenario type, held to
+   the reference's numbers;
+8. schedule — the seed-1 proposals batched by the first-fit kernel with
+   the hard-goal boundary audit, without and with a bandwidth budget,
+   held to the host greedy planner and to the reference's statistics.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -26,6 +37,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -51,6 +63,48 @@ MAIN_SEARCH = dict(num_replica_candidates=512, num_dest_candidates=16,
                    fused_chain=True)
 #: the audit waives RackAwareGoal, as the reference bench does
 WAIVED = frozenset({"RackAwareGoal"})
+#: phase 7's and phase 8's results as the reference computes them (the
+#: JAX package on the CPU, from the same inputs; phase 8 schedules the
+#: reference's own seed-1 proposals, which equal the port's): the N-1
+#: sweep's and the mixed batch's riskiest scenario, max risk, count of
+#: scenarios violating a goal, sum of 4-decimal risks and a digest of every
+#: outcome (``_summary``); each schedule's
+#: statistics, a digest of its batches and the sum of its batch ETAs
+REFERENCE_N1 = dict(riskiest="loss:0", max_risk=0.30000000000000004,
+                    violated=100, risk4_sum=30.0, digest="5b3c7b4ba73e74d7")
+REFERENCE_MIXED = dict(riskiest="loss:3,17", max_risk=0.9301785, violated=9,
+                       risk4_sum=3.3302, digest="746878a462cff777")
+REFERENCE_MIXED_RISKS = [0.9302, 0.3, 0.3, 0.3, 0.3, 0.3, 0.3, 0.3, 0.3]
+_REFERENCE_STATS = dict(moves=13591, batches=174, boundaries_audited=174,
+                        repair_rounds=0, unrepaired_violations=0,
+                        spilled_moves=0)
+REFERENCE_SCHEDULE = {
+    "schedule": dict(stats=_REFERENCE_STATS, digest="1053b8d42516ce15",
+                     eta_sum=None),
+    "schedule_bw": dict(stats=_REFERENCE_STATS, digest="1e3df09d59f71c52",
+                        eta_sum=505861.563),
+}
+#: phase 7's batch of every scenario type (``/simulate`` JSON); the two
+#: broker adds need 7 new rows and the topic add 500 partition rows, more
+#: than the model's padding holds, so the batch re-pads the model
+MIXED_SCENARIOS = [
+    {"type": "broker_loss", "brokers": [3, 17]},
+    {"type": "broker_add", "count": 6},
+    {"type": "broker_add", "count": 1, "capacity": [100.0, 1e6, 1e6, 1e8]},
+    {"type": "capacity_resize", "factor": 0.5, "resource": "disk"},
+    {"type": "capacity_resize", "factor": 0.8, "brokers": [0, 1, 2]},
+    {"type": "load_scale", "factor": 1.5},
+    {"type": "load_scale", "factor": 3.0, "topics": ["t0", "t1"]},
+    {"type": "topic_add", "topic": "new", "partitions": 500, "rf": 2,
+     "leaderLoad": [0.03, 10.0, 15.0, 100.0]},
+    {"type": "trajectory_scale", "horizonMs": 3_600_000, "quantile": 0.9,
+     "factors": {"t5": 2.0, "t7": 0.5}, "defaultFactor": 1.1},
+]
+#: phase 8's schedules: (tag, bandwidth MB per batch, throttle bytes/s) —
+#: the facade's defaults, then a budget that splits batches and a
+#: throttle that gives every batch an ETA
+SCHEDULE_RUNS = (("schedule", None, None),
+                 ("schedule_bw", 300.0, 100_000_000))
 
 KERNEL_INFO = {
     "threefry2x32": dict(
@@ -62,6 +116,12 @@ KERNEL_INFO = {
     "net_broker_flow": dict(
         source="cruise_control_tpu_torch/csrc/net_flow.cu",
         replaces="cruise_control_tpu/analyzer/goals.py:254"),
+    "scenario_failover": dict(
+        source="cruise_control_tpu_torch/csrc/scenario_failover.cu",
+        replaces="cruise_control_tpu/whatif/engine.py:599"),
+    "first_fit": dict(
+        source="cruise_control_tpu_torch/csrc/first_fit.cu",
+        replaces="cruise_control_tpu/executor/schedule.py:88"),
 }
 
 
@@ -243,21 +303,48 @@ def residual(util, counts, nb, threshold=1.10):
 # Timing
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, reps=20):
-    """Median ms of one call, CUDA events around each call after warmup."""
+def time_ms(fn, groups=5, launches=200, group_ms=50.0, graph=False):
+    """Median ms of one call: each of ``groups`` pairs of CUDA events
+    brackets up to ``launches`` back-to-back calls (fewer for a slow call,
+    about ``group_ms`` per group) and the pair's time is divided by the
+    count. Eager calls are issued by the host one by one, so a call whose
+    device work is shorter than its host dispatch reads the dispatch rate;
+    with ``graph`` the calls are captured once in a CUDA graph and the
+    graph is replayed between the events, which times the device work
+    alone (for calls that never read the device from the host: the kernel
+    wrappers and library calls, not the plain twins). Warm: the calls
+    reuse their inputs, which may stay in L2."""
     import torch
-    for _ in range(3):
+    one_ms = 0.0
+    for _ in range(3):                  # warm up; the last call calibrates
+        t0 = time.monotonic()
         fn()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        one_ms = (time.monotonic() - t0) * 1e3
+        if one_ms > group_ms:           # a slow call needs no more warmup
+            break
+    n = int(max(1, min(launches, group_ms // max(one_ms, 1e-3))))
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            for _ in range(n):
+                fn()
+        run = captured.replay
+        run()                           # the first replay uploads the graph
+        torch.cuda.synchronize()
+    else:
+        def run():
+            for _ in range(n):
+                fn()
     times = []
-    for _ in range(reps):
+    for _ in range(groups):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        run()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / n)
     return float(np.median(times))
 
 
@@ -346,7 +433,7 @@ def _check_summation_bound(got, want, src, dst, earlier, d_src, d_dst):
                  f"the two orders' summation bounds (M={len(s)})")
 
 
-def phase_kernels(main_arrays: dict, scale_arrays: dict):
+def phase_kernels(model, main_arrays: dict, scale_arrays: dict):
     """Each kernel against its twin at the main path's shapes."""
     import torch
     from cruise_control_tpu_torch import _random, kernels
@@ -364,11 +451,12 @@ def phase_kernels(main_arrays: dict, scale_arrays: dict):
         err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
         if err != 0.0:
             fail(f"threefry2x32 differs from its twin at n={n}")
-        ms = time_ms(lambda: kernels.threefry2x32(key, ctr))
-        plain = time_ms(lambda: kernels.threefry2x32_plain(key, ctr), reps=5)
+        ms = time_ms(lambda: kernels.threefry2x32(key, ctr), graph=True)
+        plain = time_ms(lambda: kernels.threefry2x32_plain(key, ctr),
+                        groups=3)
         # each counter read once, two 32-bit words written, the key read
         b_ms, b_by = bound(8 * n + 8 * n + 16, 130 * n)
-        log(f"KA threefry2x32 n={n}: bit-exact; {ms:.4f} ms, twin "
+        log(f"KA threefry2x32 n={n}: bit-exact; {ms:.5f} ms, twin "
             f"{plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
         _keep_first_shape(rows, "threefry2x32", err, dict(
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
@@ -398,11 +486,12 @@ def phase_kernels(main_arrays: dict, scale_arrays: dict):
             fail("ordered_segment_sum exceeds the float32 summation bound")
         rel_lib = float((np.abs(got.cpu().numpy() - lib.cpu().numpy())
                          / np.abs(lib.cpu().numpy()).clip(1e-30)).max())
-        ms = time_ms(lambda: kernels.ordered_segment_sum(vals, seg, S))
+        ms = time_ms(lambda: kernels.ordered_segment_sum(vals, seg, S),
+                     graph=True)
         plain = time_ms(lambda: kernels.ordered_segment_sum_plain(
-            vals, seg, S), reps=3)
+            vals, seg, S), groups=3)
         lib_ms = time_ms(lambda: torch.zeros(S, 4, device=dev).index_add_(
-            0, seg, vals))
+            0, seg, vals), graph=True)
         b_ms, b_by = bound(vals.numel() * 4 + seg.numel() * 8 + S * 16,
                            vals.numel())
         log(f"KB ordered_segment_sum {seg.numel()}->{S} x4: bit-exact vs "
@@ -459,7 +548,9 @@ def phase_kernels(main_arrays: dict, scale_arrays: dict):
             log(f"KC net_broker_flow M={m} ({label}): max |err| vs twin "
                 f"{err:.3g}")
         ds = torch.from_numpy(rng.integers(-4, 5, m).astype(np.float32)).to(dev)
-        ms = time_ms(lambda: kernels.net_broker_flow(src, dst, earlier, ds, ds))
+        ms = time_ms(
+            lambda: kernels.net_broker_flow(src, dst, earlier, ds, ds),
+            graph=True)
         plain = time_ms(lambda: kernels.net_broker_flow_plain(
             src, dst, earlier, ds, ds))
         e = earlier.cpu().numpy()
@@ -471,12 +562,128 @@ def phase_kernels(main_arrays: dict, scale_arrays: dict):
         nnz = int(e.sum())
         b_ms, b_by = bound(m * m + 2 * m * 8 + 2 * m * 4 + 3 * m * 4,
                            4 * nnz + int(matches))
-        log(f"KC net_broker_flow M={m}: {ms:.4f} ms, twin {plain:.4f} ms, "
+        log(f"KC net_broker_flow M={m}: {ms:.5f} ms, twin {plain:.4f} ms, "
             f"bound {b_ms:.5f} ms ({b_by})")
         _keep_first_shape(rows, "net_broker_flow", max(errs), dict(
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
+
+    # --- KD: the N-1 sweep's placement edit and failover.
+    from cruise_control_tpu_torch.model.flat import replica_loads
+    from cruise_control_tpu_torch.whatif.engine import scenario_transform
+    B = model.num_brokers_padded
+    P, R = model.replica_broker.shape
+    S = NUM_BROKERS
+    dead = torch.zeros((S, B), dtype=torch.bool, device=dev)
+    dead[torch.arange(NUM_BROKERS), torch.arange(NUM_BROKERS)] = True
+    add = torch.zeros_like(dead)
+    pvalid = model.partition_valid.expand(S, P).contiguous()
+    args = (model.replica_broker, model.replica_offline,
+            model.replica_pref_pos, model.broker_valid, model.broker_alive,
+            dead, add, pvalid)
+    got = kernels.scenario_failover(*args)
+    want = kernels.scenario_failover_plain(*(t.cpu() for t in args))
+    err = max(float((g.cpu().long() - w.long()).abs().max())
+              for g, w in zip(got, want))
+    if err != 0:
+        fail("scenario_failover differs from its twin at the N-1 shape")
+    ms = time_ms(lambda: kernels.scenario_failover(*args), graph=True)
+    plain = time_ms(lambda: kernels.scenario_failover_plain(*args), groups=3)
+    nbytes = (P * R * 9 + 2 * B + 2 * S * B + S * P      # inputs
+              + S * P * R * 9 + S * P)                   # outputs
+    b_ms, b_by = bound(nbytes, 8 * S * P * R)
+    log(f"KD scenario_failover S={S} P={P} R={R} B={B}: bit-exact vs twin; "
+        f"{ms:.4f} ms, twin {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    _keep_first_shape(rows, "scenario_failover", err, dict(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None))
+
+    # --- KB on the sweep's batched layout: one launch over S * B1 segments.
+    batched, _ = scenario_transform(
+        model, dead, add, torch.ones((S, B, 4), device=dev),
+        torch.ones((S, P), device=dev), pvalid)
+    B1 = B + 1
+    vals = replica_loads(batched).reshape(-1, 4).contiguous()
+    seg = (batched.replica_broker.long()
+           + (torch.arange(S, device=dev) * B1)[:, None, None]).reshape(-1)
+    got = kernels.ordered_segment_sum(vals, seg, S * B1)
+    twin = kernels.ordered_segment_sum_plain(vals.cpu(), seg.cpu(), S * B1)
+    err = float((got.cpu() - twin).abs().max())
+    if err != 0.0:
+        fail("ordered_segment_sum differs from its twin on the batched "
+             "layout")
+    ms = time_ms(lambda: kernels.ordered_segment_sum(vals, seg, S * B1),
+                 graph=True)
+    lib_ms = time_ms(lambda: torch.zeros(S * B1, 4, device=dev).index_add_(
+        0, seg, vals), graph=True)
+    b_ms, b_by = bound(vals.numel() * 4 + seg.numel() * 8 + S * B1 * 16,
+                       vals.numel())
+    log(f"KB ordered_segment_sum batched {seg.numel()} rows -> {S * B1} "
+        f"segments x4: bit-exact vs twin; {ms:.4f} ms, index_add_ "
+        f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    _keep_first_shape(rows, "ordered_segment_sum", err, {})
     return rows
+
+
+def schedule_context(model, md, proposals):
+    """The facade's strategy context for a schedule: each moving
+    partition's size is its disk load (``facade.py:_device_schedule``)."""
+    from cruise_control_tpu_torch.executor import StrategyContext
+    keys = {(p.topic, p.partition) for p in proposals}
+    disk = model.leader_load[:, 3].cpu().numpy()
+    return StrategyContext(partition_size_mb={
+        k: float(disk[i]) for i, k in enumerate(md.partition_keys)
+        if k in keys})
+
+
+def phase_first_fit(model, md, proposals, rows):
+    """KE against its twin at the main path's schedule shape (the seed-1
+    proposals under the default concurrency caps)."""
+    import torch
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.executor import (
+        ConcurrencyConfig, DeviceMoveScheduler, ExecutionConcurrencyManager)
+    from cruise_control_tpu_torch.executor.schedule import first_fit_inputs
+    log("== phase 3 (KE, at the shape of phase 4's schedule)")
+    ctx = schedule_context(model, md, proposals)
+    order = DeviceMoveScheduler(device="cuda")._strategy_order(
+        proposals, None, ctx)
+    inp = first_fit_inputs(order, proposals, ExecutionConcurrencyManager(
+        ConcurrencyConfig()), md, ctx, None)
+    tensors = [torch.from_numpy(inp[k]).to(model.device)
+               for k in ("rows", "dest_rows", "size_mb", "valid", "caps")]
+    extra = (inp["cluster_cap"], inp["budget"], inp["num_batches"])
+    got = kernels.first_fit(*tensors, *extra)
+    # The twin walks the moves one by one from the host (~1 ms a move), so
+    # it runs once, on the card, between a pair of CUDA events.
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    want = kernels.first_fit_plain(*tensors, *extra)
+    end.record()
+    end.synchronize()
+    plain = start.elapsed_time(end)
+    err = float((got - want).abs().max())
+    if err != 0:
+        fail("first_fit differs from its twin at the main path's shape")
+    ms = time_ms(lambda: kernels.first_fit(*tensors, *extra), graph=True)
+    M, W = inp["rows"].shape
+    K = inp["num_batches"]
+    n = int(inp["valid"].sum())
+    tested = int((want.cpu().numpy()[inp["valid"]].astype(np.int64)
+                  + 1).sum())
+    # each valid move's rows, destinations and size read once, the valid
+    # mask and the caps read once, each valid move's batch written once
+    nbytes = n * W * 8 + n * 4 + M + inp["caps"].nbytes + n * 4
+    b_ms, b_by = bound(nbytes, tested * (2 * W + 1))
+    log(f"KE first_fit M={M} W={W} K={K} B1={inp['caps'].shape[0]}: "
+        f"bit-exact vs twin; {ms:.3f} ms, twin {plain:.1f} ms (one call), "
+        f"bound {b_ms:.6f} ms ({b_by}); a chain of {n} dependent steps, so "
+        f"the bound is out of reach")
+    _keep_first_shape(rows, "first_fit", err, dict(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None))
 
 
 def _peak_mib():
@@ -541,7 +748,8 @@ def phase_main_path(model, md, arrays):
         results.append(res)
     launches = dict(kernels.LAUNCHES)
     log(f"main-path launches: {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in ("threefry2x32", "ordered_segment_sum",
+                           "net_broker_flow") if launches[k] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     if results[1].proposals != results[2].proposals:
@@ -561,7 +769,7 @@ def phase_main_path(model, md, arrays):
     if our_res > g_res * 1.05 + 10.0:
         fail(f"quality regression: residual {our_res:.1f} > greedy "
              f"{g_res:.1f} x1.05 + 10")
-    return launches
+    return launches, res
 
 
 def phase_drain(model, md):
@@ -609,6 +817,177 @@ def phase_scale(model, md):
         fail(f"scale audit violated: {bad}")
 
 
+def _report_key(report):
+    """A report's content without its wall time."""
+    out = report.to_json()
+    out.pop("durationMs")
+    return out
+
+
+def _summary(report):
+    """The numbers held to the reference, with a digest of every outcome's
+    risk and pressure (full float64 repr), headroom, violated goals, worst
+    broker, offline replicas and unavailable partitions."""
+    worst = report.riskiest()
+    outcomes = [[o.scenario.name, o.risk, o.capacity_pressure, o.headroom,
+                 o.violated_goals, o.worst_broker, o.offline_replicas,
+                 o.unavailable_partitions] for o in report.outcomes]
+    return dict(riskiest=worst.scenario.name, max_risk=worst.risk,
+                violated=sum(bool(o.violated_goals) for o in report.outcomes),
+                risk4_sum=round(sum(round(o.risk, 4)
+                                    for o in report.outcomes), 4),
+                digest=hashlib.sha256(json.dumps(outcomes).encode()
+                                      ).hexdigest()[:16])
+
+
+def _check_summary(tag, got, want):
+    log(f"{tag}: riskiest {got['riskiest']} max risk {got['max_risk']!r} "
+        f"scenarios violating a goal {got['violated']} sum of 4-decimal "
+        f"risks {got['risk4_sum']} (reference {want})")
+    if got != want:
+        fail(f"{tag}: {got} differs from the reference's {want}")
+
+
+def phase_whatif(model, md, arrays):
+    import torch
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.analyzer import goals_by_name
+    from cruise_control_tpu_torch.whatif import (WhatIfEngine,
+                                                 alive_broker_ids, n1_sweep,
+                                                 parse_scenarios)
+    log("== phase 7: what-if 100x20K, N-1 sweep and every scenario type")
+    engine = WhatIfEngine(goals=goals_by_name(GOALS), device="cuda")
+    scenarios = n1_sweep(alive_broker_ids(model, md))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    walls, reports = [], []
+    for _ in range(4):                      # cold, then three warm sweeps
+        t0 = time.monotonic()
+        reports.append(engine.sweep(model, md, scenarios))
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    launches = dict(kernels.LAUNCHES)
+    peak = _peak_mib()
+    per_sweep = {k: v // 4 for k, v in launches.items()}
+    log(f"N-1 S={len(scenarios)}: cold {walls[0]:.3f}s, warm "
+        f"{', '.join(f'{w:.3f}s' for w in walls[1:])} "
+        f"({len(scenarios) / min(walls[1:]):.0f} scenarios/s warm), peak "
+        f"mem {peak:.1f} MiB; launches per sweep {json.dumps(per_sweep)}")
+    if launches["scenario_failover"] != 4 or not launches[
+            "ordered_segment_sum"]:
+        fail(f"the sweep did not go through KD once and KB: {launches}")
+    if any(_report_key(r) != _report_key(reports[0]) for r in reports[1:]):
+        fail("N-1 sweeps of the same model gave different reports")
+    kernels.reset_launch_counts()
+    engine.sweep(model, md, scenarios[:1])
+    one = dict(kernels.LAUNCHES)
+    log(f"launches of a one-scenario sweep: {json.dumps(one)}")
+    if one != per_sweep:
+        fail("a sweep's launches depend on its scenario count")
+
+    report = reports[-1]
+    rb = arrays["replica_broker"]
+    for o in report.outcomes:
+        row = md.broker_index[o.scenario.brokers[0]]
+        if o.offline_replicas != int((rb == row).sum()):
+            fail(f"{o.scenario.name}: {o.offline_replicas} offline replicas, "
+                 f"the broker hosts {int((rb == row).sum())}")
+        if o.unavailable_partitions:
+            fail(f"{o.scenario.name}: unavailable partitions at RF 2")
+    for scn, got in zip(scenarios[:20], report.outcomes):
+        single = engine.sweep(model, md, [scn]).outcomes[0]
+        if single.to_json() != got.to_json() or single.risk != got.risk:
+            fail(f"{scn.name}: the batched sweep differs from S = 1")
+    log("offline replicas equal each broker's replica count, 0 unavailable; "
+        "the first 20 scenarios alone equal the batch")
+    _check_summary("N-1", _summary(report), REFERENCE_N1)
+
+    mixed = parse_scenarios({"scenarios": MIXED_SCENARIOS}, md.broker_ids)
+    t0 = time.monotonic()
+    rep = engine.sweep(model, md, mixed)
+    torch.cuda.synchronize()
+    risks = [round(o.risk, 4) for o in rep.outcomes]
+    if not all(np.isfinite([o.risk, o.capacity_pressure]).all()
+               for o in rep.outcomes) or len(risks) != len(mixed):
+        fail("mixed batch: non-finite or missing outcomes")
+    log(f"mixed batch of {len(mixed)} scenario types (re-padded model): "
+        f"{time.monotonic() - t0:.3f}s, risks {risks}")
+    _check_summary("mixed", _summary(rep), REFERENCE_MIXED)
+    if risks != REFERENCE_MIXED_RISKS:
+        fail(f"mixed batch risks differ from the reference's "
+             f"{REFERENCE_MIXED_RISKS}")
+    return launches
+
+
+def phase_schedule(model, md, proposals):
+    import torch
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.executor import (
+        ConcurrencyConfig, DeviceMoveScheduler, ExecutionConcurrencyManager,
+        ExecutionTaskPlanner, ExecutionTask, TaskType)
+    log("== phase 8: schedule the seed-1 proposals with the boundary audit")
+    opt = main_path_optimizer()
+    goals = opt._audit_goals_for([], md, main_path_options(1))
+    if len(goals) != 6:
+        fail(f"audit set has {len(goals)} goals, want 6")
+    ctx = schedule_context(model, md, proposals)
+    scheduler = DeviceMoveScheduler(device="cuda")
+    total = {k: 0 for k in kernels.LAUNCHES}
+    schedules = {}
+    for tag, bandwidth, throttle in SCHEDULE_RUNS:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        sched = scheduler.schedule(
+            proposals, ExecutionConcurrencyManager(ConcurrencyConfig()),
+            model=model, metadata=md, goals=goals,
+            capacity_threshold=opt.constraint.capacity_threshold,
+            strategy_context=ctx, throttle_bytes=throttle,
+            bandwidth_mb_per_batch=bandwidth)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(kernels.LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        digest = hashlib.sha256(json.dumps(sched.batches).encode()
+                                ).hexdigest()[:16]
+        eta = (None if sched.eta_ms[0] is None
+               else round(sum(sched.eta_ms), 3))
+        t = scheduler.last_timings
+        log(f"{tag}: wall {wall:.3f}s (first fit {t['assign_s']:.3f}s, "
+            f"audit {t['audit_s']:.3f}s) {sched.num_moves} moves in "
+            f"{len(sched.batches)} batches, stats {sched.stats}, ETA sum "
+            f"{eta} ms, digest {digest}; launches {json.dumps(launches)}")
+        if not launches["first_fit"] or not launches["scenario_failover"]:
+            fail(f"{tag}: the schedule did not launch KE and KD")
+        want = REFERENCE_SCHEDULE[tag]
+        if (sched.stats != want["stats"] or digest != want["digest"]
+                or eta != want["eta_sum"]):
+            fail(f"{tag}: schedule differs from the reference's {want}")
+        schedules[tag] = sched
+
+    planner = ExecutionTaskPlanner()
+    tasks = [ExecutionTask(i, p, TaskType.INTER_BROKER_REPLICA_ACTION)
+             for i, p in enumerate(proposals) if p.has_replica_action]
+    planner.begin_phase(tasks, ctx)
+    concurrency = ExecutionConcurrencyManager(ConcurrencyConfig())
+    pending, greedy = list(tasks), []
+    t0 = time.monotonic()
+    while pending:
+        batch = planner.inter_broker_batch(pending, [], concurrency, ctx)
+        if not batch:
+            break
+        greedy.append(tuple(t.execution_id for t in batch))
+        done = {id(t) for t in batch}
+        pending = [t for t in pending if id(t) not in done]
+    log(f"host greedy planner to quiescence: {len(greedy)} batches in "
+        f"{time.monotonic() - t0:.2f}s")
+    if greedy != schedules["schedule"].batches:
+        fail("the first-fit schedule differs from the host greedy planner")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -624,11 +1003,17 @@ def main() -> int:
     log(f"main-path model built in {time.monotonic() - t0:.1f}s")
 
     scale_model, scale_md = build_flat_direct(1000, 200_000, 2, seed=42)
-    rows = phase_kernels(arrays, scale_model.to_numpy())
-    launches = phase_main_path(model, md, arrays)
+    rows = phase_kernels(model, arrays, scale_model.to_numpy())
+    launches, seed1 = phase_main_path(model, md, arrays)
+    phase_first_fit(model, md, seed1.proposals, rows)
     phase_drain(model, md)
     phase_scale(scale_model, scale_md)
+    whatif_launches = phase_whatif(model, md, arrays)
+    schedule_launches = phase_schedule(model, md, seed1.proposals)
 
+    # Each kernel's launches come from the run of the path it serves.
+    launches.update(scenario_failover=whatif_launches["scenario_failover"],
+                    first_fit=schedule_launches["first_fit"])
     kernels_line = [dict(name=name, route="cuda", source=info["source"],
                          replaces=info["replaces"], launches=launches[name],
                          **rows[name])

@@ -48,8 +48,9 @@ def _read(flag: torch.Tensor):
 
 
 def violation_stack(goals: Sequence[GoalKernel], state, ctx) -> torch.Tensor:
-    """f32[num_goals] residual per goal."""
-    return torch.stack([g.violation(state, ctx) for g in goals])
+    """f32[num_goals] residual per goal; ``[S, num_goals]`` for a state
+    with a leading scenario axis."""
+    return torch.stack([g.violation(state, ctx) for g in goals], dim=-1)
 
 
 def _chain_accepts(prev_goals: Sequence[GoalKernel], state, ctx, cands):

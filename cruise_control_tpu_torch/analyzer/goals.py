@@ -25,7 +25,8 @@ from .. import _random
 from ..core.resources import Resource
 from ..kernels import net_broker_flow, ordered_segment_sum
 from ..model.flat import MOVE_INTER_BROKER, MOVE_LEADERSHIP, MOVE_SWAP
-from ..utils.ordered import argsort, fma, lexsort, scan_sum, top_k, tree_sum
+from ..utils.ordered import (argsort, fma, lane_row_sum, lexsort,
+                              scan_sum, top_k, tree_sum, tree_sum_last)
 from .constraint import BalancingConstraint, SearchConfig
 from .state import (Candidates, SearchContext, SearchState, concat_candidates,
                     make_leadership_candidates, make_move_candidates,
@@ -39,6 +40,12 @@ _TIER_EXCESS = 4.0    # source broker above its upper bound
 _TIER_OFFLINE = 8.0   # offline replica: must move (self-healing)
 _NEG = float("-inf")
 _INF = float("inf")
+
+
+def _zeros_per_scenario(ctx: SearchContext) -> torch.Tensor:
+    """float32 zeros of the state's scenario shape (0-dim unbatched)."""
+    return torch.zeros(ctx.broker_alive.shape[:-1], dtype=torch.float32,
+                       device=ctx.broker_alive.device)
 
 
 def _noise(key, shape, scale):
@@ -170,14 +177,15 @@ class GoalKernel:
     supports_bulk_drain: bool = False
 
     def violation(self, state: SearchState, ctx: SearchContext) -> torch.Tensor:
+        """Scalar residual (``[S]`` for a state with a leading scenario
+        axis; broker reductions run on the last axis)."""
         raise NotImplementedError
 
     def violation_scale(self, state: SearchState,
                         ctx: SearchContext) -> torch.Tensor:
         """Magnitude the violation's float32 rounding error scales with
         (0 for count-based goals, whose arithmetic is exact)."""
-        return torch.zeros((), dtype=torch.float32,
-                           device=ctx.broker_alive.device)
+        return _zeros_per_scenario(ctx)
 
     def propose(self, state: SearchState, ctx: SearchContext, key,
                 cfg: SearchConfig) -> Candidates:
@@ -239,11 +247,14 @@ class IntervalGoal(GoalKernel):
     def _avg_bounds(self, state: SearchState, ctx: SearchContext, t: float,
                     *, integer: bool = False, upper_only: bool = False):
         """avg-over-alive-brokers bounds: [avg*(2-t), avg*t] (widened to
-        +-1 unit around the average for integer-count goals)."""
+        +-1 unit around the average for integer-count goals); 0-dim, or
+        ``[S, 1]`` for a state with a leading scenario axis."""
         values = metric_values(state, self.metric)
-        total = tree_sum(torch.where(ctx.broker_valid, values, 0.0))
-        n = torch.clamp(ctx.broker_alive.sum(), min=1)
+        total = tree_sum_last(torch.where(ctx.broker_valid, values, 0.0))
+        n = torch.clamp(ctx.broker_alive.sum(-1), min=1)
         avg = total / n
+        if avg.dim():
+            avg = avg[..., None]
         upper = avg * t
         lower = (torch.full_like(avg, _NEG) if upper_only
                  else avg * (2.0 - t))
@@ -298,15 +309,20 @@ class IntervalGoal(GoalKernel):
     def violation(self, state, ctx):
         values = metric_values(state, self.metric)
         lower, upper = self.bounds(state, ctx)
-        return tree_sum(self._penalty(values, lower, upper, ctx.broker_alive,
-                                      ctx))
+        penalty = self._penalty(values, lower, upper, ctx.broker_alive, ctx)
+        if penalty.dim() == 1:
+            return tree_sum(penalty)
+        # The reference's vmapped scorer fuses this sum with the penalty
+        # and vectorizes rows of 24-32 brokers into eight lanes.
+        return lane_row_sum(penalty)
 
     def violation_scale(self, state, ctx):
         which, _res = self.metric
         if which in ("count", "leaders"):
             return super().violation_scale(state, ctx)
         values = metric_values(state, self.metric)
-        return tree_sum(torch.where(ctx.broker_valid, values.abs(), 0.0))
+        return tree_sum_last(torch.where(ctx.broker_valid, values.abs(),
+                                         0.0))
 
     def delta(self, state, ctx, c):
         values, lo, up = self._bounds_b1(state, ctx)
@@ -796,11 +812,11 @@ class CapacityGoal(IntervalGoal):
 
     def bounds(self, state, ctx):
         thr = self.constraint.cap_threshold(self.resource)
-        upper = ctx.broker_capacity[:, int(self.resource)] * thr
+        upper = ctx.broker_capacity[..., int(self.resource)] * thr
         return torch.full_like(upper, _NEG), upper
 
     def _cap_factor(self, ctx):
-        return (ctx.broker_capacity[:, int(self.resource)],
+        return (ctx.broker_capacity[..., int(self.resource)],
                 self.constraint.cap_threshold(self.resource))
 
     def accepts(self, state, ctx, c):
@@ -859,7 +875,7 @@ class ReplicaCapacityGoal(IntervalGoal):
                          hard=True, constraint=constraint)
 
     def bounds(self, state, ctx):
-        upper = torch.full((ctx.broker_capacity.shape[0],),
+        upper = torch.full(ctx.broker_capacity.shape[:-1],
                            float(self.constraint.max_replicas_per_broker),
                            dtype=torch.float32,
                            device=ctx.broker_capacity.device)
@@ -921,8 +937,7 @@ class MinTopicLeadersPerBrokerGoal(GoalKernel):
         return (self.min_count, self.topic_pattern, None)
 
     def violation(self, state, ctx):
-        return torch.zeros((), dtype=torch.float32,
-                           device=ctx.broker_alive.device)
+        return _zeros_per_scenario(ctx)
 
     def propose(self, state, ctx, key, cfg):
         # An all-invalid batch keeps the engine's shapes uniform.

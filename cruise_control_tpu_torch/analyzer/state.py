@@ -20,6 +20,7 @@ Index tensors are int64 inside the search (the model keeps int32).
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import torch
@@ -121,37 +122,58 @@ def init_state(model: FlatClusterModel, *,
     """Build the search state from a flat model (one full reduction; all
     later updates are incremental). ``rb``/``pos``/``offline`` are fresh
     tensors: the caller's model must survive to be diffed against the
-    optimized placement."""
-    P, R = model.replica_broker.shape
+    optimized placement.
+
+    A model whose fields carry a leading scenario axis (``[S, P, R]``
+    placements, ``[S, B, 4]`` capacities — the what-if batch) gives a
+    state with the same leading axis: each float aggregate is one ordered
+    segment sum over the flat segment ids ``s * B1 + broker`` for all S
+    scenarios, which adds every segment's rows in (scenario, partition,
+    slot) order, the order of the reference's vmapped scatter-add."""
+    rb = model.replica_broker.long().clone()               # [..., P, R]
+    lead = tuple(rb.shape[:-2])
+    S = math.prod(lead)
     B = model.num_brokers_padded
     B1 = B + 1
     dev = model.device
-    rb = model.replica_broker.long().clone()
-    flat_idx = rb.reshape(-1)
+    scen = (torch.arange(S, device=dev) * B1).reshape(lead + (1, 1))
+    seg = rb + scen                                         # [..., P, R]
+    flat_idx = seg.reshape(-1)
+    lead_idx = seg[..., 0].reshape(-1)
     loads = replica_loads(model).reshape(-1, NUM_RESOURCES)
-    util = ordered_segment_sum(loads, flat_idx, B1)
-    util[B] = 0.0
+    util = ordered_segment_sum(loads, flat_idx, S * B1).reshape(
+        lead + (B1, NUM_RESOURCES))
+    util[..., B, :] = 0.0
 
     valid = model.replica_valid
-    counts = torch.zeros(B1, dtype=torch.int32, device=dev).index_add_(
-        0, flat_idx, torch.ones_like(flat_idx, dtype=torch.int32))
-    counts[B] = 0
-    leaders = torch.zeros(B1, dtype=torch.int32, device=dev).index_add_(
-        0, rb[:, 0], model.partition_valid.to(torch.int32))
-    leaders[B] = 0
-    pot = torch.where(valid, model.leader_load[:, None, Resource.NW_OUT], 0.0)
-    potential = ordered_segment_sum(pot.reshape(-1), flat_idx, B1)
-    potential[B] = 0.0
+    counts = torch.zeros(S * B1, dtype=torch.int32, device=dev).index_add_(
+        0, flat_idx, torch.ones_like(flat_idx, dtype=torch.int32)).reshape(
+        lead + (B1,))
+    counts[..., B] = 0
+    leaders = torch.zeros(S * B1, dtype=torch.int32, device=dev).index_add_(
+        0, lead_idx, model.partition_valid.reshape(-1).to(torch.int32)
+    ).reshape(lead + (B1,))
+    leaders[..., B] = 0
+    pot = torch.where(valid, model.leader_load[..., None, Resource.NW_OUT],
+                      0.0)
+    potential = ordered_segment_sum(pot.reshape(-1), flat_idx,
+                                    S * B1).reshape(lead + (B1,))
+    potential[..., B] = 0.0
     lni = torch.where(model.partition_valid,
-                      model.leader_load[:, Resource.NW_IN], 0.0)
-    leader_nw_in = ordered_segment_sum(lni, rb[:, 0], B1)
-    leader_nw_in[B] = 0.0
+                      model.leader_load[..., Resource.NW_IN], 0.0)
+    leader_nw_in = ordered_segment_sum(lni.reshape(-1), lead_idx,
+                                       S * B1).reshape(lead + (B1,))
+    leader_nw_in[..., B] = 0.0
 
     topic_counts = None
     topic_leader_counts = None
     if with_topic_leader_counts and with_topic_counts is None:
         raise ValueError("with_topic_leader_counts requires the topic count "
                          "(pass with_topic_counts=num_topics)")
+    if with_topic_counts is not None and lead:
+        raise NotImplementedError(
+            "topic counts over a scenario batch are not yet ported: no "
+            "ported goal reads them (ROADMAP Queue 1 item 8, goals part B)")
     if with_topic_counts is not None:
         T = with_topic_counts
         topic = model.partition_topic.long()
@@ -175,14 +197,17 @@ def init_state(model: FlatClusterModel, *,
     # A replica hosted on a dead (or padding) broker is offline whether or
     # not the model builder flagged it (ref Replica.isCurrentOffline).
     alive1 = torch.cat([model.broker_alive & model.broker_valid,
-                        torch.zeros(1, dtype=torch.bool, device=dev)])
-    offline = model.replica_offline | (valid & ~alive1[rb])
+                        torch.zeros(lead + (1,), dtype=torch.bool,
+                                    device=dev)], dim=-1)
+    on_alive = torch.gather(alive1.reshape(S, B1), 1,
+                            rb.reshape(S, -1)).reshape(rb.shape)
+    offline = model.replica_offline | (valid & ~on_alive)
     return SearchState(rb=rb, pos=pos, offline=offline,
                        util=util, replica_count=counts, leader_count=leaders,
                        potential_nw_out=potential, leader_nw_in=leader_nw_in,
                        topic_counts=topic_counts,
                        topic_leader_counts=topic_leader_counts,
-                       moves_applied=torch.zeros((), dtype=torch.int64,
+                       moves_applied=torch.zeros(lead, dtype=torch.int64,
                                                  device=dev))
 
 
@@ -193,13 +218,17 @@ def build_context(model: FlatClusterModel, *,
                   ) -> SearchContext:
     """Assemble the immutable context. Exclusion masks follow
     ``OptimizationOptions`` semantics: replicas of excluded topics never move
-    unless offline; excluded brokers never receive replicas / leadership."""
-    P, R = model.replica_broker.shape
+    unless offline; excluded brokers never receive replicas / leadership.
+    A model with a leading scenario axis gives a context with the same
+    axis (the exclusion masks are then per broker or partition row, shared
+    by every scenario)."""
+    axis = model.replica_broker.dim() - 2        # the broker axis: 0 or 1
 
     def _pad1(arr, fill):
-        return torch.cat([arr, torch.full((1,) + tuple(arr.shape[1:]), fill,
-                                          dtype=arr.dtype,
-                                          device=arr.device)], dim=0)
+        shape = list(arr.shape)
+        shape[axis] = 1
+        return torch.cat([arr, torch.full(shape, fill, dtype=arr.dtype,
+                                          device=arr.device)], dim=axis)
 
     alive = _pad1(model.broker_alive & model.broker_valid, False)
     bvalid = _pad1(model.broker_valid, False)
@@ -207,17 +236,22 @@ def build_context(model: FlatClusterModel, *,
     rack = _pad1(model.broker_rack, -1)
     bset = _pad1(model.broker_set, -1)
 
+    def _pad_mask(mask):
+        return torch.cat([mask, torch.ones(1, dtype=torch.bool,
+                                           device=mask.device)])
+
     # Brokers with broken disks stay alive but may not RECEIVE replicas.
     dest = alive & ~_pad1(model.broker_broken_disk, True)
     if excluded_brokers_for_replica_move is not None:
-        dest = dest & ~_pad1(excluded_brokers_for_replica_move, True)
+        dest = dest & ~_pad_mask(excluded_brokers_for_replica_move)
     lead_dest = alive & ~_pad1(model.broker_demoted, True)
     if excluded_brokers_for_leadership is not None:
-        lead_dest = lead_dest & ~_pad1(excluded_brokers_for_leadership, True)
+        lead_dest = lead_dest & ~_pad_mask(excluded_brokers_for_leadership)
 
     slot_valid = model.replica_valid
     if excluded_partitions is None:
-        excluded_partitions = torch.zeros(P, dtype=torch.bool,
+        excluded_partitions = torch.zeros(model.num_partitions_padded,
+                                          dtype=torch.bool,
                                           device=model.device)
     movable = slot_valid & ~excluded_partitions[:, None]
     leadership_movable = model.partition_valid & ~excluded_partitions
@@ -239,10 +273,11 @@ def build_context(model: FlatClusterModel, *,
 # ---------------------------------------------------------------------------
 
 def metric_values(state: SearchState, metric) -> torch.Tensor:
-    """f32[B1] — current value of the balanced metric on every broker."""
+    """f32[B1] (or [S, B1]) — current value of the balanced metric on
+    every broker."""
     which, res = metric
     if which == "util":
-        return state.util[:, int(res)]
+        return state.util[..., int(res)]
     if which == "count":
         return state.replica_count.to(torch.float32)
     if which == "leaders":

@@ -12,6 +12,13 @@ Three kernels carry the dry-run proposal path (sources in ``csrc/``):
 - **KC** ``net_broker_flow`` — the collective guard's pessimistic net flow
   per candidate, without the four ``[M, M]`` float masks.
 
+Two more carry the what-if sweep and the move scheduler:
+
+- **KD** ``scenario_failover`` — each scenario's placement edit and
+  leadership failover, one thread per (scenario, partition) row;
+- **KE** ``first_fit`` — the move schedule's first-fit batch assignment,
+  one block walking the moves in order.
+
 Each wrapper takes the plain twin for a tensor on the CPU, and for a CUDA
 tensor launches its kernel or raises: there is no fallback. Each launch
 adds one to ``LAUNCHES[name]``.
@@ -37,14 +44,15 @@ import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
-SOURCES = ("threefry.cu", "segment_sum.cu", "net_flow.cu")
+SOURCES = ("threefry.cu", "segment_sum.cu", "net_flow.cu",
+           "scenario_failover.cu", "first_fit.cu")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches per kernel since the last ``reset_launch_counts()``
 LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
-            "net_broker_flow": 0}
+            "net_broker_flow": 0, "scenario_failover": 0, "first_fit": 0}
 #: ``nvcc``/ptxas output of the build this process loaded (register and
 #: spill counts per kernel), empty when the library came from the cache
 BUILD_LOG: list[str] = []
@@ -127,8 +135,14 @@ def load_library():
             lib.cc_threefry2x32.argtypes = [p, p, p, p, i64, p]
             lib.cc_ordered_segment_sum.argtypes = [p, p, p, p, p, i64, i64, p]
             lib.cc_net_broker_flow.argtypes = [p, p, p, p, p, p, p, p, i64, p]
+            lib.cc_scenario_failover.argtypes = [p, p, p, i64, p, p, p, p, p,
+                                                 p, p, p, p, i64, i64, i64,
+                                                 i64, p]
+            lib.cc_first_fit.argtypes = [p, p, p, p, p, i64, ctypes.c_float,
+                                         p, p, p, p, i64, i64, i64, i64, p]
             for fn in (lib.cc_threefry2x32, lib.cc_ordered_segment_sum,
-                       lib.cc_net_broker_flow):
+                       lib.cc_net_broker_flow, lib.cc_scenario_failover,
+                       lib.cc_first_fit):
                 fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB
@@ -337,3 +351,165 @@ def net_broker_flow(src, dst, earlier, d_src, d_dst):
     LAUNCHES["net_broker_flow"] += 1
     _check(rc, "net_broker_flow")
     return outs[0], outs[1], outs[2]
+
+
+# ---------------------------------------------------------------------------
+# KD: scenario failover
+# ---------------------------------------------------------------------------
+
+def scenario_failover_plain(rb, off, pref, broker_valid, broker_alive, dead,
+                            add, pvalid):
+    """Twin of KD: the literal array form of ``whatif/engine.py``'s
+    placement edit and failover, over the whole ``[S, P, R]`` batch."""
+    S, B = dead.shape
+    P, R = rb.shape[-2:]
+    up = ((broker_valid | add) & (broker_alive | add) & ~dead)      # [S, B]
+    up1 = torch.cat([up, torch.zeros((S, 1), dtype=torch.bool,
+                                     device=up.device)], dim=1)
+
+    def on_up(brokers):
+        return torch.gather(up1, 1, brokers.reshape(S, -1).long()
+                            ).reshape(brokers.shape)
+
+    pv = pvalid[:, :, None]
+    rb = torch.where(pv, rb.expand(S, P, R), B).to(torch.int32)
+    off = off.expand(S, P, R) & pv
+    pref = pref.expand(S, P, R).to(torch.int32)
+    electable = (rb < B) & on_up(rb) & ~off
+    score = torch.where(electable, pref, R + 1)
+    j = torch.argmin(score, dim=-1, keepdim=True)     # first minimum
+    has_alive = electable.any(dim=-1)
+    need = (has_alive & ~electable[..., 0] & pvalid)[..., None]
+    slot = torch.arange(R, device=rb.device)
+    src = torch.where(need & (slot == 0), j,
+                      torch.where(need & (slot == j), 0, slot))
+    rb = torch.gather(rb, 2, src)
+    pref = torch.gather(pref, 2, src)
+    off = torch.gather(off, 2, src)
+    off = off | ((rb < B) & ~on_up(rb))
+    return rb, pref, off, has_alive
+
+
+def scenario_failover(rb, off, pref, broker_valid, broker_alive, dead, add,
+                      pvalid):
+    """(rb int32, pref int32, off bool [S, P, R], has_alive bool [S, P]):
+    the placements of S scenarios after their broker kills/adds, partition
+    enables and leadership failover — see ``csrc/scenario_failover.cu``.
+    ``rb``/``off``/``pref`` are the template's ``[P, R]`` (shared by every
+    scenario) or one ``[S, P, R]`` placement per scenario;
+    ``broker_valid``/``broker_alive`` ``[B]``; ``dead``/``add`` ``[S, B]``;
+    ``pvalid`` ``[S, P]``."""
+    S, B = dead.shape
+    P, R = rb.shape[-2:]
+    if rb.dim() not in (2, 3) or (rb.dim() == 3 and rb.shape[0] != S):
+        raise ValueError("rb must be [P, R] or [S, P, R]")
+    if off.shape != rb.shape or pref.shape != rb.shape:
+        raise ValueError("rb, off and pref must share one shape")
+    if (add.shape != (S, B) or pvalid.shape != (S, P)
+            or broker_valid.shape != (B,) or broker_alive.shape != (B,)):
+        raise ValueError("dead/add must be [S, B], pvalid [S, P] and "
+                         "broker_valid/broker_alive [B]")
+    args = (rb, off, pref, broker_valid, broker_alive, dead, add, pvalid)
+    if _on_cpu(*args):
+        return scenario_failover_plain(*args)
+    if any(t.dtype != torch.bool for t in (off, broker_valid, broker_alive,
+                                           dead, add, pvalid)):
+        raise TypeError("scenario_failover takes bool masks")
+    rb = rb.to(torch.int32).contiguous()
+    pref = pref.to(torch.int32).contiguous()
+    off, broker_valid, broker_alive, dead, add, pvalid = (
+        t.contiguous() for t in (off, broker_valid, broker_alive, dead, add,
+                                 pvalid))
+    dev = rb.device
+    rb_out = torch.empty((S, P, R), dtype=torch.int32, device=dev)
+    pref_out = torch.empty((S, P, R), dtype=torch.int32, device=dev)
+    off_out = torch.empty((S, P, R), dtype=torch.bool, device=dev)
+    has_alive = torch.empty((S, P), dtype=torch.bool, device=dev)
+    rc = load_library().cc_scenario_failover(
+        rb.data_ptr(), off.data_ptr(), pref.data_ptr(),
+        P * R if rb.dim() == 3 else 0, broker_valid.data_ptr(),
+        broker_alive.data_ptr(), dead.data_ptr(), add.data_ptr(),
+        pvalid.data_ptr(), rb_out.data_ptr(), pref_out.data_ptr(),
+        off_out.data_ptr(), has_alive.data_ptr(), S, P, R, B, _stream())
+    LAUNCHES["scenario_failover"] += 1
+    _check(rc, "scenario_failover")
+    return rb_out, pref_out, off_out, has_alive
+
+
+# ---------------------------------------------------------------------------
+# KE: first-fit batch assignment
+# ---------------------------------------------------------------------------
+
+def first_fit_plain(rows, dest_rows, size_mb, valid, caps, cluster_cap: int,
+                    budget: float, num_batches: int) -> torch.Tensor:
+    """Twin of KE: the reference's loop body, one move at a time, every
+    batch slot tested at once."""
+    M = rows.shape[0]
+    K = int(num_batches)
+    B1 = caps.shape[0]
+    dev = rows.device
+    count = torch.zeros((B1, K), dtype=torch.int32, device=dev)
+    size = torch.zeros(K, dtype=torch.int32, device=dev)
+    mb = torch.zeros((B1, K), dtype=torch.float32, device=dev)
+    assign = torch.full((M,), K, dtype=torch.int32, device=dev)
+    budget = torch.tensor(budget, dtype=torch.float32, device=dev)
+    rows, dest_rows = rows.long(), dest_rows.long()
+    size_mb = size_mb.to(torch.float32)
+    for i in range(M):
+        if not bool(valid[i]):
+            continue
+        r, d = rows[i], dest_rows[i]
+        cap_ok = (count[r] < caps[r][:, None]).all(dim=0)
+        is_dest = (d < B1 - 1)[:, None]
+        dmb = mb[d]
+        bw_ok = (~is_dest | (dmb + size_mb[i] <= budget)
+                 | (dmb == 0.0)).all(dim=0)
+        ok = cap_ok & (size < cluster_cap) & bw_ok
+        hits = torch.nonzero(ok)
+        if hits.numel() == 0:
+            continue
+        k = int(hits[0, 0])
+        assign[i] = k
+        count[:, k].index_add_(0, r, torch.ones_like(r, dtype=torch.int32))
+        size[k] += 1
+        dd = d[d < B1 - 1]
+        mb.index_put_((dd, torch.full_like(dd, k)),
+                      size_mb[i].expand(dd.shape), accumulate=True)
+    return assign
+
+
+def first_fit(rows, dest_rows, size_mb, valid, caps, cluster_cap: int,
+              budget: float, num_batches: int) -> torch.Tensor:
+    """int32[M] batch index per move (``num_batches`` where none admits it)
+    — see ``csrc/first_fit.cu``. ``rows``/``dest_rows`` int32[M, W] touched
+    and destination broker rows (padding: row B1 - 1), ``size_mb``
+    float32[M], ``valid`` bool[M], ``caps`` int32[B1]."""
+    M, W = rows.shape
+    if dest_rows.shape != (M, W) or size_mb.shape != (M,) or \
+            valid.shape != (M,) or caps.dim() != 1:
+        raise ValueError("first_fit takes rows/dest_rows [M, W], size_mb and "
+                         "valid [M], caps [B1]")
+    args = (rows, dest_rows, size_mb, valid, caps)
+    if _on_cpu(*args):
+        return first_fit_plain(*args, cluster_cap, budget, num_batches)
+    if valid.dtype != torch.bool:
+        raise TypeError("first_fit takes a bool valid mask")
+    K = int(num_batches)
+    B1 = caps.shape[0]
+    dev = rows.device
+    rows, dest_rows, caps = (t.to(torch.int32).contiguous()
+                             for t in (rows, dest_rows, caps))
+    size_mb = size_mb.to(torch.float32).contiguous()
+    valid = valid.contiguous()
+    count = torch.zeros((B1, K), dtype=torch.int32, device=dev)
+    size = torch.zeros(K, dtype=torch.int32, device=dev)
+    mb = torch.zeros((B1, K), dtype=torch.float32, device=dev)
+    assign = torch.empty(M, dtype=torch.int32, device=dev)
+    rc = load_library().cc_first_fit(
+        rows.data_ptr(), dest_rows.data_ptr(), size_mb.data_ptr(),
+        valid.data_ptr(), caps.data_ptr(), int(cluster_cap),
+        float(budget), count.data_ptr(), size.data_ptr(), mb.data_ptr(),
+        assign.data_ptr(), M, W, K, B1, _stream())
+    LAUNCHES["first_fit"] += 1
+    _check(rc, "first_fit")
+    return assign

@@ -76,17 +76,19 @@ class FlatClusterModel:
     def device(self) -> torch.device:
         return self.replica_broker.device
 
+    # Shapes read from the trailing axes, so a model whose fields carry a
+    # leading scenario axis (the what-if engine's batch) answers alike.
     @property
     def num_partitions_padded(self) -> int:
-        return self.replica_broker.shape[0]
+        return self.replica_broker.shape[-2]
 
     @property
     def max_replication_factor(self) -> int:
-        return self.replica_broker.shape[1]
+        return self.replica_broker.shape[-1]
 
     @property
     def num_brokers_padded(self) -> int:
-        return self.broker_capacity.shape[0]
+        return self.broker_capacity.shape[-2]
 
     @property
     def broker_sentinel(self) -> int:
@@ -100,7 +102,7 @@ class FlatClusterModel:
     @property
     def leader_broker(self) -> torch.Tensor:
         """int32[P] — broker of the leader replica (slot 0)."""
-        return self.replica_broker[:, 0]
+        return self.replica_broker[..., 0]
 
 
 # ---------------------------------------------------------------------------
@@ -110,12 +112,12 @@ class FlatClusterModel:
 def replica_loads(model: FlatClusterModel) -> torch.Tensor:
     """float32[P, R, 4] — the load each replica slot contributes to its
     broker: slot 0 the leader load, the rest the follower load, empty slots
-    zero."""
-    P, R = model.replica_broker.shape
-    is_leader_slot = (torch.arange(R, device=model.device) == 0)[None, :, None]
-    loads = torch.where(is_leader_slot, model.leader_load[:, None, :],
-                        model.follower_load[:, None, :])
-    return torch.where(model.replica_valid[:, :, None], loads, 0.0)
+    zero. A leading scenario axis on every field carries through."""
+    R = model.max_replication_factor
+    is_leader_slot = (torch.arange(R, device=model.device) == 0)[:, None]
+    loads = torch.where(is_leader_slot, model.leader_load[..., None, :],
+                        model.follower_load[..., None, :])
+    return torch.where(model.replica_valid[..., None], loads, 0.0)
 
 
 def _broker_sum(values: torch.Tensor, brokers: torch.Tensor,

@@ -7,7 +7,9 @@ both and from run to run:
 
 - :func:`tree_sum` — XLA's CPU reduction: windows of 32 summed in order
   (padding split evenly in front and behind), repeated until at most 32
-  partial sums remain, which are summed in order;
+  partial sums remain, which are summed in order; :func:`tree_sum_last`
+  reduces the last axis of a batch of rows the same way, and
+  :func:`lane_row_sum` as XLA reduces a fused row of 24 to 32 elements;
 - :func:`scan_sum` — XLA's CPU cumulative sum: sequential prefix sums in
   blocks of 16, the block totals scanned the same way and added back;
 - :func:`fma` — one rounding for ``a * b + c``, where the reference's
@@ -18,6 +20,7 @@ both and from run to run:
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -30,20 +33,58 @@ _SCAN_BLOCK = 16
 
 def tree_sum(x: torch.Tensor) -> torch.Tensor:
     """0-dim float32 sum of a 1-D tensor in XLA's CPU tree order."""
-    x = x.reshape(-1).to(torch.float32)
+    return tree_sum_last(x.reshape(-1))
+
+
+def tree_sum_last(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``[...]`` sums of ``x[..., n]`` along its last axis, each row
+    in XLA's CPU tree order (a vmapped ``jnp.sum`` reduces every row as the
+    unbatched sum does): 32-wide windows with each row's padding split
+    evenly in front and behind, one segment-sum launch per level over all
+    rows at once."""
+    lead = x.shape[:-1]
+    rows = math.prod(lead)
+    x = x.reshape(rows, x.shape[-1]).to(torch.float32)
     while True:
-        n = x.shape[0]
-        if n == 0:
-            return x.new_zeros(())
+        n = x.shape[1]
+        if n == 0 or rows == 0:
+            return x.new_zeros(lead)
         if n <= _WINDOW:
-            offsets = torch.arange(0, n + 1, n, device=x.device)
-            return ordered_range_sum(x, offsets)[0]
+            offsets = torch.arange(0, rows * n + 1, n, device=x.device)
+            return ordered_range_sum(x.reshape(-1), offsets).reshape(lead)
         windows = -(-n // _WINDOW)
         pad = windows * _WINDOW - n
         x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
-        offsets = torch.arange(0, windows * _WINDOW + 1, _WINDOW,
+        offsets = torch.arange(0, rows * windows * _WINDOW + 1, _WINDOW,
                                device=x.device)
-        x = ordered_range_sum(x, offsets)
+        x = ordered_range_sum(x.reshape(-1), offsets).reshape(rows, windows)
+
+
+def lane_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``[...]`` sums of ``x[..., n]`` in the order XLA's CPU backend
+    gives a row reduction fused with its elementwise producer when the row
+    holds 24 to 32 elements: eight lane accumulators over the whole
+    8-element chunks, folded by halves (lanes 0-3 + 4-7, then 0-1 + 2-3,
+    then 0 + 1), then the leftover elements added in order. Other widths
+    reduce as :func:`tree_sum_last`. (Probed on XLA's CPU backend: rows of
+    at most 22 and at least 33 elements follow the tree order; a single
+    row of 24 follows it too, and rows of 23 follow neither. Brokers pad
+    to multiples of 8, so a broker row has 8k + 1 elements.)"""
+    n = x.shape[-1]
+    if not 24 <= n <= 32:
+        return tree_sum_last(x)
+    x = x.to(torch.float32)
+    full = n // 8 * 8
+    acc = x[..., 0:8]
+    for i in range(8, full, 8):
+        acc = acc + x[..., i:i + 8]
+    while acc.shape[-1] > 1:
+        half = acc.shape[-1] // 2
+        acc = acc[..., :half] + acc[..., half:]
+    out = acc[..., 0]
+    for i in range(full, n):
+        out = out + x[..., i]
+    return out
 
 
 def scan_sum(x: torch.Tensor) -> torch.Tensor:

@@ -1,22 +1,29 @@
 #!/usr/bin/env python3
-"""Where the time goes on the port's main path, on one CUDA card.
+"""Where the time goes on the port's paths, on one CUDA card.
 
 Builds the 100-broker x 20K-partition cluster of ``chip_smoke.py`` and its
-main-path optimizer, runs one warm-up optimize (seed 0), then profiles one
-optimize (seed 1) with
-``torch.profiler`` and prints:
+main-path optimizer, runs one warm-up optimize (seed 0), then profiles with
+``torch.profiler``, one after the other:
 
-- wall time, host syncs of the engine's loop tests, and kernel launches;
+- one optimize (seed 1), the main path;
+- one warm what-if N-1 sweep over the 100 brokers (``chip_smoke`` phase 7);
+- one schedule of the seed-1 proposals with the hard-goal boundary audit
+  (``chip_smoke`` phase 8, the facade's defaults);
+
+and prints for each:
+
+- wall time and kernel launches (for the optimize also the host syncs of
+  the engine's loop tests);
 - device busy time (the union of CUDA kernel and memcpy intervals) and the
   device's idle share of the wall time;
 - the top kernels by total device time, with their launch counts;
-- the three hand-written kernels' share of the device time.
+- the hand-written kernels' share of the device time.
 
 Run from the repository root:
 
     python3 profile_main_path.py [--trace main_path_trace.json]
 
-The Chrome trace of one optimize runs to several tens of MiB.
+The Chrome trace (of the optimize) runs to several tens of MiB.
 """
 
 from __future__ import annotations
@@ -37,6 +44,65 @@ def _union_us(intervals):
     return total
 
 
+HAND_WRITTEN = ("threefry2x32_kernel", "ordered_segment_sum_kernel",
+                "net_broker_flow_kernel", "scenario_failover_kernel",
+                "first_fit_kernel")
+
+
+def profiled(fn):
+    """(result, profiler, wall seconds) of one call that ends in a device
+    synchronize."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+    return out, prof, wall_s
+
+
+def report(label, prof, wall_s, top, head) -> bool:
+    """Print one profiled run's breakdown; False when the profiler saw no
+    device time."""
+    import torch
+    from cruise_control_tpu_torch import kernels
+    device_events = [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    intervals = [(e.time_range.start, e.time_range.end)
+                 for e in device_events]
+    busy_us = _union_us(intervals)
+    by_name: dict[str, list[float]] = {}
+    for e in device_events:
+        by_name.setdefault(e.name, []).append(
+            e.time_range.end - e.time_range.start)
+    total_us = sum(sum(v) for v in by_name.values())
+    print(f"== {label}")
+    print(f"wall {wall_s:.4f} s, {head}device events {len(device_events)}, "
+          f"hand-written launches {json.dumps(kernels.LAUNCHES)}")
+    if not device_events:
+        print("torch.profiler recorded no device time on this machine")
+        return False
+    idle = 1.0 - busy_us / (wall_s * 1e6)
+    print(f"device busy {busy_us / 1e3:.3f} ms of {wall_s * 1e3:.1f} ms "
+          f"wall: idle share {idle:.4f}; summed kernel time "
+          f"{total_us / 1e3:.3f} ms; mean event "
+          f"{total_us / len(device_events):.2f} us")
+    print("top kernels by device time (ms, launches, mean us):")
+    rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
+    for name, times in rows[:top]:
+        print(f"  {sum(times) / 1e3:9.3f} ms {len(times):7d} "
+              f"{sum(times) / len(times):8.2f} us  {name[:90]}")
+    for k in HAND_WRITTEN:
+        us = sum(sum(v) for n, v in by_name.items() if k in n)
+        if us:
+            print(f"  hand-written {k}: {us / 1e3:.3f} ms "
+                  f"({us / max(total_us, 1e-9):.2%} of kernel time)")
+    return True
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", help="write a Chrome trace to this path")
@@ -47,7 +113,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_main_path: CUDA is not available", file=sys.stderr)
         return 2
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
     from cruise_control_tpu_torch import kernels
@@ -62,51 +127,48 @@ def main(argv=None) -> int:
 
     kernels.reset_launch_counts()
     syncs0 = engine.HOST_SYNCS
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        res = opt.optimize(model, md, chip_smoke.main_path_options(1))
-        torch.cuda.synchronize()
-        wall_s = time.monotonic() - t0
-    syncs = engine.HOST_SYNCS - syncs0
-
-    device_events = [e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-    intervals = [(e.time_range.start, e.time_range.end)
-                 for e in device_events]
-    busy_us = _union_us(intervals)
-    by_name: dict[str, list[float]] = {}
-    for e in device_events:
-        by_name.setdefault(e.name, []).append(
-            e.time_range.end - e.time_range.start)
-    total_us = sum(sum(v) for v in by_name.values())
+    res, prof, wall_s = profiled(
+        lambda: opt.optimize(model, md, chip_smoke.main_path_options(1)))
     print(f"card: {card}")
-    print(f"wall {wall_s:.4f} s, moves {res.num_moves}, proposals "
-          f"{len(res.proposals)}, host syncs {syncs}, device events "
-          f"{len(device_events)}, hand-written launches "
-          f"{json.dumps(kernels.LAUNCHES)}")
-    if not device_events:
-        print("torch.profiler recorded no device time on this machine")
+    if not report("optimize (seed 1)", prof, wall_s, args.top,
+                  f"moves {res.num_moves}, proposals {len(res.proposals)}, "
+                  f"host syncs {engine.HOST_SYNCS - syncs0}, "):
         return 1
-    idle = 1.0 - busy_us / (wall_s * 1e6)
-    print(f"device busy {busy_us / 1e3:.3f} ms of {wall_s * 1e3:.1f} ms "
-          f"wall: idle share {idle:.4f}; summed kernel time "
-          f"{total_us / 1e3:.3f} ms; mean event "
-          f"{total_us / len(device_events):.2f} us")
-    print("top kernels by device time (ms, launches, mean us):")
-    rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
-    for name, times in rows[:args.top]:
-        print(f"  {sum(times) / 1e3:9.3f} ms {len(times):7d} "
-              f"{sum(times) / len(times):8.2f} us  {name[:90]}")
-    own = {k: sum(sum(v) for n, v in by_name.items() if k in n)
-           for k in ("threefry2x32_kernel", "ordered_segment_sum_kernel",
-                     "net_broker_flow_kernel")}
-    for k, us in own.items():
-        print(f"  hand-written {k}: {us / 1e3:.3f} ms "
-              f"({us / max(total_us, 1e-9):.2%} of kernel time)")
     if args.trace:
         prof.export_chrome_trace(args.trace)
         print(f"trace written to {args.trace}")
+
+    from cruise_control_tpu_torch.analyzer import goals_by_name
+    from cruise_control_tpu_torch.executor import (
+        ConcurrencyConfig, DeviceMoveScheduler, ExecutionConcurrencyManager)
+    from cruise_control_tpu_torch.whatif import (WhatIfEngine,
+                                                 alive_broker_ids, n1_sweep)
+    whatif = WhatIfEngine(goals=goals_by_name(chip_smoke.GOALS),
+                          device="cuda")
+    scenarios = n1_sweep(alive_broker_ids(model, md))
+    whatif.sweep(model, md, scenarios)
+    kernels.reset_launch_counts()
+    _, prof, wall_s = profiled(lambda: whatif.sweep(model, md, scenarios))
+    report(f"warm what-if N-1 sweep (S={len(scenarios)})", prof, wall_s,
+           args.top, "")
+
+    goals = opt._audit_goals_for([], md, chip_smoke.main_path_options(1))
+    ctx = chip_smoke.schedule_context(model, md, res.proposals)
+    scheduler = DeviceMoveScheduler(device="cuda")
+
+    def schedule():
+        return scheduler.schedule(
+            res.proposals, ExecutionConcurrencyManager(ConcurrencyConfig()),
+            model=model, metadata=md, goals=goals,
+            capacity_threshold=opt.constraint.capacity_threshold,
+            strategy_context=ctx)
+    schedule()
+    kernels.reset_launch_counts()
+    sched, prof, wall_s = profiled(schedule)
+    report(f"schedule of the seed-1 proposals ({sched.num_moves} moves, "
+           f"{len(sched.batches)} batches)", prof, wall_s, args.top,
+           f"first fit {scheduler.last_timings['assign_s']:.4f} s, audit "
+           f"{scheduler.last_timings['audit_s']:.4f} s, ")
     return 0
 
 

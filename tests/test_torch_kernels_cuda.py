@@ -65,3 +65,51 @@ def test_wrappers_count_their_launches(cuda_device):
     assert kernels.LAUNCHES["threefry2x32"] == 1
     assert kernels.LAUNCHES["ordered_segment_sum"] == 1
     assert kernels.LAUNCHES["net_broker_flow"] == 0
+
+
+def _failover_inputs(gen, S, P, R, B, batched):
+    shape = (S, P, R) if batched else (P, R)
+    rb = torch.randint(0, B + 1, shape, generator=gen, dtype=torch.int32)
+    off = torch.rand(shape, generator=gen) < 0.1
+    pref = torch.argsort(torch.rand(shape, generator=gen), dim=-1).to(
+        torch.int32)
+    bvalid = torch.rand(B, generator=gen) < 0.9
+    balive = torch.rand(B, generator=gen) < 0.9
+    dead = torch.rand(S, B, generator=gen) < 0.2
+    add = torch.rand(S, B, generator=gen) < 0.1
+    pvalid = torch.rand(S, P, generator=gen) < 0.9
+    return rb, off, pref, bvalid, balive, dead, add, pvalid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+def test_scenario_failover_matches_twin(cuda_device, batched):
+    """KD bit for bit against its twin, on a shared template placement and
+    on one placement per scenario."""
+    gen = torch.Generator().manual_seed(3)
+    args = _failover_inputs(gen, 16, 500, 3, 24, batched)
+    got = kernels.scenario_failover(*(t.to(cuda_device) for t in args))
+    want = kernels.scenario_failover_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [float("inf"), 150.0])
+def test_first_fit_matches_twin(cuda_device, budget):
+    """KE bit for bit against its twin, with and without a bandwidth
+    budget (padding moves and padding rows included)."""
+    gen = torch.Generator().manual_seed(4)
+    M, W, B = 300, 3, 12
+    rows = torch.randint(0, B + 1, (M, W), generator=gen, dtype=torch.int32)
+    dest = torch.where(torch.rand(M, W, generator=gen) < 0.5, rows, B)
+    sizes = torch.rand(M, generator=gen) * 100
+    valid = torch.arange(M) < 280
+    caps = torch.randint(1, 4, (B + 1,), generator=gen, dtype=torch.int32)
+    caps[B] = 1 << 30
+    for K in (8, 64, 512):
+        args = (rows, dest, sizes, valid, caps)
+        got = kernels.first_fit(*(t.to(cuda_device) for t in args), 20,
+                                budget, K)
+        want = kernels.first_fit_plain(*args, 20, budget, K)
+        assert torch.equal(got.cpu(), want)

@@ -4,7 +4,8 @@ the hard-goal audit — identical proposals, moves and per-goal iterations,
 residuals within rtol 1e-5, the same audit verdicts — in the per-goal and
 fused walks, with and without polish rounds, and with a dead broker. Also:
 the port's entry points refuse a missing card, import and run with JAX
-blocked, and import nothing of the JAX package."""
+blocked (an optimize, a what-if N-1 sweep and a move schedule), and import
+nothing of the JAX package."""
 
 import ast
 import os
@@ -174,9 +175,21 @@ opt = TorchGoalOptimizer(goals=goals_by_name(["ReplicaDistributionGoal"]),
 res = opt.optimize(model, md, OptimizationOptions(
     waived_hard_goals=frozenset({"RackAwareGoal"})))
 assert res.num_moves > 0 and res.goal_results[0].satisfied
+from cruise_control_tpu_torch.executor import (DeviceMoveScheduler,
+    ExecutionConcurrencyManager)
+from cruise_control_tpu_torch.whatif import WhatIfEngine, n1_sweep
+report = WhatIfEngine(goals=goals_by_name(["ReplicaDistributionGoal"]),
+                      device="cpu").sweep(model, md, n1_sweep(md.broker_ids))
+assert report.num_scenarios == 4
+sched = DeviceMoveScheduler(device="cpu").schedule(
+    res.proposals, ExecutionConcurrencyManager(), model=model, metadata=md,
+    goals=goals_by_name(["ReplicaCapacityGoal"]))
+assert sched.num_moves == sum(p.has_replica_action for p in res.proposals)
+assert sched.stats["unrepaired_violations"] == 0
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
-print("OK", res.num_moves)
+print("OK", res.num_moves, report.riskiest().scenario.name,
+      len(sched.batches))
 '''
 
 

@@ -84,6 +84,45 @@ def tiny_both():
     return out[0], out[1]
 
 
+def spec_both(num_brokers=4, partitions=8, nw_out=3.0, nw_out_cap=1000.0,
+              extra=()):
+    """``tests/test_whatif.py``'s spec (4 brokers on their own racks, RF 2,
+    two topics), flattened by each package:
+    ((jax_model, jax_md), (torch_model, torch_md))."""
+    out = []
+    for mod, kw in ((jspec, {}), (tspec, {"device": "cpu"})):
+        parts = [mod.PartitionSpec(
+            f"t{p % 2}", p, [p % num_brokers, (p + 1) % num_brokers],
+            leader_load=(1.0, 2.0, nw_out, 4.0)) for p in range(partitions)]
+        parts += [mod.PartitionSpec(**e) for e in extra]
+        spec = mod.ClusterSpec(
+            brokers=[mod.BrokerSpec(b, rack=f"r{b}",
+                                    capacity=(1000.0, 1000.0, nw_out_cap,
+                                              100.0))
+                     for b in range(num_brokers)],
+            partitions=parts)
+        out.append(mod.flatten_spec(spec, **kw))
+    return out[0], out[1]
+
+
+def assert_reports_equal(jrep, trep):
+    """Two what-if reports agree on every outcome, floats bit for bit."""
+    assert trep.goals == jrep.goals
+    assert len(trep.outcomes) == len(jrep.outcomes)
+    for j, t in zip(jrep.outcomes, trep.outcomes):
+        assert t.scenario.to_json() == j.scenario.to_json()
+        what = j.scenario.name
+        assert t.violated_goals == j.violated_goals, what
+        assert t.violated_hard_goals == j.violated_hard_goals, what
+        assert t.unavailable_partitions == j.unavailable_partitions, what
+        assert t.offline_replicas == j.offline_replicas, what
+        assert t.worst_broker == j.worst_broker, what
+        assert t.risk == j.risk, what
+        assert t.capacity_pressure == j.capacity_pressure, what
+        assert t.headroom == j.headroom, what
+    assert trep.riskiest().scenario.name == jrep.riskiest().scenario.name
+
+
 def to_np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.cpu().numpy()
