@@ -2,8 +2,8 @@
 """Smoke test of the PyTorch/CUDA port (``cruise_control_tpu_torch``) on one
 GPU: builds the hand-written kernels from ``cruise_control_tpu_torch/csrc``,
 holds each against its plain PyTorch twin at the main path's shapes, drives
-the dry-run rebalance proposal, the what-if sweep and the move schedule end
-to end, and checks their results.
+the dry-run rebalance proposal, the what-if sweep, the move schedule and the
+monitor's device-resident model cycle end to end, and checks their results.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -14,10 +14,11 @@ Phases (every failure raises; nothing is caught):
 1. environment — the card's name and power limit, torch and CUDA versions;
 2. build — compile and load the kernel library;
 3. kernels vs twins — KA (threefry2x32), KB (ordered segment sum, also on
-   the what-if sweep's batched layout), KC (net broker flow) and KD
-   (scenario failover) against their plain versions, with times and
-   bounds; KE (first fit) is held to its twin after phase 4, at the shape
-   of the main path's own schedule;
+   the what-if sweep's batched layout), KC (net broker flow), KD
+   (scenario failover), KF (delta row scatter) and KG (cluster stats)
+   against their plain versions, with times and bounds; KE (first fit) is
+   held to its twin after phase 4, at the shape of the main path's own
+   schedule;
 4. main path — 100 brokers x 20K partitions at RF 2, the 4-goal chain
    with the off-chain hard-goal audit, seeds 0, 1, 1 (proposals of the two
    seed-1 runs must be identical; KA, KB and KC must have launched);
@@ -29,7 +30,14 @@ Phases (every failure raises; nothing is caught):
    the reference's numbers;
 8. schedule — the seed-1 proposals batched by the first-fit kernel with
    the hard-goal boundary audit, without and with a bandwidth budget,
-   held to the host greedy planner and to the reference's statistics.
+   held to the host greedy planner and to the reference's statistics;
+9. served cycle — the main-path cluster as a simulated Kafka cluster
+   feeding ``LoadMonitor`` with dense samples: a cold full upload, three
+   1%-churn metric-only cycles that must each be a KF delta of exactly 200
+   rows at epoch 1 with nothing built after warmup, ``stats_summary``
+   (KG) before and after an optimize of the resident model, then a broker
+   death that must rebuild at epoch 2 and drain; planes, summaries and
+   proposals held to the reference's (``REFERENCE_SERVED_*``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -105,6 +113,27 @@ MIXED_SCENARIOS = [
 #: throttle that gives every batch an ETA
 SCHEDULE_RUNS = (("schedule", None, None),
                  ("schedule_bw", 300.0, 100_000_000))
+#: phase 9 (``bench.py:1228-1360``, run_resident_delta_bench, on phase 4's
+#: cluster): windows, churn and the broker that dies
+SERVED_WINDOWS = 4
+SERVED_WINDOW_MS = 1000
+SERVED_CHURN_ROWS = NUM_PARTITIONS // 100
+SERVED_CYCLES = 3
+SERVED_CAPACITY = (100.0, 1e6, 1e6, 1e8)
+SERVED_DEAD_BROKER = 94
+#: phase 9's results as the reference computes them (the JAX package on
+#: the CPU from the same inputs: ``scripts/served_reference.py``): sha256
+#: of the resident load planes after each delta cycle, of the
+#: ``stats_summary`` JSON before and after the optimize, of the seed-1
+#: proposals, and the counts
+REFERENCE_SERVED_PLANES = ["ab31a1d5a344ef8b", "77f8de06059da63b",
+                           "abd3ad1237880404"]
+REFERENCE_SERVED_STATS = dict(before="4cbd0cac669aa172",
+                              after="fb1abf3b8388f887")
+REFERENCE_SERVED_OPTIMIZE = dict(moves=16088, proposals=11494,
+                                 digest="9c3a9d40d9cccff0")
+REFERENCE_SERVED_DRAIN = dict(moves=16267, proposals=11626, left=0,
+                              audit_ok=True)
 
 KERNEL_INFO = {
     "threefry2x32": dict(
@@ -122,6 +151,12 @@ KERNEL_INFO = {
     "first_fit": dict(
         source="cruise_control_tpu_torch/csrc/first_fit.cu",
         replaces="cruise_control_tpu/executor/schedule.py:88"),
+    "delta_row_scatter": dict(
+        source="cruise_control_tpu_torch/csrc/delta_scatter.cu",
+        replaces="cruise_control_tpu/model/resident.py:75"),
+    "cluster_stats": dict(
+        source="cruise_control_tpu_torch/csrc/cluster_stats.cu",
+        replaces="cruise_control_tpu/model/stats.py:20"),
 }
 
 
@@ -622,6 +657,79 @@ def phase_kernels(model, main_arrays: dict, scale_arrays: dict):
         f"segments x4: bit-exact vs twin; {ms:.4f} ms, index_add_ "
         f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
     _keep_first_shape(rows, "ordered_segment_sum", err, {})
+
+    # --- KF: a 1%-churn delta (phase 9's shape) into the [P, 4] planes.
+    lead = torch.from_numpy(main_arrays["leader_load"]).to(dev)
+    foll = torch.from_numpy(main_arrays["follower_load"]).to(dev)
+    P, C = lead.shape
+    K = SERVED_CHURN_ROWS
+    idx = torch.from_numpy(np.concatenate([
+        rng.choice(NUM_PARTITIONS, K - 1, replace=False),
+        [P]]).astype(np.int32)).to(dev)            # the last row is dropped
+    lead_rows = torch.from_numpy(rng.random((K, C)).astype(np.float32)).to(dev)
+    foll_rows = torch.from_numpy(rng.random((K, C)).astype(np.float32)).to(dev)
+    got = kernels.delta_row_scatter(lead.clone(), foll.clone(), idx,
+                                    lead_rows, foll_rows)
+    want = kernels.delta_row_scatter_plain(lead.clone(), foll.clone(), idx,
+                                           lead_rows, foll_rows)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if err != 0.0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail("delta_row_scatter differs from its twin")
+    tl, tf = lead.clone(), foll.clone()
+    ms = time_ms(lambda: kernels.delta_row_scatter(tl, tf, idx, lead_rows,
+                                                   foll_rows), graph=True)
+    plain = time_ms(lambda: kernels.delta_row_scatter_plain(
+        tl, tf, idx, lead_rows, foll_rows), groups=3)
+    kept, kept_rows = idx[:-1].long(), slice(0, K - 1)
+    lib_ms = time_ms(lambda: (tl.index_copy_(0, kept, lead_rows[kept_rows]),
+                              tf.index_copy_(0, kept, foll_rows[kept_rows])),
+                     graph=True)
+    # indices and both row blocks read once, both planes' rows written once
+    b_ms, b_by = bound(K * 4 + 2 * K * C * 4 + 2 * (K - 1) * C * 4, 0)
+    log(f"KF delta_row_scatter K={K} into [{P}, {C}] x2: bit-exact vs twin; "
+        f"{ms:.5f} ms, twin {plain:.4f} ms, index_copy_ x2 {lib_ms:.5f} ms, "
+        f"bound {b_ms:.7f} ms ({b_by})")
+    _keep_first_shape(rows, "delta_row_scatter", err, dict(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms))
+
+    # --- KG: cluster stats over the main path's brokers.
+    from cruise_control_tpu_torch.model.flat import (broker_leader_counts,
+                                                     broker_potential_nw_out,
+                                                     broker_replica_counts,
+                                                     broker_utilization)
+    B = model.num_brokers_padded
+    alive_mask = model.broker_alive & model.broker_valid
+    args = (broker_utilization(model), broker_replica_counts(model),
+            broker_leader_counts(model), broker_potential_nw_out(model),
+            alive_mask)
+    got, n = kernels.cluster_stats(*args)
+    want, n_want = kernels.cluster_stats_plain(*(t.cpu() for t in args))
+    err = float((got.cpu() - want).abs().max())
+    if not torch.equal(got.cpu(), want) or int(n) != int(n_want):
+        fail("cluster_stats differs from its twin")
+    ms = time_ms(lambda: kernels.cluster_stats(*args), graph=True)
+    plain = time_ms(lambda: kernels.cluster_stats_plain(*args), groups=3)
+    vals = torch.cat([args[0], args[1].float()[:, None],
+                      args[2].float()[:, None], args[3][:, None]],
+                     dim=1)[alive_mask].contiguous()
+
+    def library():
+        torch.std_mean(vals, dim=0, correction=0)
+        vals.amax(dim=0)
+        vals.amin(dim=0)
+    lib_ms = time_ms(library, graph=True)
+    n_alive = int(n)
+    # inputs read once (util, two counts, potential, the mask), 29 values
+    # written; per column: a masked sum, a subtract, a square and a sum
+    # over the alive brokers, a max and a min
+    b_ms, b_by = bound(B * (16 + 4 + 4 + 4 + 1) + 29 * 4, 7 * 6 * n_alive)
+    log(f"KG cluster_stats B={B} ({n_alive} alive) x 7 columns: bit-exact vs "
+        f"twin; {ms:.5f} ms, twin {plain:.4f} ms, std_mean+amax+amin "
+        f"{lib_ms:.5f} ms, bound {b_ms:.7f} ms ({b_by})")
+    _keep_first_shape(rows, "cluster_stats", err, dict(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms))
     return rows
 
 
@@ -988,6 +1096,266 @@ def phase_schedule(model, md, proposals):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the served monitor -> resident model cycle
+# ---------------------------------------------------------------------------
+
+def served_sample_values(spec, keys, num_metrics):
+    """float64[P, M] dense sample values: each partition's spec leader load
+    in the four resource columns (CPU, NW_IN, NW_OUT, DISK), zeros in the
+    other metric columns."""
+    loads = {(p.topic, p.partition): p.leader_load for p in spec.partitions}
+    vals = np.zeros((len(keys), num_metrics))
+    vals[:, :4] = np.array([loads[k] for k in keys], np.float64)
+    return vals
+
+
+def _sha(*arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _json_sha(obj) -> str:
+    return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()
+                          ).hexdigest()[:16]
+
+
+def served_setup(pkg, spec):
+    """(sim, monitor, keys, vals, ingest, now_ms): phase 9's simulated
+    cluster and resident monitor over one package's modules, with its
+    sample values; ``ingest(v, windows)`` adds one dense sample round per
+    window, ``now_ms()`` is the end of the last window ingested."""
+    sim = pkg.SimulatedKafkaCluster.from_spec(spec)
+    R = pkg.Resource
+    resolver = pkg.FixedCapacityResolver(capacity=dict(zip(
+        (R.CPU, R.NW_IN, R.NW_OUT, R.DISK), SERVED_CAPACITY)))
+    monitor = pkg.make_monitor(
+        sim, pkg.MonitorConfig(num_windows=SERVED_WINDOWS,
+                               window_ms=SERVED_WINDOW_MS,
+                               min_samples_per_window=1),
+        capacity_resolver=resolver,
+        rack_by_broker={b.broker_id: b.rack for b in spec.brokers})
+    keys = sorted(sim.describe_partitions())
+    vals = served_sample_values(spec, keys,
+                                pkg.partition_metric_def().size())
+    state = {"window": 0}
+
+    def ingest(v, windows):
+        for _ in range(windows):
+            times = np.full(len(keys), state["window"] * SERVED_WINDOW_MS
+                            + 100, np.int64)
+            monitor.partition_aggregator.add_samples_dense(keys, times, v)
+            state["window"] += 1
+
+    return (sim, monitor, keys, vals, ingest,
+            lambda: state["window"] * SERVED_WINDOW_MS)
+
+
+def served_cycle(pkg, spec, check_planes=None,
+                 dead_broker=SERVED_DEAD_BROKER):
+    """Phase 9's sequence over one package's modules (``pkg``, see
+    ``port_package``; ``scripts/served_reference.py`` passes the JAX
+    package's): cold cycle, warmup, metric-only cycles, stats, optimize,
+    broker death, drain. Returns what it saw; the caller gates it.
+    ``check_planes(resident)`` runs after each delta cycle."""
+    sim, monitor, keys, vals, ingest, now_ms = served_setup(pkg, spec)
+    resident = monitor.resident
+
+    def build():
+        pkg.sync()
+        t0 = time.monotonic()
+        res = monitor.cluster_model(now_ms())
+        pkg.sync()
+        return res, time.monotonic() - t0
+
+    out = {}
+    ingest(vals, SERVED_WINDOWS + 1)
+    res, wall = build()
+    out["cold"] = dict(wall=wall, update=resident.last_update,
+                       epoch=resident.epoch,
+                       bytes=resident.last_full_bytes)
+    before = pkg.collector.snapshot()
+    resident.warmup()
+    snap = pkg.collector.snapshot()
+    out["warmup_builds"] = (snap["aotCompileEvents"]
+                            - before["aotCompileEvents"])
+    out["cycles"] = []
+    for c in range(SERVED_CYCLES):
+        vals = vals.copy()
+        vals[:len(keys) // 100] += 1.0 + c       # 1% of the partitions
+        # two windows, so the changed window rolls out of the in-flight
+        # slot (the aggregator never serves the current window)
+        ingest(vals, 2)
+        mark = max((sp.span_id for sp in pkg.tracer.spans()), default=0)
+        res, wall = build()
+        spans = {}
+        for sp in pkg.tracer.spans():
+            if sp.span_id > mark:
+                spans[sp.name] = spans.get(sp.name, 0.0) + sp.duration_s
+        lead, foll = pkg.planes(resident.model)
+        out["cycles"].append(dict(
+            wall=wall, update=resident.last_update, epoch=resident.epoch,
+            rows=resident.last_delta_rows, bytes=resident.last_delta_bytes,
+            planes=_sha(lead, foll), spans=spans,
+            rebuild_equal=(None if check_planes is None
+                           else check_planes(resident))))
+    after = pkg.collector.snapshot()
+    out["builds_after_warmup"] = (
+        after["compileEvents"] + after["aotCompileEvents"]
+        - snap["compileEvents"] - snap["aotCompileEvents"])
+    out["stats_before"] = pkg.stats_summary(res.model)
+    opt = pkg.optimize(res.model, res.metadata, 1)
+    out["optimize"] = dict(
+        moves=opt.num_moves, proposals=len(opt.proposals),
+        digest=_json_sha([p.to_json() for p in opt.proposals]),
+        satisfied=all(g.satisfied for g in opt.goal_results),
+        audit_ok=all(g.satisfied for g in opt.hard_goal_audit))
+    out["stats_after"] = pkg.stats_summary(opt.final_model)
+
+    sim.kill_broker(dead_broker)
+    res, wall = build()
+    out["structural"] = dict(wall=wall, update=resident.last_update,
+                             epoch=resident.epoch)
+    drain = pkg.optimize(res.model, res.metadata, 0)
+    row = res.metadata.broker_index[dead_broker]
+    out["drain"] = dict(
+        moves=drain.num_moves, proposals=len(drain.proposals),
+        left=int((pkg.replica_broker(drain.final_model) == row).sum()),
+        audit_ok=all(g.satisfied for g in drain.hard_goal_audit))
+    return out
+
+
+def port_package(search=MAIN_SEARCH, device="cuda"):
+    """``served_cycle``'s view of the port on ``device``, optimizing with
+    the search config ``search``."""
+    import types
+
+    import torch
+    from cruise_control_tpu_torch.analyzer import (SearchConfig,
+                                                   TorchGoalOptimizer,
+                                                   goals_by_name)
+    from cruise_control_tpu_torch.config import FixedCapacityResolver
+    from cruise_control_tpu_torch.core.metricdef import partition_metric_def
+    from cruise_control_tpu_torch.core.resources import Resource
+    from cruise_control_tpu_torch.core.runtime_obs import default_collector
+    from cruise_control_tpu_torch.core.tracing import default_tracer
+    from cruise_control_tpu_torch.executor import SimulatedKafkaCluster
+    from cruise_control_tpu_torch.model.stats import stats_summary
+    from cruise_control_tpu_torch.monitor import LoadMonitor, MonitorConfig
+    opt = TorchGoalOptimizer(goals=goals_by_name(GOALS),
+                             config=SearchConfig(**search), device=device)
+    return types.SimpleNamespace(
+        SimulatedKafkaCluster=SimulatedKafkaCluster, Resource=Resource,
+        FixedCapacityResolver=FixedCapacityResolver,
+        MonitorConfig=MonitorConfig,
+        partition_metric_def=partition_metric_def,
+        make_monitor=lambda sim, cfg, **kw: LoadMonitor(sim, cfg,
+                                                        device=device, **kw),
+        collector=default_collector(), tracer=default_tracer(),
+        sync=torch.cuda.synchronize if device == "cuda" else lambda: None,
+        planes=lambda m: (m.leader_load.cpu().numpy(),
+                          m.follower_load.cpu().numpy()),
+        replica_broker=lambda m: m.replica_broker.cpu().numpy(),
+        stats_summary=lambda m: stats_summary(m, device=device),
+        optimize=lambda m, md, seed: opt.optimize(m, md,
+                                                  main_path_options(seed)))
+
+
+def _rebuild_equal(resident) -> bool:
+    """The resident model equals a from-scratch upload of the monitor's
+    arrays (the resident state's host mirrors), every field bit for
+    bit."""
+    import dataclasses
+
+    import torch
+    from cruise_control_tpu_torch.model.flat import FlatClusterModel
+    _epoch, arrays = resident.export_state()
+    fresh = FlatClusterModel.from_numpy(device="cuda", **arrays)
+    return all(torch.equal(getattr(resident.model, f.name),
+                           getattr(fresh, f.name))
+               for f in dataclasses.fields(fresh))
+
+
+def phase_served(spec):
+    from cruise_control_tpu_torch import kernels
+    log("== phase 9: served cycle 100x20K, monitor -> resident model")
+    pkg = port_package()
+    # Unload the kernel library, as in a fresh process: warmup() must load
+    # it, and a delta cycle that has to load it fails the gate below.
+    kernels._LIB = None
+    kernels.reset_launch_counts()
+    out = served_cycle(pkg, spec, check_planes=_rebuild_equal)
+    launches = dict(kernels.LAUNCHES)
+    cold = out["cold"]
+    log(f"cold cycle: {cold['update']} at epoch {cold['epoch']}, wall "
+        f"{cold['wall']:.3f}s, {cold['bytes']} bytes uploaded")
+    if cold["update"] != "full" or cold["epoch"] != 1:
+        fail(f"cold cycle was not a full rebuild at epoch 1: {cold}")
+    for i, c in enumerate(out["cycles"]):
+        sp = c["spans"]
+        host = sp.get("monitor.aggregate", 0.0) + (
+            sp.get("monitor.model-build", 0.0)
+            - sp.get("resident.update", 0.0))
+        log(f"delta cycle {i}: {c['update']} epoch {c['epoch']} rows "
+            f"{c['rows']} bytes {c['bytes']} wall {c['wall']:.4f}s (host "
+            f"aggregate {sp.get('monitor.aggregate', 0.0):.4f}s + assembly "
+            f"{sp.get('monitor.model-build', 0.0) - sp.get('resident.update', 0.0):.4f}s"
+            f" = {host:.4f}s; resident update with upload and KF "
+            f"{sp.get('resident.update', 0.0):.4f}s); planes {c['planes']}; "
+            f"equal to a fresh upload: {c['rebuild_equal']}")
+        if (c["update"] != "delta" or c["epoch"] != 1
+                or c["rows"] != SERVED_CHURN_ROWS or not c["rebuild_equal"]):
+            fail(f"delta cycle {i} broke the resident contract: {c}")
+    log(f"kernel-library loads: {out['warmup_builds']} in warmup, "
+        f"{out['builds_after_warmup']} after it")
+    if out["warmup_builds"] != 1:
+        fail("warmup did not load the unloaded kernel library once")
+    if out["builds_after_warmup"]:
+        fail(f"{out['builds_after_warmup']} library builds or loads after "
+             "warmup")
+    ratio = cold["bytes"] / min(c["bytes"] for c in out["cycles"])
+    log(f"full/delta upload bytes {ratio:.1f}x (gate >= 10)")
+    if ratio < 10.0:
+        fail(f"upload ratio {ratio:.1f} < 10")
+    planes = [c["planes"] for c in out["cycles"]]
+    if planes != REFERENCE_SERVED_PLANES:
+        fail(f"resident planes {planes} differ from the reference's "
+             f"{REFERENCE_SERVED_PLANES}")
+    stats = dict(before=_json_sha(out["stats_before"]),
+                 after=_json_sha(out["stats_after"]))
+    disk = out["stats_before"]["resources"]["DISK"]
+    log(f"stats_summary before {stats['before']} (DISK avg {disk['avg']!r} "
+        f"std {disk['std']!r}), after {stats['after']}")
+    if stats != REFERENCE_SERVED_STATS:
+        fail(f"stats_summary digests {stats} differ from the reference's "
+             f"{REFERENCE_SERVED_STATS}")
+    o = out["optimize"]
+    log(f"optimize of the resident model (seed 1): {o['moves']} moves, "
+        f"{o['proposals']} proposals, digest {o['digest']}, chain "
+        f"satisfied {o['satisfied']}, audit ok {o['audit_ok']}")
+    got = {k: o[k] for k in REFERENCE_SERVED_OPTIMIZE}
+    if got != REFERENCE_SERVED_OPTIMIZE or not (o["satisfied"]
+                                                and o["audit_ok"]):
+        fail(f"optimize {o} differs from the reference's "
+             f"{REFERENCE_SERVED_OPTIMIZE}")
+    st, d = out["structural"], out["drain"]
+    log(f"broker {SERVED_DEAD_BROKER} dies: {st['update']} at epoch "
+        f"{st['epoch']} ({st['wall']:.3f}s); drain {d['moves']} moves, "
+        f"{d['proposals']} proposals, {d['left']} replicas left, audit ok "
+        f"{d['audit_ok']}")
+    if st["update"] != "full" or st["epoch"] != 2:
+        fail(f"the broker death did not rebuild at epoch 2: {st}")
+    if d != REFERENCE_SERVED_DRAIN:
+        fail(f"drain {d} differs from the reference's "
+             f"{REFERENCE_SERVED_DRAIN}")
+    log(f"served-cycle launches: {json.dumps(launches)}")
+    if not launches["delta_row_scatter"] or not launches["cluster_stats"]:
+        fail("the served cycle did not launch KF and KG")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -998,7 +1366,8 @@ def main() -> int:
     card = phase_environment()
     phase_build()
     t0 = time.monotonic()
-    model, md = flatten_spec(build_spec(), device="cuda")
+    spec = build_spec()
+    model, md = flatten_spec(spec, device="cuda")
     arrays = model.to_numpy()
     log(f"main-path model built in {time.monotonic() - t0:.1f}s")
 
@@ -1010,10 +1379,13 @@ def main() -> int:
     phase_scale(scale_model, scale_md)
     whatif_launches = phase_whatif(model, md, arrays)
     schedule_launches = phase_schedule(model, md, seed1.proposals)
+    served_launches = phase_served(spec)
 
     # Each kernel's launches come from the run of the path it serves.
     launches.update(scenario_failover=whatif_launches["scenario_failover"],
-                    first_fit=schedule_launches["first_fit"])
+                    first_fit=schedule_launches["first_fit"],
+                    delta_row_scatter=served_launches["delta_row_scatter"],
+                    cluster_stats=served_launches["cluster_stats"])
     kernels_line = [dict(name=name, route="cuda", source=info["source"],
                          replaces=info["replaces"], launches=launches[name],
                          **rows[name])

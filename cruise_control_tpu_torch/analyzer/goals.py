@@ -310,10 +310,12 @@ class IntervalGoal(GoalKernel):
         values = metric_values(state, self.metric)
         lower, upper = self.bounds(state, ctx)
         penalty = self._penalty(values, lower, upper, ctx.broker_alive, ctx)
-        if penalty.dim() == 1:
+        if penalty.dim() == 1 and self._cap_factor(ctx) is not None:
+            # A per-broker capacity bound keeps XLA's unbatched fused row
+            # sum in tree order.
             return tree_sum(penalty)
-        # The reference's vmapped scorer fuses this sum with the penalty
-        # and vectorizes rows of 24-32 brokers into eight lanes.
+        # Against scalar bounds (and in the vmapped scorer) XLA vectorizes
+        # the fused sum of a row of 24-32 brokers into eight lanes.
         return lane_row_sum(penalty)
 
     def violation_scale(self, state, ctx):

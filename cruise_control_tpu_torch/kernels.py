@@ -19,6 +19,13 @@ Two more carry the what-if sweep and the move scheduler:
 - **KE** ``first_fit`` — the move schedule's first-fit batch assignment,
   one block walking the moves in order.
 
+Two more carry the monitor's device-resident model cycle:
+
+- **KF** ``delta_row_scatter`` — a metric-only cycle's changed partition
+  rows written into both resident load planes in place;
+- **KG** ``cluster_stats`` — per-resource and count statistics over the
+  alive brokers, summed in XLA's CPU tree order.
+
 Each wrapper takes the plain twin for a tensor on the CPU, and for a CUDA
 tensor launches its kernel or raises: there is no fallback. Each launch
 adds one to ``LAUNCHES[name]``.
@@ -26,7 +33,9 @@ adds one to ``LAUNCHES[name]``.
 The kernels are built from ``csrc/*.cu`` at first use with ``nvcc`` into
 ``build/torch_kernels/`` (one ``nvcc`` per source, all started together,
 then one link), keyed by a hash of the sources and flags, and loaded with
-ctypes. Each C entry returns ``cudaGetLastError()``.
+ctypes. Each C entry returns ``cudaGetLastError()``. Each build or load
+is reported to the default device-runtime collector, which counts it as a
+compile event.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -45,14 +55,16 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 SOURCES = ("threefry.cu", "segment_sum.cu", "net_flow.cu",
-           "scenario_failover.cu", "first_fit.cu")
+           "scenario_failover.cu", "first_fit.cu", "delta_scatter.cu",
+           "cluster_stats.cu")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches per kernel since the last ``reset_launch_counts()``
 LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
-            "net_broker_flow": 0, "scenario_failover": 0, "first_fit": 0}
+            "net_broker_flow": 0, "scenario_failover": 0, "first_fit": 0,
+            "delta_row_scatter": 0, "cluster_stats": 0}
 #: ``nvcc``/ptxas output of the build this process loaded (register and
 #: spill counts per kernel), empty when the library came from the cache
 BUILD_LOG: list[str] = []
@@ -90,10 +102,14 @@ def source_digest() -> str:
     return h.hexdigest()[:16]
 
 
+def library_path() -> Path:
+    return BUILD_DIR / f"libcc_kernels-{source_digest()}.so"
+
+
 def build_library() -> Path:
     """Compile ``csrc/*.cu`` into ``libcc_kernels-<digest>.so`` (cached by
     the digest of the sources and flags). Raises on any compiler error."""
-    lib = BUILD_DIR / f"libcc_kernels-{source_digest()}.so"
+    lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -127,9 +143,15 @@ def build_library() -> Path:
 
 
 def load_library():
+    """The loaded kernel library, built first if its sources changed; the
+    first call in a process reports a ``build`` (nvcc ran) or ``load`` (the
+    cached library) to the default device-runtime collector."""
+    from .core.runtime_obs import default_collector
     global _LIB
     with _LIB_LOCK:
         if _LIB is None:
+            t0 = time.perf_counter()
+            kind = "load" if library_path().exists() else "build"
             lib = ctypes.CDLL(str(build_library()))
             p, i64 = ctypes.c_void_p, ctypes.c_int64
             lib.cc_threefry2x32.argtypes = [p, p, p, p, i64, p]
@@ -140,11 +162,17 @@ def load_library():
                                                  i64, p]
             lib.cc_first_fit.argtypes = [p, p, p, p, p, i64, ctypes.c_float,
                                          p, p, p, p, i64, i64, i64, i64, p]
+            lib.cc_delta_row_scatter.argtypes = [p, p, p, p, p, i64, i64,
+                                                 i64, p]
+            lib.cc_cluster_stats.argtypes = [p, p, p, p, p, p, p, i64, p]
             for fn in (lib.cc_threefry2x32, lib.cc_ordered_segment_sum,
                        lib.cc_net_broker_flow, lib.cc_scenario_failover,
-                       lib.cc_first_fit):
+                       lib.cc_first_fit, lib.cc_delta_row_scatter,
+                       lib.cc_cluster_stats):
                 fn.restype = ctypes.c_int
             _LIB = lib
+            default_collector().record_library(kind,
+                                               time.perf_counter() - t0)
         return _LIB
 
 
@@ -513,3 +541,133 @@ def first_fit(rows, dest_rows, size_mb, valid, caps, cluster_cap: int,
     LAUNCHES["first_fit"] += 1
     _check(rc, "first_fit")
     return assign
+
+
+# ---------------------------------------------------------------------------
+# KF: delta row scatter
+# ---------------------------------------------------------------------------
+
+def delta_row_scatter_plain(lead, foll, idx, lead_rows, foll_rows):
+    """Twin of KF: the rows whose index lies in [0, P) copied into both
+    planes in place (``index_copy_`` of the kept rows)."""
+    P = lead.shape[0]
+    keep = (idx >= 0) & (idx < P)
+    rows = idx[keep].long()
+    lead.index_copy_(0, rows, lead_rows[keep])
+    foll.index_copy_(0, rows, foll_rows[keep])
+    return lead, foll
+
+
+def delta_row_scatter(lead, foll, idx, lead_rows, foll_rows):
+    """Write ``lead_rows``/``foll_rows`` (float32[K, C]) into rows ``idx``
+    (int32[K], unique) of the planes ``lead``/``foll`` (float32[P, C]) in
+    place, dropping indices outside [0, P); returns the two planes — see
+    ``csrc/delta_scatter.cu``."""
+    P, C = lead.shape
+    K = idx.shape[0]
+    if foll.shape != (P, C) or lead_rows.shape != (K, C) or \
+            foll_rows.shape != (K, C) or idx.dim() != 1:
+        raise ValueError("delta_row_scatter takes planes [P, C], idx [K] and "
+                         "rows [K, C]")
+    if _on_cpu(lead, foll, idx, lead_rows, foll_rows):
+        return delta_row_scatter_plain(lead, foll, idx, lead_rows, foll_rows)
+    if any(t.dtype != torch.float32 for t in (lead, foll, lead_rows,
+                                              foll_rows)):
+        raise TypeError("delta_row_scatter takes float32 planes and rows")
+    if not (lead.is_contiguous() and foll.is_contiguous()):
+        raise ValueError("delta_row_scatter writes contiguous planes in place")
+    idx = idx.to(torch.int32).contiguous()
+    lead_rows = lead_rows.contiguous()
+    foll_rows = foll_rows.contiguous()
+    rc = load_library().cc_delta_row_scatter(
+        lead.data_ptr(), foll.data_ptr(), idx.data_ptr(),
+        lead_rows.data_ptr(), foll_rows.data_ptr(), K, C, P, _stream())
+    LAUNCHES["delta_row_scatter"] += 1
+    _check(rc, "delta_row_scatter")
+    return lead, foll
+
+
+# ---------------------------------------------------------------------------
+# KG: cluster statistics
+# ---------------------------------------------------------------------------
+
+#: KG's seven value columns, in output order
+STATS_COLUMNS = ("cpu", "nw_in", "nw_out", "disk", "replica_count",
+                 "leader_count", "potential_nw_out")
+_MAX_STATS_BROKERS = 16_384
+
+
+def _tree_sum_rows_plain(x: torch.Tensor) -> torch.Tensor:
+    """float32[R] sums of x[R, n] in XLA's CPU tree order (windows of 32,
+    padding split evenly in front and behind, each window summed in order
+    from zero), in plain torch."""
+    rows, n = x.shape
+    while n > 32:
+        windows = -(-n // 32)
+        pad = windows * 32 - n
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2)).reshape(
+            rows, windows, 32)
+        acc = x.new_zeros((rows, windows))
+        for j in range(32):
+            acc = acc + x[:, :, j]
+        x, n = acc, windows
+    acc = x.new_zeros(rows)
+    for j in range(n):
+        acc = acc + x[:, j]
+    return acc
+
+
+def cluster_stats_plain(util, replicas, leaders, potential, alive):
+    """Twin of KG: ``model/stats.py``'s masked mean, variance, max and min
+    per column, the sums in tree order."""
+    vals = torch.cat([util.to(torch.float32),
+                      replicas.to(torch.float32)[:, None],
+                      leaders.to(torch.float32)[:, None],
+                      potential.to(torch.float32)[:, None]], dim=1)
+    count = alive.sum(dtype=torch.int32)
+    n = torch.clamp(count, min=1).to(torch.float32)
+    mask = alive[:, None]
+    mean = _tree_sum_rows_plain(torch.where(mask, vals, 0.0).T) / n
+    d = vals - mean
+    var = _tree_sum_rows_plain(torch.where(mask, d * d, 0.0).T) / n
+    big = torch.where(mask, vals, float("-inf")).amax(dim=0)
+    small = torch.where(mask, vals, float("inf")).amin(dim=0)
+    # torch's vectorized float32 sqrt on the CPU is not always correctly
+    # rounded; the float64 root rounded once to float32 is.
+    std = torch.sqrt(var.to(torch.float64)).to(torch.float32)
+    return torch.stack([mean, std, big, small]), count
+
+
+def cluster_stats(util, replicas, leaders, potential, alive):
+    """(stats float32[4, 7], num_alive int32[]): rows avg, std, max, min of
+    the columns :data:`STATS_COLUMNS` over the brokers where ``alive``
+    (bool[B]) is set. ``util`` float32[B, 4], ``replicas``/``leaders``
+    int32[B], ``potential`` float32[B] — see ``csrc/cluster_stats.cu``."""
+    B = alive.shape[0]
+    if util.shape != (B, 4) or replicas.shape != (B,) or \
+            leaders.shape != (B,) or potential.shape != (B,):
+        raise ValueError("cluster_stats takes util [B, 4] and replicas, "
+                         "leaders, potential and alive [B]")
+    args = (util, replicas, leaders, potential, alive)
+    if _on_cpu(*args):
+        return cluster_stats_plain(*args)
+    if alive.dtype != torch.bool:
+        raise TypeError("cluster_stats takes a bool alive mask")
+    if B > _MAX_STATS_BROKERS:
+        raise ValueError(f"cluster_stats runs one block: at most "
+                         f"{_MAX_STATS_BROKERS} brokers, got {B}")
+    util, potential = (t.to(torch.float32).contiguous()
+                       for t in (util, potential))
+    replicas, leaders = (t.to(torch.int32).contiguous()
+                         for t in (replicas, leaders))
+    alive = alive.contiguous()
+    out = torch.empty((4, len(STATS_COLUMNS)), dtype=torch.float32,
+                      device=util.device)
+    count = torch.empty((), dtype=torch.int32, device=util.device)
+    rc = load_library().cc_cluster_stats(
+        util.data_ptr(), replicas.data_ptr(), leaders.data_ptr(),
+        potential.data_ptr(), alive.data_ptr(), out.data_ptr(),
+        count.data_ptr(), B, _stream())
+    LAUNCHES["cluster_stats"] += 1
+    _check(rc, "cluster_stats")
+    return out, count

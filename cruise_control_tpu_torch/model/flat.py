@@ -60,8 +60,14 @@ class FlatClusterModel:
     def from_numpy(cls, *, device=None, **arrays) -> "FlatClusterModel":
         """Build from host-side numpy arrays — exactly the field dict the
         reference model holds. ``device=None`` means the card (raises when
-        CUDA is absent); only ``device="cpu"`` builds on the CPU."""
+        CUDA is absent); only ``device="cpu"`` builds on the CPU. Every
+        upload is metered on the process-default device-runtime collector,
+        as the reference meters it."""
+        from ..core.runtime_obs import default_collector
         dev = resolve_device(device)
+        default_collector().record_h2d(
+            sum(int(a.nbytes) for a in arrays.values()
+                if isinstance(a, np.ndarray)))
         return cls(**{name: torch.from_numpy(np.array(a, order="C")).to(dev)
                       for name, a in arrays.items()})
 

@@ -9,6 +9,10 @@ main-path optimizer, runs one warm-up optimize (seed 0), then profiles with
 - one warm what-if N-1 sweep over the 100 brokers (``chip_smoke`` phase 7);
 - one schedule of the seed-1 proposals with the hard-goal boundary audit
   (``chip_smoke`` phase 8, the facade's defaults);
+- one warm metric-only monitor cycle (``chip_smoke`` phase 9: window
+  aggregation and assembly on the host, the 1%-churn delta upload and KF),
+  after a cold cycle, the resident state's warmup and one warm cycle;
+- one ``stats_summary`` of the resident model (KB aggregates and KG);
 
 and prints for each:
 
@@ -46,7 +50,8 @@ def _union_us(intervals):
 
 HAND_WRITTEN = ("threefry2x32_kernel", "ordered_segment_sum_kernel",
                 "net_broker_flow_kernel", "scenario_failover_kernel",
-                "first_fit_kernel")
+                "first_fit_kernel", "delta_row_scatter_kernel",
+                "cluster_stats_kernel")
 
 
 def profiled(fn):
@@ -169,6 +174,31 @@ def main(argv=None) -> int:
            f"{len(sched.batches)} batches)", prof, wall_s, args.top,
            f"first fit {scheduler.last_timings['assign_s']:.4f} s, audit "
            f"{scheduler.last_timings['audit_s']:.4f} s, ")
+
+    from cruise_control_tpu_torch.model.stats import stats_summary
+    pkg = chip_smoke.port_package()
+    _sim, monitor, keys, vals, ingest, now_ms = chip_smoke.served_setup(
+        pkg, chip_smoke.build_spec())
+    ingest(vals, chip_smoke.SERVED_WINDOWS + 1)
+    monitor.cluster_model(now_ms())
+    monitor.resident.warmup()
+    for c in range(2):                  # one warm cycle, then the profiled
+        vals = vals.copy()
+        vals[:len(keys) // 100] += 1.0 + c
+        ingest(vals, 2)
+        if c == 0:
+            monitor.cluster_model(now_ms())
+    kernels.reset_launch_counts()
+    served, prof, wall_s = profiled(lambda: monitor.cluster_model(now_ms()))
+    resident = monitor.resident
+    report(f"warm monitor cycle ({resident.last_update}, "
+           f"{resident.last_delta_rows} rows, {resident.last_delta_bytes} "
+           f"bytes)", prof, wall_s, args.top, "")
+    stats_summary(served.model, device="cuda")
+    kernels.reset_launch_counts()
+    _, prof, wall_s = profiled(
+        lambda: stats_summary(served.model, device="cuda"))
+    report("stats_summary of the resident model", prof, wall_s, args.top, "")
     return 0
 
 

@@ -31,6 +31,10 @@ MODELS = {
     "tiny": tiny_both,
     "20x1k": lambda: build_both(20, 1000, seed=5),
     "20x1k_dead": lambda: build_both(20, 1000, seed=6, dead=(2,)),
+    # 24 brokers: rows of B1 = 25, where XLA sums a distribution goal's
+    # penalty in eight lanes (NetworkOutboundUsageDistributionGoal's
+    # violation differs in the last bit from the tree order)
+    "24x1k": lambda: build_both(24, 1000, seed=3),
 }
 #: tight capacity thresholds so the capacity goals have work to do
 TIGHT = dict(capacity_threshold=(0.05, 0.03, 0.03, 0.03),
@@ -102,10 +106,10 @@ def _same_cands(jc, tc, what):
 def test_bounds_violation_scale(setup, name):
     (jst, jctx), (tst, tctx) = setup
     jgoal, tgoal = _goal_pair(name)
-    assert_close(jax.jit(jgoal.violation)(jst, jctx),
-                 tgoal.violation(tst, tctx), what="violation")
-    assert_close(jax.jit(jgoal.violation_scale)(jst, jctx),
-                 tgoal.violation_scale(tst, tctx), what="scale")
+    assert_same(jax.jit(jgoal.violation)(jst, jctx),
+                tgoal.violation(tst, tctx), what="violation")
+    assert_same(jax.jit(jgoal.violation_scale)(jst, jctx),
+                tgoal.violation_scale(tst, tctx), what="scale")
     if hasattr(jgoal, "bounds"):
         for a, b in zip(jax.jit(jgoal.bounds)(jst, jctx),
                         tgoal.bounds(tst, tctx)):

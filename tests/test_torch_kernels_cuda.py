@@ -113,3 +113,86 @@ def test_first_fit_matches_twin(cuda_device, budget):
                                 budget, K)
         want = kernels.first_fit_plain(*args, 20, budget, K)
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_delta_row_scatter_matches_twin(cuda_device):
+    """KF writes exactly its twin's rows into both planes in place, drops
+    indices outside [0, P) and counts one launch."""
+    gen = torch.Generator().manual_seed(3)
+    P, K = 2000, 200
+    lead = torch.rand(P, 4, generator=gen)
+    foll = torch.rand(P, 4, generator=gen)
+    idx = torch.cat([torch.randperm(P, generator=gen)[:K - 2],
+                     torch.tensor([P, -1])]).to(torch.int32)
+    lead_rows = torch.rand(K, 4, generator=gen)
+    foll_rows = torch.rand(K, 4, generator=gen)
+    want = kernels.delta_row_scatter_plain(lead.clone(), foll.clone(), idx,
+                                           lead_rows, foll_rows)
+    dl, df = lead.to(cuda_device), foll.to(cuda_device)
+    kernels.reset_launch_counts()
+    out = kernels.delta_row_scatter(dl, df, idx.to(cuda_device),
+                                    lead_rows.to(cuda_device),
+                                    foll_rows.to(cuda_device))
+    assert out[0] is dl and out[1] is df
+    assert torch.equal(dl.cpu(), want[0]) and torch.equal(df.cpu(), want[1])
+    assert kernels.LAUNCHES["delta_row_scatter"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("brokers", [8, 24, 104, 1000])
+def test_cluster_stats_matches_twin(cuda_device, brokers):
+    """KG equals its twin bit for bit (tree-order sums, correctly rounded
+    division and root), dead brokers excluded."""
+    gen = torch.Generator().manual_seed(brokers)
+    util = torch.rand(brokers, 4, generator=gen) * torch.tensor(
+        [100.0, 1e4, 1e4, 1e6])
+    replicas = torch.randint(0, 500, (brokers,), generator=gen,
+                             dtype=torch.int32)
+    leaders = torch.randint(0, 250, (brokers,), generator=gen,
+                            dtype=torch.int32)
+    potential = torch.rand(brokers, generator=gen) * 1e4
+    alive = torch.rand(brokers, generator=gen) < 0.9
+    args = (util, replicas, leaders, potential, alive)
+    want, n_want = kernels.cluster_stats_plain(*args)
+    got, n = kernels.cluster_stats(*(t.to(cuda_device) for t in args))
+    assert torch.equal(got.cpu(), want) and int(n) == int(n_want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [True, False])
+def test_resident_warmup_leaves_no_library_load(cuda_device, warm,
+                                                monkeypatch):
+    """With the kernel library unloaded, as in a fresh process, the first
+    metric-only cycle after ``ResidentClusterState.warmup`` records no
+    library load; without ``warmup`` that cycle loads it (one compile
+    event), so the gate can fail."""
+    from cruise_control_tpu_torch.core import runtime_obs
+    from cruise_control_tpu_torch.model.resident import ResidentClusterState
+    from cruise_control_tpu_torch.model.spec import (BrokerSpec, ClusterSpec,
+                                                     PartitionSpec,
+                                                     flatten_spec)
+    spec = ClusterSpec(
+        brokers=[BrokerSpec(broker_id=b, rack=f"r{b}",
+                            capacity=(100.0, 1e6, 1e6, 1e8))
+                 for b in range(4)],
+        partitions=[PartitionSpec(topic="t", partition=p,
+                                  replicas=[p % 4, (p + 1) % 4],
+                                  leader_load=(0.5, 10.0, 20.0, 100.0 + p))
+                    for p in range(16)])
+    arrays = flatten_spec(spec, device="cpu")[0].to_numpy()
+    collector = runtime_obs.DeviceStatsCollector()
+    monkeypatch.setattr(runtime_obs, "_DEFAULT", collector)
+    monkeypatch.setattr(kernels, "_LIB", None)
+    state = ResidentClusterState(device=cuda_device, collector=collector)
+    state.update(arrays)
+    if warm:
+        assert state.warmup() is True
+    before = collector.snapshot()
+    lead = arrays["leader_load"].copy()
+    lead[3] += 1.0
+    state.update(dict(arrays, leader_load=lead))
+    assert state.last_update == "delta" and state.last_delta_rows == 1
+    assert torch.equal(state.model.leader_load.cpu(), torch.from_numpy(lead))
+    built = collector.snapshot()["compileEvents"] - before["compileEvents"]
+    assert built == (0 if warm else 1)

@@ -145,3 +145,120 @@ def assert_close(a, b, *, rtol: float = 1e-6, what: str = "") -> None:
     a, b = to_np(a).astype(np.float64), to_np(b).astype(np.float64)
     assert a.shape == b.shape, f"{what}: shape {a.shape} != {b.shape}"
     np.testing.assert_allclose(a, b, rtol=rtol, atol=0.0, err_msg=what)
+
+
+# ---------------------------------------------------------------------------
+# Monitor -> resident model: one simulated cluster, one sample feed, both
+# packages' monitors
+# ---------------------------------------------------------------------------
+
+#: every FlatClusterModel field
+MODEL_FIELDS = (
+    "replica_broker", "leader_load", "follower_load", "partition_topic",
+    "partition_valid", "replica_offline", "replica_pref_pos",
+    "broker_capacity", "broker_rack", "broker_host", "broker_set",
+    "broker_alive", "broker_new", "broker_demoted", "broker_broken_disk",
+    "broker_valid")
+
+
+def sim_both(num_brokers: int = 4, partitions: int = 24, *,
+             num_topics: int = 3, size_mb=lambda p: 10.0 + p):
+    """(jax_sim, torch_sim): the same ``SimulatedKafkaCluster`` built in
+    each package — partition p of topic ``t{p % num_topics}`` on brokers
+    ``[p % B, (p + 1) % B]``."""
+    import cruise_control_tpu.executor as jex
+    import cruise_control_tpu_torch.executor as tex
+    out = []
+    for mod in (jex, tex):
+        sim = mod.SimulatedKafkaCluster()
+        for b in range(num_brokers):
+            sim.add_broker(b, rate_mb_s=10_000.0)
+        for p in range(partitions):
+            sim.add_partition(f"t{p % num_topics}", p,
+                              [p % num_brokers, (p + 1) % num_brokers],
+                              size_mb=size_mb(p))
+        out.append(sim)
+    return out[0], out[1]
+
+
+def monitors_both(jsim, tsim, **cfg):
+    """(jax_monitor, torch_monitor) over the two clusters, one
+    ``MonitorConfig`` (four 1 s windows unless overridden); the port's on
+    the CPU."""
+    import cruise_control_tpu.monitor as jmon
+    import cruise_control_tpu_torch.monitor as tmon
+    conf = dict(num_windows=4, window_ms=1000, min_samples_per_window=1,
+                num_broker_windows=4, broker_window_ms=1000)
+    conf.update(cfg)
+    return (jmon.LoadMonitor(jsim, jmon.MonitorConfig(**conf)),
+            tmon.LoadMonitor(tsim, tmon.MonitorConfig(**conf), device="cpu"))
+
+
+def base_values(num_partitions: int) -> np.ndarray:
+    """float64[P, M] small-integer sample values (window means over equal
+    values are exact, so only changed rows change a load row)."""
+    from cruise_control_tpu_torch.core.metricdef import partition_metric_def
+    M = partition_metric_def().size()
+    return ((np.arange(num_partitions * M, dtype=np.float64)
+             .reshape(num_partitions, M) % 8) + 1.0)
+
+
+class SampleFeed:
+    """A deterministic dense sample feed shared by several monitors (of
+    either package). A metric-only cycle ingests the new value matrix into
+    two windows so the changed window rolls out of the in-flight slot."""
+
+    def __init__(self, sim, monitors, window_ms: int = 1000):
+        self.monitors = monitors
+        self.window_ms = window_ms
+        self.keys = sorted(sim.describe_partitions())
+        self.next_window = 0
+
+    def refresh_keys(self, sim):
+        self.keys = sorted(sim.describe_partitions())
+
+    def ingest(self, vals, windows: int = 1, keep=None):
+        """One window per call round; ``keep`` (bool[P]) samples only
+        some partitions."""
+        for _ in range(windows):
+            keys, v = self.keys, vals
+            if keep is not None:
+                keys = [k for k, kp in zip(self.keys, keep) if kp]
+                v = vals[keep]
+            times = np.full(len(keys),
+                            self.next_window * self.window_ms + 100, np.int64)
+            for m in self.monitors:
+                m.partition_aggregator.add_samples_dense(keys, times, v)
+            self.next_window += 1
+
+    @property
+    def now_ms(self) -> int:
+        return self.next_window * self.window_ms
+
+
+def assert_models_equal(jmodel, tmodel, what: str = "") -> None:
+    """Every ``FlatClusterModel`` field equal bit for bit (dtype too)."""
+    for f in MODEL_FIELDS:
+        a = np.asarray(getattr(jmodel, f))
+        b = to_np(getattr(tmodel, f))
+        assert a.dtype == b.dtype, f"{what}: {f} dtype {a.dtype} != {b.dtype}"
+        assert a.shape == b.shape, f"{what}: {f} shape {a.shape} != {b.shape}"
+        assert np.array_equal(a, b), f"{what}: model.{f} differs"
+
+
+def assert_results_equal(jres, tres, what: str = "") -> None:
+    """Two ``ClusterModelResult``s agree: model, metadata, completeness,
+    window times, generation and the stale flag."""
+    assert_models_equal(jres.model, tres.model, what)
+    jm, tm = jres.metadata, tres.metadata
+    for f in ("broker_ids", "broker_index", "topics", "topic_index",
+              "partition_keys", "partition_index", "racks", "hosts",
+              "broker_sets"):
+        assert getattr(tm, f) == getattr(jm, f), f"{what}: metadata.{f}"
+    jc, tc = jres.completeness, tres.completeness
+    for f in ("valid_windows", "valid_entity_ratio_by_window",
+              "valid_entities", "num_total_entities", "generation"):
+        assert getattr(tc, f) == getattr(jc, f), f"{what}: completeness.{f}"
+    assert tres.window_times_ms == jres.window_times_ms, what
+    assert tres.generation == jres.generation, what
+    assert tres.stale == jres.stale, what
