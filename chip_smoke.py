@@ -2,8 +2,10 @@
 """Smoke test of the PyTorch/CUDA port (``cruise_control_tpu_torch``) on one
 GPU: builds the hand-written kernels from ``cruise_control_tpu_torch/csrc``,
 holds each against its plain PyTorch twin at the main path's shapes, drives
-the dry-run rebalance proposal, the what-if sweep, the move schedule and the
-monitor's device-resident model cycle end to end, and checks their results.
+the dry-run rebalance proposal, the what-if sweep, the move schedule, the
+monitor's device-resident model cycle, the population and branched search
+modes and the intra-broker disk rebalance end to end, and checks their
+results.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -15,10 +17,11 @@ Phases (every failure raises; nothing is caught):
 2. build — compile and load the kernel library;
 3. kernels vs twins — KA (threefry2x32), KB (ordered segment sum, also on
    the what-if sweep's batched layout), KC (net broker flow), KD
-   (scenario failover), KF (delta row scatter) and KG (cluster stats)
-   against their plain versions, with times and bounds; KE (first fit) is
-   held to its twin after phase 4, at the shape of the main path's own
-   schedule;
+   (scenario failover), KF (delta row scatter), KG (cluster stats), KH
+   (intra-broker walk, at phase 11's shape and a small one) and KI
+   (population selection) against their plain versions, with times and
+   bounds; KE (first fit) is held to its twin after phase 4, at the shape
+   of the main path's own schedule;
 4. main path — 100 brokers x 20K partitions at RF 2, the 4-goal chain
    with the off-chain hard-goal audit, seeds 0, 1, 1 (proposals of the two
    seed-1 runs must be identical; KA, KB and KC must have launched);
@@ -37,7 +40,16 @@ Phases (every failure raises; nothing is caught):
    rows at epoch 1 with nothing built after warmup, ``stats_summary``
    (KG) before and after an optimize of the resident model, then a broker
    death that must rebuild at epoch 2 and drain; planes, summaries and
-   proposals held to the reference's (``REFERENCE_SERVED_*``).
+   proposals held to the reference's (``REFERENCE_SERVED_*``);
+10. search modes — phase 4's cluster and chain with the per-goal walk:
+    a population of 1 must equal the sequential walk; a population of 4
+    (weighted, cold then warm) and 4 branches held to the reference's
+    (``REFERENCE_SEARCH``); KI must have launched at every generation
+    boundary;
+11. intra-broker — phase 4's cluster with four logdirs a broker (two of
+    them new and empty): a rebalance and a drain of d0 on ten brokers,
+    held to the reference's (``REFERENCE_INTRA``); KH launched once per
+    call.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -134,6 +146,39 @@ REFERENCE_SERVED_OPTIMIZE = dict(moves=16088, proposals=11494,
                                  digest="9c3a9d40d9cccff0")
 REFERENCE_SERVED_DRAIN = dict(moves=16267, proposals=11626, left=0,
                               audit_ok=True)
+#: phase 10 (bench scenario 7's population size, ``bench.py:424``): phase
+#: 4's chain and search with the per-goal walk (the population requires
+#: it), seed 1; K = 1 and K = 4 populations, then N = 4 branches
+SEARCH_MODES = dict(MAIN_SEARCH, fused_chain=False, polish_passes=2)
+SEARCH_SEED = 1
+SEARCH_POPULATION = dict(size=4, objective="weighted", hard_weight=1000.0)
+SEARCH_BRANCHES = 4
+#: phase 11: phase 4's cluster with four logdirs a broker, replica r of
+#: partition p on d[(p + r) % 2] (two disks just added and empty), the
+#: per-logdir capacity the even split of the DISK capacity; a rebalance,
+#: then a drain of d0 on brokers 20-29
+INTRA_LOGDIRS = ("d0", "d1", "d2", "d3")
+INTRA_DRAINED = {b: ["d0"] for b in range(20, 30)}
+#: phases 10 and 11 as the reference computes them (the JAX package on the
+#: CPU from the same inputs: ``scripts/search_modes_reference.py``)
+REFERENCE_SEARCH = dict(
+    sequential=dict(moves=19167, proposals=13595, digest="b811bc8eb48d995f"),
+    population=dict(
+        size=4, requested=4, objective="weighted", winner=0,
+        winnerIsAnchor=True, paretoFrontSize=4, paretoRanks=[0, 0, 0, 0],
+        weightedScores=[0.0, 0.0, 0.0, 0.0],
+        movesPerMember=[19167, 19200, 19167, 19200],
+        perGoalAcceptance=[[19073, 42, 1, 51], [19094, 45, 0, 61],
+                           [19073, 42, 1, 51], [19094, 45, 0, 61]],
+        survivorPerms=[[0, 1, 0, 1], [0, 1, 0, 1], [0, 1, 0, 1]],
+        moves=19167, proposals=13595, digest="b811bc8eb48d995f"),
+    branches=dict(winner=0, stacks="f5a5fd42d16a2030", moves=19173,
+                  proposals=13488, digest="dae2e5ca7d020381"))
+REFERENCE_INTRA = dict(
+    rebalance=dict(moves=15334, digest="8578c1cf5f136082", iterations=485,
+                   violations=[0.0, 0.0, 3608307.0, 0.0]),
+    drain=dict(moves=15786, digest="4100e37ee94369b6", iterations=485,
+               violations=[97244.9765625, 0.0, 3551762.0, 0.0]))
 
 KERNEL_INFO = {
     "threefry2x32": dict(
@@ -157,6 +202,12 @@ KERNEL_INFO = {
     "cluster_stats": dict(
         source="cruise_control_tpu_torch/csrc/cluster_stats.cu",
         replaces="cruise_control_tpu/model/stats.py:20"),
+    "intra_broker_walk": dict(
+        source="cruise_control_tpu_torch/csrc/intra_walk.cu",
+        replaces="cruise_control_tpu/analyzer/intra.py:182"),
+    "population_select": dict(
+        source="cruise_control_tpu_torch/csrc/population_select.cu",
+        replaces="cruise_control_tpu/parallel/population.py:262"),
 }
 
 
@@ -468,11 +519,14 @@ def _check_summation_bound(got, want, src, dst, earlier, d_src, d_dst):
                  f"the two orders' summation bounds (M={len(s)})")
 
 
-def phase_kernels(model, main_arrays: dict, scale_arrays: dict):
+def phase_kernels(model, main_arrays: dict, scale_arrays: dict,
+                  intra_state):
     """Each kernel against its twin at the main path's shapes."""
     import torch
     from cruise_control_tpu_torch import _random, kernels
+    from cruise_control_tpu_torch.utils.device import set_precision_flags
     log("== phase 3: kernels vs twins")
+    set_precision_flags()
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     rows = {}
@@ -597,11 +651,16 @@ def phase_kernels(model, main_arrays: dict, scale_arrays: dict):
         nnz = int(e.sum())
         b_ms, b_by = bound(m * m + 2 * m * 8 + 2 * m * 4 + 3 * m * 4,
                            4 * nnz + int(matches))
+        # the library yardstick: the twin's masks and four float32 matrix
+        # products (TF32 off), replayed as a CUDA graph
+        lib_ms = time_ms(lambda: kernels.net_broker_flow_plain(
+            src, dst, earlier, ds, ds), graph=True)
         log(f"KC net_broker_flow M={m}: {ms:.5f} ms, twin {plain:.4f} ms, "
-            f"bound {b_ms:.5f} ms ({b_by})")
+            f"torch.matmul form {lib_ms:.5f} ms, bound {b_ms:.5f} ms "
+            f"({b_by})")
         _keep_first_shape(rows, "net_broker_flow", max(errs), dict(
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None))
+            library_ms=lib_ms))
 
     # --- KD: the N-1 sweep's placement edit and failover.
     from cruise_control_tpu_torch.model.flat import replica_loads
@@ -730,7 +789,150 @@ def phase_kernels(model, main_arrays: dict, scale_arrays: dict):
     _keep_first_shape(rows, "cluster_stats", err, dict(
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib_ms))
+    _kernel_intra_walk(rows, intra_state)
+    _kernel_population_select(rows, rng)
     return rows
+
+
+def _once_ms(fn):
+    """ms of one call between a pair of CUDA events (for a call too slow to
+    repeat)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _kernel_intra_walk(rows, state):
+    """KH against its twin at phase 11's shape (the rebalance's disk
+    state), at a small shape with ties, zero sizes and a cap of 3, and at
+    48 disks a broker (the mean's sum over two windows of 32 disks)."""
+    import torch
+    from cruise_control_tpu_torch import kernels
+    args = (state.replica_disk, state.replica_size, state.replica_broker,
+            state.disk_capacity, state.disk_valid)
+    small = (torch.tensor([[0, 0], [0, 1], [0, -1], [1, 0], [0, 0]],
+                          dtype=torch.int32),
+             torch.tensor([[40.0, 40.0], [0.0, 40.0], [25.0, 0.0],
+                           [40.0, 0.0], [40.0, 10.0]]),
+             torch.tensor([[0, 1], [0, 1], [1, 3], [0, 1], [1, 0]],
+                          dtype=torch.int32),
+             torch.tensor([[0.0, 100.0, 100.0], [100.0, 100.0, 0.0],
+                           [100.0, 100.0, 100.0]]),
+             torch.tensor([[True, True, True], [True, True, False],
+                           [False, False, False]]))
+    gen = np.random.default_rng(48)
+    wide_rb = gen.integers(0, 6, (1000, 2)).astype(np.int32)
+    wide = (torch.from_numpy(np.where(gen.random((1000, 2)) < 0.5, 0,
+                                      gen.integers(0, 48, (1000, 2))
+                                      ).astype(np.int32)),
+            torch.from_numpy((gen.random((1000, 2)) * 100).astype(
+                np.float32)),
+            torch.from_numpy(wide_rb),
+            torch.from_numpy((gen.random((6, 48)) * 2000 + 100).astype(
+                np.float32)),
+            torch.from_numpy(gen.random((6, 48)) < 0.95))
+    wide[3][~wide[4]] = 0.0
+    for tag, inputs, max_iters in (("phase 11", args, 512),
+                                   ("small", small, 3),
+                                   ("48 disks", wide, 512)):
+        dev_in = [t.cuda() for t in inputs]
+        got_rd, got_it = kernels.intra_broker_walk(*dev_in, max_iters)
+        want_rd, want_it = kernels.intra_broker_walk_plain(
+            *(t.cpu() for t in inputs), max_iters)
+        err = float((got_rd.cpu() - want_rd).abs().max())
+        if err != 0 or int(got_it) != int(want_it):
+            fail(f"intra_broker_walk differs from its twin ({tag})")
+        if tag != "phase 11":
+            log(f"KH intra_broker_walk ({tag}, max_iters {max_iters}): "
+                f"bit-exact vs twin, {int(got_it)} iterations")
+            _keep_first_shape(rows, "intra_broker_walk", err, {})
+            continue
+        # eager: the wrapper reads the CSR's sizes back before its launch
+        ms = time_ms(lambda: kernels.intra_broker_walk(*dev_in, max_iters))
+        _, plain = _once_ms(lambda: kernels.intra_broker_walk_plain(
+            *dev_in, max_iters))
+        B, D = inputs[3].shape
+        P, R = inputs[0].shape
+        rb = inputs[2].cpu().numpy().reshape(-1)
+        on = rb < B
+        n_b = np.bincount(rb[on], minlength=B)
+        changed = (got_rd.cpu() != inputs[0].cpu()).numpy().reshape(-1)
+        m_b = np.bincount(rb[on & changed], minlength=B)
+        its = int(got_it)
+        # Work this run needs at least: each broker's iterations (its
+        # changed replicas + 1, a lower bound on its moves + 1, capped)
+        # times an in-order add and a test per replica.
+        ops = int((np.minimum(m_b + 1, its) * 2 * n_b).sum())
+        nbytes = P * R * (4 + 4 + 4) + B * D * (4 + 1) + P * R * 4 + 4
+        b_ms, b_by = bound(nbytes, ops)
+        hot = int(n_b.argmax())
+        log(f"KH intra_broker_walk P={P} R={R} B={B} D={D} ({its} "
+            f"iterations, hottest broker {hot}: {int(n_b[hot])} replicas, "
+            f"{int(m_b[hot])} changed): bit-exact vs twin; {ms:.4f} ms, twin "
+            f"{plain:.1f} ms (one call), bound {b_ms:.6f} ms ({b_by}); a "
+            f"chain of {its} iterations x {int(n_b[hot])} in-order adds on "
+            f"the hottest broker")
+        _keep_first_shape(rows, "intra_broker_walk", err, dict(
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
+
+
+def _kernel_population_select(rows, rng):
+    """KI against its twin at K = 4, G = 4 (phase 10's population) and at
+    K = 64, G = 16, with ties, a NaN row, hard goals and a move weight."""
+    import torch
+    from cruise_control_tpu_torch import kernels
+    for K, G in ((4, 4), (64, 16)):
+        boundary = (rng.random((K, G)) * 10.0 ** rng.integers(-7, 4, (K, G))
+                    ).astype(np.float32)
+        boundary[K // 2] = boundary[K // 4]          # a tie
+        boundary[1, 0] = np.nan                      # sorts last
+        scales = (rng.random(G) * 1e4).astype(np.float32)
+        hard = np.arange(G) % 3 == 0
+        moves = rng.integers(0, 20_000, K)
+        n_surv = max(1, min(K // 2, K - 1))
+        inputs = [torch.from_numpy(a) for a in (boundary, moves, scales,
+                                                hard)]
+        dev_in = [t.cuda() for t in inputs]
+        err = 0.0
+        for mw, pareto in ((0.0, False), (0.01, True)):
+            got = kernels.population_select(*dev_in, 1000.0, mw, n_surv,
+                                            pareto)
+            want = kernels.population_select_plain(*inputs, 1000.0, mw,
+                                                   n_surv, pareto)
+            for g, w in zip(got, want):
+                g, w = g.cpu(), w.to(g.dtype)
+                if g.shape != w.shape:
+                    fail(f"population_select gives shape {tuple(g.shape)}, "
+                         f"its twin {tuple(w.shape)} (K={K}, G={G})")
+                # bit for bit, NaN (the NaN row's score) equal to NaN
+                both_nan = torch.isnan(g) & torch.isnan(w)
+                diff = torch.where(both_nan, 0.0, (g.double() - w.double()
+                                                   ).abs())
+                err = max(err, float(diff.max()) if diff.numel() else 0.0)
+                if not bool(((g == w) | both_nan).all()):
+                    fail(f"population_select differs from its twin (K={K}, "
+                         f"G={G})")
+        ms = time_ms(lambda: kernels.population_select(
+            *dev_in, 1000.0, 0.0, n_surv, False), graph=True)
+        plain = time_ms(lambda: kernels.population_select_plain(
+            *dev_in, 1000.0, 0.0, n_surv, False), groups=3)
+        # inputs read once, three [K] outputs written; normalize and weigh
+        # K x G, K^2 G dominance tests, K^2 sort comparisons
+        b_ms, b_by = bound(K * G * 4 + K * 8 + G * 5 + 3 * K * 4,
+                           5 * K * G + 2 * K * K * G + 2 * K * K)
+        log(f"KI population_select K={K} G={G}: bit-exact vs twin (weighted "
+            f"and Pareto, with a move weight); {ms:.5f} ms, twin "
+            f"{plain:.4f} ms, bound {b_ms:.3g} ms ({b_by})")
+        _keep_first_shape(rows, "population_select", err, dict(
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
 
 
 def schedule_context(model, md, proposals):
@@ -1356,6 +1558,220 @@ def phase_served(spec):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 10 and 11: the search modes and the intra-broker rebalance
+# ---------------------------------------------------------------------------
+
+def _proposals_sha(result) -> str:
+    return _json_sha([p.to_json() for p in result.proposals])
+
+
+def search_modes(pkg, model, md):
+    """Phase 10's sequence over one package's modules (``pkg``, see
+    ``port_search_package``; ``scripts/search_modes_reference.py`` passes
+    the JAX package's): the per-goal sequential walk, populations of 1 and
+    K (the latter twice: cold, then warm) and N branches, all seed
+    ``SEARCH_SEED``. Returns what it saw; the caller gates it."""
+    out = {}
+    seq = pkg.optimize(pkg.optimizer(), model, md)
+    out["sequential"] = dict(moves=seq.num_moves,
+                             proposals=len(seq.proposals),
+                             digest=_proposals_sha(seq))
+    k1 = pkg.optimize(pkg.optimizer(population=1), model, md)
+    out["k1"] = dict(moves=k1.num_moves, proposals=len(k1.proposals),
+                     digest=_proposals_sha(k1),
+                     trajectory_equal=(k1.telemetry["violationTrajectory"]
+                                       == seq.telemetry[
+                                           "violationTrajectory"]))
+    pop_opt = pkg.optimizer(population=pkg.PopulationConfig(
+        **SEARCH_POPULATION))
+    walls = []
+    for _ in range(2):                      # cold, then warm
+        pkg.sync()
+        mark = pkg.host_syncs()
+        t0 = time.monotonic()
+        pop = pkg.optimize(pop_opt, model, md)
+        pkg.sync()
+        walls.append(time.monotonic() - t0)
+        syncs = pkg.host_syncs() - mark
+    section = dict(pop.telemetry["population"])
+    section.pop("devices")
+    out["population"] = dict(section, moves=pop.num_moves,
+                             proposals=len(pop.proposals),
+                             digest=_proposals_sha(pop))
+    out["population_walls"] = walls
+    out["population_host_syncs"] = syncs
+    out["population_satisfied"] = all(g.satisfied for g in pop.goal_results)
+    br_opt = pkg.optimizer(branches=SEARCH_BRANCHES)
+    pkg.sync()
+    t0 = time.monotonic()
+    br = pkg.optimize(br_opt, model, md)
+    pkg.sync()
+    out["branches_wall"] = time.monotonic() - t0
+    stacks, winner = pkg.branch_program(br_opt, model, md)
+    out["branches"] = dict(winner=winner, stacks=_sha(stacks),
+                           moves=br.num_moves, proposals=len(br.proposals),
+                           digest=_proposals_sha(br))
+    out["branch_stacks"] = stacks.tolist()
+    return out
+
+
+def intra_setup(pkg, spec):
+    """(model, metadata, sim, resolver): phase 4's cluster as a simulated
+    Kafka cluster with ``INTRA_LOGDIRS`` on every broker, replica r of
+    partition p on ``d[(p + r) % 2]``, and a resolver without per-logdir
+    capacities (so each broker's DISK capacity splits evenly)."""
+    sim = pkg.SimulatedKafkaCluster()
+    for b in spec.brokers:
+        sim.add_broker(b.broker_id, logdirs=INTRA_LOGDIRS)
+    for p in spec.partitions:
+        sim.add_partition(p.topic, p.partition, list(p.replicas),
+                          size_mb=float(p.leader_load[3]),
+                          logdir_by_broker={
+                              b: INTRA_LOGDIRS[(p.partition + r) % 2]
+                              for r, b in enumerate(p.replicas)})
+    model, md = pkg.flatten_spec(spec)
+    R = pkg.Resource
+    resolver = pkg.FixedCapacityResolver(capacity=dict(zip(
+        (R.CPU, R.NW_IN, R.NW_OUT, R.DISK), SERVED_CAPACITY)))
+    return model, md, sim, resolver
+
+
+def intra_rebalances(pkg, setup):
+    """Phase 11's two calls over one package's modules on ``setup``
+    (``intra_setup``'s tuple): a rebalance, then the drain of
+    ``INTRA_DRAINED``. Returns what each saw."""
+    model, md, sim, resolver = setup
+    out = {}
+    for tag, drained in (("rebalance", None), ("drain", INTRA_DRAINED)):
+        pkg.sync()
+        t0 = time.monotonic()
+        res = pkg.intra_broker_rebalance(model, md, sim, resolver,
+                                         drained_disks=drained)
+        pkg.sync()
+        moves = [[m.topic, m.partition, m.broker_id, m.source_logdir,
+                  m.dest_logdir, m.size_mb] for m in res.moves]
+        out[tag] = dict(moves=len(moves), digest=_json_sha(moves),
+                        iterations=res.iterations,
+                        violations=[res.capacity_violation_before,
+                                    res.capacity_violation_after,
+                                    res.balance_violation_before,
+                                    res.balance_violation_after])
+        out[tag + "_wall"] = time.monotonic() - t0
+        out[tag + "_summary"] = res.goal_summary()
+    return out
+
+
+def port_search_package(device="cuda"):
+    """``search_modes``' and ``intra_rebalances``' view of the port on
+    ``device``."""
+    import types
+
+    import torch
+    from cruise_control_tpu_torch import _random
+    from cruise_control_tpu_torch.analyzer import (
+        OptimizationOptions, PopulationConfig, SearchConfig,
+        TorchGoalOptimizer, engine, goals_by_name, intra_broker_rebalance)
+    from cruise_control_tpu_torch.config import FixedCapacityResolver
+    from cruise_control_tpu_torch.core.resources import Resource
+    from cruise_control_tpu_torch.executor import SimulatedKafkaCluster
+    from cruise_control_tpu_torch.model.spec import flatten_spec
+    from cruise_control_tpu_torch.parallel import (make_branched_search,
+                                                   select_best_audited)
+
+    def options():
+        return OptimizationOptions(seed=SEARCH_SEED, waived_hard_goals=WAIVED)
+
+    def branch_program(opt, model, md):
+        cfg, goals, _chain, ctx, state, audit = opt._prepare(model, md,
+                                                             options())
+        states, viols = make_branched_search(goals, cfg, opt.branches)(
+            state, ctx, _random.PRNGKey(SEARCH_SEED, device=device))
+        _, best, _ = select_best_audited(
+            states, viols, lambda s: opt._audit(audit, s, ctx))
+        return viols.cpu().numpy(), int(best)
+
+    return types.SimpleNamespace(
+        PopulationConfig=PopulationConfig,
+        optimizer=lambda **kw: TorchGoalOptimizer(
+            goals=goals_by_name(GOALS), config=SearchConfig(**SEARCH_MODES),
+            device=device, **kw),
+        optimize=lambda opt, model, md: opt.optimize(model, md, options()),
+        branch_program=branch_program,
+        sync=torch.cuda.synchronize if device == "cuda" else lambda: None,
+        host_syncs=lambda: engine.HOST_SYNCS,
+        SimulatedKafkaCluster=SimulatedKafkaCluster, Resource=Resource,
+        FixedCapacityResolver=FixedCapacityResolver,
+        flatten_spec=lambda spec: flatten_spec(spec, device=device),
+        intra_broker_rebalance=intra_broker_rebalance)
+
+
+def phase_search_modes(model, md):
+    from cruise_control_tpu_torch import kernels
+    log("== phase 10: search modes 100x20K (population K=1 and K=4, "
+        "branches N=4)")
+    kernels.reset_launch_counts()
+    out = search_modes(port_search_package(), model, md)
+    launches = dict(kernels.LAUNCHES)
+    seq, k1 = out["sequential"], out["k1"]
+    log(f"sequential per-goal walk: {seq['moves']} moves, "
+        f"{seq['proposals']} proposals, digest {seq['digest']}")
+    log(f"population K=1: {k1['moves']} moves, {k1['proposals']} proposals, "
+        f"digest {k1['digest']}, trajectory equal {k1['trajectory_equal']}")
+    if (k1["digest"], k1["moves"]) != (seq["digest"], seq["moves"]) or \
+            not k1["trajectory_equal"]:
+        fail("population K=1 differs from the sequential per-goal walk")
+    pop = out["population"]
+    log(f"population K=4 ({SEARCH_POPULATION['objective']}): cold "
+        f"{out['population_walls'][0]:.3f}s, warm "
+        f"{out['population_walls'][1]:.3f}s, host syncs "
+        f"{out['population_host_syncs']}; winner {pop['winner']}, ranks "
+        f"{pop['paretoRanks']}, weighted {pop['weightedScores']}, moves "
+        f"{pop['movesPerMember']}, perms {pop['survivorPerms']}, "
+        f"acceptance {pop['perGoalAcceptance']}; {pop['proposals']} "
+        f"proposals, digest {pop['digest']}; chain satisfied "
+        f"{out['population_satisfied']}")
+    br = out["branches"]
+    log(f"branches N={SEARCH_BRANCHES}: {out['branches_wall']:.3f}s, winner "
+        f"{br['winner']}, stacks {out['branch_stacks']} ({br['stacks']}), "
+        f"{br['moves']} moves, {br['proposals']} proposals, digest "
+        f"{br['digest']}")
+    got = dict(sequential=seq, population=pop, branches=br)
+    if REFERENCE_SEARCH is None:
+        fail(f"no reference constants for phase 10; the port gave {got}")
+    if got != REFERENCE_SEARCH:
+        fail(f"phase 10 differs from the reference's {REFERENCE_SEARCH}")
+    log(f"search-mode launches: {json.dumps(launches)}")
+    per_optimize = SEARCH_MODES["polish_passes"] + 2
+    if launches["population_select"] != 3 * per_optimize:
+        fail(f"KI launched {launches['population_select']} times, want "
+             f"{3 * per_optimize} (polish passes + 2 per population "
+             f"optimize)")
+    return launches
+
+
+def phase_intra(setup):
+    from cruise_control_tpu_torch import kernels
+    log("== phase 11: intra-broker disk rebalance 100x20K, four logdirs")
+    kernels.reset_launch_counts()
+    out = intra_rebalances(port_search_package(), setup)
+    launches = dict(kernels.LAUNCHES)
+    for tag in ("rebalance", "drain"):
+        r = out[tag]
+        log(f"{tag}: {out[tag + '_wall']:.3f}s, {r['moves']} moves "
+            f"(digest {r['digest']}), {r['iterations']} iterations, "
+            f"violations {r['violations']}; {out[tag + '_summary']}")
+    got = dict(rebalance=out["rebalance"], drain=out["drain"])
+    if REFERENCE_INTRA is None:
+        fail(f"no reference constants for phase 11; the port gave {got}")
+    if got != REFERENCE_INTRA:
+        fail(f"phase 11 differs from the reference's {REFERENCE_INTRA}")
+    log(f"intra-broker launches: {json.dumps(launches)}")
+    if launches["intra_broker_walk"] != 2:
+        fail("the two rebalances did not launch KH once each")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1372,7 +1788,10 @@ def main() -> int:
     log(f"main-path model built in {time.monotonic() - t0:.1f}s")
 
     scale_model, scale_md = build_flat_direct(1000, 200_000, 2, seed=42)
-    rows = phase_kernels(model, arrays, scale_model.to_numpy())
+    from cruise_control_tpu_torch.analyzer import build_disk_state
+    intra = intra_setup(port_search_package(), spec)
+    intra_state, _ = build_disk_state(*intra)
+    rows = phase_kernels(model, arrays, scale_model.to_numpy(), intra_state)
     launches, seed1 = phase_main_path(model, md, arrays)
     phase_first_fit(model, md, seed1.proposals, rows)
     phase_drain(model, md)
@@ -1380,12 +1799,16 @@ def main() -> int:
     whatif_launches = phase_whatif(model, md, arrays)
     schedule_launches = phase_schedule(model, md, seed1.proposals)
     served_launches = phase_served(spec)
+    search_launches = phase_search_modes(model, md)
+    intra_launches = phase_intra(intra)
 
     # Each kernel's launches come from the run of the path it serves.
     launches.update(scenario_failover=whatif_launches["scenario_failover"],
                     first_fit=schedule_launches["first_fit"],
                     delta_row_scatter=served_launches["delta_row_scatter"],
-                    cluster_stats=served_launches["cluster_stats"])
+                    cluster_stats=served_launches["cluster_stats"],
+                    population_select=search_launches["population_select"],
+                    intra_broker_walk=intra_launches["intra_broker_walk"])
     kernels_line = [dict(name=name, route="cuda", source=info["source"],
                          replaces=info["replaces"], launches=launches[name],
                          **rows[name])

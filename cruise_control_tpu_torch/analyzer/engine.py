@@ -26,7 +26,7 @@ from typing import Sequence
 import torch
 
 from .. import _random
-from ..utils.ordered import top_k
+from ..utils.ordered import fma, top_k, tree_sum_last
 from .constraint import SearchConfig
 from .goals import GoalKernel
 from .state import (Candidates, SearchContext, SearchState, apply_group,
@@ -51,6 +51,85 @@ def violation_stack(goals: Sequence[GoalKernel], state, ctx) -> torch.Tensor:
     """f32[num_goals] residual per goal; ``[S, num_goals]`` for a state
     with a leading scenario axis."""
     return torch.stack([g.violation(state, ctx) for g in goals], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Joint multi-objective scoring over violation stacks (the population
+# search's selection math). ``contract=False`` rounds every operation on its
+# own, as the reference's eager calls do (``tuning.plan_quality``);
+# ``contract=True`` follows the reference's compiled population program,
+# where XLA's CPU backend contracts ``1e-6 + 1e-6 * scale`` and
+# ``obj + move_weight * moves`` into FMAs and fuses the weighted row sum
+# (:func:`_fused_weighted_sum`). KI (``kernels.population_select``) computes
+# the contracted form on the card; its twin calls these.
+# ---------------------------------------------------------------------------
+
+def _as_f32(x, device=None) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def normalized_stacks(stacks, scales, *, contract: bool = False
+                      ) -> torch.Tensor:
+    """``stacks[..., g] / max(scale_g, 1)``, with residuals at or below the
+    ulp-aware ``GoalResult.satisfied`` cutoff ``1e-6 + 1e-6 * scale``
+    clamped to exactly 0 (converged goals tie bit for bit)."""
+    stacks = _as_f32(stacks)
+    scales = _as_f32(scales, stacks.device)
+    tol = fma(1e-6, scales, 1e-6) if contract else 1e-6 + 1e-6 * scales
+    norm = stacks / torch.clamp(scales, min=1.0)
+    return torch.where(stacks <= tol, 0.0, norm)
+
+
+MAX_FUSED_GOALS = 22
+
+
+def _fused_weighted_sum(norm: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """float32 ``(norm * w).sum(-1)`` as XLA's CPU backend computes it inside
+    a compiled program (probed over G = 1..32 goals): from zero in goal
+    order, each product contracted into the running sum (an FMA) when the
+    weights differ, rounded on its own when they all are equal (a weight
+    of 1 leaves the product exact). That holds for up to
+    ``MAX_FUSED_GOALS`` goals (the catalog has 21); wider rows raise."""
+    G = norm.shape[-1]
+    if G > MAX_FUSED_GOALS:
+        raise ValueError(f"the compiled weighted sum is reproduced for at "
+                         f"most {MAX_FUSED_GOALS} goals, got {G}")
+    contract = bool((w != w[0]).any()) if G else False
+    acc = norm.new_zeros(norm.shape[:-1])
+    for g in range(G):
+        acc = (fma(norm[..., g], w[g], acc) if contract
+               else acc + norm[..., g] * w[g])
+    return acc
+
+
+def weighted_objective(stacks, scales, hard_mask, *, hard_weight: float,
+                       move_weight: float = 0.0, moves=None,
+                       contract: bool = False) -> torch.Tensor:
+    """float32[K] scalarized joint objective per plan (lower is better):
+    normalized violations with hard goals weighted by ``hard_weight``,
+    summed over the goals, plus ``move_weight`` per applied move."""
+    norm = normalized_stacks(stacks, scales, contract=contract)
+    hard = torch.as_tensor(hard_mask, dtype=torch.bool, device=norm.device)
+    w = torch.where(hard, _as_f32(hard_weight), _as_f32(1.0)).to(norm.device)
+    if contract:
+        obj = _fused_weighted_sum(norm, w)
+    else:
+        obj = tree_sum_last(norm * w)
+    if move_weight and moves is not None:
+        mv = _as_f32(torch.as_tensor(moves).to(norm.device))
+        obj = (fma(move_weight, mv, obj) if contract
+               else obj + move_weight * mv)
+    return obj
+
+
+def pareto_ranks(stacks, scales, *, contract: bool = False) -> torch.Tensor:
+    """int32[K] dominance-count Pareto rank per plan over the normalized
+    stacks: ``rank[j]`` = how many plans dominate plan j (every goal <=,
+    at least one <). Rank 0 is the Pareto front."""
+    n = normalized_stacks(stacks, scales, contract=contract)
+    le = (n[:, None, :] <= n[None, :, :]).all(dim=-1)
+    lt = (n[:, None, :] < n[None, :, :]).any(dim=-1)
+    return (le & lt).sum(dim=0, dtype=torch.int32)
 
 
 def _chain_accepts(prev_goals: Sequence[GoalKernel], state, ctx, cands):

@@ -5,11 +5,15 @@ Port of ``cruise_control_tpu/analyzer/optimizer.py``.
 per-goal walk or the ``fused_chain`` walk — identical moves, different
 polish key streams, as in the reference), polishes goals that later passes
 drifted, audits the registered hard goals that are not in the chain, and
-diffs initial vs final placement into execution proposals.
+diffs initial vs final placement into execution proposals. Two search
+modes replace the single walk: a population of K candidate plans scored
+jointly (``population=``, :mod:`..parallel.population`) and best-of-N
+independent branches (``branches=``, :mod:`..parallel.branches`); a
+``tuned_store`` supplies per-shape-bucket schedules (:mod:`.tuning`).
 
-Left out of this slice: the population, branched and mesh modes (they
-raise ``NotImplementedError``), and the tracer, device collector and
-sensor hooks; ``duration_s`` fields still come from ``time.monotonic()``.
+Left out: the device-mesh mode (it raises ``NotImplementedError``: the
+port runs on one GPU), and the tracer, device collector and sensor hooks;
+``duration_s`` fields come from ``time.monotonic()``.
 """
 
 from __future__ import annotations
@@ -136,20 +140,59 @@ class TorchGoalOptimizer:
                  population: "PopulationConfig | int | None" = None,
                  branches: int = 0,
                  mesh=None,
+                 tuned_store=None,
                  device=None):
         self.device = resolve_device(device)
         self.constraint = constraint or BalancingConstraint()
         self.goals = goals if goals is not None else default_goals(self.constraint)
         self.config = config or SearchConfig()
-        if isinstance(population, int):
+        #: per-shape-bucket tuned SearchConfig overrides (``tuning.
+        #: TunedConfigStore``), applied in ``_prepare`` before ``scaled_for``
+        self.tuned_store = tuned_store
+        #: the active traffic regime qualifying the tuned-store lookup (None
+        #: until the workload plane is ported)
+        self.active_regime: str | None = None
+        #: population search over K candidate plans (0 = off); member 0
+        #: anchors the sequential schedule. Exclusive with branches and a
+        #: mesh (all three own the device axis) and with the fused chain
+        #: (its polish rounds take the per-goal key schedule).
+        if population is None:
+            population = PopulationConfig()
+        elif isinstance(population, int):
             population = PopulationConfig(size=population)
-        if population is not None and population.enabled:
-            raise NotImplementedError(
-                "population search is not yet ported (ROADMAP Queue 1 "
-                "item 13)")
-        if branches and int(branches) > 1:
-            raise NotImplementedError(
-                "branched search is not yet ported (ROADMAP Queue 1 item 13)")
+        self.population = population
+        if self.population.enabled:
+            if self.population.objective not in ("weighted", "pareto"):
+                raise ValueError(
+                    f"unknown population objective "
+                    f"{self.population.objective!r}: expected 'weighted' "
+                    "or 'pareto'")
+            if branches and int(branches) > 1:
+                raise ValueError(
+                    "search.population and search.branches are mutually "
+                    "exclusive: both replicate the model per device "
+                    "(the population IS the generalized branch pool)")
+            if mesh is not None:
+                raise ValueError(
+                    "search.population and search.mesh.devices are "
+                    "mutually exclusive: the population replicates the "
+                    "model per member, the mesh shards it")
+            if self.config.fused_chain:
+                raise ValueError(
+                    "search.population and search.fused.chain are "
+                    "mutually exclusive: the population program IS one "
+                    "fused dispatch already, and its polish rounds use "
+                    "the per-goal key schedule — running it against the "
+                    "fused sequential path would break the K=1 "
+                    "bit-parity anchor guarantee (docs/search.md)")
+        #: the last population optimize's joint-scoring snapshot
+        self.last_population_stats: dict | None = None
+        #: best-of-N independent branches (0/1 = one walk)
+        self.branches = int(branches or 0)
+        if self.branches > 1 and mesh is not None:
+            raise ValueError("search.branches and search.mesh.devices are "
+                             "mutually exclusive: branches replicate the "
+                             "model per device, the mesh shards it")
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh is not ported: the port runs on one GPU "
@@ -183,8 +226,15 @@ class TorchGoalOptimizer:
             options = self.options_generator.generate(options, metadata)
         P = model.num_partitions_padded
         B = model.num_brokers_padded
-        cfg = self.config.scaled_for(metadata.num_partitions,
-                                     metadata.num_brokers)
+        # The tuned schedule first, then the tiny-model clamp: one tuned
+        # config per shape bucket means one scaled config for the bucket.
+        base_cfg = self.config
+        if self.tuned_store is not None:
+            base_cfg = self.tuned_store.apply(
+                base_cfg, metadata.num_partitions, metadata.num_brokers,
+                regime=self.active_regime)
+        cfg = base_cfg.scaled_for(metadata.num_partitions,
+                                  metadata.num_brokers)
         if options.fast_mode:
             cfg = replace(
                 cfg,
@@ -255,6 +305,14 @@ class TorchGoalOptimizer:
             model, metadata, options)
         key = _random.PRNGKey(options.seed, device=self.device)
         audit_before = self._audit(audit, state, ctx) if audit else None
+        if self.population.enabled:
+            return self._optimize_population(
+                model, metadata, options, cfg, goals, chain, ctx, state, key,
+                t0, on_goal_start, audit, audit_before)
+        if self.branches > 1:
+            return self._optimize_branched(
+                model, metadata, options, cfg, goals, chain, ctx, state, key,
+                t0, on_goal_start, audit, audit_before)
 
         if cfg.fused_chain:
             # One walk over the whole chain; per-goal wall-clock is
@@ -375,8 +433,147 @@ class TorchGoalOptimizer:
                             t0, ctx, audit, audit_before,
                             trajectory=trajectory)
 
+    def _optimize_population(self, model, metadata, options, cfg, goals,
+                             chain, ctx, state, key, t0, on_goal_start,
+                             audit=(), audit_before=None):
+        """Population search (:mod:`..parallel.population`): K plans walk
+        the chain under their own streams, each polish generation starts
+        with joint scoring and truncation selection (KI), and the served
+        plan is the multi-objective winner, hard-goal audit verdicts
+        dominating. Member 0 anchors the sequential schedule."""
+        from ..parallel.population import (make_population_search,
+                                           population_layout, select_plan)
+        D, _k, K = population_layout(self.population.size)
+        if on_goal_start is not None:
+            on_goal_start(f"PopulationSearch[{len(goals)}x{K}]")
+        t_walk = time.monotonic()
+        run = make_population_search(chain.passes, goals, cfg,
+                                     self.population)
+        (states, aux, iters_np, wb_np, pr_np, mv_np, acc_np, perm_np,
+         ranks, weighted) = run(state, ctx, key)
+        has_broken_raw, scales_arr, v0 = (_host(a) for a in aux)
+        rank_np, w_np = _host(ranks), _host(weighted)
+        boundary_np = pr_np[-1] if len(pr_np) else wb_np[:, -1, :]
+        state, best, _vbest = select_plan(
+            states, boundary_np, mv_np, rank_np, w_np, self.population,
+            audit_eval=(None if not audit
+                        else lambda s: self._audit(audit, s, ctx)))
+        walk_s = time.monotonic() - t_walk
+
+        has_broken = bool(has_broken_raw)
+        logger = logging.getLogger(__name__)
+        # Per-lineage self-check over the walk boundaries (ref
+        # AbstractGoal.java:110-119), with the broken-broker exemption.
+        for m in range(K):
+            boundary = v0
+            for i, g in enumerate(goals):
+                before_i = float(boundary[i])
+                boundary = wb_np[m, i]
+                after_i = float(boundary[i])
+                if after_i > before_i * (1 + 1e-6) + 1e-6:
+                    if has_broken:
+                        logger.warning(
+                            "population[%d]: goal %s worsened its own "
+                            "violation %.6g -> %.6g while draining broken "
+                            "brokers (self-check exempt)", m, g.name,
+                            before_i, after_i)
+                    else:
+                        raise RuntimeError(
+                            f"optimization self-check failed: population "
+                            f"member {m}, goal {g.name} worsened its own "
+                            f"violation {before_i:.6g} -> {after_i:.6g}")
+
+        # The winner's lineage, in the sequential bookkeeping.
+        scales = [float(s) for s in scales_arr]
+        total_iters = max(int(iters_np[best].sum()), 1)
+        goal_results: list[GoalResult] = []
+        for i, goal in enumerate(goals):
+            before_i = float((v0 if i == 0 else wb_np[best, i - 1])[i])
+            goal_results.append(GoalResult(
+                name=goal.name, hard=goal.hard,
+                violation_before=before_i,
+                violation_after=float(boundary_np[best][i]),
+                duration_s=walk_s * int(iters_np[best, i]) / total_iters,
+                iterations=int(iters_np[best, i]),
+                scale=scales[i],
+                accepted=int(acc_np[best, i])))
+
+        # Trajectory, sequential convention: the initial stack, the G walk
+        # boundaries, then one row per polish round that ran (a round that
+        # starts converged is the host loop's ``break``).
+        polish_eps = min(cfg.epsilon, 1e-6)
+        trajectory = [[float(x) for x in v0]]
+        trajectory += [[float(x) for x in wb_np[best, i]]
+                       for i in range(len(goals))]
+        prev_row = wb_np[best, -1]
+        for r in range(len(pr_np)):
+            if (prev_row <= polish_eps).all():
+                break
+            prev_row = pr_np[r, best]
+            trajectory.append([float(x) for x in prev_row])
+
+        pop_stats = {
+            "size": K,
+            "requested": self.population.size,
+            "devices": D,
+            "objective": self.population.objective,
+            "winner": int(best),
+            "winnerIsAnchor": bool(best == 0),
+            "paretoFrontSize": int((rank_np == 0).sum()),
+            "paretoRanks": [int(x) for x in rank_np],
+            "weightedScores": [round(float(x), 6) for x in w_np],
+            "movesPerMember": [int(x) for x in mv_np],
+            "perGoalAcceptance": acc_np.tolist(),
+            "survivorPerms": perm_np.tolist(),
+        }
+        self.last_population_stats = pop_stats
+        return self._finish(model, metadata, options, state, goal_results,
+                            t0, ctx, audit, audit_before,
+                            trajectory=trajectory,
+                            extra_telemetry={"population": pop_stats})
+
+    def _optimize_branched(self, model, metadata, options, cfg, goals, chain,
+                           ctx, state, key, t0, on_goal_start, audit=(),
+                           audit_before=None):
+        """Best-of-N independent branches (:mod:`..parallel.branches`):
+        each runs the full chain under its own stream and the
+        lexicographically best final state is served (the audit dominating
+        when there is one). Per-goal iterations are not reported (0) and
+        there is no polish, as in the reference's one-program walk."""
+        from ..parallel.branches import (make_branched_search, select_best,
+                                         select_best_audited)
+        if on_goal_start is not None:
+            on_goal_start(f"BranchedChain[{len(goals)}x{self.branches}]")
+        aux = chain.aux(state, ctx)
+        t_walk = time.monotonic()
+        run = make_branched_search(goals, cfg, self.branches)
+        states, viols = run(state, ctx, key)
+        if audit:
+            state, best_idx, vbest = select_best_audited(
+                states, viols, lambda s: self._audit(audit, s, ctx))
+        else:
+            state, best_idx, vbest = select_best(states, viols)
+        walk_s = time.monotonic() - t_walk
+        _has_broken, scales_arr, v0 = (_host(a) for a in aux)
+        logging.getLogger(__name__).info(
+            "branched search: %d branches, winner %d, %.2fs", self.branches,
+            best_idx, walk_s)
+        per = walk_s / max(len(goals), 1)
+        # No per-goal self-check: one walk per branch exposes no per-goal
+        # boundaries, and the initial-vs-final comparison would flag legal
+        # later-goal drift.
+        goal_results = [GoalResult(
+            name=goal.name, hard=goal.hard,
+            violation_before=float(v0[i]),
+            violation_after=float(vbest[i]), duration_s=per,
+            iterations=0, scale=float(scales_arr[i]))
+            for i, goal in enumerate(goals)]
+        return self._finish(model, metadata, options, state, goal_results,
+                            t0, ctx, audit, audit_before)
+
     def _finish(self, model, metadata, options, state, goal_results, t0,
-                ctx=None, audit=(), audit_before=None, trajectory=None):
+                ctx=None, audit=(), audit_before=None, trajectory=None,
+                extra_telemetry=None):
         audit_results: list[GoalResult] = []
         if audit:
             t_a = time.monotonic()
@@ -402,7 +599,7 @@ class TorchGoalOptimizer:
             provision_response=self._provision_verdict(final, goal_results),
             hard_goal_audit=audit_results,
             telemetry=self._goal_telemetry(goal_results, trajectory,
-                                           num_moves))
+                                           num_moves, extra_telemetry))
         if result.violated_hard_goals and not options.skip_hard_goal_check:
             in_chain = {g.name for g in goal_results
                         if g.hard and not g.satisfied}
@@ -416,10 +613,14 @@ class TorchGoalOptimizer:
         return result
 
     @staticmethod
-    def _goal_telemetry(goal_results, trajectory, num_moves) -> dict | None:
+    def _goal_telemetry(goal_results, trajectory, num_moves,
+                        extra=None) -> dict | None:
+        """Per-goal counts and the violation trajectory; None for a path
+        whose goal boundaries are unobservable (the branched walk).
+        ``extra`` merges path-specific sections (the population's)."""
         if trajectory is None:
             return None
-        return {
+        telemetry = {
             "perGoal": [{"goal": g.name,
                          "iterations": g.iterations,
                          "accepted": g.accepted,
@@ -431,6 +632,8 @@ class TorchGoalOptimizer:
                                     for row in trajectory],
             "totalMoves": num_moves,
         }
+        telemetry.update(extra or {})
+        return telemetry
 
     def _provision_verdict(self, final: FlatClusterModel,
                            goal_results: list[GoalResult]):

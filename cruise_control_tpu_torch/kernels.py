@@ -26,6 +26,13 @@ Two more carry the monitor's device-resident model cycle:
 - **KG** ``cluster_stats`` — per-resource and count statistics over the
   alive brokers, summed in XLA's CPU tree order.
 
+Two more carry the search modes built on the analyzer:
+
+- **KH** ``intra_broker_walk`` — the intra-broker disk walk, every
+  iteration of every broker in one launch (one block per broker);
+- **KI** ``population_select`` — one generation boundary of the population
+  search: joint scoring, Pareto ranks and the survivor permutation.
+
 Each wrapper takes the plain twin for a tensor on the CPU, and for a CUDA
 tensor launches its kernel or raises: there is no fallback. Each launch
 adds one to ``LAUNCHES[name]``.
@@ -56,7 +63,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 SOURCES = ("threefry.cu", "segment_sum.cu", "net_flow.cu",
            "scenario_failover.cu", "first_fit.cu", "delta_scatter.cu",
-           "cluster_stats.cu")
+           "cluster_stats.cu", "intra_walk.cu", "population_select.cu")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -64,7 +71,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: launches per kernel since the last ``reset_launch_counts()``
 LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
             "net_broker_flow": 0, "scenario_failover": 0, "first_fit": 0,
-            "delta_row_scatter": 0, "cluster_stats": 0}
+            "delta_row_scatter": 0, "cluster_stats": 0,
+            "intra_broker_walk": 0, "population_select": 0}
 #: ``nvcc``/ptxas output of the build this process loaded (register and
 #: spill counts per kernel), empty when the library came from the cache
 BUILD_LOG: list[str] = []
@@ -165,10 +173,17 @@ def load_library():
             lib.cc_delta_row_scatter.argtypes = [p, p, p, p, p, i64, i64,
                                                  i64, p]
             lib.cc_cluster_stats.argtypes = [p, p, p, p, p, p, p, i64, p]
+            lib.cc_intra_broker_walk.argtypes = [p, p, p, p, p, p, p, p, i64,
+                                                 i64, i64, i64, p, p, p]
+            f32 = ctypes.c_float
+            lib.cc_population_select.argtypes = [p, p, p, p, f32, f32, i64,
+                                                 i64, i64, i64, i64, p, p, p,
+                                                 p]
             for fn in (lib.cc_threefry2x32, lib.cc_ordered_segment_sum,
                        lib.cc_net_broker_flow, lib.cc_scenario_failover,
                        lib.cc_first_fit, lib.cc_delta_row_scatter,
-                       lib.cc_cluster_stats):
+                       lib.cc_cluster_stats, lib.cc_intra_broker_walk,
+                       lib.cc_population_select):
                 fn.restype = ctypes.c_int
             _LIB = lib
             default_collector().record_library(kind,
@@ -671,3 +686,203 @@ def cluster_stats(util, replicas, leaders, potential, alive):
     LAUNCHES["cluster_stats"] += 1
     _check(rc, "cluster_stats")
     return out, count
+
+
+# ---------------------------------------------------------------------------
+# KH: intra-broker disk walk
+# ---------------------------------------------------------------------------
+
+_MAX_DISKS = 64
+
+
+def _ordered_sums_dense(seg: torch.Tensor, vals: torch.Tensor,
+                        num_segments: int) -> torch.Tensor:
+    """float32[S]: each segment's values added from zero in row order (rows
+    whose segment lies outside [0, S) dropped) — one vectorised add per
+    row rank over a [S, longest] matrix of the segments' rows."""
+    S = int(num_segments)
+    keep = torch.nonzero((seg >= 0) & (seg < S)).squeeze(1)
+    s, order = torch.sort(seg[keep], stable=True)
+    rows = keep[order]
+    out = vals.new_zeros(S)
+    if rows.numel() == 0:
+        return out
+    rank = torch.arange(rows.numel(), device=seg.device) - torch.searchsorted(
+        s, s)
+    dense = vals.new_zeros((S, int(rank.max()) + 1))
+    dense[s, rank] = vals[rows]
+    for k in range(dense.shape[1]):
+        out = out + dense[:, k]
+    return out
+
+
+def intra_broker_walk_plain(rd, size, rb, capacity, valid, max_iters: int):
+    """Twin of KH: ``intra.py:optimize_intra_broker``'s loop body, one
+    iteration at a time over the whole cluster; the clamped gathers of the
+    padding replicas (``replica_broker == B``) made explicit. The live
+    disks' mean sums the D axis as the compiled loop body does (XLA's tree
+    order, probed at D = 1-64)."""
+    from .utils.ordered import tree_sum_last
+    B, D = capacity.shape
+    P, R = rd.shape
+    dev = rd.device
+    rd = rd.to(torch.int64)
+    rbf = rb.reshape(-1).to(torch.int64)
+    rbc = torch.clamp(rbf, max=B - 1)
+    sizef = size.reshape(-1).to(torch.float32)
+    live = valid & (capacity > 0)
+    n_live = torch.clamp(live.sum(dim=1), min=1).to(torch.float32)
+    arange_b = torch.arange(B, device=dev)
+    flat_index = torch.arange(P * R, device=dev)
+    it, moved = 0, True
+    while moved and it < max_iters:
+        rdf = rd.reshape(-1)
+        seg = torch.where(rdf >= 0, rbf * D + rdf, B * D)
+        util = _ordered_sums_dense(seg, sizef, B * D).reshape(B, D)
+        avg = tree_sum_last(torch.where(live, util, 0.0)) / n_live
+        pres = torch.where(valid & (capacity <= 0) & (util > 0),
+                           float("inf"),
+                           torch.where(live, util - avg[:, None],
+                                       float("-inf")))
+        src = torch.argmax(pres, dim=1)
+        dst = torch.argmin(torch.where(live, util, float("inf")), dim=1)
+        gap = util[arange_b, src] - util[arange_b, dst]
+        drain = capacity[arange_b, src] <= 0
+        on_src = (rdf == src[rbc]) & (rdf >= 0)
+        fits = (sizef <= gap[rbc] * 0.5) | drain[rbc]
+        movable = on_src & fits & ((sizef > 0) | drain[rbc])
+        score = torch.where(movable, sizef, float("-inf"))
+        seg_best = torch.full((B + 1,), float("-inf"), device=dev
+                              ).scatter_reduce(0, rbf, score, "amax")
+        is_best = (score == seg_best[rbf]) & torch.isfinite(score)
+        order = torch.where(is_best, flat_index, P * R)
+        first = torch.full((B + 1,), P * R, device=dev).scatter_reduce(
+            0, rbf, order, "amin")[:B]
+        ok = (first < P * R) & (dst != src)
+        new = rdf.clone()
+        new[first[ok]] = dst[ok]
+        moved = bool((new != rdf).any())
+        rd = new.reshape(P, R)
+        it += 1
+    return rd.to(torch.int32), torch.tensor(it, dtype=torch.int32,
+                                            device=dev)
+
+
+def intra_broker_walk(rd, size, rb, capacity, valid, max_iters: int):
+    """(replica_disk int32[P, R], iterations int32[]): the intra-broker walk
+    of ``intra.py:optimize_intra_broker`` from disk slots ``rd`` (int32[P,
+    R], -1 none), replica sizes ``size`` (float32[P, R]), replica brokers
+    ``rb`` (int[P, R], B = padding) and the disks' ``capacity``
+    (float32[B, D]) and ``valid`` mask (bool[B, D]) — see
+    ``csrc/intra_walk.cu``."""
+    B, D = capacity.shape
+    if size.shape != rd.shape or rb.shape != rd.shape or \
+            valid.shape != (B, D) or rd.dim() != 2:
+        raise ValueError("intra_broker_walk takes rd, size and rb [P, R], "
+                         "capacity and valid [B, D]")
+    if _on_cpu(rd, size, rb, capacity, valid):
+        return intra_broker_walk_plain(rd, size, rb, capacity, valid,
+                                       max_iters)
+    if valid.dtype != torch.bool:
+        raise TypeError("intra_broker_walk takes a bool valid mask")
+    if D > _MAX_DISKS:
+        raise ValueError(f"intra_broker_walk handles at most {_MAX_DISKS} "
+                         f"disks a broker, got {D}")
+    dev = rd.device
+    rbf = rb.reshape(-1).long()
+    # Each broker's replica flat indices in increasing order (CSR).
+    brokers, rows = torch.sort(rbf, stable=True)
+    n_rows = int(torch.searchsorted(brokers, B))
+    rows = rows[:n_rows].contiguous()
+    offsets = torch.searchsorted(brokers[:n_rows].contiguous(),
+                                 torch.arange(B + 1, device=dev))
+    max_rows = int((offsets[1:] - offsets[:-1]).max()) if B else 0
+    out = rd.to(torch.int32).contiguous().clone()
+    size = size.to(torch.float32).contiguous()
+    capacity = capacity.to(torch.float32).contiguous()
+    valid = valid.contiguous()
+    scratch_size = torch.empty(n_rows, dtype=torch.float32, device=dev)
+    scratch_rd = torch.empty(n_rows, dtype=torch.int32, device=dev)
+    moves = torch.empty(B, dtype=torch.int32, device=dev)
+    max_moves = torch.zeros(1, dtype=torch.int32, device=dev)
+    rc = load_library().cc_intra_broker_walk(
+        offsets.data_ptr(), rows.data_ptr(), size.data_ptr(), out.data_ptr(),
+        capacity.data_ptr(), valid.data_ptr(), scratch_size.data_ptr(),
+        scratch_rd.data_ptr(), B, D, int(max_iters), max_rows,
+        moves.data_ptr(), max_moves.data_ptr(), _stream())
+    LAUNCHES["intra_broker_walk"] += 1
+    _check(rc, "intra_broker_walk")
+    iters = torch.clamp(max_moves[0] + 1, max=int(max_iters))
+    return out, iters
+
+
+# ---------------------------------------------------------------------------
+# KI: population selection
+# ---------------------------------------------------------------------------
+
+_MAX_POPULATION = 1024
+
+
+def population_select_plain(boundary, moves, scales, hard, hard_weight: float,
+                            move_weight: float, n_surv: int, pareto: bool):
+    """Twin of KI: the reference program's ``_scores`` and
+    ``_survivor_perm`` through ``analyzer/engine.py``'s scoring helpers in
+    their contracted (compiled) form."""
+    from .analyzer.engine import pareto_ranks, weighted_objective
+    from .utils.ordered import lexsort
+    K = boundary.shape[0]
+    weighted = weighted_objective(boundary, scales, hard,
+                                  hard_weight=hard_weight,
+                                  move_weight=move_weight, moves=moves,
+                                  contract=True)
+    ranks = pareto_ranks(boundary, scales, contract=True)
+    primary = (ranks.to(torch.float32) if pareto
+               else torch.zeros_like(weighted))
+    arange = torch.arange(K, device=boundary.device)
+    order = lexsort((arange, weighted, primary))
+    perm = order[:n_surv][arange % n_surv]
+    perm[0] = 0
+    return ranks, weighted, perm.to(torch.int32)
+
+
+def population_select(boundary, moves, scales, hard, hard_weight: float,
+                      move_weight: float, n_surv: int, pareto: bool):
+    """(ranks int32[K], weighted float32[K], perm int32[K]) of one
+    generation boundary: ``boundary`` float32[K, G] violation stacks,
+    ``moves`` int[K] cumulative moves, ``scales`` float32[G], ``hard``
+    bool[G] — see ``csrc/population_select.cu``."""
+    K, G = boundary.shape
+    if moves.shape != (K,) or scales.shape != (G,) or hard.shape != (G,):
+        raise ValueError("population_select takes boundary [K, G], moves [K], "
+                         "scales and hard [G]")
+    if not 1 <= n_surv <= max(K, 1):
+        raise ValueError(f"n_surv must lie in [1, K], got {n_surv}")
+    from .analyzer.engine import MAX_FUSED_GOALS
+    if G > MAX_FUSED_GOALS:
+        raise ValueError(f"population_select reproduces the reference for "
+                         f"at most {MAX_FUSED_GOALS} goals, got {G}")
+    args = (boundary, moves, scales, hard)
+    if _on_cpu(*args):
+        return population_select_plain(*args, hard_weight, move_weight,
+                                       n_surv, pareto)
+    if hard.dtype != torch.bool:
+        raise TypeError("population_select takes a bool hard mask")
+    if not 1 <= K <= _MAX_POPULATION:
+        raise ValueError(f"population_select runs one block: 1..."
+                         f"{_MAX_POPULATION} plans, got K={K}")
+    dev = boundary.device
+    boundary = boundary.to(torch.float32).contiguous()
+    scales = scales.to(torch.float32).contiguous()
+    moves = moves.to(torch.int32).contiguous()
+    hard = hard.contiguous()
+    ranks = torch.empty(K, dtype=torch.int32, device=dev)
+    weighted = torch.empty(K, dtype=torch.float32, device=dev)
+    perm = torch.empty(K, dtype=torch.int32, device=dev)
+    rc = load_library().cc_population_select(
+        boundary.data_ptr(), moves.data_ptr(), scales.data_ptr(),
+        hard.data_ptr(), float(hard_weight), float(move_weight),
+        int(bool(move_weight)), K, G, int(n_surv), int(bool(pareto)),
+        ranks.data_ptr(), weighted.data_ptr(), perm.data_ptr(), _stream())
+    LAUNCHES["population_select"] += 1
+    _check(rc, "population_select")
+    return ranks, weighted, perm

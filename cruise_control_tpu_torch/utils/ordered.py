@@ -9,7 +9,8 @@ both and from run to run:
   (padding split evenly in front and behind), repeated until at most 32
   partial sums remain, which are summed in order; :func:`tree_sum_last`
   reduces the last axis of a batch of rows the same way, and
-  :func:`lane_row_sum` as XLA reduces a fused row of 24 to 32 elements;
+  :func:`lane_row_sum` as XLA reduces a fused row of 24 to 32 elements,
+  and :func:`matrix_sum` as an eager ``jnp.sum`` reduces a whole matrix;
 - :func:`scan_sum` — XLA's CPU cumulative sum: sequential prefix sums in
   blocks of 16, the block totals scanned the same way and added back;
 - :func:`fma` — one rounding for ``a * b + c``, where the reference's
@@ -25,7 +26,7 @@ from typing import Sequence
 
 import torch
 
-from ..kernels import ordered_range_sum
+from ..kernels import ordered_range_sum, ordered_segment_sum
 
 _WINDOW = 32
 _SCAN_BLOCK = 16
@@ -85,6 +86,79 @@ def lane_row_sum(x: torch.Tensor) -> torch.Tensor:
     for i in range(full, n):
         out = out + x[..., i]
     return out
+
+
+def _lanes(b: int, d: int) -> int:
+    """Accumulators XLA's CPU backend gives an eager sum of a [b, d] matrix
+    (2 <= b, d <= 32): LLVM vectorizes the row loop when a row holds at
+    most 8 elements. Fitted on every shape of 2-32 rows by 2-8 columns
+    (``scripts/probe_sum_order.py``); 1 means in order from zero."""
+    if d >= 9:
+        return 1
+    if b < 16:
+        return b if b in (2, 4, 8) else 1
+    if d >= 7:
+        return 4
+    return 8 if b % 8 < 4 or (d == 2 and b >= 28) else 4
+
+
+def _small_sums(xs: torch.Tensor) -> torch.Tensor:
+    """float32[n] sums of n matrices xs[n, b, d] (2 <= b, d <= 32), each in
+    XLA's eager order: f = :func:`_lanes` accumulators, lane l adding the
+    elements of rows l, l + f, ... of the whole f-row groups in order, the
+    lanes folded by halves, then the leftover rows' elements added in
+    order; with f = 1 every element in order from zero."""
+    n, b, d = xs.shape
+    f = _lanes(b, d)
+    full = b // f * f if f > 1 else 0
+    flat = xs.reshape(n, b * d)
+    if full:
+        lane = (torch.arange(n, device=xs.device)[:, None] * f
+                + (torch.arange(full, device=xs.device) % f
+                   ).repeat_interleave(d)[None, :])
+        acc = ordered_segment_sum(flat[:, :full * d].reshape(-1),
+                                  lane.reshape(-1), n * f).reshape(n, f)
+        while acc.shape[1] > 1:
+            half = acc.shape[1] // 2
+            acc = acc[:, :half] + acc[:, half:]
+        flat = torch.cat([acc, flat[:, full * d:]], dim=1)
+    m = flat.shape[1]
+    return ordered_range_sum(flat.reshape(-1), torch.arange(
+        0, n * m + 1, m, device=xs.device))
+
+
+def matrix_sum(x: torch.Tensor) -> torch.Tensor:
+    """0-dim float32 sum of a matrix x[B, D] in the order XLA's CPU backend
+    gives an eager ``jnp.sum`` over both axes (probed). One column or one
+    row reduces as a vector (:func:`tree_sum`), at most 32 x 32 as one
+    :func:`_small_sums` matrix. Larger: windows of min(n, 32) along each
+    axis, each axis' padding split evenly in front and behind; without
+    padding each window reduces as a small matrix, with it each window's
+    elements add in row order from zero; the window sums then reduce as a
+    matrix again. A padding of exactly 1 on an axis over 32 (31, 63, ...
+    mod 32) follows an order not reproduced here, and raises."""
+    x = x.to(torch.float32)
+    B, D = x.shape
+    if B == 1 or D == 1:
+        return tree_sum(x.reshape(-1))
+    if B <= _WINDOW and D <= _WINDOW:
+        return _small_sums(x[None])[0]
+    if any(n > _WINDOW and n % _WINDOW == _WINDOW - 1 for n in (B, D)):
+        raise ValueError(f"matrix_sum does not reproduce XLA's order for a "
+                         f"[{B}, {D}] matrix (one padding element)")
+    wb, wd = min(B, _WINDOW), min(D, _WINDOW)
+    nb, nd = -(-B // wb), -(-D // wd)
+    pb, pd = nb * wb - B, nd * wd - D
+    xp = torch.nn.functional.pad(x, (pd // 2, pd - pd // 2,
+                                     pb // 2, pb - pb // 2))
+    windows = xp.reshape(nb, wb, nd, wd).transpose(1, 2).reshape(
+        nb * nd, wb, wd)
+    if pb or pd:
+        parts = ordered_range_sum(windows.reshape(-1), torch.arange(
+            0, nb * nd * wb * wd + 1, wb * wd, device=x.device))
+    else:
+        parts = _small_sums(windows)
+    return matrix_sum(parts.reshape(nb, nd))
 
 
 def scan_sum(x: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,10 @@ main-path optimizer, runs one warm-up optimize (seed 0), then profiles with
   aggregation and assembly on the host, the 1%-churn delta upload and KF),
   after a cold cycle, the resident state's warmup and one warm cycle;
 - one ``stats_summary`` of the resident model (KB aggregates and KG);
+- one warm population optimize (``chip_smoke`` phase 10: K = 4, the
+  per-goal walk, seed 1; KI at each generation boundary);
+- one intra-broker rebalance (``chip_smoke`` phase 11: four logdirs a
+  broker; KH walks every broker in one launch);
 
 and prints for each:
 
@@ -51,7 +55,8 @@ def _union_us(intervals):
 HAND_WRITTEN = ("threefry2x32_kernel", "ordered_segment_sum_kernel",
                 "net_broker_flow_kernel", "scenario_failover_kernel",
                 "first_fit_kernel", "delta_row_scatter_kernel",
-                "cluster_stats_kernel")
+                "cluster_stats_kernel", "intra_walk_kernel",
+                "population_select_kernel")
 
 
 def profiled(fn):
@@ -199,6 +204,28 @@ def main(argv=None) -> int:
     _, prof, wall_s = profiled(
         lambda: stats_summary(served.model, device="cuda"))
     report("stats_summary of the resident model", prof, wall_s, args.top, "")
+
+    search = chip_smoke.port_search_package()
+    pop_opt = search.optimizer(population=search.PopulationConfig(
+        **chip_smoke.SEARCH_POPULATION))
+    search.optimize(pop_opt, model, md)
+    kernels.reset_launch_counts()
+    syncs0 = engine.HOST_SYNCS
+    pop, prof, wall_s = profiled(lambda: search.optimize(pop_opt, model, md))
+    report(f"warm population optimize (K="
+           f"{chip_smoke.SEARCH_POPULATION['size']}, seed "
+           f"{chip_smoke.SEARCH_SEED})", prof, wall_s, args.top,
+           f"moves {pop.num_moves}, winner "
+           f"{pop.telemetry['population']['winner']}, host syncs "
+           f"{engine.HOST_SYNCS - syncs0}, ")
+
+    setup = chip_smoke.intra_setup(search, chip_smoke.build_spec())
+    search.intra_broker_rebalance(*setup)
+    kernels.reset_launch_counts()
+    intra, prof, wall_s = profiled(
+        lambda: search.intra_broker_rebalance(*setup))
+    report(f"intra-broker rebalance ({len(intra.moves)} moves, "
+           f"{intra.iterations} iterations)", prof, wall_s, args.top, "")
     return 0
 
 

@@ -196,3 +196,77 @@ def test_resident_warmup_leaves_no_library_load(cuda_device, warm,
     assert torch.equal(state.model.leader_load.cpu(), torch.from_numpy(lead))
     built = collector.snapshot()["compileEvents"] - before["compileEvents"]
     assert built == (0 if warm else 1)
+
+
+def _jbod_inputs(gen, B, D, P, R, max_rows_on_one=None):
+    """A random JBOD layout (padding brokers and partitions, draining and
+    absent disks, equal and zero sizes) as (rd, size, rb, cap, valid)."""
+    rb = torch.randint(0, B, (P, R), generator=gen, dtype=torch.int32)
+    rb[-3:] = B + 1                                  # padding partitions
+    Bp = B + 1
+    rb = torch.where(rb > B, Bp, rb)
+    on = rb < Bp
+    rd = torch.where(on, torch.randint(0, D, (P, R), generator=gen), -1)
+    rd = torch.where(on & (torch.rand(P, R, generator=gen) < 0.6), 0, rd)
+    choices = torch.tensor([0.0, 10.0, 25.5, 40.0, 40.0, 77.25])
+    size = choices[torch.randint(0, 6, (P, R), generator=gen)]
+    size = torch.where(on, size, 0.0)
+    cap = torch.rand(Bp, D, generator=gen) * 2000 + 100
+    valid = torch.ones(Bp, D, dtype=torch.bool)
+    valid[B:] = False
+    valid[::3, -1] = False
+    cap = torch.where(valid, cap, 0.0)
+    cap[1::4, 0] = 0.0                               # draining
+    return rd.to(torch.int32), size, rb, cap, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D,P,max_iters", [(8, 4, 400, 512),
+                                             (5, 3, 60, 3),
+                                             (104, 4, 20_096, 512),
+                                             (2, 4, 40_000, 20),
+                                             (6, 12, 2_000, 512),
+                                             (6, 48, 3_000, 512),
+                                             (4, 64, 3_000, 512)])
+def test_intra_broker_walk_matches_twin(cuda_device, B, D, P, max_iters):
+    """The fourth case puts ~40,000 replicas on each broker, more than a
+    block's shared memory stages: the walk reads a global scratch copy. The
+    last three sum the mean over 12, 48 and 64 disks (one and two windows
+    of XLA's tree order)."""
+    gen = torch.Generator().manual_seed(B * 1000 + D)
+    args = _jbod_inputs(gen, B, D, P, 2)
+    rd, it = kernels.intra_broker_walk(*(t.to(cuda_device) for t in args),
+                                       max_iters)
+    want_rd, want_it = kernels.intra_broker_walk_plain(*args, max_iters)
+    assert torch.equal(rd.cpu(), want_rd)
+    assert int(it) == int(want_it)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,G,hard", [(4, 4, "mixed"), (64, 16, "soft"),
+                                      (64, 16, "hard"), (1024, 22, "mixed"),
+                                      (128, 22, "soft")])
+def test_population_select_matches_twin(cuda_device, K, G, hard):
+    gen = torch.Generator().manual_seed(K + G)
+    boundary = torch.rand(K, G, generator=gen) * torch.pow(
+        10.0, torch.randint(-7, 4, (K, G), generator=gen).float())
+    boundary[K // 2] = boundary[K // 3]                 # a tie
+    boundary[1, 0] = float("nan")                       # sorts last
+    boundary[K - 1] = 0.0
+    scales = torch.rand(G, generator=gen) * 1e4
+    mask = {"soft": torch.zeros(G, dtype=torch.bool),
+            "hard": torch.ones(G, dtype=torch.bool),
+            "mixed": torch.arange(G) % 3 == 0}[hard]
+    moves = torch.randint(0, 100_000, (K,), generator=gen)
+    for move_weight, pareto in ((0.0, False), (0.1, True)):
+        n_surv = max(1, min(K // 2, K - 1))
+        got = kernels.population_select(
+            *(t.to(cuda_device) for t in (boundary, moves, scales, mask)),
+            1000.0, move_weight, n_surv, pareto)
+        want = kernels.population_select_plain(
+            boundary, moves, scales, mask, 1000.0, move_weight, n_surv,
+            pareto)
+        for g, w in zip(got, want):
+            # bit for bit, NaN (the NaN row's score) equal to NaN
+            torch.testing.assert_close(g.cpu(), w.to(g.dtype), rtol=0,
+                                       atol=0, equal_nan=True)

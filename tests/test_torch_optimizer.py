@@ -5,7 +5,8 @@ residuals bit for bit, the same audit verdicts — in the per-goal and
 fused walks, with and without polish rounds, and with a dead broker. Also:
 the port's entry points refuse a missing card, import and run with JAX
 blocked (an optimize, a what-if N-1 sweep, a move schedule, a monitor
-cycle and a ``stats_summary``), and import nothing of the JAX package."""
+cycle, a ``stats_summary``, a population and a branched optimize and an
+intra-broker rebalance), and import nothing of the JAX package."""
 
 import ast
 import os
@@ -134,10 +135,19 @@ def test_entry_points_need_the_card(monkeypatch):
     assert opt.device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(population=2), dict(branches=4),
-                                dict(mesh=object())])
-def test_unported_search_modes_raise(kw):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(population=2, branches=4), ValueError, "search.branches"),
+    (dict(population=2, mesh=object()), ValueError, "search.mesh.devices"),
+    (dict(population=ta.PopulationConfig(size=2, objective="bogus")),
+     ValueError, "unknown population objective"),
+    (dict(population=2, config=ta.SearchConfig(fused_chain=True)),
+     ValueError, "search.fused.chain"),
+    (dict(branches=4, mesh=object()), ValueError, "search.mesh.devices"),
+    (dict(mesh=object()), NotImplementedError, "K15")])
+def test_unported_search_modes_raise(kw, error, match):
+    """The population and branched modes are ported and refuse the
+    reference's exclusive combinations; a device mesh is not ported."""
+    with pytest.raises(error, match=match):
         ta.TorchGoalOptimizer(goals=ta.goals_by_name(CHAIN), device="cpu",
                               **kw)
 
@@ -201,10 +211,29 @@ for w in range(3):
 served = monitor.cluster_model(3000)
 assert monitor.resident.last_update == "full"
 assert stats_summary(served.model, device="cpu")["numReplicas"] == 64
+search = dict(goals=goals_by_name(["ReplicaDistributionGoal"]),
+              config=SearchConfig(num_replica_candidates=16,
+                                  apply_per_iter=16), device="cpu")
+waive = OptimizationOptions(waived_hard_goals=frozenset({"RackAwareGoal"}))
+pop = TorchGoalOptimizer(population=2, **search).optimize(model, md, waive)
+assert pop.telemetry["population"]["size"] == 2
+branched = TorchGoalOptimizer(branches=2, **search).optimize(model, md, waive)
+assert branched.num_moves > 0
+from cruise_control_tpu_torch.analyzer import intra_broker_rebalance
+from cruise_control_tpu_torch.config import FixedCapacityResolver
+jbod = SimulatedKafkaCluster()
+for b in range(4):
+    jbod.add_broker(b, logdirs=("d0", "d1"))
+for p in range(32):
+    jbod.add_partition("t", p, [p % 2, 1 - p % 2], size_mb=200.0,
+                       logdir_by_broker={0: "d0", 1: "d0"})
+disks = intra_broker_rebalance(model, md, jbod, FixedCapacityResolver())
+assert disks.moves and disks.iterations > 0
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", res.num_moves, report.riskiest().scenario.name,
-      len(sched.batches))
+      len(sched.batches), pop.num_moves, branched.num_moves,
+      len(disks.moves))
 '''
 
 
