@@ -4,8 +4,8 @@ GPU: builds the hand-written kernels from ``cruise_control_tpu_torch/csrc``,
 holds each against its plain PyTorch twin at the main path's shapes, drives
 the dry-run rebalance proposal, the what-if sweep, the move schedule, the
 monitor's device-resident model cycle, the population and branched search
-modes and the intra-broker disk rebalance end to end, and checks their
-results.
+modes, the intra-broker disk rebalance and the fleet control plane end to
+end, and checks their results.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -18,10 +18,12 @@ Phases (every failure raises; nothing is caught):
 3. kernels vs twins — KA (threefry2x32), KB (ordered segment sum, also on
    the what-if sweep's batched layout), KC (net broker flow), KD
    (scenario failover), KF (delta row scatter), KG (cluster stats), KH
-   (intra-broker walk, at phase 11's shape and a small one) and KI
-   (population selection) against their plain versions, with times and
-   bounds; KE (first fit) is held to its twin after phase 4, at the shape
-   of the main path's own schedule;
+   (intra-broker walk, at phase 11's shape and a small one), KI
+   (population selection) and KJ (fleet scenario failover, at phase 12's
+   N-1 shape, every cluster with its own placement, masks and kills)
+   against their plain versions, with times and bounds; KE
+   (first fit) is held to its twin after phase 4, at the shape of the main
+   path's own schedule;
 4. main path — 100 brokers x 20K partitions at RF 2, the 4-goal chain
    with the off-chain hard-goal audit, seeds 0, 1, 1 (proposals of the two
    seed-1 runs must be identical; KA, KB and KC must have launched);
@@ -49,7 +51,18 @@ Phases (every failure raises; nothing is caught):
 11. intra-broker — phase 4's cluster with four logdirs a broker (two of
     them new and empty): a rebalance and a drain of d0 on ten brokers,
     held to the reference's (``REFERENCE_INTRA``); KH launched once per
-    call.
+    call;
+12. fleet — bench scenario 6: 16 members, each phase 4's cluster with its
+    loads scaled by 1 + 0.01 c, proposed by ``FleetOptimizer`` (cold, then
+    warm: one group, every member equal to a sequential per-goal optimize
+    of it, the warm propose loading no kernel library), their N-1 sweep
+    and a trajectory sweep of four of them (one KJ launch a sweep), held
+    to the reference's (``REFERENCE_FLEET``); then a ``FleetRegistry`` of
+    two members on phase 9's simulated cluster: a cold tick and a warm
+    tick after a 1%-churn ingest (each tick one KJ launch and no tick
+    error, each member's cache and N-1 summary equal to a fleet propose
+    and sweep of the same served models; the warm tick loading no kernel
+    library).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -174,6 +187,34 @@ REFERENCE_SEARCH = dict(
         moves=19167, proposals=13595, digest="b811bc8eb48d995f"),
     branches=dict(winner=0, stacks="f5a5fd42d16a2030", moves=19173,
                   proposals=13488, digest="dae2e5ca7d020381"))
+#: phase 12 (bench scenario 6, ``bench.py:287-410``; the forecast sweep
+#: of ``bench.py:577-700``): FLEET_CLUSTERS members, member c phase 4's
+#: cluster with its loads scaled by float32(1 + 0.01 c), the 4-goal chain
+#: with the per-goal walk and bench's search, seed 3, the hard-goal check
+#: skipped; the N-1 sweep of every member; the trajectory sweep of the
+#: first FLEET_FORECAST_CLUSTERS over +1 h / +6 h / +24 h x p50 / p90, each
+#: scale's per-topic factors drawn from numpy seed 13 in [0.9, 1.6] (the
+#: forecast fit is not ported)
+FLEET_CLUSTERS = 16
+FLEET_SEARCH = dict(num_replica_candidates=512, num_dest_candidates=16,
+                    apply_per_iter=512, max_iters_per_goal=512)
+FLEET_SEED = 3
+FLEET_FORECAST_CLUSTERS = 4
+FLEET_HORIZONS = (3_600_000, 21_600_000, 86_400_000)
+FLEET_QUANTILES = (0.5, 0.9)
+FLEET_FACTOR_SEED = 13
+#: phase 12 as the reference computes it (the JAX package on the CPU with
+#: every cluster on one device, the port's layout:
+#: ``scripts/fleet_reference.py``): per member (moves, proposals, digest);
+#: for each sweep the digest of its summaries and each member's max risk
+REFERENCE_FLEET = dict(
+    members=[[19093, 13512, 'd9e5be4ae8010f3f']] * FLEET_CLUSTERS,
+    n1=dict(digest='7917b3288273600d', max_risk=[0.3] * FLEET_CLUSTERS,
+            riskiest=[0] * FLEET_CLUSTERS),
+    trajectories=dict(digest='82154ca04aaaff9c',
+                      max_risk=[0.3] * FLEET_FORECAST_CLUSTERS,
+                      riskiest=['forecast:+1h:p50']
+                      * FLEET_FORECAST_CLUSTERS))
 REFERENCE_INTRA = dict(
     rebalance=dict(moves=15334, digest="8578c1cf5f136082", iterations=485,
                    violations=[0.0, 0.0, 3608307.0, 0.0]),
@@ -208,6 +249,9 @@ KERNEL_INFO = {
     "population_select": dict(
         source="cruise_control_tpu_torch/csrc/population_select.cu",
         replaces="cruise_control_tpu/parallel/population.py:262"),
+    "fleet_scenario_failover": dict(
+        source="cruise_control_tpu_torch/csrc/fleet_failover.cu",
+        replaces="cruise_control_tpu/fleet/engine.py:780"),
 }
 
 
@@ -791,6 +835,7 @@ def phase_kernels(model, main_arrays: dict, scale_arrays: dict,
         library_ms=lib_ms))
     _kernel_intra_walk(rows, intra_state)
     _kernel_population_select(rows, rng)
+    _kernel_fleet_failover(rows, model)
     return rows
 
 
@@ -933,6 +978,61 @@ def _kernel_population_select(rows, rng):
         _keep_first_shape(rows, "population_select", err, dict(
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
+
+
+def _kernel_fleet_failover(rows, model):
+    """KJ against its twin at phase 12's N-1 shape: FLEET_CLUSTERS
+    clusters, each the main-path placement with its broker ids rolled by
+    the cluster's index and two brokers of its own down, every broker
+    killed in turn starting at a different one per cluster (S =
+    NUM_BROKERS scenarios a cluster). Each cluster thus reads placements,
+    masks and scenarios that no other cluster has, so a kernel that
+    mixed up clusters would differ from the twin. The twin runs once, on
+    the card."""
+    import torch
+    from cruise_control_tpu_torch import kernels
+    dev = model.device
+    C, S = FLEET_CLUSTERS, NUM_BROKERS
+    B = model.num_brokers_padded
+    P, R = model.replica_broker.shape
+
+    def per_cluster(t):
+        return t.expand((C,) + tuple(t.shape)).contiguous()
+    c_ix = torch.arange(C, device=dev)
+    rb = per_cluster(model.replica_broker)
+    real = rb < NUM_BROKERS
+    rb = torch.where(real, (rb + c_ix.view(C, 1, 1)) % NUM_BROKERS, rb)
+    alive = per_cluster(model.broker_alive)
+    alive[c_ix, c_ix % NUM_BROKERS] = False
+    alive[c_ix, (c_ix + 37) % NUM_BROKERS] = False
+    s_ix = torch.arange(S, device=dev)
+    dead = torch.zeros((C, S, B), dtype=torch.bool, device=dev)
+    dead[c_ix.view(C, 1), s_ix.view(1, S),
+         (s_ix.view(1, S) + c_ix.view(C, 1)) % S] = True
+    args = (rb.contiguous(), per_cluster(model.replica_offline),
+            per_cluster(model.replica_pref_pos),
+            per_cluster(model.broker_valid), alive,
+            dead, torch.zeros_like(dead), per_cluster(model.partition_valid))
+    got = kernels.fleet_scenario_failover(*args)
+    want, plain = _once_ms(
+        lambda: kernels.fleet_scenario_failover_plain(*args))
+    err = max(float((g.long() - w.long()).abs().max())
+              for g, w in zip(got, want))
+    if err != 0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail("fleet_scenario_failover differs from its twin at phase 12's "
+             "N-1 shape")
+    del got, want
+    ms = time_ms(lambda: kernels.fleet_scenario_failover(*args), graph=True,
+                 launches=20)
+    nbytes = (C * P * R * 9 + 2 * C * B + 2 * C * S * B + C * P  # inputs
+              + C * S * P * R * 9 + C * S * P)                 # outputs
+    b_ms, b_by = bound(nbytes, 8 * C * S * P * R)
+    log(f"KJ fleet_scenario_failover C={C} S={S} P={P} R={R} B={B}: "
+        f"bit-exact vs twin; {ms:.4f} ms, twin {plain:.3f} ms (once), bound "
+        f"{b_ms:.5f} ms ({b_by})")
+    _keep_first_shape(rows, "fleet_scenario_failover", err, dict(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None))
 
 
 def schedule_context(model, md, proposals):
@@ -1772,6 +1872,287 @@ def phase_intra(setup):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the fleet control plane
+# ---------------------------------------------------------------------------
+
+def fleet_grid(pkg, topics):
+    """Phase 12's trajectory grid: one ``TrajectoryScale`` per (horizon,
+    quantile), per-topic factors drawn from numpy seed FLEET_FACTOR_SEED in
+    [0.9, 1.6] (the same draw for either package)."""
+    rng = np.random.default_rng(FLEET_FACTOR_SEED)
+    grid = []
+    for h in FLEET_HORIZONS:
+        for q in FLEET_QUANTILES:
+            f = rng.uniform(0.9, 1.6, size=len(topics))
+            grid.append(pkg.TrajectoryScale(
+                horizon_ms=h, quantile=q,
+                factors=tuple(zip(topics, (float(x) for x in f)))))
+    return grid
+
+
+def _sweep_digest(summaries, key):
+    return dict(digest=_json_sha(summaries),
+                max_risk=[s["maxRisk"] for s in summaries],
+                riskiest=[s[key] for s in summaries])
+
+
+def fleet_runs(pkg, model, md, *, warm=False):
+    """Phase 12's fleet sequence over one package's modules (``pkg``, see
+    ``port_fleet_package``; ``scripts/fleet_reference.py`` passes the JAX
+    package's): the members, a cold fleet propose (and with ``warm`` a
+    second one), the N-1 sweep of every member and the trajectory sweep of
+    the first FLEET_FORECAST_CLUSTERS. Returns what it saw; the caller
+    gates it."""
+    members = [(f"cluster-{c:02d}",
+                pkg.scale_loads(model, np.float32(1.0 + 0.01 * c)), md)
+               for c in range(FLEET_CLUSTERS)]
+    fleet = pkg.stack(members)
+    fo = pkg.fleet_optimizer()
+    out = {"fleet": fleet, "engine": fo}
+
+    def timed(fn):
+        pkg.sync()
+        mark = pkg.host_syncs()
+        t0 = time.monotonic()
+        res = fn()
+        pkg.sync()
+        return res, time.monotonic() - t0, pkg.host_syncs() - mark
+
+    results, out["cold_wall"], out["cold_syncs"] = timed(
+        lambda: fo.propose(fleet, pkg.fleet_options()))
+    out["groups"] = fo._groups_gauge_val
+    if warm:
+        before = pkg.collector.snapshot()
+        results, out["warm_wall"], out["warm_syncs"] = timed(
+            lambda: fo.propose(fleet, pkg.fleet_options()))
+        after = pkg.collector.snapshot()
+        out["warm_library_events"] = (
+            after["compileEvents"] + after["aotCompileEvents"]
+            - before["compileEvents"] - before["aotCompileEvents"])
+    out["results"] = results
+    out["members"] = [[r.num_moves, len(r.proposals), _proposals_sha(r)]
+                      for r in results]
+    mark = pkg.kj_launches()
+    n1, out["n1_wall"], _ = timed(lambda: fo.sweep_n1(fleet))
+    out["n1_kj"] = pkg.kj_launches() - mark
+    out["n1"] = _sweep_digest(n1, "riskiestBroker")
+    out["n1_summaries"] = n1
+    fleet4 = pkg.stack(members[:FLEET_FORECAST_CLUSTERS])
+    grid = fleet_grid(pkg, sorted(md.topic_index))
+    mark = pkg.kj_launches()
+    traj, out["traj_wall"], _ = timed(
+        lambda: fo.sweep_trajectories(fleet4, grid))
+    out["traj_kj"] = pkg.kj_launches() - mark
+    out["trajectories"] = _sweep_digest(traj, "riskiest")
+    return out
+
+
+def port_fleet_package(device="cuda"):
+    """``fleet_runs``' view of the port on ``device``."""
+    import types
+
+    import torch
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.analyzer import (OptimizationOptions,
+                                                   SearchConfig,
+                                                   TorchGoalOptimizer,
+                                                   engine, goals_by_name)
+    from cruise_control_tpu_torch.core.runtime_obs import default_collector
+    from cruise_control_tpu_torch.fleet import FleetModel, FleetOptimizer
+    from cruise_control_tpu_torch.whatif import TrajectoryScale
+
+    def scale_loads(model, f):
+        f = torch.tensor(f, dtype=torch.float32, device=model.device)
+        return model.replace(leader_load=model.leader_load * f,
+                             follower_load=model.follower_load * f)
+
+    return types.SimpleNamespace(
+        scale_loads=scale_loads,
+        stack=lambda members: FleetModel.stack(members, device=device),
+        fleet_optimizer=lambda: FleetOptimizer(TorchGoalOptimizer(
+            goals=goals_by_name(GOALS), config=SearchConfig(**FLEET_SEARCH),
+            device=device)),
+        fleet_options=lambda: OptimizationOptions(
+            seed=FLEET_SEED, skip_hard_goal_check=True),
+        TrajectoryScale=TrajectoryScale, collector=default_collector(),
+        sync=torch.cuda.synchronize if device == "cuda" else lambda: None,
+        host_syncs=lambda: engine.HOST_SYNCS,
+        kj_launches=lambda: kernels.LAUNCHES["fleet_scenario_failover"])
+
+
+def _library_events(collector, before):
+    after = collector.snapshot()
+    return (after["compileEvents"] + after["aotCompileEvents"]
+            - before["compileEvents"] - before["aotCompileEvents"])
+
+
+def phase_fleet(model, md, spec):
+    import torch
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.analyzer import engine
+    log(f"== phase 12: fleet of {FLEET_CLUSTERS} x 100x20K (bench scenario "
+        f"6), N-1 and trajectory sweeps, registry ticks")
+    pkg = port_fleet_package()
+    # Unload the kernel library, as in a fresh process: the cold propose
+    # must load it once and the warm one load nothing.
+    kernels._LIB = None
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    before = pkg.collector.snapshot()
+    out = fleet_runs(pkg, model, md, warm=True)
+    fleet, fo = out["fleet"], out["engine"]
+    cold_events = (_library_events(pkg.collector, before)
+                   - out["warm_library_events"])
+    log(f"fleet propose: cold {out['cold_wall']:.3f}s ({out['cold_syncs']} "
+        f"host syncs), warm {out['warm_wall']:.3f}s ({out['warm_syncs']} "
+        f"host syncs), {out['groups']} group(s); library events: "
+        f"{cold_events} cold, {out['warm_library_events']} warm")
+    if out["groups"] != 1:
+        fail(f"the fleet split into {out['groups']} groups, want 1")
+    if out["warm_library_events"]:
+        fail(f"the warm fleet propose built or loaded the kernel library "
+             f"{out['warm_library_events']} times")
+    # The sequential loop over the same members, on the card.
+    opt = fo.optimizer
+    torch.cuda.synchronize()
+    mark = engine.HOST_SYNCS
+    t0 = time.monotonic()
+    seq = [opt.optimize(m.model, m.metadata, pkg.fleet_options())
+           for m in fleet.members]
+    torch.cuda.synchronize()
+    seq_wall = time.monotonic() - t0
+    log(f"sequential loop of {FLEET_CLUSTERS} optimizes: {seq_wall:.3f}s "
+        f"({engine.HOST_SYNCS - mark} host syncs); fleet warm / sequential "
+        f"= {out['warm_wall'] / seq_wall:.3f}")
+    for m, fr, sr in zip(fleet.members, out["results"], seq):
+        if ([p.to_json() for p in fr.proposals]
+                != [p.to_json() for p in sr.proposals]
+                or fr.num_moves != sr.num_moves
+                or [g.iterations for g in fr.goal_results]
+                != [g.iterations for g in sr.goal_results]):
+            fail(f"fleet member {m.cluster_id} differs from its sequential "
+                 f"optimize")
+    log("every member equals its sequential optimize (proposals, moves, "
+        "per-goal iterations)")
+    log(f"members (moves, proposals, digest): {out['members']}")
+    log(f"N-1 sweep of {FLEET_CLUSTERS} x {NUM_BROKERS} scenarios: "
+        f"{out['n1_wall']:.3f}s, {out['n1_kj']} KJ launch(es); "
+        f"{out['n1']}")
+    log(f"trajectory sweep of {FLEET_FORECAST_CLUSTERS} x "
+        f"{len(FLEET_HORIZONS) * len(FLEET_QUANTILES)} scenarios: "
+        f"{out['traj_wall']:.3f}s, {out['traj_kj']} KJ launch(es); "
+        f"{out['trajectories']}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    log(f"peak device memory over propose and sweeps: {peak:.0f} MiB")
+    if out["n1_kj"] != 1 or out["traj_kj"] != 1:
+        fail("each fleet sweep must launch KJ exactly once")
+    got = dict(members=out["members"], n1=out["n1"],
+               trajectories=out["trajectories"])
+    if REFERENCE_FLEET is None:
+        fail(f"no reference constants for phase 12; the port gave {got}")
+    if got != REFERENCE_FLEET:
+        fail(f"phase 12 differs from the reference's {REFERENCE_FLEET}")
+    del out, fleet, seq
+    _fleet_registry_ticks(spec)
+    launches = dict(kernels.LAUNCHES)
+    log(f"fleet launches: {json.dumps(launches)}")
+    for name in ("threefry2x32", "ordered_segment_sum", "net_broker_flow",
+                 "fleet_scenario_failover"):
+        if not launches[name]:
+            fail(f"the fleet path did not launch {name}")
+    return launches
+
+
+def _fleet_registry_ticks(spec):
+    """Two members on phase 9's simulated cluster under one
+    ``FleetRegistry``: a cold tick, then a warm tick after a 1%-churn
+    ingest. Each tick's cached results must equal a fleet propose of the
+    same served models; the warm tick must load no kernel library."""
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.analyzer import (SearchConfig,
+                                                   TorchGoalOptimizer,
+                                                   goals_by_name)
+    from cruise_control_tpu_torch.fleet import FleetModel, FleetRegistry
+    served = port_package()
+    clock = {"now": 0}
+    registry = FleetRegistry(
+        TorchGoalOptimizer(goals=goals_by_name(GOALS),
+                           config=SearchConfig(**FLEET_SEARCH),
+                           device="cuda"),
+        now_ms=lambda: clock["now"])
+    setups = {}
+    for cid in ("east", "west"):
+        _sim, monitor, keys, vals, ingest, now_ms = served_setup(served,
+                                                                 spec)
+        registry.register(cid, monitor)
+        setups[cid] = (monitor, keys, vals, ingest, now_ms)
+
+    def tick(tag, churn):
+        for _cid, (_m, keys, vals, ingest, now_ms) in setups.items():
+            if churn:
+                vals = vals.copy()
+                vals[:len(keys) // 100] += 1.0
+                ingest(vals, 2)
+            else:
+                ingest(vals, SERVED_WINDOWS + 1)
+            clock["now"] = now_ms()
+        # The registry logs a failed sweep or detector run and only marks
+        # its tick-error meter; a stale ``last_risk`` must not pass either.
+        for cid in setups:
+            registry.member(cid).last_risk = None
+        errors_before = registry._tick_errors.count
+        kj_before = kernels.LAUNCHES["fleet_scenario_failover"]
+        before = served.collector.snapshot()
+        t0 = time.monotonic()
+        summary = registry.tick()
+        wall = time.monotonic() - t0
+        events = _library_events(served.collector, before)
+        kj = kernels.LAUNCHES["fleet_scenario_failover"] - kj_before
+        tick_errors = registry._tick_errors.count - errors_before
+        if summary["proposed"] != 2 or summary["errors"] or tick_errors:
+            fail(f"registry {tag} tick did not propose and sweep both "
+                 f"members: {summary}, {tick_errors} tick error(s)")
+        if kj != 1:
+            fail(f"registry {tag} tick launched KJ {kj} times, want 1")
+        # The propose and sweep that check the tick are not the path's:
+        # their launches are taken back out of the counts.
+        counts = dict(kernels.LAUNCHES)
+        models = [(cid, setups[cid][0].cluster_model(clock["now"]))
+                  for cid in setups]
+        fleet = FleetModel.stack(
+            [(cid, r.model, r.metadata, r.generation, r.stale)
+             for cid, r in models], device="cuda")
+        want = registry.engine.propose(fleet, registry.options)
+        for (cid, _r), w in zip(models, want):
+            got = registry.member(cid).cache.fast_entry()
+            if got is None or _proposals_sha(got.result) != \
+                    _proposals_sha(w) or got.result.num_moves != w.num_moves:
+                fail(f"registry {tag} tick: {cid}'s cache differs from a "
+                     f"fleet propose of its served model")
+        want_risk = {r["clusterId"]: r
+                     for r in registry.engine.sweep_n1(fleet)}
+        for cid in setups:
+            if registry.member(cid).last_risk != want_risk.get(cid):
+                fail(f"registry {tag} tick: {cid}'s N-1 summary "
+                     f"{registry.member(cid).last_risk} differs from a "
+                     f"fleet sweep of its served model {want_risk.get(cid)}")
+        kernels.LAUNCHES.update(counts)
+        risks = {cid: registry.member(cid).last_risk["maxRisk"]
+                 for cid in setups}
+        log(f"registry {tag} tick: {wall:.3f}s, {summary}, library events "
+            f"{events}, one KJ launch, no tick errors, caches and N-1 "
+            f"summaries equal to a fleet propose and sweep, N-1 max risk "
+            f"{risks}")
+        return events
+
+    kernels._LIB = None          # a fresh process: the cold tick loads it
+    if tick("cold", churn=False) != 1:
+        fail("the cold registry tick did not load the kernel library once")
+    if tick("warm", churn=True):
+        fail("the warm registry tick built or loaded the kernel library")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1801,6 +2182,7 @@ def main() -> int:
     served_launches = phase_served(spec)
     search_launches = phase_search_modes(model, md)
     intra_launches = phase_intra(intra)
+    fleet_launches = phase_fleet(model, md, spec)
 
     # Each kernel's launches come from the run of the path it serves.
     launches.update(scenario_failover=whatif_launches["scenario_failover"],
@@ -1808,7 +2190,9 @@ def main() -> int:
                     delta_row_scatter=served_launches["delta_row_scatter"],
                     cluster_stats=served_launches["cluster_stats"],
                     population_select=search_launches["population_select"],
-                    intra_broker_walk=intra_launches["intra_broker_walk"])
+                    intra_broker_walk=intra_launches["intra_broker_walk"],
+                    fleet_scenario_failover=fleet_launches[
+                        "fleet_scenario_failover"])
     kernels_line = [dict(name=name, route="cuda", source=info["source"],
                          replaces=info["replaces"], launches=launches[name],
                          **rows[name])

@@ -11,8 +11,10 @@ jointly (``population=``, :mod:`..parallel.population`) and best-of-N
 independent branches (``branches=``, :mod:`..parallel.branches`); a
 ``tuned_store`` supplies per-shape-bucket schedules (:mod:`.tuning`).
 
-Left out: the device-mesh mode (it raises ``NotImplementedError``: the
-port runs on one GPU), and the tracer, device collector and sensor hooks;
+A device mesh is one device (``parallel.sharding``, the mesh-less path): a
+one-device mesh runs the plain path and a wider one raises
+``NotImplementedError`` naming ROADMAP queue 2 K15. Left out: the tracer,
+device collector and sensor hooks;
 ``duration_s`` fields come from ``time.monotonic()``.
 """
 
@@ -194,9 +196,14 @@ class TorchGoalOptimizer:
                              "mutually exclusive: branches replicate the "
                              "model per device, the mesh shards it")
         if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported: the port runs on one GPU "
-                "(ROADMAP Queue 2 K15)")
+            # The mesh-less sharding path: a one-device mesh runs the plain
+            # path; anything wider raises naming K15.
+            from ..parallel.sharding import check_one_device
+            if check_one_device(mesh).device != self.device:
+                raise ValueError(f"the mesh lies on {mesh.device}, the "
+                                 f"optimizer runs on {self.device}")
+        #: the one-device mesh (``parallel.sharding.make_mesh``) or None
+        self.mesh = mesh
         self.options_generator = options_generator
         #: the registered hard-goal set for the post-optimization audit
         #: (None = the default catalog's hard members)

@@ -33,16 +33,22 @@ Two more carry the search modes built on the analyzer:
 - **KI** ``population_select`` — one generation boundary of the population
   search: joint scoring, Pareto ranks and the survivor permutation.
 
+One more carries the fleet's scenario sweeps:
+
+- **KJ** ``fleet_scenario_failover`` — KD's placement edit and failover
+  over a fleet's ``[C, S]`` grid in one launch, one thread per (cluster,
+  scenario, partition) row.
+
 Each wrapper takes the plain twin for a tensor on the CPU, and for a CUDA
 tensor launches its kernel or raises: there is no fallback. Each launch
 adds one to ``LAUNCHES[name]``.
 
 The kernels are built from ``csrc/*.cu`` at first use with ``nvcc`` into
 ``build/torch_kernels/`` (one ``nvcc`` per source, all started together,
-then one link), keyed by a hash of the sources and flags, and loaded with
-ctypes. Each C entry returns ``cudaGetLastError()``. Each build or load
-is reported to the default device-runtime collector, which counts it as a
-compile event.
+then one link), keyed by a hash of the sources, the headers they include
+and the flags, and loaded with ctypes. Each C entry returns
+``cudaGetLastError()``. Each build or load is reported to the default
+device-runtime collector, which counts it as a compile event.
 """
 
 from __future__ import annotations
@@ -63,7 +69,10 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 SOURCES = ("threefry.cu", "segment_sum.cu", "net_flow.cu",
            "scenario_failover.cu", "first_fit.cu", "delta_scatter.cu",
-           "cluster_stats.cu", "intra_walk.cu", "population_select.cu")
+           "cluster_stats.cu", "intra_walk.cu", "population_select.cu",
+           "fleet_failover.cu")
+#: headers the sources include: part of the build's digest
+HEADERS = ("failover_row.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -72,7 +81,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
             "net_broker_flow": 0, "scenario_failover": 0, "first_fit": 0,
             "delta_row_scatter": 0, "cluster_stats": 0,
-            "intra_broker_walk": 0, "population_select": 0}
+            "intra_broker_walk": 0, "population_select": 0,
+            "fleet_scenario_failover": 0}
 #: ``nvcc``/ptxas output of the build this process loaded (register and
 #: spill counts per kernel), empty when the library came from the cache
 BUILD_LOG: list[str] = []
@@ -103,7 +113,7 @@ def _nvcc() -> str:
 
 def source_digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -179,11 +189,15 @@ def load_library():
             lib.cc_population_select.argtypes = [p, p, p, p, f32, f32, i64,
                                                  i64, i64, i64, i64, p, p, p,
                                                  p]
+            lib.cc_fleet_scenario_failover.argtypes = [p, p, p, p, p, p, p,
+                                                       p, p, p, p, p, i64,
+                                                       i64, i64, i64, i64, p]
             for fn in (lib.cc_threefry2x32, lib.cc_ordered_segment_sum,
                        lib.cc_net_broker_flow, lib.cc_scenario_failover,
                        lib.cc_first_fit, lib.cc_delta_row_scatter,
                        lib.cc_cluster_stats, lib.cc_intra_broker_walk,
-                       lib.cc_population_select):
+                       lib.cc_population_select,
+                       lib.cc_fleet_scenario_failover):
                 fn.restype = ctypes.c_int
             _LIB = lib
             default_collector().record_library(kind,
@@ -400,24 +414,25 @@ def net_broker_flow(src, dst, earlier, d_src, d_dst):
 # KD: scenario failover
 # ---------------------------------------------------------------------------
 
-def scenario_failover_plain(rb, off, pref, broker_valid, broker_alive, dead,
-                            add, pvalid):
-    """Twin of KD: the literal array form of ``whatif/engine.py``'s
-    placement edit and failover, over the whole ``[S, P, R]`` batch."""
-    S, B = dead.shape
+def _failover_rows_plain(rb, off, pref, up, pvalid):
+    """The literal array form of ``whatif/engine.py``'s placement edit and
+    failover over rows ``[*L, P]`` (``csrc/failover_row.cuh``): ``up``
+    bool[*L, B] is each row's broker-up mask; ``rb``/``off``/``pref``
+    broadcast to ``[*L, P, R]`` and ``pvalid`` to ``[*L, P]``."""
+    *lead, B = up.shape
     P, R = rb.shape[-2:]
-    up = ((broker_valid | add) & (broker_alive | add) & ~dead)      # [S, B]
-    up1 = torch.cat([up, torch.zeros((S, 1), dtype=torch.bool,
-                                     device=up.device)], dim=1)
+    shape = (*lead, P, R)
+    up1 = torch.cat([up, torch.zeros((*lead, 1), dtype=torch.bool,
+                                     device=up.device)], dim=-1)
 
     def on_up(brokers):
-        return torch.gather(up1, 1, brokers.reshape(S, -1).long()
+        return torch.gather(up1, -1, brokers.reshape(*lead, -1).long()
                             ).reshape(brokers.shape)
 
-    pv = pvalid[:, :, None]
-    rb = torch.where(pv, rb.expand(S, P, R), B).to(torch.int32)
-    off = off.expand(S, P, R) & pv
-    pref = pref.expand(S, P, R).to(torch.int32)
+    pv = pvalid[..., None]
+    rb = torch.where(pv, rb, B).expand(shape).to(torch.int32)
+    off = (off & pv).expand(shape)
+    pref = pref.expand(shape).to(torch.int32)
     electable = (rb < B) & on_up(rb) & ~off
     score = torch.where(electable, pref, R + 1)
     j = torch.argmin(score, dim=-1, keepdim=True)     # first minimum
@@ -426,11 +441,19 @@ def scenario_failover_plain(rb, off, pref, broker_valid, broker_alive, dead,
     slot = torch.arange(R, device=rb.device)
     src = torch.where(need & (slot == 0), j,
                       torch.where(need & (slot == j), 0, slot))
-    rb = torch.gather(rb, 2, src)
-    pref = torch.gather(pref, 2, src)
-    off = torch.gather(off, 2, src)
+    rb = torch.gather(rb, -1, src)
+    pref = torch.gather(pref, -1, src)
+    off = torch.gather(off, -1, src)
     off = off | ((rb < B) & ~on_up(rb))
     return rb, pref, off, has_alive
+
+
+def scenario_failover_plain(rb, off, pref, broker_valid, broker_alive, dead,
+                            add, pvalid):
+    """Twin of KD: the literal array form of ``whatif/engine.py``'s
+    placement edit and failover, over the whole ``[S, P, R]`` batch."""
+    up = ((broker_valid | add) & (broker_alive | add) & ~dead)      # [S, B]
+    return _failover_rows_plain(rb, off, pref, up, pvalid)
 
 
 def scenario_failover(rb, off, pref, broker_valid, broker_alive, dead, add,
@@ -886,3 +909,64 @@ def population_select(boundary, moves, scales, hard, hard_weight: float,
     LAUNCHES["population_select"] += 1
     _check(rc, "population_select")
     return ranks, weighted, perm
+
+
+# ---------------------------------------------------------------------------
+# KJ: fleet scenario failover
+# ---------------------------------------------------------------------------
+
+def fleet_scenario_failover_plain(rb, off, pref, broker_valid, broker_alive,
+                                  dead, add, pvalid):
+    """Twin of KJ: KD's twin with a leading cluster axis, over the whole
+    ``[C, S, P, R]`` grid (each cluster's placement and masks broadcast
+    over its S scenarios)."""
+    up = ((broker_valid[:, None] | add) & (broker_alive[:, None] | add)
+          & ~dead)                                              # [C, S, B]
+    return _failover_rows_plain(rb[:, None], off[:, None], pref[:, None],
+                                up, pvalid[:, None])
+
+
+def fleet_scenario_failover(rb, off, pref, broker_valid, broker_alive, dead,
+                            add, pvalid):
+    """(rb int32, pref int32, off bool [C, S, P, R], has_alive bool
+    [C, S, P]): the placements of S scenarios of each of C clusters after
+    their broker kills/adds and leadership failover — see
+    ``csrc/fleet_failover.cu``. ``rb``/``off``/``pref`` are each cluster's
+    ``[C, P, R]`` placement; ``broker_valid``/``broker_alive`` ``[C, B]``;
+    ``dead``/``add`` ``[C, S, B]``; ``pvalid`` ``[C, P]``."""
+    if rb.dim() != 3 or dead.dim() != 3:
+        raise ValueError("rb must be [C, P, R] and dead [C, S, B]")
+    C, S, B = dead.shape
+    P, R = rb.shape[-2:]
+    if rb.shape[0] != C or off.shape != rb.shape or pref.shape != rb.shape:
+        raise ValueError("rb, off and pref must share one [C, P, R] shape")
+    if (add.shape != (C, S, B) or pvalid.shape != (C, P)
+            or broker_valid.shape != (C, B)
+            or broker_alive.shape != (C, B)):
+        raise ValueError("dead/add must be [C, S, B], pvalid [C, P] and "
+                         "broker_valid/broker_alive [C, B]")
+    args = (rb, off, pref, broker_valid, broker_alive, dead, add, pvalid)
+    if _on_cpu(*args):
+        return fleet_scenario_failover_plain(*args)
+    if any(t.dtype != torch.bool for t in (off, broker_valid, broker_alive,
+                                           dead, add, pvalid)):
+        raise TypeError("fleet_scenario_failover takes bool masks")
+    rb = rb.to(torch.int32).contiguous()
+    pref = pref.to(torch.int32).contiguous()
+    off, broker_valid, broker_alive, dead, add, pvalid = (
+        t.contiguous() for t in (off, broker_valid, broker_alive, dead, add,
+                                 pvalid))
+    dev = rb.device
+    rb_out = torch.empty((C, S, P, R), dtype=torch.int32, device=dev)
+    pref_out = torch.empty((C, S, P, R), dtype=torch.int32, device=dev)
+    off_out = torch.empty((C, S, P, R), dtype=torch.bool, device=dev)
+    has_alive = torch.empty((C, S, P), dtype=torch.bool, device=dev)
+    rc = load_library().cc_fleet_scenario_failover(
+        rb.data_ptr(), off.data_ptr(), pref.data_ptr(),
+        broker_valid.data_ptr(), broker_alive.data_ptr(), dead.data_ptr(),
+        add.data_ptr(), pvalid.data_ptr(), rb_out.data_ptr(),
+        pref_out.data_ptr(), off_out.data_ptr(), has_alive.data_ptr(),
+        C, S, P, R, B, _stream())
+    LAUNCHES["fleet_scenario_failover"] += 1
+    _check(rc, "fleet_scenario_failover")
+    return rb_out, pref_out, off_out, has_alive

@@ -22,9 +22,13 @@ partitions with no electable replica are counted unavailable. Dead brokers
 keep their residual load (invisible to the alive-masked goal reductions):
 the scored state is the cluster immediately after failover.
 
-Not ported: the reference's ``mesh`` (one GPU; ROADMAP queue 2 K15) and its
-``registry``/``tracer``/``collector`` sensors (the port has none yet;
-ROADMAP queue 1 item 11).
+The fleet form (:func:`make_fleet_scenario_scorer`) scores a ``[C, S]``
+grid of scenarios over C stacked clusters the same way, with one KJ launch
+for every placement (``fleet/engine.py``'s sweeps).
+
+Not ported: the reference's ``mesh`` argument (one GPU; the mesh-less path
+is ``parallel/sharding.py``) and its ``registry``/``tracer``/``collector``
+sensors (the port has none yet; ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from ..analyzer.constraint import BalancingConstraint
 from ..analyzer.engine import violation_stack
 from ..analyzer.state import build_context, init_state
 from ..core.resources import NUM_RESOURCES
-from ..kernels import scenario_failover
+from ..kernels import fleet_scenario_failover, scenario_failover
 from ..model.flat import FlatClusterModel
 from ..parallel.batching import pad_model_to, round_up
 from ..utils.device import resolve_device
@@ -512,13 +516,84 @@ def make_scenario_scorer(goals, capacity_threshold, *, num_topics: int):
     transform + init_state/build_context + violation stack + headroom
     reductions over the whole ``[S, ...]`` batch. One definition for the
     what-if sweep and the move scheduler's boundary audit."""
+    body = _batch_scorer(goals, capacity_threshold, num_topics)
+
+    def score(model, dead, add, cap_scale, pscale, pvalid):
+        return body(*scenario_transform(model, dead, add, cap_scale, pscale,
+                                        pvalid))
+
+    return score
+
+
+def fleet_scenario_transform(stacked: FlatClusterModel, dead, add,
+                             cap_scale, pscale, pvalid):
+    """``(stacked [C, ...] model, dead[C, S, B], add[C, S, B],
+    cap_scale[C, S, B, 4], pscale[C, S, P], pvalid[C, P]) -> (batched
+    model, has_alive[C·S, P])`` — the fleet form of
+    :func:`scenario_transform`: every scenario of every cluster at once,
+    the batched model's rows ordered (cluster, scenario). Placements and
+    failover come from one KJ launch over the ``[C, S]`` grid; each
+    cluster's own fields expand over its S scenarios."""
+    C, S = dead.shape[:2]
+    rb, pref, off, has_alive = fleet_scenario_failover(
+        stacked.replica_broker, stacked.replica_offline,
+        stacked.replica_pref_pos, stacked.broker_valid, stacked.broker_alive,
+        dead, add, pvalid)
+
+    def rows(t):                    # [C, S, ...] -> [C·S, ...]
+        return t.reshape((C * S,) + tuple(t.shape[2:]))
+
+    def per_cluster(t):             # [C, ...] -> [C·S, ...]
+        return rows(t[:, None].expand((C, S) + tuple(t.shape[1:])))
+
+    batched = FlatClusterModel(
+        replica_broker=rows(rb),
+        leader_load=rows(stacked.leader_load[:, None] * pscale[..., None]),
+        follower_load=rows(stacked.follower_load[:, None]
+                           * pscale[..., None]),
+        partition_topic=per_cluster(stacked.partition_topic),
+        partition_valid=per_cluster(pvalid),
+        replica_offline=rows(off), replica_pref_pos=rows(pref),
+        broker_capacity=rows(stacked.broker_capacity[:, None] * cap_scale),
+        broker_rack=per_cluster(stacked.broker_rack),
+        broker_host=per_cluster(stacked.broker_host),
+        broker_set=per_cluster(stacked.broker_set),
+        broker_alive=rows((stacked.broker_alive[:, None] | add) & ~dead),
+        broker_new=rows(stacked.broker_new[:, None] | add),
+        broker_demoted=per_cluster(stacked.broker_demoted),
+        broker_broken_disk=per_cluster(stacked.broker_broken_disk),
+        broker_valid=rows(stacked.broker_valid[:, None] | add))
+    return batched, rows(has_alive)
+
+
+def make_fleet_scenario_scorer(goals, capacity_threshold, *,
+                               num_topics: int):
+    """The fleet form of :func:`make_scenario_scorer`: ``score(stacked,
+    dead, add, cap_scale, pscale, pvalid)`` over ``[C, ...]`` clusters and
+    ``[C, S, ...]`` scenario planes returns the same seven outputs with a
+    ``[C, S]`` leading shape. The batch scores as C·S rows through the
+    one scoring body the what-if sweep runs (one KB launch per aggregate
+    for all rows), after one KJ launch for every placement."""
+    body = _batch_scorer(goals, capacity_threshold, num_topics)
+
+    def score(stacked, dead, add, cap_scale, pscale, pvalid):
+        C, S = dead.shape[:2]
+        out = body(*fleet_scenario_transform(stacked, dead, add, cap_scale,
+                                             pscale, pvalid))
+        return tuple(t.reshape((C, S) + tuple(t.shape[1:])) for t in out)
+
+    return score
+
+
+def _batch_scorer(goals, capacity_threshold, num_topics: int):
+    """``body(m, has_alive)``: init_state/build_context, the violation
+    stack and the headroom reductions over a transformed ``[N, ...]``
+    scenario batch."""
     goals = tuple(goals)
     needs_tlc = any(g.uses_topic_leader_counts for g in goals)
     needs_topics = needs_tlc or any(g.uses_topic_counts for g in goals)
 
-    def score(model, dead, add, cap_scale, pscale, pvalid):
-        m, has_alive = scenario_transform(model, dead, add, cap_scale,
-                                          pscale, pvalid)
+    def body(m, has_alive):
         state = init_state(
             m, with_topic_counts=num_topics if needs_topics else None,
             with_topic_leader_counts=needs_tlc)
@@ -545,4 +620,4 @@ def make_scenario_scorer(goals, capacity_threshold, *, num_topics: int):
         return viol, vscale, headroom, hfrac, pressure, unavailable, \
             n_offline
 
-    return score
+    return body

@@ -17,6 +17,10 @@ main-path optimizer, runs one warm-up optimize (seed 0), then profiles with
   per-goal walk, seed 1; KI at each generation boundary);
 - one intra-broker rebalance (``chip_smoke`` phase 11: four logdirs a
   broker; KH walks every broker in one launch);
+- one warm fleet propose of ``chip_smoke.FLEET_FORECAST_CLUSTERS`` of
+  phase 12's members (their per-goal walks one after another; four, not
+  16, keep the trace small), and one warm N-1 sweep of all 16 members
+  (``chip_smoke`` phase 12: one KJ launch, KB over 1,600 scenario rows);
 
 and prints for each:
 
@@ -56,7 +60,7 @@ HAND_WRITTEN = ("threefry2x32_kernel", "ordered_segment_sum_kernel",
                 "net_broker_flow_kernel", "scenario_failover_kernel",
                 "first_fit_kernel", "delta_row_scatter_kernel",
                 "cluster_stats_kernel", "intra_walk_kernel",
-                "population_select_kernel")
+                "population_select_kernel", "fleet_failover_kernel")
 
 
 def profiled(fn):
@@ -226,6 +230,29 @@ def main(argv=None) -> int:
         lambda: search.intra_broker_rebalance(*setup))
     report(f"intra-broker rebalance ({len(intra.moves)} moves, "
            f"{intra.iterations} iterations)", prof, wall_s, args.top, "")
+
+    import numpy as np
+    fleet_pkg = chip_smoke.port_fleet_package()
+    members = [(f"cluster-{c:02d}",
+                fleet_pkg.scale_loads(model, np.float32(1.0 + 0.01 * c)), md)
+               for c in range(chip_smoke.FLEET_CLUSTERS)]
+    fleet = fleet_pkg.stack(members)
+    part = fleet_pkg.stack(members[:chip_smoke.FLEET_FORECAST_CLUSTERS])
+    fo = fleet_pkg.fleet_optimizer()
+    fo.propose(part, fleet_pkg.fleet_options())
+    kernels.reset_launch_counts()
+    syncs0 = engine.HOST_SYNCS
+    out, prof, wall_s = profiled(
+        lambda: fo.propose(part, fleet_pkg.fleet_options()))
+    report(f"warm fleet propose ({part.num_clusters} members)", prof,
+           wall_s, args.top,
+           f"moves {[r.num_moves for r in out]}, host syncs "
+           f"{engine.HOST_SYNCS - syncs0}, ")
+    fo.sweep_n1(fleet)
+    kernels.reset_launch_counts()
+    _, prof, wall_s = profiled(lambda: fo.sweep_n1(fleet))
+    report(f"warm fleet N-1 sweep ({fleet.num_clusters} x "
+           f"{chip_smoke.NUM_BROKERS} scenarios)", prof, wall_s, args.top, "")
     return 0
 
 

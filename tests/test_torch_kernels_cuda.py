@@ -270,3 +270,37 @@ def test_population_select_matches_twin(cuda_device, K, G, hard):
             # bit for bit, NaN (the NaN row's score) equal to NaN
             torch.testing.assert_close(g.cpu(), w.to(g.dtype), rtol=0,
                                        atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,S,P,R,B", [(3, 16, 500, 3, 24),
+                                       (2, 104, 2000, 2, 104)])
+def test_fleet_scenario_failover_matches_twin(cuda_device, C, S, P, R, B):
+    """KJ bit for bit against its twin over a [C, S] grid (per-cluster
+    placements and broker masks, empty and offline slots, kills, adds and
+    disabled partitions), one launch per call, and equal cluster by
+    cluster to KD on the card."""
+    gen = torch.Generator().manual_seed(5)
+    rb = torch.randint(0, B + 1, (C, P, R), generator=gen, dtype=torch.int32)
+    off = torch.rand(C, P, R, generator=gen) < 0.1
+    pref = torch.argsort(torch.rand(C, P, R, generator=gen), dim=-1).to(
+        torch.int32)
+    bvalid = torch.rand(C, B, generator=gen) < 0.9
+    balive = torch.rand(C, B, generator=gen) < 0.9
+    dead = torch.rand(C, S, B, generator=gen) < 0.2
+    add = torch.rand(C, S, B, generator=gen) < 0.1
+    pvalid = torch.rand(C, P, generator=gen) < 0.9
+    args = (rb, off, pref, bvalid, balive, dead, add, pvalid)
+    kernels.reset_launch_counts()
+    got = kernels.fleet_scenario_failover(*(t.to(cuda_device) for t in args))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fleet_scenario_failover"] == 1
+    want = kernels.fleet_scenario_failover_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    for c in range(C):
+        kd = kernels.scenario_failover(*(t.to(cuda_device) for t in (
+            rb[c], off[c], pref[c], bvalid[c], balive[c], dead[c], add[c],
+            pvalid[c].expand(S, P).contiguous())))
+        for g, k in zip(got, kd):
+            assert torch.equal(g[c], k)

@@ -229,11 +229,18 @@ for p in range(32):
                        logdir_by_broker={0: "d0", 1: "d0"})
 disks = intra_broker_rebalance(model, md, jbod, FixedCapacityResolver())
 assert disks.moves and disks.iterations > 0
+from cruise_control_tpu_torch.fleet import FleetModel, FleetOptimizer
+fleet = FleetModel.stack([("a", model, md), ("b", model, md)], device="cpu")
+fleet_opt = FleetOptimizer(TorchGoalOptimizer(**search))
+fleet_res = fleet_opt.propose(fleet, waive)
+seq = TorchGoalOptimizer(**search).optimize(fleet.members[0].model, md, waive)
+assert [r.num_moves for r in fleet_res] == [seq.num_moves] * 2
+assert [s["scenarios"] for s in fleet_opt.sweep_n1(fleet)] == [4, 4]
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", res.num_moves, report.riskiest().scenario.name,
       len(sched.batches), pop.num_moves, branched.num_moves,
-      len(disks.moves))
+      len(disks.moves), fleet_res[0].num_moves)
 '''
 
 
