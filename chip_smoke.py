@@ -94,6 +94,12 @@ PEAK_OPS_S = 67e12
 MAIN_SEARCH = dict(num_replica_candidates=512, num_dest_candidates=16,
                    apply_per_iter=512, max_iters_per_goal=512,
                    fused_chain=True)
+#: the previous designs' times (KB sorting the ids, KC a thread a row; same
+#: method, NVIDIA H100 80GB HBM3 at 700 W; PERF.md), printed beside this
+#: run's: KB by rows, KC by M
+EARLIER_MS = {("KB", 40_192): 0.2029, ("KB", 400_128): 0.2322,
+          ("KB", 4_019_200): 0.8807, ("KC", 512): 0.08195,
+          ("KC", 1024): 0.16520}
 #: the audit waives RackAwareGoal, as the reference bench does
 WAIVED = frozenset({"RackAwareGoal"})
 #: phase 7's and phase 8's results as the reference computes them (the
@@ -595,22 +601,25 @@ def phase_kernels(model, main_arrays: dict, scale_arrays: dict,
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
 
-    # --- KB: replica loads into broker rows (the init_state reduction).
+    # --- KB: replica loads into broker rows (the init_state reduction),
+    # with int32 ids as init_state passes them.
     for arrays in (main_arrays, scale_arrays):
         rb = arrays["replica_broker"]
         S = arrays["broker_capacity"].shape[0] + 1
-        seg = torch.from_numpy(rb.reshape(-1).astype(np.int64)).to(dev)
+        seg = torch.from_numpy(rb.reshape(-1).astype(np.int32)).to(dev)
         vals = torch.from_numpy(
             host_loads(arrays).reshape(-1, 4).astype(np.float32)).to(dev)
         got = kernels.ordered_segment_sum(vals, seg, S)
         twin = kernels.ordered_segment_sum_plain(vals.cpu(), seg.cpu(), S)
         err_twin = float((got.cpu() - twin).abs().max())
-        if err_twin != 0.0:
+        if not torch.equal(got.cpu(), twin):
             fail(f"ordered_segment_sum differs from its twin ({seg.numel()} "
                  f"rows -> {S})")
-        lib = torch.zeros(S, 4, device=dev).index_add_(0, seg, vals)
+        seg64 = seg.long()
+        lib = torch.zeros(S, 4, device=dev).index_add_(0, seg64, vals)
         exact = np.zeros((S, 4))
-        np.add.at(exact, seg.cpu().numpy(), vals.cpu().numpy().astype(np.float64))
+        np.add.at(exact, seg.cpu().numpy(),
+                  vals.cpu().numpy().astype(np.float64))
         n_max = int(np.bincount(seg.cpu().numpy()).max())
         # recursive-summation bound: |sum_f32 - exact| <= (n-1) u sum|x|
         tol = (n_max - 1) * 2.0 ** -24 * np.abs(exact) + 1e-30
@@ -624,19 +633,48 @@ def phase_kernels(model, main_arrays: dict, scale_arrays: dict,
         plain = time_ms(lambda: kernels.ordered_segment_sum_plain(
             vals, seg, S), groups=3)
         lib_ms = time_ms(lambda: torch.zeros(S, 4, device=dev).index_add_(
-            0, seg, vals), graph=True)
-        b_ms, b_by = bound(vals.numel() * 4 + seg.numel() * 8 + S * 16,
+            0, seg64, vals), graph=True)
+        b_ms, b_by = bound(vals.numel() * 4 + seg.numel() * 4 + S * 16,
                            vals.numel())
         log(f"KB ordered_segment_sum {seg.numel()}->{S} x4: bit-exact vs "
             f"twin; |err| vs float64 {err_kb:.3g} (within the summation "
-            f"bound); max rel diff vs index_add_ {rel_lib:.3g}; {ms:.4f} ms, "
-            f"twin {plain:.3f} ms, index_add_ {lib_ms:.4f} ms, bound "
-            f"{b_ms:.5f} ms ({b_by})")
+            f"bound); max rel diff vs index_add_ {rel_lib:.3g}; {ms:.5f} ms "
+            f"(earlier design: {EARLIER_MS[('KB', seg.numel())]} ms), twin "
+            f"{plain:.3f} ms, "
+            f"index_add_ {lib_ms:.5f} ms, bound {b_ms:.5f} ms ({b_by})")
         _keep_first_shape(rows, "ordered_segment_sum", err_twin, dict(
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms))
 
-    # --- KB without the sort: tree_sum's 32-row windows over broker rows.
+    # --- KB at apply_group's shape: 1,024 candidate rows (sources, then
+    # destinations) x 6 planes with a base, into the main path's B1.
+    B1 = main_arrays["broker_capacity"].shape[0] + 1
+    n_apply = 2 * MAIN_SEARCH["apply_per_iter"]
+    seg = torch.from_numpy(rng.integers(0, B1, n_apply)).to(dev)
+    vals = torch.from_numpy(
+        (rng.random((n_apply, 6)) * 200 - 100).astype(np.float32)).to(dev)
+    base = torch.from_numpy(
+        (rng.random((B1, 6)) * 1e5).astype(np.float32)).to(dev)
+    got = kernels.ordered_segment_sum(vals, seg, B1, base=base)
+    twin = kernels.ordered_segment_sum_plain(vals.cpu(), seg.cpu(), B1,
+                                             base.cpu())
+    err = float((got.cpu() - twin).abs().max())
+    if not torch.equal(got.cpu(), twin):
+        fail("ordered_segment_sum differs from its twin at apply_group's "
+             "shape")
+    ms = time_ms(lambda: kernels.ordered_segment_sum(vals, seg, B1,
+                                                     base=base), graph=True)
+    lib_ms = time_ms(lambda: base.clone().index_add_(0, seg, vals),
+                     graph=True)
+    b_ms, b_by = bound(vals.numel() * 4 + seg.numel() * 8 + 2 * base.numel()
+                       * 4, vals.numel())
+    log(f"KB ordered_segment_sum apply_group {n_apply} rows x6 + base -> "
+        f"{B1}: bit-exact vs twin; {ms:.5f} ms, clone + index_add_ "
+        f"{lib_ms:.5f} ms, bound {b_ms:.7f} ms ({b_by})")
+    _keep_first_shape(rows, "ordered_segment_sum", err, {})
+
+    # --- KB without the grouping: tree_sum's 32-row windows over broker
+    # rows, and runs of 1-32 rows.
     for arrays in (main_arrays, scale_arrays):
         n = -(-arrays["broker_capacity"].shape[0] // 32) * 32
         x = torch.from_numpy(rng.random(n).astype(np.float32) * 100).to(dev)
@@ -649,6 +687,17 @@ def phase_kernels(model, main_arrays: dict, scale_arrays: dict,
         log(f"KB ordered_range_sum {n} rows in windows of 32: bit-exact vs "
             f"twin")
         _keep_first_shape(rows, "ordered_segment_sum", err, {})
+    lengths = rng.integers(1, 33, 4096)
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(lengths)])).to(
+        dev)
+    x = torch.from_numpy((rng.random(int(lengths.sum())) * 1e4 - 3e3).astype(
+        np.float32)).to(dev)
+    got = kernels.ordered_range_sum(x, offsets)
+    if not torch.equal(got.cpu(), kernels.ordered_range_sum(x.cpu(),
+                                                           offsets.cpu())):
+        fail("ordered_range_sum differs from its twin on runs of 1-32 rows")
+    log(f"KB ordered_range_sum {len(lengths)} runs of 1-32 rows: bit-exact "
+        f"vs twin")
 
     # --- KC: collective-guard flows at M = apply_per_iter.
     B1 = main_arrays["broker_capacity"].shape[0] + 1
@@ -668,7 +717,13 @@ def phase_kernels(model, main_arrays: dict, scale_arrays: dict,
             got = kernels.net_broker_flow(src, dst, earlier, ds, dd)
             want = kernels.net_broker_flow_plain(src, dst, earlier, ds, dd)
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-            errs.append(err)
+            # KC's own order, ascending j: bit for bit
+            asc = kernels.net_broker_flow_ascending(src, dst, earlier, ds, dd)
+            err_asc = max(float((g - w).abs().max()) for g, w in zip(got, asc))
+            if not all(torch.equal(g, w) for g, w in zip(got, asc)):
+                fail(f"net_broker_flow differs from the ascending-j form "
+                     f"(M={m}, {label}): max |err| {err_asc}")
+            errs.append(err_asc)
             if label == "integer deltas":
                 # exact in either order: rtol 1e-6 / atol 1e-6
                 for g, w in zip(got, want):
@@ -678,8 +733,8 @@ def phase_kernels(model, main_arrays: dict, scale_arrays: dict,
                 # different summation orders: each row within the float32
                 # summation bound of its own terms
                 _check_summation_bound(got, want, src, dst, earlier, ds, dd)
-            log(f"KC net_broker_flow M={m} ({label}): max |err| vs twin "
-                f"{err:.3g}")
+            log(f"KC net_broker_flow M={m} ({label}): bit-exact vs the "
+                f"ascending-j form; max |err| vs the matmul twin {err:.3g}")
         ds = torch.from_numpy(rng.integers(-4, 5, m).astype(np.float32)).to(dev)
         ms = time_ms(
             lambda: kernels.net_broker_flow(src, dst, earlier, ds, ds),
@@ -699,7 +754,8 @@ def phase_kernels(model, main_arrays: dict, scale_arrays: dict,
         # products (TF32 off), replayed as a CUDA graph
         lib_ms = time_ms(lambda: kernels.net_broker_flow_plain(
             src, dst, earlier, ds, ds), graph=True)
-        log(f"KC net_broker_flow M={m}: {ms:.5f} ms, twin {plain:.4f} ms, "
+        log(f"KC net_broker_flow M={m}: {ms:.5f} ms (earlier design: "
+            f"{EARLIER_MS[('KC', m)]} ms), twin {plain:.4f} ms, "
             f"torch.matmul form {lib_ms:.5f} ms, bound {b_ms:.5f} ms "
             f"({b_by})")
         _keep_first_shape(rows, "net_broker_flow", max(errs), dict(
@@ -736,30 +792,51 @@ def phase_kernels(model, main_arrays: dict, scale_arrays: dict,
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=None))
 
-    # --- KB on the sweep's batched layout: one launch over S * B1 segments.
+    # --- KB on the sweep's batched layout: one launch, a batch axis of S
+    # scenarios, each scenario's int32 broker ids into its own B1 rows (as
+    # init_state passes them); then the fleet N-1 sweep's batch, 16
+    # clusters of those S scenarios (phase 12: 1,600 scenario rows).
     batched, _ = scenario_transform(
         model, dead, add, torch.ones((S, B, 4), device=dev),
         torch.ones((S, P), device=dev), pvalid)
     B1 = B + 1
-    vals = replica_loads(batched).reshape(-1, 4).contiguous()
-    seg = (batched.replica_broker.long()
-           + (torch.arange(S, device=dev) * B1)[:, None, None]).reshape(-1)
-    got = kernels.ordered_segment_sum(vals, seg, S * B1)
-    twin = kernels.ordered_segment_sum_plain(vals.cpu(), seg.cpu(), S * B1)
-    err = float((got.cpu() - twin).abs().max())
-    if err != 0.0:
-        fail("ordered_segment_sum differs from its twin on the batched "
-             "layout")
-    ms = time_ms(lambda: kernels.ordered_segment_sum(vals, seg, S * B1),
-                 graph=True)
-    lib_ms = time_ms(lambda: torch.zeros(S * B1, 4, device=dev).index_add_(
-        0, seg, vals), graph=True)
-    b_ms, b_by = bound(vals.numel() * 4 + seg.numel() * 8 + S * B1 * 16,
-                       vals.numel())
-    log(f"KB ordered_segment_sum batched {seg.numel()} rows -> {S * B1} "
-        f"segments x4: bit-exact vs twin; {ms:.4f} ms, index_add_ "
-        f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-    _keep_first_shape(rows, "ordered_segment_sum", err, {})
+    vals = replica_loads(batched).reshape(S, P * R, 4).contiguous()
+    seg = batched.replica_broker.reshape(S, P * R).to(torch.int32)
+    for label, items in (("what-if", 1), ("fleet", FLEET_CLUSTERS)):
+        v = vals.repeat(items, 1, 1) if items > 1 else vals
+        if items > 1:                   # member c's loads x (1 + 0.01 c)
+            v = v * torch.repeat_interleave(
+                1.0 + 0.01 * torch.arange(items, device=dev,
+                                          dtype=torch.float32), S)[:, None,
+                                                                   None]
+        g = seg.repeat(items, 1) if items > 1 else seg
+        got = kernels.ordered_segment_sum(v, g, B1)
+        twin = kernels.ordered_segment_sum_plain(v, g, B1)  # on the card
+        err = float((got - twin).abs().max())
+        if not torch.equal(got, twin):
+            fail(f"ordered_segment_sum differs from its twin on the {label} "
+                 f"batch")
+        del twin
+        flat_ids = (g.long() + (torch.arange(g.shape[0], device=dev)
+                                * B1)[:, None]).reshape(-1)
+        flat_vals = v.reshape(-1, 4)
+        ms = time_ms(lambda: kernels.ordered_segment_sum(v, g, B1),
+                     graph=True, launches=50)
+        lib_ms = time_ms(lambda: torch.zeros(g.shape[0] * B1, 4, device=dev)
+                         .index_add_(0, flat_ids, flat_vals), graph=True,
+                         launches=50)
+        b_ms, b_by = bound(v.numel() * 4 + g.numel() * 4
+                           + g.shape[0] * B1 * 16, v.numel())
+        earlier = EARLIER_MS.get(("KB", g.numel()))
+        earlier = "not measured" if earlier is None else f"{earlier} ms"
+        log(f"KB ordered_segment_sum {label} batch {g.shape[0]} x "
+            f"{g.shape[1]} rows -> {B1} segments x4 ({g.numel()} rows): "
+            f"bit-exact vs twin; {ms:.4f} ms (earlier design: {earlier}), "
+            f"index_add_ "
+            f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        _keep_first_shape(rows, "ordered_segment_sum", err, {})
+        del v, g, flat_ids, flat_vals, got
+        torch.cuda.empty_cache()
 
     # --- KF: a 1%-churn delta (phase 9's shape) into the [P, 4] planes.
     lead = torch.from_numpy(main_arrays["leader_load"]).to(dev)

@@ -25,8 +25,8 @@ from .. import _random
 from ..core.resources import Resource
 from ..kernels import net_broker_flow, ordered_segment_sum
 from ..model.flat import MOVE_INTER_BROKER, MOVE_LEADERSHIP, MOVE_SWAP
-from ..utils.ordered import (argsort, fma, lane_row_sum, lexsort,
-                              scan_sum, top_k, tree_sum, tree_sum_last)
+from ..utils.ordered import (argsort, fma, lexsort, scan_sum, top_k,
+                              tree_sum, tree_sum_last, violation_row_sum)
 from .constraint import BalancingConstraint, SearchConfig
 from .state import (Candidates, SearchContext, SearchState, concat_candidates,
                     make_leadership_candidates, make_move_candidates,
@@ -310,13 +310,27 @@ class IntervalGoal(GoalKernel):
         values = metric_values(state, self.metric)
         lower, upper = self.bounds(state, ctx)
         penalty = self._penalty(values, lower, upper, ctx.broker_alive, ctx)
-        if penalty.dim() == 1 and self._cap_factor(ctx) is not None:
-            # A per-broker capacity bound keeps XLA's unbatched fused row
-            # sum in tree order.
-            return tree_sum(penalty)
-        # Against scalar bounds (and in the vmapped scorer) XLA vectorizes
-        # the fused sum of a row of 24-32 brokers into eight lanes.
-        return lane_row_sum(penalty)
+        return violation_row_sum(penalty, self._row_program(ctx))
+
+    def _row_program(self, ctx) -> str:
+        """What XLA's fused violation row reads, which picks LLVM's loop
+        (``utils/ordered.py``, ``ROW_LOOPS``): a [B1] plane (counts,
+        potential, leaders' NW_IN) or a column of ``util``, against scalar
+        bounds, a scalar upper bound only, or a per-broker capacity
+        bound."""
+        which, res = self.metric
+        plane = which != "util"
+        if self._cap_factor(ctx) is not None:
+            if plane:
+                return "plane-capacity"
+            return ("cpu-capacity" if int(res) == int(Resource.CPU)
+                    else "column-capacity")
+        if self.upper_only:
+            if not plane:
+                return "column-upper"
+            return ("counts-upper" if which in ("count", "leaders")
+                    else "plane-upper")
+        return "plane" if plane else "column"
 
     def violation_scale(self, state, ctx):
         which, _res = self.metric

@@ -127,24 +127,27 @@ def init_state(model: FlatClusterModel, *,
     A model whose fields carry a leading scenario axis (``[S, P, R]``
     placements, ``[S, B, 4]`` capacities — the what-if batch) gives a
     state with the same leading axis: each float aggregate is one ordered
-    segment sum over the flat segment ids ``s * B1 + broker`` for all S
-    scenarios, which adds every segment's rows in (scenario, partition,
-    slot) order, the order of the reference's vmapped scatter-add."""
+    segment sum with a batch axis, which adds every scenario's rows into
+    its own B1 brokers in (partition, slot) order, the order of the
+    reference's vmapped scatter-add."""
     rb = model.replica_broker.long().clone()               # [..., P, R]
     lead = tuple(rb.shape[:-2])
     S = math.prod(lead)
     B = model.num_brokers_padded
     B1 = B + 1
     dev = model.device
+    # KB's ids: the model's int32 brokers, one row of ids a scenario
+    brokers = model.replica_broker.reshape(S, -1)           # [S, P*R]
+    lead_brokers = model.replica_broker[..., 0].reshape(S, -1)
+    loads = replica_loads(model).reshape(S, -1, NUM_RESOURCES)
+    util = ordered_segment_sum(loads, brokers, B1).reshape(
+        lead + (B1, NUM_RESOURCES))
+    util[..., B, :] = 0.0
+
     scen = (torch.arange(S, device=dev) * B1).reshape(lead + (1, 1))
     seg = rb + scen                                         # [..., P, R]
     flat_idx = seg.reshape(-1)
     lead_idx = seg[..., 0].reshape(-1)
-    loads = replica_loads(model).reshape(-1, NUM_RESOURCES)
-    util = ordered_segment_sum(loads, flat_idx, S * B1).reshape(
-        lead + (B1, NUM_RESOURCES))
-    util[..., B, :] = 0.0
-
     valid = model.replica_valid
     counts = torch.zeros(S * B1, dtype=torch.int32, device=dev).index_add_(
         0, flat_idx, torch.ones_like(flat_idx, dtype=torch.int32)).reshape(
@@ -156,13 +159,13 @@ def init_state(model: FlatClusterModel, *,
     leaders[..., B] = 0
     pot = torch.where(valid, model.leader_load[..., None, Resource.NW_OUT],
                       0.0)
-    potential = ordered_segment_sum(pot.reshape(-1), flat_idx,
-                                    S * B1).reshape(lead + (B1,))
+    potential = ordered_segment_sum(pot.reshape(S, -1), brokers,
+                                    B1).reshape(lead + (B1,))
     potential[..., B] = 0.0
     lni = torch.where(model.partition_valid,
                       model.leader_load[..., Resource.NW_IN], 0.0)
-    leader_nw_in = ordered_segment_sum(lni.reshape(-1), lead_idx,
-                                       S * B1).reshape(lead + (B1,))
+    leader_nw_in = ordered_segment_sum(lni.reshape(S, -1), lead_brokers,
+                                       B1).reshape(lead + (B1,))
     leader_nw_in[..., B] = 0.0
 
     topic_counts = None

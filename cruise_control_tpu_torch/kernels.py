@@ -6,11 +6,16 @@ Three kernels carry the dry-run proposal path (sources in ``csrc/``):
   ``jax.random`` stream the goal kernels draw tie-break noise from);
 - **KB** ``ordered_segment_sum`` — float32 segment sums that add each
   segment's rows in ascending row order (broker aggregates without float
-  atomics, so a seed reproduces its proposals run after run);
-  ``ordered_range_sum`` launches it without the sort for rows already
-  grouped into contiguous runs;
+  atomics, so a seed reproduces its proposals run after run), with an
+  optional batch axis (each scenario's rows into its own segments): the
+  rows are grouped by segment on chip, tile by tile, and one thread a
+  (segment, column) chain adds them from shared memory; no global sort and
+  no host sync. ``ordered_range_sum`` is its form for rows already
+  grouped into contiguous runs (a warp a run);
 - **KC** ``net_broker_flow`` — the collective guard's pessimistic net flow
-  per candidate, without the four ``[M, M]`` float masks.
+  per candidate, without the four ``[M, M]`` float masks: a warp a row,
+  the mask row read in 16-byte loads, the matching terms added in
+  ascending j by ballot.
 
 Two more carry the what-if sweep and the move scheduler:
 
@@ -55,6 +60,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -173,7 +179,13 @@ def load_library():
             lib = ctypes.CDLL(str(build_library()))
             p, i64 = ctypes.c_void_p, ctypes.c_int64
             lib.cc_threefry2x32.argtypes = [p, p, p, p, i64, p]
-            lib.cc_ordered_segment_sum.argtypes = [p, p, p, p, p, i64, i64, p]
+            lib.cc_ordered_segment_sum.argtypes = [p, p, ctypes.c_int, p, p,
+                                                   i64, i64, i64, i64, p, p,
+                                                   p]
+            lib.cc_ordered_segment_sum_scratch.argtypes = [i64, i64, i64, i64,
+                                                           p]
+            lib.cc_ordered_segment_sum_scratch.restype = None
+            lib.cc_ordered_range_sum.argtypes = [p, p, p, i64, i64, p]
             lib.cc_net_broker_flow.argtypes = [p, p, p, p, p, p, p, p, i64, p]
             lib.cc_scenario_failover.argtypes = [p, p, p, i64, p, p, p, p, p,
                                                  p, p, p, p, i64, i64, i64,
@@ -193,6 +205,7 @@ def load_library():
                                                        p, p, p, p, p, i64,
                                                        i64, i64, i64, i64, p]
             for fn in (lib.cc_threefry2x32, lib.cc_ordered_segment_sum,
+                       lib.cc_ordered_range_sum,
                        lib.cc_net_broker_flow, lib.cc_scenario_failover,
                        lib.cc_first_fit, lib.cc_delta_row_scatter,
                        lib.cc_cluster_stats, lib.cc_intra_broker_walk,
@@ -282,16 +295,22 @@ def threefry2x32(key: torch.Tensor, counters: torch.Tensor):
 # KB: ordered segment sum
 # ---------------------------------------------------------------------------
 
-def ordered_segment_sum_plain(values: torch.Tensor, seg: torch.Tensor,
-                              num_segments: int,
-                              base: torch.Tensor | None = None
-                              ) -> torch.Tensor:
-    """Twin of KB: a sequential pass in row order, vectorised across
-    segments — step k adds every segment's k-th row at once (distinct
-    segments, so each step is an exact float32 add per cell)."""
-    flat = values.dim() == 1
-    v = values.reshape(values.shape[0], -1)
-    S = num_segments
+def _segment_layout(values: torch.Tensor, seg: torch.Tensor):
+    """(batch shape, rows, columns, column shape) of a KB call: ``seg`` is
+    ``[*L, N]``, ``values`` ``[*L, N]`` or ``[*L, N, C]``."""
+    if seg.dim() < 1 or values.shape[:seg.dim()] != seg.shape:
+        raise ValueError("seg must hold one segment index per row of values")
+    cols = tuple(values.shape[seg.dim():])
+    if len(cols) > 1:
+        raise ValueError("values must be [*L, N] or [*L, N, C]")
+    return seg.shape[:-1], seg.shape[-1], (cols[0] if cols else 1), cols
+
+
+def _ordered_segment_sum_1d(v: torch.Tensor, seg: torch.Tensor, S: int,
+                            base: torch.Tensor | None) -> torch.Tensor:
+    """The twin's unbatched pass over ``v`` [N, C] and ``seg`` [N]: step k
+    adds every segment's k-th row at once (distinct segments, so each step
+    is an exact float32 add per cell)."""
     out = (torch.zeros((S, v.shape[1]), dtype=v.dtype, device=v.device)
            if base is None else base.reshape(S, -1).clone())
     seg = seg.long()
@@ -309,58 +328,99 @@ def ordered_segment_sum_plain(values: torch.Tensor, seg: torch.Tensor,
             start += n
             s = segs[sel]
             out[s] = out[s] + v[rows[sel]]
-    return out.reshape(S) if flat else out
+    return out
+
+
+def ordered_segment_sum_plain(values: torch.Tensor, seg: torch.Tensor,
+                              num_segments: int,
+                              base: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """Twin of KB: one sequential pass in row order. A batch axis (``seg``
+    ``[*L, N]``) becomes segment ids offset by the item's index, so each
+    item's rows stay in order and never meet another item's."""
+    lead, N, C, cols = _segment_layout(values, seg)
+    S = int(num_segments)
+    items = math.prod(lead)
+    ids = seg.reshape(items, N).long()
+    ids = torch.where((ids >= 0) & (ids < S), ids + torch.arange(
+        items, device=ids.device)[:, None] * S, -1)
+    out = _ordered_segment_sum_1d(
+        values.reshape(items * N, C), ids.reshape(-1), items * S,
+        None if base is None else base.reshape(items * S, C))
+    return out.reshape(lead + (S,) + cols)
 
 
 def ordered_segment_sum(values: torch.Tensor, seg: torch.Tensor,
                         num_segments: int,
                         base: torch.Tensor | None = None) -> torch.Tensor:
-    """float32[S, C] (or [S] for 1-D ``values``): ``base`` (or zeros) plus
-    each segment's rows added in ascending row order. Rows whose segment
-    lies outside [0, S) are dropped."""
-    if seg.shape != values.shape[:1]:
-        raise ValueError("seg must hold one segment index per row of values")
-    if _on_cpu(values, seg, base):
-        return ordered_segment_sum_plain(values, seg, num_segments, base)
+    """float32 ``[*L, S]`` or ``[*L, S, C]``: ``base`` (or zeros) plus each
+    segment's rows added in ascending row order — see
+    ``csrc/segment_sum.cu``. ``seg`` (int32 or int64) is ``[N]`` or, with a
+    batch axis, ``[*L, N]``: each item sums its own rows into its own S
+    segments. ``values`` is ``seg``'s shape, or that shape plus a column
+    axis. Rows whose segment lies outside [0, S) are dropped."""
+    lead, N, C, cols = _segment_layout(values, seg)
     S = int(num_segments)
-    seg = seg.long()
-    seg = torch.where((seg >= 0) & (seg < S), seg, S)
-    sorted_seg, perm = torch.sort(seg, stable=True)
-    offsets = torch.searchsorted(
-        sorted_seg, torch.arange(S + 1, device=seg.device))
-    return _launch_segment_sum(values, perm, offsets, base)
+    out_shape = lead + (S,) + cols
+    if base is not None and tuple(base.shape) != out_shape:
+        raise ValueError(f"base must be {list(out_shape)}, got "
+                         f"{list(base.shape)}")
+    if _on_cpu(values, seg, base):
+        return ordered_segment_sum_plain(values, seg, S, base)
+    if values.dtype != torch.float32:
+        raise TypeError("ordered_segment_sum takes float32 values")
+    if seg.dtype not in (torch.int32, torch.int64):
+        raise TypeError("ordered_segment_sum takes int32 or int64 ids")
+    items = math.prod(lead)
+    v = values.contiguous()
+    ids = seg.contiguous()
+    if base is not None:
+        base = base.to(torch.float32).contiguous()
+    out = torch.empty(out_shape, dtype=torch.float32, device=v.device)
+    lib = load_library()
+    sizes = (ctypes.c_int64 * 2)()
+    lib.cc_ordered_segment_sum_scratch(items, N, S, C, sizes)
+    sorted_rows = torch.empty(sizes[0], dtype=torch.float32, device=v.device)
+    table = torch.empty(sizes[1], dtype=torch.int32, device=v.device)
+    rc = lib.cc_ordered_segment_sum(
+        v.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64),
+        None if base is None else base.data_ptr(), out.data_ptr(), items, N,
+        S, C, sorted_rows.data_ptr() if sizes[0] else None,
+        table.data_ptr() if sizes[1] else None, _stream())
+    LAUNCHES["ordered_segment_sum"] += 1
+    _check(rc, "ordered_segment_sum")
+    return out
+
+
+def ordered_range_sum_plain(values: torch.Tensor,
+                            offsets: torch.Tensor) -> torch.Tensor:
+    """Twin of KB's range form: the runs as segment ids, one ordered pass."""
+    n = values.shape[0]
+    seg = torch.searchsorted(offsets, torch.arange(n, device=values.device),
+                             right=True) - 1
+    return ordered_segment_sum_plain(values, seg, offsets.shape[0] - 1)
 
 
 def ordered_range_sum(values: torch.Tensor,
                       offsets: torch.Tensor) -> torch.Tensor:
     """float32[S, C] (or [S]): segment s is the run of rows
-    ``offsets[s] <= i < offsets[s + 1]``, added in row order — KB without
-    the sort, for callers whose segments are already contiguous."""
+    ``offsets[s] <= i < offsets[s + 1]`` (int64, ascending), added in row
+    order — KB for callers whose segments are already contiguous: one warp
+    a run, no grouping."""
     if _on_cpu(values, offsets):
-        n = values.shape[0]
-        seg = torch.searchsorted(offsets, torch.arange(n), right=True) - 1
-        return ordered_segment_sum_plain(values, seg, offsets.shape[0] - 1)
-    return _launch_segment_sum(values, None, offsets.long(), None)
-
-
-def _launch_segment_sum(values, perm, offsets, base):
+        return ordered_range_sum_plain(values, offsets)
     if values.dtype != torch.float32:
-        raise TypeError("ordered_segment_sum takes float32 values")
+        raise TypeError("ordered_range_sum takes float32 values")
     flat = values.dim() == 1
     v = values.reshape(values.shape[0], -1).contiguous()
     S = offsets.shape[0] - 1
-    offsets = offsets.contiguous()
-    if base is not None:
-        base = base.reshape(S, -1).to(torch.float32).contiguous()
-        if base.shape[1] != v.shape[1]:
-            raise ValueError("base and values disagree on the column count")
+    offsets = offsets.long().contiguous()
     out = torch.empty((S, v.shape[1]), dtype=torch.float32, device=v.device)
-    rc = load_library().cc_ordered_segment_sum(
-        v.data_ptr(), None if perm is None else perm.data_ptr(),
-        offsets.data_ptr(), None if base is None else base.data_ptr(),
-        out.data_ptr(), S, v.shape[1], _stream())
+    rc = load_library().cc_ordered_range_sum(
+        v.data_ptr(), offsets.data_ptr(), out.data_ptr(), S, v.shape[1],
+        _stream())
     LAUNCHES["ordered_segment_sum"] += 1
-    _check(rc, "ordered_segment_sum")
+    _check(rc, "ordered_range_sum")
     return out.reshape(S) if flat else out
 
 
@@ -382,6 +442,29 @@ def net_broker_flow_plain(src, dst, earlier, d_src, d_dst):
     net_src_lo = same_ss @ neg_s + same_sd @ neg_d
     net_src_hi = same_ss @ pos_s + same_sd @ pos_d
     return net_src_lo, net_dst_hi, net_src_hi
+
+
+def net_broker_flow_ascending(src, dst, earlier, d_src, d_dst):
+    """KC's own order in plain torch: each of the six partial sums adds its
+    terms in ascending j (one vectorised step per j, every row at once;
+    a row without a term at j adds +0.0, which changes no bit of a sum
+    that starts at +0.0), then the pairs. The card's result must equal it
+    bit for bit."""
+    m = src.shape[0]
+    zero = torch.zeros(m, dtype=torch.float32, device=src.device)
+    dd, ds, ss_lo, sd_lo, ss_hi, sd_hi = (zero.clone() for _ in range(6))
+    a, b = d_src.to(torch.float32), d_dst.to(torch.float32)
+    for j in range(m):
+        e = earlier[:, j]
+        m_dd, m_ds = e & (dst[j] == dst), e & (src[j] == dst)
+        m_ss, m_sd = e & (src[j] == src), e & (dst[j] == src)
+        dd = dd + torch.where(m_dd, b[j].clamp(min=0.0), zero)
+        ds = ds + torch.where(m_ds, a[j].clamp(min=0.0), zero)
+        ss_lo = ss_lo + torch.where(m_ss, a[j].clamp(max=0.0), zero)
+        ss_hi = ss_hi + torch.where(m_ss, a[j].clamp(min=0.0), zero)
+        sd_lo = sd_lo + torch.where(m_sd, b[j].clamp(max=0.0), zero)
+        sd_hi = sd_hi + torch.where(m_sd, b[j].clamp(min=0.0), zero)
+    return ss_lo + sd_lo, dd + ds, ss_hi + sd_hi
 
 
 def net_broker_flow(src, dst, earlier, d_src, d_dst):

@@ -8,15 +8,66 @@ both and from run to run:
 - :func:`tree_sum` — XLA's CPU reduction: windows of 32 summed in order
   (padding split evenly in front and behind), repeated until at most 32
   partial sums remain, which are summed in order; :func:`tree_sum_last`
-  reduces the last axis of a batch of rows the same way, and
-  :func:`lane_row_sum` as XLA reduces a fused row of 24 to 32 elements,
-  and :func:`matrix_sum` as an eager ``jnp.sum`` reduces a whole matrix;
+  reduces the last axis of a batch of rows the same way,
+  :func:`violation_row_sum` as XLA reduces a goal's fused penalty row
+  (:func:`vector_loop_sum`, below), and :func:`matrix_sum` as an eager
+  ``jnp.sum`` reduces a whole matrix;
 - :func:`scan_sum` — XLA's CPU cumulative sum: sequential prefix sums in
   blocks of 16, the block totals scanned the same way and added back;
 - :func:`fma` — one rounding for ``a * b + c``, where the reference's
   compiled program contracts the two operations;
 - :func:`top_k`, :func:`argsort`, :func:`lexsort` — stable orders (the
   lower index first among ties, as ``lax.top_k``/``jnp.argsort`` give).
+
+**A goal's violation row** (``IntervalGoal.violation``: the penalty of B1 =
+padded brokers + 1 elements, summed in the fusion that computes it). XLA's
+CPU backend emits the fusion as a loop over the row, and LLVM's loop
+vectorizer, not XLA, picks the order. Read from the optimized IR of each
+program (``XLA_FLAGS=--xla_dump_to``, file
+``*.jit_violation.select_reduce_fusion_kernel_module.ir-with-opt.ll``) and
+confirmed against values (``scripts/probe_violation_order.py``), the order
+is one of:
+
+- in order from zero: a scalar loop, every row of at most 32 elements that
+  the list below does not name (wider rows reduce as :func:`tree_sum`);
+- a vector loop, :func:`vector_loop_sum` with (VF, IC, epilogue, tail):
+  IC accumulators of VF lanes over the whole VF x IC chunks (XLA's init
+  0.0 enters lane 0 of the first; the others start at -0.0), combined
+  ``((a0 + a1) + a2) + a3``, then one ``llvm.vector.reduce.fadd``
+  (``reassoc``, start -0.0), which the x86 backend lowers by halves —
+  lanes 0-3 + 4-7, then 0-1 + 2-3, then 0 + 1; a VF-lane epilogue seeded
+  with that total in lane 0 (the other lanes -0.0) over the whole chunks
+  left, reduced the same way; the rest added one at a time in order. A
+  row read through a stride (a column of ``util[B1, 4]``) keeps at least
+  one element (``tail``) for the scalar loop, so a width that VF divides
+  runs one vector chunk fewer.
+
+The program's shape — which plane the penalty reads, against which bound
+— and whether it is vmapped over scenarios pick the loop, by width
+(:data:`ROW_LOOPS`):
+
+- ``plane``, a [B1] plane with both bounds scalar (replica and leader
+  counts): unbatched 23: (4, 4, 4, 0), 24-32: (8, 1, 0, 0); vmapped (the
+  what-if scorer) 22-23: (4, 4, 4, 0), 24-32: (8, 1, 0, 0);
+- ``column``, a ``util`` column with both bounds scalar (the usage
+  goals): 23: (4, 4, 4, 1), 24-32: (8, 1, 0, 1), either way;
+- ``column-capacity``, a NW_IN, NW_OUT or DISK column against capacity x
+  threshold: 25-32: (8, 1, 0, 1), either way;
+- ``cpu-capacity``, the CPU column against its capacity: unbatched 28-32,
+  vmapped 25-32: (8, 1, 0, 1);
+- ``plane-capacity``, a float plane against a capacity column (potential
+  NW_OUT): unbatched 28-32, vmapped 25-32: (8, 1, 0, 1);
+- ``counts-upper``, the replica count against a scalar upper bound only:
+  in order unbatched, vmapped 30-32: (8, 1, 0, 0);
+- ``plane-upper``, a float plane against a scalar upper bound only (the
+  leaders' NW_IN): in order.
+
+So B1 = 25, the default padding's 24 brokers, already runs vector loops,
+and 23, 24 and 32 are where an eight-lane fold with its remainder in order
+(the earlier rule for every 24-32 row) and the programs part: 23 runs VF 4
+with an epilogue, and a strided row of 24 or 32 keeps eight elements for
+its scalar tail. A program not in the table raises :class:`ValueError` for
+rows of 9-32 elements rather than guess.
 """
 
 from __future__ import annotations
@@ -61,31 +112,94 @@ def tree_sum_last(x: torch.Tensor) -> torch.Tensor:
         x = ordered_range_sum(x.reshape(-1), offsets).reshape(rows, windows)
 
 
-def lane_row_sum(x: torch.Tensor) -> torch.Tensor:
-    """float32 ``[...]`` sums of ``x[..., n]`` in the order XLA's CPU backend
-    gives a row reduction fused with its elementwise producer when the row
-    holds 24 to 32 elements: eight lane accumulators over the whole
-    8-element chunks, folded by halves (lanes 0-3 + 4-7, then 0-1 + 2-3,
-    then 0 + 1), then the leftover elements added in order. Other widths
-    reduce as :func:`tree_sum_last`. (Probed on XLA's CPU backend: rows of
-    at most 22 and at least 33 elements follow the tree order; a single
-    row of 24 follows it too, and rows of 23 follow neither. Brokers pad
-    to multiples of 8, so a broker row has 8k + 1 elements.)"""
-    n = x.shape[-1]
-    if not 24 <= n <= 32:
-        return tree_sum_last(x)
+def vector_loop_sum(x: torch.Tensor, vf: int, ic: int = 1, epi: int = 0,
+                    tail: int = 0) -> torch.Tensor:
+    """float32 ``[...]`` sums of ``x[..., n]`` in the order of LLVM's
+    vectorized reduction loop (see the module docstring): ``ic``
+    accumulators of ``vf`` lanes over the whole ``vf * ic`` chunks (at
+    least ``tail`` elements left for the scalar loop), combined in order
+    and folded by halves; a ``epi``-lane epilogue seeded with that total;
+    then the rest in order. Every step is an element-wise float32 add."""
     x = x.to(torch.float32)
-    full = n // 8 * 8
-    acc = x[..., 0:8]
-    for i in range(8, full, 8):
-        acc = acc + x[..., i:i + 8]
-    while acc.shape[-1] > 1:
-        half = acc.shape[-1] // 2
-        acc = acc[..., :half] + acc[..., half:]
-    out = acc[..., 0]
-    for i in range(full, n):
-        out = out + x[..., i]
-    return out
+    n = x.shape[-1]
+    total = x.new_zeros(x.shape[:-1])
+    pos = 0
+    chunk = vf * ic
+    iters = (n - tail) // chunk if vf > 1 else 0
+    if iters:
+        # XLA's init 0.0 enters lane 0 of the first accumulator, -0.0 the
+        # others (only a -0.0 element can tell them apart)
+        init = x.new_full((vf,), -0.0)
+        init[0] = 0.0
+        acc = [x[..., k * vf:(k + 1) * vf] for k in range(ic)]
+        acc[0] = acc[0] + init
+        for it in range(1, iters):
+            acc = [a + x[..., (it * ic + k) * vf:(it * ic + k + 1) * vf]
+                   for k, a in enumerate(acc)]
+        lanes = acc[0]
+        for a in acc[1:]:
+            lanes = lanes + a
+        total = _fold_halves(lanes)
+        pos = iters * chunk
+    if epi and n - pos - tail >= epi:
+        lanes = torch.cat([total[..., None], x.new_full(
+            x.shape[:-1] + (epi - 1,), -0.0)], dim=-1)
+        while n - pos - tail >= epi:
+            lanes = lanes + x[..., pos:pos + epi]
+            pos += epi
+        total = _fold_halves(lanes)
+    for i in range(pos, n):
+        total = total + x[..., i]
+    return total
+
+
+def _fold_halves(lanes: torch.Tensor) -> torch.Tensor:
+    """x86's lowering of a ``reassoc`` ``llvm.vector.reduce.fadd``: lanes
+    folded by halves (0-3 + 4-7, 0-1 + 2-3, 0 + 1)."""
+    while lanes.shape[-1] > 1:
+        half = lanes.shape[-1] // 2
+        lanes = lanes[..., :half] + lanes[..., half:]
+    return lanes[..., 0]
+
+
+#: (program, vmapped) -> ((first width, last width, (vf, ic, epi, tail)),
+#: ...): the vector loops of a goal's fused violation row (the module
+#: docstring's table); a width not listed sums in order (n <= 32)
+ROW_LOOPS = {
+    ("plane", False): ((23, 23, (4, 4, 4, 0)), (24, 32, (8, 1, 0, 0))),
+    ("plane", True): ((22, 23, (4, 4, 4, 0)), (24, 32, (8, 1, 0, 0))),
+    ("column", False): ((23, 23, (4, 4, 4, 1)), (24, 32, (8, 1, 0, 1))),
+    ("column", True): ((23, 23, (4, 4, 4, 1)), (24, 32, (8, 1, 0, 1))),
+    ("column-capacity", False): ((25, 32, (8, 1, 0, 1)),),
+    ("column-capacity", True): ((25, 32, (8, 1, 0, 1)),),
+    ("cpu-capacity", False): ((28, 32, (8, 1, 0, 1)),),
+    ("cpu-capacity", True): ((25, 32, (8, 1, 0, 1)),),
+    ("plane-capacity", False): ((28, 32, (8, 1, 0, 1)),),
+    ("plane-capacity", True): ((25, 32, (8, 1, 0, 1)),),
+    ("counts-upper", False): (),
+    ("counts-upper", True): ((30, 32, (8, 1, 0, 0)),),
+    ("plane-upper", False): (),
+    ("plane-upper", True): (),
+}
+
+
+def violation_row_sum(x: torch.Tensor, program: str) -> torch.Tensor:
+    """float32 ``[...]`` sums of a goal's penalty rows ``x[..., B1]`` in the
+    order XLA's CPU backend gives ``program``'s fused row reduction —
+    vmapped when ``x`` has a leading scenario axis. Rows wider than 32
+    reduce as :func:`tree_sum_last`."""
+    n = x.shape[-1]
+    if n > _WINDOW or n < 9:
+        return tree_sum_last(x)
+    key = (program, x.dim() > 1)
+    if key not in ROW_LOOPS:
+        raise ValueError(f"XLA's order for the {'vmapped ' if key[1] else ''}"
+                         f"{program!r} violation row of {n} elements is not "
+                         f"identified (scripts/probe_violation_order.py)")
+    for first, last, shape in ROW_LOOPS[key]:
+        if first <= n <= last:
+            return vector_loop_sum(x, *shape)
+    return tree_sum_last(x)
 
 
 def _lanes(b: int, d: int) -> int:

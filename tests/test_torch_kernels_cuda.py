@@ -67,6 +67,92 @@ def test_wrappers_count_their_launches(cuda_device):
     assert kernels.LAUNCHES["net_broker_flow"] == 0
 
 
+def _segment_case(case, gen):
+    """(values, seg, S, base) on the CPU for one KB case."""
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen) * 1000 - 300
+    if case == "ragged":                # uneven segments, some empty
+        seg = (torch.rand(20_000, generator=gen) ** 3 * 105).long()
+        return rand(20_000, 4), seg, 105, None
+    if case == "empty_segments":        # only every third segment has rows
+        seg = torch.randint(0, 35, (9_000,), generator=gen) * 3
+        return rand(9_000, 4), seg, 105, None
+    if case == "out_of_range":          # ids below 0 and at or past S drop
+        seg = torch.randint(-7, 40, (12_000,), generator=gen)
+        return rand(12_000, 2), seg, 33, None
+    if case == "one_segment":           # every row in one segment, 3 rounds
+        return rand(10_000, 4), torch.full((10_000,), 17), 105, None
+    if case == "large_S":               # S above 100,000
+        seg = torch.randint(0, 150_000, (300_000,), generator=gen)
+        return rand(300_000), seg, 150_000, None
+    if case == "no_rows":
+        return (rand(0, 4), torch.zeros(0, dtype=torch.long), 9,
+                rand(9, 4))
+    if case == "apply_group":           # 1,024 rows x 6 columns with a base
+        seg = torch.randint(0, 105, (1_024,), generator=gen)
+        return rand(1_024, 6), seg, 105, rand(105, 6)
+    if case == "batched_int32":         # a batch axis, int32 ids, a base
+        seg = torch.randint(-1, 22, (7, 5_000), generator=gen).int()
+        return rand(7, 5_000, 4), seg, 21, rand(7, 21, 4)
+    if case == "batched_flat":          # a batch axis over 1-D values
+        seg = torch.randint(0, 105, (3, 4_000), generator=gen)
+        return rand(3, 4_000), seg, 105, None
+    if case == "wide":                  # nine columns: three column groups
+        seg = torch.randint(0, 50, (6_000,), generator=gen)
+        return rand(6_000, 9), seg, 50, None
+    raise ValueError(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "empty_segments", "out_of_range",
+                                  "one_segment", "large_S", "no_rows",
+                                  "apply_group", "batched_int32",
+                                  "batched_flat", "wide"])
+def test_segment_sum_equals_its_twin(cuda_device, case):
+    """KB bit for bit (max abs error 0) against its sequential twin."""
+    vals, seg, S, base = _segment_case(case, torch.Generator().manual_seed(3))
+    got = kernels.ordered_segment_sum(
+        vals.to(cuda_device), seg.to(cuda_device), S,
+        None if base is None else base.to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(),
+                       kernels.ordered_segment_sum_plain(vals, seg, S, base))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [1, 3])
+def test_range_sum_runs_of_1_to_32_rows(cuda_device, cols):
+    gen = torch.Generator().manual_seed(cols)
+    lengths = torch.randint(0, 33, (2_000,), generator=gen)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.long),
+                         torch.cumsum(lengths, 0)])
+    vals = torch.rand(int(offsets[-1]), cols, generator=gen) * 1e4 - 3e3
+    got = kernels.ordered_range_sum(vals.to(cuda_device),
+                                    offsets.to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), kernels.ordered_range_sum(vals, offsets))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 512, 1000, 1024])
+def test_net_broker_flow_adds_in_ascending_j(cuda_device, m):
+    """KC bit for bit (max abs error 0) against the ascending-j form, on
+    float loads whose sums depend on the order."""
+    gen = torch.Generator().manual_seed(m)
+    src = torch.randint(0, 105, (m,), generator=gen)
+    dst = torch.randint(0, 105, (m,), generator=gen)
+    src[: m // 4] = 7                   # a hot broker: long partial sums
+    earlier = torch.rand(m, m, generator=gen).tril(-1) < 0.6
+    a = (torch.rand(m, generator=gen) - 0.5) * 300
+    b = (torch.rand(m, generator=gen) - 0.5) * 300
+    got = kernels.net_broker_flow(*(t.to(cuda_device)
+                                    for t in (src, dst, earlier, a, b)))
+    torch.cuda.synchronize()
+    for g, want in zip(got, kernels.net_broker_flow_ascending(
+            src, dst, earlier, a, b)):
+        assert torch.equal(g.cpu(), want)
+
+
 def _failover_inputs(gen, S, P, R, B, batched):
     shape = (S, P, R) if batched else (P, R)
     rb = torch.randint(0, B + 1, shape, generator=gen, dtype=torch.int32)

@@ -197,6 +197,34 @@ def test_ordered_segment_sum_twin_matches_xla_scatter(seed, with_base):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("with_base", [False, True])
+@pytest.mark.parametrize("ids", ["int32", "int64"])
+def test_ordered_segment_sum_batch_axis_matches_vmapped_scatter(seed,
+                                                                with_base,
+                                                                ids):
+    """The batch axis: each item's rows into its own S segments, as a
+    vmapped scatter-add (the what-if scorer's init_state) adds them."""
+    rng = np.random.default_rng(seed)
+    L, N, S, C = 5, 700, 21, 4
+    vals = ((rng.random((L, N, C)) - 0.3) * 100).astype(np.float32)
+    seg = rng.integers(-2, S + 2, (L, N)).astype(ids)   # out of range: drop
+    base = (rng.random((L, S, C)) * 50).astype(np.float32)
+    start = jnp.asarray(base) if with_base else jnp.zeros((L, S, C),
+                                                          jnp.float32)
+    want = jax.jit(jax.vmap(lambda b, s, v: b.at[s].add(v, mode="drop")))(
+        start, np.where(seg < 0, S + 5, seg), vals)
+    got = kernels.ordered_segment_sum(
+        torch.from_numpy(vals), torch.from_numpy(seg), S,
+        base=torch.from_numpy(base) if with_base else None)
+    assert_same(want, got)
+    flat = kernels.ordered_segment_sum(torch.from_numpy(vals[..., 0]),
+                                       torch.from_numpy(seg), S)
+    assert_same(np.asarray(jax.jit(jax.vmap(
+        lambda s, v: jnp.zeros(S, jnp.float32).at[s].add(v, mode="drop")))(
+            np.where(seg < 0, S + 5, seg), vals[..., 0])), flat)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
 def test_ordered_range_sum_twin_matches_xla_scatter(seed):
     """Contiguous runs (empty ones included) summed like a sorted scatter."""
     rng = np.random.default_rng(seed)

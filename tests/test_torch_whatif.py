@@ -27,7 +27,8 @@ from cruise_control_tpu.analyzer.goals import goals_by_name as jgoals
 from cruise_control_tpu.whatif.engine import scenario_transform as j_transform
 from cruise_control_tpu_torch import kernels
 from cruise_control_tpu_torch.analyzer.goals import goals_by_name as tgoals
-from cruise_control_tpu_torch.utils.ordered import lane_row_sum, tree_sum_last
+from cruise_control_tpu_torch.utils.ordered import (tree_sum_last,
+                                                    violation_row_sum)
 from cruise_control_tpu_torch.whatif.engine import make_scenario_scorer
 from torch_parity_util import (assert_reports_equal, assert_same,
                                build_both, model_arrays, spec_both)
@@ -296,8 +297,9 @@ def test_batched_tree_sum_matches_vmapped_sum(S, n):
 @pytest.mark.parametrize("S", [1, 8, 104])
 @pytest.mark.parametrize("n", [9, 17, 25, 28, 32, 33, 105])
 def test_lane_row_sum_matches_fused_penalty_sum(S, n):
-    """XLA's CPU row reduction fused with an elementwise penalty: eight
-    lanes for rows of 24-32 elements, the tree order otherwise."""
+    """XLA's CPU row reduction fused with an elementwise penalty over a
+    [B1] plane with scalar bounds, vmapped: the ``plane`` program's vector
+    loops (``utils/ordered.py:ROW_LOOPS``), the tree order otherwise."""
     rng = np.random.default_rng(S * 7 + n)
     x = (rng.random((S, n)) * 1000 - 300).astype(np.float32)
     alive = rng.random((S, n)) < 0.9
@@ -308,7 +310,7 @@ def test_lane_row_sum_matches_fused_penalty_sum(S, n):
     want = np.asarray(jax.jit(jax.vmap(lambda v, a: penalty(v, a).sum()))(
         x, alive))
     pen = torch.from_numpy(np.array(jax.vmap(penalty)(x, alive)))
-    assert_same(lane_row_sum(pen), want)
+    assert_same(violation_row_sum(pen, "plane"), want)
 
 
 @pytest.mark.parametrize("S", [1, 8, 104])

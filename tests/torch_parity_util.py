@@ -47,10 +47,12 @@ def _spec_inputs(num_brokers, partitions, rng, skew):
 
 
 def build_both(num_brokers: int = 8, partitions: int = 128, *,
-               seed: int = 0, skew: bool = True, dead: tuple = ()):
+               seed: int = 0, skew: bool = True, dead: tuple = (),
+               broker_pad_multiple: int = 8):
     """((jax_model, jax_md), (torch_model, torch_md)) for one seeded
     skewed cluster, built through each package's own ``flatten_spec``.
-    ``dead`` lists broker ids marked not alive."""
+    ``dead`` lists broker ids marked not alive; the broker axis pads to
+    ``broker_pad_multiple`` (B1 = padded brokers + 1)."""
     rng = np.random.default_rng(seed)
     brokers, parts = _spec_inputs(num_brokers, partitions, rng, skew)
     out = []
@@ -59,7 +61,8 @@ def build_both(num_brokers: int = 8, partitions: int = 128, *,
             brokers=[mod.BrokerSpec(alive=b["broker_id"] not in dead, **b)
                      for b in brokers],
             partitions=[mod.PartitionSpec(**p) for p in parts])
-        out.append(mod.flatten_spec(spec, **kw))
+        out.append(mod.flatten_spec(
+            spec, broker_pad_multiple=broker_pad_multiple, **kw))
     return out[0], out[1]
 
 
