@@ -94,12 +94,14 @@ PEAK_OPS_S = 67e12
 MAIN_SEARCH = dict(num_replica_candidates=512, num_dest_candidates=16,
                    apply_per_iter=512, max_iters_per_goal=512,
                    fused_chain=True)
-#: the previous designs' times (KB sorting the ids, KC a thread a row; same
-#: method, NVIDIA H100 80GB HBM3 at 700 W; PERF.md), printed beside this
-#: run's: KB by rows, KC by M
+#: the previous designs' times (KB sorting the ids, KC a thread a row, KE a
+#: block testing every slot, KH rebuilding every disk sum each iteration;
+#: same method, NVIDIA H100 80GB HBM3 at 700 W; PERF.md), printed beside
+#: this run's: KB by rows, KC by M, KE and KH by shape
 EARLIER_MS = {("KB", 40_192): 0.2029, ("KB", 400_128): 0.2322,
-          ("KB", 4_019_200): 0.8807, ("KC", 512): 0.08195,
-          ("KC", 1024): 0.16520}
+              ("KB", 4_019_200): 0.8807, ("KC", 512): 0.08195,
+              ("KC", 1024): 0.16520, ("KE", "schedule"): 30.932,
+              ("KH", "phase 11"): 8.433}
 #: the audit waives RackAwareGoal, as the reference bench does
 WAIVED = frozenset({"RackAwareGoal"})
 #: phase 7's and phase 8's results as the reference computes them (the
@@ -930,10 +932,36 @@ def _once_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def _wide_jbod(seed, B, D, P, hot=None):
+    """A random JBOD layout of B brokers x D disks (rd, size, rb, capacity,
+    valid as CPU tensors): half the replicas on disk 0, 5% of the disks
+    invalid, one draining; ``hot`` puts the first copy of that many
+    partitions on broker 0."""
+    import torch
+    gen = np.random.default_rng(seed)
+    rb = gen.integers(0, B, (P, 2)).astype(np.int32)
+    rb[:, 1] = (rb[:, 0] + 1 + gen.integers(0, B - 1, P)) % B
+    if hot:
+        rb[:hot, 0] = 0
+        rb[:hot, 1] = 1 + gen.integers(0, B - 1, hot)
+    rd = np.where(gen.random((P, 2)) < 0.5, 0,
+                  gen.integers(0, D, (P, 2))).astype(np.int32)
+    size = (gen.random((P, 2)) * 100).astype(np.float32)
+    # the walk reads a capacity only as live (> 0) or draining (0)
+    cap = (gen.random((B, D)) * 2000 + 100).astype(np.float32)
+    cap[1, D - 1] = 0.0
+    valid = gen.random((B, D)) < 0.95
+    valid[:, 0] = True
+    cap[~valid] = 0.0
+    return tuple(torch.from_numpy(x) for x in (rd, size, rb, cap, valid))
+
+
 def _kernel_intra_walk(rows, state):
     """KH against its twin at phase 11's shape (the rebalance's disk
-    state), at a small shape with ties, zero sizes and a cap of 3, and at
-    48 disks a broker (the mean's sum over two windows of 32 disks)."""
+    state), at a small shape with ties, zero sizes and a cap of 3, at 48
+    and 96 disks a broker (the mean's sum over two and three windows of 32
+    disks), and with one broker of 30,000 replicas whose lists exceed the
+    launch's shared allotment (the global scratch)."""
     import torch
     from cruise_control_tpu_torch import kernels
     args = (state.replica_disk, state.replica_size, state.replica_broker,
@@ -948,35 +976,32 @@ def _kernel_intra_walk(rows, state):
                            [100.0, 100.0, 100.0]]),
              torch.tensor([[True, True, True], [True, True, False],
                            [False, False, False]]))
-    gen = np.random.default_rng(48)
-    wide_rb = gen.integers(0, 6, (1000, 2)).astype(np.int32)
-    wide = (torch.from_numpy(np.where(gen.random((1000, 2)) < 0.5, 0,
-                                      gen.integers(0, 48, (1000, 2))
-                                      ).astype(np.int32)),
-            torch.from_numpy((gen.random((1000, 2)) * 100).astype(
-                np.float32)),
-            torch.from_numpy(wide_rb),
-            torch.from_numpy((gen.random((6, 48)) * 2000 + 100).astype(
-                np.float32)),
-            torch.from_numpy(gen.random((6, 48)) < 0.95))
-    wide[3][~wide[4]] = 0.0
-    for tag, inputs, max_iters in (("phase 11", args, 512),
-                                   ("small", small, 3),
-                                   ("48 disks", wide, 512)):
+    cases = (("phase 11", args, 512), ("small", small, 3),
+             ("48 disks", _wide_jbod(48, 6, 48, 1000), 512),
+             ("96 disks", _wide_jbod(96, 8, 96, 4000), 512),
+             ("30,000 replicas on one broker", _wide_jbod(7, 4, 4, 31000,
+                                                          hot=30000), 40))
+    for tag, inputs, max_iters in cases:
         dev_in = [t.cuda() for t in inputs]
         got_rd, got_it = kernels.intra_broker_walk(*dev_in, max_iters)
-        want_rd, want_it = kernels.intra_broker_walk_plain(
-            *(t.cpu() for t in inputs), max_iters)
+        (want_rd, want_it), plain = _once_ms(
+            lambda: kernels.intra_broker_walk_plain(
+                *(t.cpu() for t in inputs), max_iters))
         err = float((got_rd.cpu() - want_rd).abs().max())
         if err != 0 or int(got_it) != int(want_it):
             fail(f"intra_broker_walk differs from its twin ({tag})")
+        changed = int((got_rd.cpu() != inputs[0].cpu()).sum())
         if tag != "phase 11":
+            ms = (time_ms(lambda: kernels.intra_broker_walk(*dev_in,
+                                                            max_iters),
+                          graph=True) if tag != "small" else 0.0)
             log(f"KH intra_broker_walk ({tag}, max_iters {max_iters}): "
-                f"bit-exact vs twin, {int(got_it)} iterations")
+                f"bit-exact vs twin, {int(got_it)} iterations, {changed} "
+                f"replicas moved; {ms:.4f} ms")
             _keep_first_shape(rows, "intra_broker_walk", err, {})
             continue
-        # eager: the wrapper reads the CSR's sizes back before its launch
-        ms = time_ms(lambda: kernels.intra_broker_walk(*dev_in, max_iters))
+        ms = time_ms(lambda: kernels.intra_broker_walk(*dev_in, max_iters),
+                     graph=True)
         _, plain = _once_ms(lambda: kernels.intra_broker_walk_plain(
             *dev_in, max_iters))
         B, D = inputs[3].shape
@@ -984,8 +1009,8 @@ def _kernel_intra_walk(rows, state):
         rb = inputs[2].cpu().numpy().reshape(-1)
         on = rb < B
         n_b = np.bincount(rb[on], minlength=B)
-        changed = (got_rd.cpu() != inputs[0].cpu()).numpy().reshape(-1)
-        m_b = np.bincount(rb[on & changed], minlength=B)
+        moved = (got_rd.cpu() != inputs[0].cpu()).numpy().reshape(-1)
+        m_b = np.bincount(rb[on & moved], minlength=B)
         its = int(got_it)
         # Work this run needs at least: each broker's iterations (its
         # changed replicas + 1, a lower bound on its moves + 1, capped)
@@ -996,21 +1021,25 @@ def _kernel_intra_walk(rows, state):
         hot = int(n_b.argmax())
         log(f"KH intra_broker_walk P={P} R={R} B={B} D={D} ({its} "
             f"iterations, hottest broker {hot}: {int(n_b[hot])} replicas, "
-            f"{int(m_b[hot])} changed): bit-exact vs twin; {ms:.4f} ms, twin "
-            f"{plain:.1f} ms (one call), bound {b_ms:.6f} ms ({b_by}); a "
-            f"chain of {its} iterations x {int(n_b[hot])} in-order adds on "
-            f"the hottest broker")
+            f"{int(m_b[hot])} changed): bit-exact vs twin; {ms:.4f} ms "
+            f"({ms * 1e3 / max(its, 1):.2f} us an iteration; PR 6: "
+            f"{EARLIER_MS[('KH', tag)]} ms), twin {plain:.1f} ms (one "
+            f"call), bound {b_ms:.6f} ms ({b_by}); a chain of {its} "
+            f"iterations x 4 dependent steps")
         _keep_first_shape(rows, "intra_broker_walk", err, dict(
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
 
 
 def _kernel_population_select(rows, rng):
-    """KI against its twin at K = 4, G = 4 (phase 10's population) and at
-    K = 64, G = 16, with ties, a NaN row, hard goals and a move weight."""
+    """KI against its twin at K = 4, G = 4 (phase 10's population), at
+    K = 64, G = 16, at 33 and 64 goals (the population program's windowed
+    tree), and at K = 1,024, G = 64 (the normalized stacks in global
+    scratch: [K, G] does not fit shared memory), with ties, a NaN row,
+    hard goals and a move weight."""
     import torch
     from cruise_control_tpu_torch import kernels
-    for K, G in ((4, 4), (64, 16)):
+    for K, G in ((4, 4), (64, 16), (16, 33), (16, 64), (1024, 64)):
         boundary = (rng.random((K, G)) * 10.0 ** rng.integers(-7, 4, (K, G))
                     ).astype(np.float32)
         boundary[K // 2] = boundary[K // 4]          # a tie
@@ -1124,53 +1153,90 @@ def schedule_context(model, md, proposals):
 
 
 def phase_first_fit(model, md, proposals, rows):
-    """KE against its twin at the main path's schedule shape (the seed-1
-    proposals under the default concurrency caps)."""
+    """KE against its twin at the shapes of phase 8's two schedules (the
+    seed-1 proposals under the default concurrency caps, without and with
+    the 300 MB budget), and at a frontier near K = 1,024 (every slot past
+    the shared-memory ones in play). Each move depends on every earlier
+    one: ``scripts/probe_walk_kernels.py`` prices that chain."""
     import torch
     from cruise_control_tpu_torch import kernels
     from cruise_control_tpu_torch.executor import (
         ConcurrencyConfig, DeviceMoveScheduler, ExecutionConcurrencyManager)
     from cruise_control_tpu_torch.executor.schedule import first_fit_inputs
-    log("== phase 3 (KE, at the shape of phase 4's schedule)")
+    log("== phase 3 (KE, at the shapes of phase 8's schedules)")
     ctx = schedule_context(model, md, proposals)
     order = DeviceMoveScheduler(device="cuda")._strategy_order(
         proposals, None, ctx)
-    inp = first_fit_inputs(order, proposals, ExecutionConcurrencyManager(
-        ConcurrencyConfig()), md, ctx, None)
-    tensors = [torch.from_numpy(inp[k]).to(model.device)
-               for k in ("rows", "dest_rows", "size_mb", "valid", "caps")]
-    extra = (inp["cluster_cap"], inp["budget"], inp["num_batches"])
-    got = kernels.first_fit(*tensors, *extra)
-    # The twin walks the moves one by one from the host (~1 ms a move), so
-    # it runs once, on the card, between a pair of CUDA events.
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    want = kernels.first_fit_plain(*tensors, *extra)
-    end.record()
-    end.synchronize()
-    plain = start.elapsed_time(end)
+    for tag, bandwidth, _throttle in SCHEDULE_RUNS:
+        inp = first_fit_inputs(order, proposals, ExecutionConcurrencyManager(
+            ConcurrencyConfig()), md, ctx, bandwidth)
+        tensors = [torch.from_numpy(inp[k]).to(model.device)
+                   for k in ("rows", "dest_rows", "size_mb", "valid",
+                             "caps")]
+        extra = (inp["cluster_cap"], inp["budget"], inp["num_batches"])
+        got = kernels.first_fit(*tensors, *extra)
+        # The twin walks the moves one by one from the host (~0.4 ms a
+        # move), so it runs once, on the card, between a pair of events.
+        want, plain = _once_ms(lambda: kernels.first_fit_plain(*tensors,
+                                                                *extra))
+        err = float((got - want).abs().max())
+        if err != 0:
+            fail(f"first_fit differs from its twin at phase 8's shape "
+                 f"({tag})")
+        ms = time_ms(lambda: kernels.first_fit(*tensors, *extra), graph=True)
+        M, W = inp["rows"].shape
+        K = inp["num_batches"]
+        n = int(inp["valid"].sum())
+        a = want.cpu().numpy()
+        frontier = int(a[a < K].max(initial=-1)) + 1
+        tested = int((a[inp["valid"]].astype(np.int64) + 1).sum())
+        # each valid move's rows, destinations and size read once, the
+        # valid mask and the caps read once, each valid move's batch
+        # written once
+        nbytes = n * W * 8 + n * 4 + M + inp["caps"].nbytes + n * 4
+        b_ms, b_by = bound(nbytes, tested * (2 * W + 1))
+        earlier = EARLIER_MS.get(("KE", tag))
+        log(f"KE first_fit ({tag}) M={M} W={W} K={K} "
+            f"B1={inp['caps'].shape[0]}: bit-exact vs twin; frontier "
+            f"{frontier} batches ("
+            f"{kernels.first_fit_shared_slots(W, K, inp['caps'].shape[0])} "
+            f"slots in shared memory); {ms:.4f} ms ({ms * 1e3 / n:.3f} us a move"
+            + (f"; PR 6: {earlier} ms" if earlier else "") + f"), twin "
+            f"{plain:.1f} ms (one call), bound {b_ms:.6f} ms ({b_by}); a "
+            f"chain of {n} dependent steps")
+        _keep_first_shape(rows, "first_fit", err, dict(
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
+
+    # The largest-K form: every move touches row 0, whose cap is 1, so
+    # move i opens batch i and the frontier climbs to K - 1 (slots past the
+    # shared-memory ones live in the global arrays); the last moves spill.
+    gen = np.random.default_rng(1024)
+    Mk, K, B1, W = 1030, 1024, 101, 4
+    rk = gen.integers(0, B1 - 1, (Mk, W)).astype(np.int32)
+    rk[:, 0] = 0
+    dk = np.where(gen.random((Mk, W)) < 0.5, rk, B1 - 1).astype(np.int32)
+    caps = np.full(B1, 1 << 20, np.int32)
+    caps[0] = 1
+    caps[B1 - 1] = 1 << 30
+    tensors = [torch.from_numpy(x).to(model.device) for x in (
+        rk, dk, (gen.random(Mk) * 500).astype(np.float32),
+        np.ones(Mk, bool), caps)]
+    got = kernels.first_fit(*tensors, 1 << 20, 300.0, K)
+    want, plain = _once_ms(lambda: kernels.first_fit_plain(
+        *tensors, 1 << 20, 300.0, K))
     err = float((got - want).abs().max())
-    if err != 0:
-        fail("first_fit differs from its twin at the main path's shape")
-    ms = time_ms(lambda: kernels.first_fit(*tensors, *extra), graph=True)
-    M, W = inp["rows"].shape
-    K = inp["num_batches"]
-    n = int(inp["valid"].sum())
-    tested = int((want.cpu().numpy()[inp["valid"]].astype(np.int64)
-                  + 1).sum())
-    # each valid move's rows, destinations and size read once, the valid
-    # mask and the caps read once, each valid move's batch written once
-    nbytes = n * W * 8 + n * 4 + M + inp["caps"].nbytes + n * 4
-    b_ms, b_by = bound(nbytes, tested * (2 * W + 1))
-    log(f"KE first_fit M={M} W={W} K={K} B1={inp['caps'].shape[0]}: "
-        f"bit-exact vs twin; {ms:.3f} ms, twin {plain:.1f} ms (one call), "
-        f"bound {b_ms:.6f} ms ({b_by}); a chain of {n} dependent steps, so "
-        f"the bound is out of reach")
-    _keep_first_shape(rows, "first_fit", err, dict(
-        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None))
+    a = want.cpu().numpy()
+    if err != 0 or int(a[a < K].max()) != K - 1:
+        fail("first_fit differs from its twin at the frontier near K")
+    ms = time_ms(lambda: kernels.first_fit(*tensors, 1 << 20, 300.0, K),
+                 graph=True)
+    log(f"KE first_fit (frontier near K) M={Mk} W={W} K={K} B1={B1}: "
+        f"bit-exact vs twin; frontier {K} batches "
+        f"({kernels.first_fit_shared_slots(W, K, B1)} slots in shared "
+        f"memory); "
+        f"{ms:.4f} ms ({ms * 1e3 / Mk:.3f} us a move), twin {plain:.1f} ms")
+    _keep_first_shape(rows, "first_fit", err, {})
 
 
 def _peak_mib():

@@ -80,20 +80,28 @@ def normalized_stacks(stacks, scales, *, contract: bool = False
     return torch.where(stacks <= tol, 0.0, norm)
 
 
-MAX_FUSED_GOALS = 22
+#: Goal counts past 22 and up to 32 whose compiled weighted row is not
+#: reproduced: there LLVM vectorizes the row, in loops read from small
+#: programs (``scripts/probe_sum_order.py --weighted``) that the whole
+#: population program has not been shown to compile alike
+#: (``scripts/probe_population_goals.py``), so they raise.
+UNREPRODUCED_GOALS = range(23, 33)
 
 
 def _fused_weighted_sum(norm: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """float32 ``(norm * w).sum(-1)`` as XLA's CPU backend computes it inside
-    a compiled program (probed over G = 1..32 goals): from zero in goal
+    the compiled population program: up to 22 goals from zero in goal
     order, each product contracted into the running sum (an FMA) when the
     weights differ, rounded on its own when they all are equal (a weight
-    of 1 leaves the product exact). That holds for up to
-    ``MAX_FUSED_GOALS`` goals (the catalog has 21); wider rows raise."""
+    of 1 leaves the product exact); past 32 goals the rounded products in
+    XLA's windowed tree. A goal may repeat. 23-32 goals raise
+    (:data:`UNREPRODUCED_GOALS`)."""
     G = norm.shape[-1]
-    if G > MAX_FUSED_GOALS:
-        raise ValueError(f"the compiled weighted sum is reproduced for at "
-                         f"most {MAX_FUSED_GOALS} goals, got {G}")
+    if G in UNREPRODUCED_GOALS:
+        raise ValueError(f"the compiled weighted row is reproduced for 1-22 "
+                         f"or more than 32 goals, got {G}")
+    if G > 32:
+        return tree_sum_last(norm * w)
     contract = bool((w != w[0]).any()) if G else False
     acc = norm.new_zeros(norm.shape[:-1])
     for g in range(G):

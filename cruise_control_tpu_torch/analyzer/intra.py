@@ -156,8 +156,8 @@ def _violations(state: DiskState, cap_threshold: float,
     """(capacity_violation, balance_violation), both 0-dim float32. The
     reference computes these eagerly: every operation rounds on its own,
     the D-wide row sums follow :func:`utils.ordered.tree_sum_last` and the
-    whole-matrix sums :func:`utils.ordered.matrix_sum` (probed at D = 1-64
-    disks)."""
+    whole-matrix sums :func:`utils.ordered.matrix_sum` (probed at D =
+    1-256 disks, and at 63 and 95 disks or brokers)."""
     util = state.disk_util
     cap = state.disk_capacity * cap_threshold
     # Draining disks (capacity 0) count everything on them as over capacity.

@@ -17,18 +17,18 @@
 // (:262-275) and _scores (:255-260), over analyzer/engine.py:56-96, inside
 // the reference's jitted population program.
 //
-// Rounding follows that program as XLA's CPU backend compiles it (probed):
-// the tolerance and the move term are FMAs; the weighted row sum runs from
-// zero in goal order, each product contracted into the sum when the
-// weights differ and rounded on its own when they are all equal — the
-// reference's bits for up to 22 goals (kMaxGoals; the wrapper refuses
-// wider rows). Every other operation is rounded on its own (__fdiv_rn,
-// __fmul_rn, __fadd_rn).
+// Rounding follows that program as XLA's CPU backend compiles it (probed,
+// scripts/probe_sum_order.py --weighted): the tolerance and the move term
+// are FMAs; the weighted row (weighted_row below) runs in goal order from
+// zero up to 22 goals and in XLA's windowed tree past 32 (up to 1,024
+// goals, one level of windows; 23-32 goals are refused). Every other
+// operation is rounded on its own (__fdiv_rn, __fmul_rn, __fadd_rn).
 //
-// Bound on the card: a launch. K <= 1,024 plans and G <= 22 goals fit one
-// block with one thread per plan; the dominance counts and the sort
-// positions are O(K^2 G) and O(K^2) comparisons over the block's shared
-// copy of the normalized stacks.
+// Bound on the card: a launch. K <= 1,024 plans fit one block with one
+// thread per plan; the dominance counts and the sort positions are
+// O(K^2 G) and O(K^2) comparisons over the block's copy of the normalized
+// stacks: in shared memory when [K, G] fits beside the per-plan arrays,
+// else in the caller's global scratch (read through L1).
 
 #include <cmath>
 #include <cstdint>
@@ -36,7 +36,36 @@
 
 namespace {
 
-constexpr int kMaxGoals = 22;
+// sum_g row[g] * w[g] as the reference's population program computes it
+// (analyzer/engine.py:_fused_weighted_sum): up to 22 goals from zero in
+// goal order, each product contracted into the sum when the weights differ
+// and rounded on its own when they are all equal; past 32 goals XLA's
+// windowed tree of the rounded products. The wrapper refuses 23-32 goals.
+__device__ float weighted_row(const float* row, const float* w, int G,
+                              bool contract) {
+  if (G > 32) {
+    // windows of 32 (the padding split evenly in front and behind), each
+    // in order from zero, then the window sums in order from zero
+    const int windows = (G + 31) / 32;
+    const int front = (windows * 32 - G) / 2;
+    float total = 0.0f;
+    for (int v = 0; v < windows; ++v) {
+      float part = 0.0f;
+      for (int e = 0; e < 32; ++e) {
+        const int g = v * 32 - front + e;
+        if (g >= 0 && g < G) part = __fadd_rn(part, __fmul_rn(row[g], w[g]));
+      }
+      total = __fadd_rn(total, part);
+    }
+    return total;
+  }
+  float acc = 0.0f;
+  for (int g = 0; g < G; ++g) {
+    acc = contract ? __fmaf_rn(row[g], w[g], acc)
+                   : __fadd_rn(acc, __fmul_rn(row[g], w[g]));
+  }
+  return acc;
+}
 
 // a < b with NaN after every number (and two NaNs equal), -0 == +0: the
 // order of jnp.lexsort's float keys.
@@ -54,18 +83,20 @@ __global__ void population_select_kernel(
     const float* __restrict__ boundary, const int32_t* __restrict__ moves,
     const float* __restrict__ scales, const uint8_t* __restrict__ hard,
     float hard_weight, float move_weight, int32_t with_moves, int32_t K,
-    int32_t G, int32_t n_surv, int32_t pareto, int32_t* __restrict__ ranks,
-    float* __restrict__ weighted, int32_t* __restrict__ perm) {
+    int32_t G, int32_t n_surv, int32_t pareto, float* norm_global,
+    int32_t* __restrict__ ranks, float* __restrict__ weighted,
+    int32_t* __restrict__ perm) {
   extern __shared__ float shared[];
-  float* norm = shared;                          // [K, G]
-  float* score = norm + K * G;                   // [K]
+  float* score = shared;                         // [K]
   float* primary = score + K;                    // [K]
   int32_t* order = reinterpret_cast<int32_t*>(primary + K);   // [K]
-  __shared__ float w[kMaxGoals];
+  float* w = reinterpret_cast<float*>(order + K);             // [G]
+  // [K, G]: after w in shared memory, or the global scratch
+  float* norm = norm_global ? norm_global : w + G;
   __shared__ bool contract;                      // the weights differ
 
   const int j = threadIdx.x;
-  if (j < G) w[j] = hard[j] ? hard_weight : 1.0f;
+  for (int g = j; g < G; g += blockDim.x) w[g] = hard[g] ? hard_weight : 1.0f;
   __syncthreads();
   if (j == 0) {
     bool uniform = true;
@@ -85,11 +116,7 @@ __global__ void population_select_kernel(
 
   if (j < K) {
     const float* row = norm + j * G;
-    float acc = 0.0f;
-    for (int g = 0; g < G; ++g) {
-      acc = contract ? __fmaf_rn(row[g], w[g], acc)
-                     : __fadd_rn(acc, __fmul_rn(row[g], w[g]));
-    }
+    float acc = weighted_row(row, w, G, contract);
     if (with_moves) {
       acc = __fmaf_rn(move_weight, static_cast<float>(moves[j]), acc);
     }
@@ -139,16 +166,33 @@ extern "C" int cc_population_select(const void* boundary, const void* moves,
                                     float hard_weight, float move_weight,
                                     int64_t with_moves, int64_t K, int64_t G,
                                     int64_t n_surv, int64_t pareto,
-                                    void* ranks, void* weighted, void* perm,
+                                    void* norm_scratch, void* ranks,
+                                    void* weighted, void* perm,
                                     void* stream) {
-  const int threads = static_cast<int>(((K > G ? K : G) + 31) / 32 * 32);
-  const size_t shared = static_cast<size_t>(K) * (G + 3) * sizeof(float);
-  if (shared > 48 * 1024) {
+  const int threads = static_cast<int>((K + 31) / 32 * 32);
+  // the per-plan arrays and the weights, then [K, G] where it fits
+  int device = 0;
+  int optin = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         device);
+  const size_t fixed = (3 * static_cast<size_t>(K) + G) * sizeof(float);
+  const size_t whole = fixed + static_cast<size_t>(K) * G * sizeof(float);
+  const bool staged = whole <= static_cast<size_t>(optin);
+  const size_t shared = staged ? whole : fixed;
+  if (shared > static_cast<size_t>(optin)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // raised once to the largest size asked for (not again while a CUDA
+  // graph captures the launch)
+  static size_t allowed = 48 * 1024;
+  if (shared > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
         population_select_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(shared));
     if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = shared;
   }
   population_select_kernel<<<1, threads, shared,
                              static_cast<cudaStream_t>(stream)>>>(
@@ -157,7 +201,9 @@ extern "C" int cc_population_select(const void* boundary, const void* moves,
       static_cast<const uint8_t*>(hard), hard_weight, move_weight,
       static_cast<int32_t>(with_moves), static_cast<int32_t>(K),
       static_cast<int32_t>(G), static_cast<int32_t>(n_surv),
-      static_cast<int32_t>(pareto), static_cast<int32_t*>(ranks),
+      static_cast<int32_t>(pareto),
+      staged ? nullptr : static_cast<float*>(norm_scratch),
+      static_cast<int32_t*>(ranks),
       static_cast<float*>(weighted), static_cast<int32_t*>(perm));
   return static_cast<int>(cudaGetLastError());
 }

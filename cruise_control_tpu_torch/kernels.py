@@ -192,15 +192,19 @@ def load_library():
                                                  i64, p]
             lib.cc_first_fit.argtypes = [p, p, p, p, p, i64, ctypes.c_float,
                                          p, p, p, p, i64, i64, i64, i64, p]
+            lib.cc_first_fit_shared_slots.argtypes = [i64, i64, i64]
+            lib.cc_first_fit_shared_slots.restype = i64
             lib.cc_delta_row_scatter.argtypes = [p, p, p, p, p, i64, i64,
                                                  i64, p]
             lib.cc_cluster_stats.argtypes = [p, p, p, p, p, p, p, i64, p]
-            lib.cc_intra_broker_walk.argtypes = [p, p, p, p, p, p, p, p, i64,
-                                                 i64, i64, i64, p, p, p]
+            lib.cc_intra_broker_walk.argtypes = [p, p, p, p, p, p, p, p, p,
+                                                 i64, i64, i64, i64, p, p, p]
+            lib.cc_intra_broker_walk_shared.argtypes = [i64, i64]
+            lib.cc_intra_broker_walk_shared.restype = i64
             f32 = ctypes.c_float
             lib.cc_population_select.argtypes = [p, p, p, p, f32, f32, i64,
                                                  i64, i64, i64, i64, p, p, p,
-                                                 p]
+                                                 p, p]
             lib.cc_fleet_scenario_failover.argtypes = [p, p, p, p, p, p, p,
                                                        p, p, p, p, p, i64,
                                                        i64, i64, i64, i64, p]
@@ -589,6 +593,13 @@ def scenario_failover(rb, off, pref, broker_valid, broker_alive, dead, add,
 # KE: first-fit batch assignment
 # ---------------------------------------------------------------------------
 
+def first_fit_shared_slots(W: int, num_batches: int, B1: int) -> int:
+    """Batch slots a KE launch of W touched rows a move, ``num_batches``
+    slots and B1 broker rows keeps in shared memory on the current card
+    (the rest live in its global arrays)."""
+    return int(load_library().cc_first_fit_shared_slots(W, num_batches, B1))
+
+
 def first_fit_plain(rows, dest_rows, size_mb, valid, caps, cluster_cap: int,
                     budget: float, num_batches: int) -> torch.Tensor:
     """Twin of KE: the reference's loop body, one move at a time, every
@@ -649,7 +660,7 @@ def first_fit(rows, dest_rows, size_mb, valid, caps, cluster_cap: int,
     rows, dest_rows, caps = (t.to(torch.int32).contiguous()
                              for t in (rows, dest_rows, caps))
     size_mb = size_mb.to(torch.float32).contiguous()
-    valid = valid.contiguous()
+    valid = valid.to(torch.int32)
     count = torch.zeros((B1, K), dtype=torch.int32, device=dev)
     size = torch.zeros(K, dtype=torch.int32, device=dev)
     mb = torch.zeros((B1, K), dtype=torch.float32, device=dev)
@@ -798,9 +809,6 @@ def cluster_stats(util, replicas, leaders, potential, alive):
 # KH: intra-broker disk walk
 # ---------------------------------------------------------------------------
 
-_MAX_DISKS = 64
-
-
 def _ordered_sums_dense(seg: torch.Tensor, vals: torch.Tensor,
                         num_segments: int) -> torch.Tensor:
     """float32[S]: each segment's values added from zero in row order (rows
@@ -827,7 +835,7 @@ def intra_broker_walk_plain(rd, size, rb, capacity, valid, max_iters: int):
     iteration at a time over the whole cluster; the clamped gathers of the
     padding replicas (``replica_broker == B``) made explicit. The live
     disks' mean sums the D axis as the compiled loop body does (XLA's tree
-    order, probed at D = 1-64)."""
+    order, probed at D = 1-256)."""
     from .utils.ordered import tree_sum_last
     B, D = capacity.shape
     P, R = rd.shape
@@ -891,31 +899,39 @@ def intra_broker_walk(rd, size, rb, capacity, valid, max_iters: int):
                                        max_iters)
     if valid.dtype != torch.bool:
         raise TypeError("intra_broker_walk takes a bool valid mask")
-    if D > _MAX_DISKS:
-        raise ValueError(f"intra_broker_walk handles at most {_MAX_DISKS} "
-                         f"disks a broker, got {D}")
+    if D < 1:
+        raise ValueError("intra_broker_walk needs at least one disk a broker")
     dev = rd.device
-    rbf = rb.reshape(-1).long()
-    # Each broker's replica flat indices in increasing order (CSR).
-    brokers, rows = torch.sort(rbf, stable=True)
-    n_rows = int(torch.searchsorted(brokers, B))
-    rows = rows[:n_rows].contiguous()
-    offsets = torch.searchsorted(brokers[:n_rows].contiguous(),
-                                 torch.arange(B + 1, device=dev))
-    max_rows = int((offsets[1:] - offsets[:-1]).max()) if B else 0
+    PR = rd.numel()
+    # Each broker's replica flat indices in increasing order (CSR); the
+    # padding replicas (broker B) sort last, past offsets[B]. No value is
+    # read back: the scratch is sized from P x R, and each block decides
+    # from its own count whether its lists fit the shared allotment.
+    brokers, rows = torch.sort(rb.reshape(-1).long(), stable=True)
+    offsets = torch.searchsorted(brokers, torch.arange(B + 1, device=dev))
     out = rd.to(torch.int32).contiguous().clone()
     size = size.to(torch.float32).contiguous()
     capacity = capacity.to(torch.float32).contiguous()
     valid = valid.contiguous()
-    scratch_size = torch.empty(n_rows, dtype=torch.float32, device=dev)
-    scratch_rd = torch.empty(n_rows, dtype=torch.int32, device=dev)
+    scratch_sz = torch.empty(PR, dtype=torch.float32, device=dev)
+    scratch_ix = torch.empty(PR, dtype=torch.int32, device=dev)
+    scratch_pre = torch.empty(PR, dtype=torch.float32, device=dev)
     moves = torch.empty(B, dtype=torch.int32, device=dev)
     max_moves = torch.zeros(1, dtype=torch.int32, device=dev)
-    rc = load_library().cc_intra_broker_walk(
+    lib = load_library()
+    # lists for up to 4x the mean broker (at least 1,024 replicas) in
+    # shared memory; a larger broker walks from the global scratch
+    shared = lib.cc_intra_broker_walk_shared(
+        D, max(1024, 4 * -(-PR // max(B, 1))))
+    if shared < 0:
+        raise ValueError(f"intra_broker_walk: {D} disks a broker do not fit "
+                         f"one block's shared memory")
+    rc = lib.cc_intra_broker_walk(
         offsets.data_ptr(), rows.data_ptr(), size.data_ptr(), out.data_ptr(),
-        capacity.data_ptr(), valid.data_ptr(), scratch_size.data_ptr(),
-        scratch_rd.data_ptr(), B, D, int(max_iters), max_rows,
-        moves.data_ptr(), max_moves.data_ptr(), _stream())
+        capacity.data_ptr(), valid.data_ptr(), scratch_sz.data_ptr(),
+        scratch_ix.data_ptr(), scratch_pre.data_ptr(), B, D, int(max_iters),
+        shared, moves.data_ptr(), max_moves.data_ptr(),
+        _stream())
     LAUNCHES["intra_broker_walk"] += 1
     _check(rc, "intra_broker_walk")
     iters = torch.clamp(max_moves[0] + 1, max=int(max_iters))
@@ -927,6 +943,7 @@ def intra_broker_walk(rd, size, rb, capacity, valid, max_iters: int):
 # ---------------------------------------------------------------------------
 
 _MAX_POPULATION = 1024
+_MAX_POPULATION_GOALS = 1024
 
 
 def population_select_plain(boundary, moves, scales, hard, hard_weight: float,
@@ -963,10 +980,14 @@ def population_select(boundary, moves, scales, hard, hard_weight: float,
                          "scales and hard [G]")
     if not 1 <= n_surv <= max(K, 1):
         raise ValueError(f"n_surv must lie in [1, K], got {n_surv}")
-    from .analyzer.engine import MAX_FUSED_GOALS
-    if G > MAX_FUSED_GOALS:
-        raise ValueError(f"population_select reproduces the reference for "
-                         f"at most {MAX_FUSED_GOALS} goals, got {G}")
+    if G > _MAX_POPULATION_GOALS:
+        raise ValueError(f"population_select sums at most "
+                         f"{_MAX_POPULATION_GOALS} goals (one level of "
+                         f"32-goal windows), got {G}")
+    from .analyzer.engine import UNREPRODUCED_GOALS
+    if G in UNREPRODUCED_GOALS:
+        raise ValueError(f"the compiled weighted row is reproduced for 1-22 "
+                         f"or more than 32 goals, got {G}")
     args = (boundary, moves, scales, hard)
     if _on_cpu(*args):
         return population_select_plain(*args, hard_weight, move_weight,
@@ -984,11 +1005,13 @@ def population_select(boundary, moves, scales, hard, hard_weight: float,
     ranks = torch.empty(K, dtype=torch.int32, device=dev)
     weighted = torch.empty(K, dtype=torch.float32, device=dev)
     perm = torch.empty(K, dtype=torch.int32, device=dev)
+    # the normalized stacks where [K, G] does not fit shared memory
+    scratch = torch.empty(K * G, dtype=torch.float32, device=dev)
     rc = load_library().cc_population_select(
         boundary.data_ptr(), moves.data_ptr(), scales.data_ptr(),
         hard.data_ptr(), float(hard_weight), float(move_weight),
         int(bool(move_weight)), K, G, int(n_surv), int(bool(pareto)),
-        ranks.data_ptr(), weighted.data_ptr(), perm.data_ptr(), _stream())
+        scratch.data_ptr(), ranks.data_ptr(), weighted.data_ptr(), perm.data_ptr(), _stream())
     LAUNCHES["population_select"] += 1
     _check(rc, "population_select")
     return ranks, weighted, perm

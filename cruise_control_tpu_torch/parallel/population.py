@@ -35,7 +35,7 @@ import torch
 from .. import _random
 from ..analyzer import engine
 from ..analyzer.constraint import PopulationConfig, SearchConfig
-from ..analyzer.engine import violation_stack
+from ..analyzer.engine import UNREPRODUCED_GOALS, violation_stack
 from ..analyzer.goals import GoalKernel
 from ..kernels import population_select
 from .batching import pow2_bucket
@@ -105,6 +105,10 @@ def make_population_search(passes: Sequence, goals: Sequence[GoalKernel],
     goals = list(goals)
     passes = list(passes)
     G = len(goals)
+    if G in UNREPRODUCED_GOALS:
+        # refused before any walk runs (KI would refuse the first boundary)
+        raise ValueError(f"the population's weighted row is reproduced for "
+                         f"1-22 or more than 32 goals, got {G}")
     K = pow2_bucket(max(int(pop_cfg.size), 1))
     R = cfg.polish_passes + 1 if cfg.polish_passes else 0
     polish_eps = min(cfg.epsilon, 1e-6)

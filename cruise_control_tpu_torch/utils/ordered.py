@@ -216,15 +216,18 @@ def _lanes(b: int, d: int) -> int:
     return 8 if b % 8 < 4 or (d == 2 and b >= 28) else 4
 
 
-def _small_sums(xs: torch.Tensor) -> torch.Tensor:
+def _small_sums(xs: torch.Tensor, split: bool = False) -> torch.Tensor:
     """float32[n] sums of n matrices xs[n, b, d] (2 <= b, d <= 32), each in
     XLA's eager order: f = :func:`_lanes` accumulators, lane l adding the
     elements of rows l, l + f, ... of the whole f-row groups in order, the
     lanes folded by halves, then the leftover rows' elements added in
-    order; with f = 1 every element in order from zero."""
+    order; with f = 1 every element in order from zero. ``split``: the
+    last row is a window's peeled row (one padding row on that axis), so
+    the lanes cover the whole f-row groups of the first b - 1 rows only."""
     n, b, d = xs.shape
-    f = _lanes(b, d)
-    full = b // f * f if f > 1 else 0
+    rows = b - 1 if split else b
+    f = _lanes(rows, d)
+    full = rows // f * f if f > 1 else 0
     flat = xs.reshape(n, b * d)
     if full:
         lane = (torch.arange(n, device=xs.device)[:, None] * f
@@ -243,23 +246,27 @@ def _small_sums(xs: torch.Tensor) -> torch.Tensor:
 
 def matrix_sum(x: torch.Tensor) -> torch.Tensor:
     """0-dim float32 sum of a matrix x[B, D] in the order XLA's CPU backend
-    gives an eager ``jnp.sum`` over both axes (probed). One column or one
-    row reduces as a vector (:func:`tree_sum`), at most 32 x 32 as one
-    :func:`_small_sums` matrix. Larger: windows of min(n, 32) along each
-    axis, each axis' padding split evenly in front and behind; without
-    padding each window reduces as a small matrix, with it each window's
-    elements add in row order from zero; the window sums then reduce as a
-    matrix again. A padding of exactly 1 on an axis over 32 (31, 63, ...
-    mod 32) follows an order not reproduced here, and raises."""
+    gives an eager ``jnp.sum`` over both axes (probed,
+    ``scripts/probe_sum_order.py``). One column or one row reduces as a
+    vector (:func:`tree_sum`), at most 32 x 32 as one :func:`_small_sums`
+    matrix. Larger: windows of min(n, 32) along each axis, each axis'
+    padding split evenly in front and behind, and the window sums reduce
+    as a matrix again. Each window:
+
+    - without padding: as a small matrix (:func:`_small_sums`);
+    - one padding column (D = 31 mod 32, D > 32): XLA peels the window's
+      last column, so the first wd - 1 columns add in row order, then the
+      last column down the rows;
+    - one padding row (B = 31 mod 32, B > 32) and no column padding: the
+      last row is peeled and the first 31 rows reduce as a small matrix
+      of 31 rows (:func:`_lanes` accumulators), the peeled row last;
+    - any other padding: the elements in row order from zero."""
     x = x.to(torch.float32)
     B, D = x.shape
     if B == 1 or D == 1:
         return tree_sum(x.reshape(-1))
     if B <= _WINDOW and D <= _WINDOW:
         return _small_sums(x[None])[0]
-    if any(n > _WINDOW and n % _WINDOW == _WINDOW - 1 for n in (B, D)):
-        raise ValueError(f"matrix_sum does not reproduce XLA's order for a "
-                         f"[{B}, {D}] matrix (one padding element)")
     wb, wd = min(B, _WINDOW), min(D, _WINDOW)
     nb, nd = -(-B // wb), -(-D // wd)
     pb, pd = nb * wb - B, nd * wd - D
@@ -267,7 +274,12 @@ def matrix_sum(x: torch.Tensor) -> torch.Tensor:
                                      pb // 2, pb - pb // 2))
     windows = xp.reshape(nb, wb, nd, wd).transpose(1, 2).reshape(
         nb * nd, wb, wd)
-    if pb or pd:
+    if pd == 1:
+        windows = torch.cat([windows[:, :, :-1].reshape(nb * nd, -1),
+                             windows[:, :, -1]], dim=1)
+    if pb == 1 and pd == 0:
+        parts = _small_sums(windows, split=True)
+    elif pb or pd:
         parts = ordered_range_sum(windows.reshape(-1), torch.arange(
             0, nb * nd * wb * wd + 1, wb * wd, device=x.device))
     else:

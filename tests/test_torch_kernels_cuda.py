@@ -201,6 +201,79 @@ def test_first_fit_matches_twin(cuda_device, budget):
         assert torch.equal(got.cpu(), want)
 
 
+def _first_fit_case(case, K, gen, W=4):
+    """(rows, dest, sizes, valid, caps, cluster_cap, budget) for one of
+    KE's regimes at K batch slots and W touched rows a move."""
+    B = 40
+    if case == "frontier_1":
+        # caps and the cluster cap never bind: every move lands in slot 0
+        M = 300
+        caps = torch.full((B + 1,), 1 << 20, dtype=torch.int32)
+        ccap, budget = 1 << 20, float("inf")
+    elif case == "frontier_near_k":
+        # every move touches row 0, whose cap is 1: move i opens batch i,
+        # and the last moves find every slot taken (assigned K)
+        M = K + 3
+        caps = torch.full((B + 1,), 1 << 20, dtype=torch.int32)
+        caps[0] = 1
+        ccap, budget = 1 << 20, float("inf")
+    elif case == "cap_zero":
+        M = 400
+        caps = torch.randint(1, 4, (B + 1,), generator=gen,
+                             dtype=torch.int32)
+        caps[7] = 0                                    # never admitted
+        ccap, budget = 25, float("inf")
+    else:                                              # budget with spills
+        M = 600
+        caps = torch.randint(2, 6, (B + 1,), generator=gen,
+                             dtype=torch.int32)
+        ccap, budget = 60, 150.0
+    rows = torch.randint(0, B + 1, (M, W), generator=gen, dtype=torch.int32)
+    if case == "frontier_near_k":
+        rows[:, 0] = 0
+    if case == "budget_spills":
+        rows[:, 1] = torch.randint(0, 3, (M,), generator=gen,
+                                   dtype=torch.int32)
+    dest = torch.where(torch.rand(M, W, generator=gen) < 0.5, rows, B)
+    dest[:, 1] = rows[:, 1]
+    sizes = torch.rand(M, generator=gen) * 100
+    valid = torch.rand(M, generator=gen) < 0.95
+    caps[B] = 1 << 30
+    return rows, dest, sizes, valid, caps, ccap, budget
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [8, 64, 512, 1024])
+@pytest.mark.parametrize("case", ["frontier_1", "frontier_near_k",
+                                  "cap_zero", "budget_spills"])
+def test_first_fit_regimes_match_twin(cuda_device, case, K):
+    """KE at the frontier of 1 and near K (slots past the shared-memory
+    ones), a row with a cap of 0, and a budget that spills moves."""
+    gen = torch.Generator().manual_seed(K + len(case))
+    *args, ccap, budget = _first_fit_case(case, K, gen)
+    got = kernels.first_fit(*(t.to(cuda_device) for t in args), ccap, budget,
+                            K)
+    want = kernels.first_fit_plain(*args, ccap, budget, K)
+    assert torch.equal(got.cpu(), want)
+    if case == "frontier_near_k":
+        assert int(want.max()) == K
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [2, 9, 24])
+@pytest.mark.parametrize("case", ["frontier_near_k", "budget_spills"])
+def test_first_fit_any_touched_rows(cuda_device, case, W):
+    """KE at a compiled-in row count (W = 2) and at the generic form, which
+    reads a move's rows in a run-time loop (W = 9, and 24 rows as a
+    reassignment at a replication factor of 12 touches), at K = 1,024."""
+    gen = torch.Generator().manual_seed(W + len(case))
+    *args, ccap, budget = _first_fit_case(case, 1024, gen, W)
+    got = kernels.first_fit(*(t.to(cuda_device) for t in args), ccap, budget,
+                            1024)
+    want = kernels.first_fit_plain(*args, ccap, budget, 1024)
+    assert torch.equal(got.cpu(), want)
+
+
 @pytest.mark.cuda
 def test_delta_row_scatter_matches_twin(cuda_device):
     """KF writes exactly its twin's rows into both planes in place, drops
@@ -313,12 +386,15 @@ def _jbod_inputs(gen, B, D, P, R, max_rows_on_one=None):
                                              (2, 4, 40_000, 20),
                                              (6, 12, 2_000, 512),
                                              (6, 48, 3_000, 512),
-                                             (4, 64, 3_000, 512)])
+                                             (4, 64, 3_000, 512),
+                                             (6, 65, 3_000, 512),
+                                             (5, 96, 4_000, 512),
+                                             (4, 128, 5_000, 512)])
 def test_intra_broker_walk_matches_twin(cuda_device, B, D, P, max_iters):
     """The fourth case puts ~40,000 replicas on each broker, more than a
     block's shared memory stages: the walk reads a global scratch copy. The
-    last three sum the mean over 12, 48 and 64 disks (one and two windows
-    of XLA's tree order)."""
+    others sum the mean over 12-128 disks (one to four windows of XLA's
+    tree order)."""
     gen = torch.Generator().manual_seed(B * 1000 + D)
     args = _jbod_inputs(gen, B, D, P, 2)
     rd, it = kernels.intra_broker_walk(*(t.to(cuda_device) for t in args),
@@ -329,9 +405,61 @@ def test_intra_broker_walk_matches_twin(cuda_device, B, D, P, max_iters):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["first", "last", "skewed", "nan",
+                                  "drain_zero"])
+def test_intra_broker_walk_edge_cases(cuda_device, case):
+    """KH where the moved replica is the first or the last element of its
+    disk's list, where one broker holds far more replicas than the others
+    (its lists exceed the launch's shared allotment: global scratch), where
+    a size is NaN, and where a draining disk holds zero-size replicas."""
+    gen = torch.Generator().manual_seed(len(case))
+    B, D, R = 6, 4, 2
+    P = 30_000 if case == "skewed" else 600
+    rd, size, rb, cap, valid = _jbod_inputs(gen, B, D, P, R)
+    if case == "skewed":
+        rb[: P - 200] = torch.where(rb[: P - 200] < B, 0, rb[: P - 200])
+        rb[: P - 200, 1] = torch.where(rb[: P - 200, 1] < B, 1,
+                                       rb[: P - 200, 1])
+        size = torch.rand(P, R, generator=gen) * 100
+        size = torch.where(rb < B, size, 0.0)
+    elif case in ("first", "last"):
+        # broker 0's heaviest replica on disk 0 at the list's front or back
+        on0 = (rb == 0) & (rd == 0)
+        flat = torch.nonzero(on0.reshape(-1)).squeeze(1)
+        pick = flat[0] if case == "first" else flat[-1]
+        size.view(-1)[pick] = 1500.0
+        cap[0] = 5000.0
+        valid[0] = True
+    elif case == "nan":
+        on = torch.nonzero((rb < B).reshape(-1)).squeeze(1)
+        size.view(-1)[on[len(on) // 2]] = float("nan")
+    else:
+        cap[2, 1] = 0.0                                 # drains
+        valid[2, 1] = True
+        on = (rb == 2)
+        rd = torch.where(on & (torch.arange(P)[:, None] % 5 == 0),
+                         torch.ones_like(rd), rd)
+        size = torch.where(on & (rd == 1) & (torch.arange(P)[:, None] % 2
+                                             == 0), 0.0, size)
+    args = (rd, size, rb, cap, valid)
+    # the skewed broker's 30,000 replicas make the twin slow: 40 iterations
+    max_iters = 40 if case == "skewed" else 512
+    out, it = kernels.intra_broker_walk(*(t.to(cuda_device) for t in args),
+                                        max_iters)
+    want_rd, want_it = kernels.intra_broker_walk_plain(*args, max_iters)
+    assert torch.equal(out.cpu(), want_rd)
+    assert int(it) == int(want_it)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("K,G,hard", [(4, 4, "mixed"), (64, 16, "soft"),
                                       (64, 16, "hard"), (1024, 22, "mixed"),
-                                      (128, 22, "soft")])
+                                      (128, 22, "soft"), (16, 33, "mixed"),
+                                      (16, 33, "hard"), (64, 40, "soft"),
+                                      (64, 48, "mixed"), (32, 96, "mixed"),
+                                      (16, 64, "mixed"), (64, 64, "soft"),
+                                      (1024, 64, "mixed"),
+                                      (256, 300, "soft")])
 def test_population_select_matches_twin(cuda_device, K, G, hard):
     gen = torch.Generator().manual_seed(K + G)
     boundary = torch.rand(K, G, generator=gen) * torch.pow(
@@ -356,6 +484,22 @@ def test_population_select_matches_twin(cuda_device, K, G, hard):
             # bit for bit, NaN (the NaN row's score) equal to NaN
             torch.testing.assert_close(g.cpu(), w.to(g.dtype), rtol=0,
                                        atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [23, 32])
+def test_population_select_refuses_23_to_32_goals(cuda_device, G):
+    """KI refuses the rows whose vectorized order is not reproduced, on the
+    card as on the CPU, and launches nothing."""
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="1-22 or more than 32 goals"):
+        kernels.population_select(
+            torch.rand(16, G, device=cuda_device),
+            torch.zeros(16, dtype=torch.int32, device=cuda_device),
+            torch.ones(G, device=cuda_device),
+            torch.zeros(G, dtype=torch.bool, device=cuda_device), 1000.0,
+            0.0, 8, False)
+    assert kernels.LAUNCHES["population_select"] == 0
 
 
 @pytest.mark.cuda

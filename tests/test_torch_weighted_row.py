@@ -1,0 +1,120 @@
+"""The population program's weighted row past 32 goals: KI's twin
+(``kernels.population_select`` on the CPU) and ``engine._fused_weighted_sum``
+against the reference's compiled population scoring
+(``parallel/population.py:_scores`` and ``_survivor_perm``, as
+``test_torch_population.py:_reference_select`` compiles them) at 33-128
+goals, with mixed, shared and unit weights, a move weight, several
+population sizes and goals listed more than once; and the refusal of
+23-32 goals, whose vectorized row is not reproduced. Equal means bit for
+bit."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import cruise_control_tpu.analyzer.engine as jeng
+import cruise_control_tpu_torch.analyzer.engine as teng
+from cruise_control_tpu_torch import kernels
+from cruise_control_tpu_torch.analyzer import PopulationConfig, SearchConfig
+from cruise_control_tpu_torch.parallel import make_population_search
+
+torch.set_num_threads(1)
+
+
+def _reference(boundary, moves, scales, hard, hard_weight, move_weight,
+               n_surv, pareto):
+    K = boundary.shape[0]
+
+    @jax.jit
+    def run(b, m, s):
+        weighted = jeng.weighted_objective(
+            b, s, hard, hard_weight=hard_weight, move_weight=move_weight,
+            moves=m)
+        ranks = jeng.pareto_ranks(b, s)
+        primary = (ranks.astype(jnp.float32) if pareto
+                   else jnp.zeros_like(weighted))
+        order = jnp.lexsort((jnp.arange(K), weighted, primary))
+        perm = order[:n_surv][jnp.arange(K) % n_surv]
+        return ranks, weighted, perm.at[0].set(0)
+    return [np.asarray(x) for x in run(boundary, moves, scales)]
+
+
+def _inputs(G, K, rng, similar):
+    scales = (rng.random(G) * 10.0 ** rng.integers(-2, 3, G)).astype(
+        np.float32)
+    if similar:
+        # magnitudes within one binade, so that every order rounds apart
+        boundary = ((1 + rng.random((K, G))) * np.maximum(scales, 1)
+                    * 4).astype(np.float32)
+    else:
+        boundary = (rng.random((K, G)) * 2.0 ** rng.integers(-10, 20, (K, G))
+                    ).astype(np.float32)
+    moves = rng.integers(0, 100_000, K).astype(np.int32)
+    return boundary, moves, scales
+
+
+@pytest.mark.parametrize("G", [33, 34, 40, 47, 48, 63, 64, 65, 95, 96, 128])
+@pytest.mark.parametrize("weights", ["one", "shared", "mixed"])
+def test_weighted_row_matches_the_population_program(G, weights):
+    """XLA's windowed tree of the rounded products past 32 goals (one to
+    four windows, the padding split front and back), K = 2, 5 and 16, with
+    and without a move weight."""
+    rng = np.random.default_rng(G * 3 + len(weights))
+    hard = {"one": np.zeros(G, bool), "shared": np.ones(G, bool),
+            "mixed": rng.random(G) < 0.4}[weights]
+    for K, mw, similar in ((2, 0.0, True), (5, 0.1, False),
+                           (16, 0.0, True), (16, 0.1, False)):
+        boundary, moves, scales = _inputs(G, K, rng, similar)
+        want = _reference(boundary, moves, scales, hard, 1000.0, mw,
+                          max(1, K // 2), True)
+        got = kernels.population_select(
+            torch.from_numpy(boundary), torch.from_numpy(moves),
+            torch.from_numpy(scales), torch.from_numpy(hard), 1000.0, mw,
+            max(1, K // 2), True)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("G", [22, 33, 64])
+def test_fused_weighted_sum_with_repeated_goals(G):
+    """A chain that lists goals more than once (as a user can): the goal
+    axis repeats columns of seven goals' stacks and weights, and the row
+    ``_fused_weighted_sum`` gives equals the reference's compiled one."""
+    rng = np.random.default_rng(G)
+    pick = rng.integers(0, 7, G)
+    hard = (rng.random(7) < 0.5)[pick]
+    K = 8
+    for similar in (True, False):
+        base, moves, scales = _inputs(7, K, rng, similar)
+        boundary = np.ascontiguousarray(base[:, pick])
+        scales = np.ascontiguousarray(scales[pick])
+        want = _reference(boundary, moves, scales, hard, 1000.0, 0.0, 4,
+                          False)[1]
+        norm = teng.normalized_stacks(boundary, scales, contract=True)
+        w = torch.where(torch.from_numpy(hard), torch.tensor(1000.0),
+                        torch.tensor(1.0))
+        np.testing.assert_array_equal(
+            teng._fused_weighted_sum(norm, w).numpy(), want)
+
+
+@pytest.mark.parametrize("G", range(23, 33))
+def test_weighted_row_refuses_23_to_32_goals(G):
+    """LLVM vectorizes the row at 23-32 goals in loops read only from small
+    programs: the fused sum, KI's twin and the population search's
+    builder raise there."""
+    rng = np.random.default_rng(G)
+    boundary, moves, scales = _inputs(G, 4, rng, False)
+    hard = rng.random(G) < 0.4
+    with pytest.raises(ValueError, match="1-22 or more than 32 goals"):
+        kernels.population_select(
+            torch.from_numpy(boundary), torch.from_numpy(moves),
+            torch.from_numpy(scales), torch.from_numpy(hard), 1000.0, 0.0,
+            2, True)
+    norm = teng.normalized_stacks(boundary, scales, contract=True)
+    with pytest.raises(ValueError, match="1-22 or more than 32 goals"):
+        teng._fused_weighted_sum(norm, torch.ones(G))
+    with pytest.raises(ValueError, match="1-22 or more than 32 goals"):
+        make_population_search([], [None] * G, SearchConfig(),
+                               PopulationConfig(size=4))
