@@ -15,18 +15,22 @@ Phases (every failure raises; nothing is caught):
 
 1. environment — the card's name and power limit, torch and CUDA versions;
 2. build — compile and load the kernel library;
-3. kernels vs twins — KA (threefry2x32), KB (ordered segment sum, also on
+3. kernels vs twins — KA (threefry draws: the main path's noise, every
+   output form, a fold-in key), KB (ordered segment sum, also on
    the what-if sweep's batched layout), KC (net broker flow), KD
    (scenario failover), KF (delta row scatter), KG (cluster stats), KH
    (intra-broker walk, at phase 11's shape and a small one), KI
    (population selection) and KJ (fleet scenario failover, at phase 12's
-   N-1 shape, every cluster with its own placement, masks and kills)
+   N-1 shape, every cluster with its own placement, masks and kills, and
+   at edge shapes)
    against their plain versions, with times and bounds; KE
    (first fit) is held to its twin after phase 4, at the shape of the main
    path's own schedule;
 4. main path — 100 brokers x 20K partitions at RF 2, the 4-goal chain
    with the off-chain hard-goal audit, seeds 0, 1, 1 (proposals of the two
-   seed-1 runs must be identical; KA, KB and KC must have launched);
+   seed-1 runs must be identical; KA, KB and KC must have launched; KA's
+   launches of each optimize and the last one's device launches, counted
+   under ``torch.profiler``, are printed);
 5. self-healing drain — the same cluster with one dead broker;
 6. scale — 1K brokers x 200K partitions at RF 2;
 7. what-if — the N-1 sweep of the main-path cluster (cold, then three
@@ -95,13 +99,14 @@ MAIN_SEARCH = dict(num_replica_candidates=512, num_dest_candidates=16,
                    apply_per_iter=512, max_iters_per_goal=512,
                    fused_chain=True)
 #: the previous designs' times (KB sorting the ids, KC a thread a row, KE a
-#: block testing every slot, KH rebuilding every disk sum each iteration;
-#: same method, NVIDIA H100 80GB HBM3 at 700 W; PERF.md), printed beside
-#: this run's: KB by rows, KC by M, KE and KH by shape
+#: block testing every slot, KH rebuilding every disk sum each iteration,
+#: KJ a thread a row; same method, NVIDIA H100 80GB HBM3 at 700 W;
+#: PERF.md), printed beside this run's: KB by rows, KC by M, KE, KH and KJ
+#: by shape
 EARLIER_MS = {("KB", 40_192): 0.2029, ("KB", 400_128): 0.2322,
               ("KB", 4_019_200): 0.8807, ("KC", 512): 0.08195,
               ("KC", 1024): 0.16520, ("KE", "schedule"): 30.932,
-              ("KH", "phase 11"): 8.433}
+              ("KH", "phase 11"): 8.433, ("KJ", "phase 12"): 0.5291}
 #: the audit waives RackAwareGoal, as the reference bench does
 WAIVED = frozenset({"RackAwareGoal"})
 #: phase 7's and phase 8's results as the reference computes them (the
@@ -583,25 +588,10 @@ def phase_kernels(model, main_arrays: dict, scale_arrays: dict,
     rng = np.random.default_rng(0)
     rows = {}
 
-    # --- KA: threefry2x32 over a [P, R] draw's counters.
-    key = _random.PRNGKey(0, device=dev)
-    for n in (NUM_PARTITIONS * RF, 10 * NUM_PARTITIONS * RF):
-        ctr = torch.arange(n, device=dev)
-        got = kernels.threefry2x32(key, ctr)
-        want = kernels.threefry2x32_plain(key.cpu(), ctr.cpu())
-        err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
-        if err != 0.0:
-            fail(f"threefry2x32 differs from its twin at n={n}")
-        ms = time_ms(lambda: kernels.threefry2x32(key, ctr), graph=True)
-        plain = time_ms(lambda: kernels.threefry2x32_plain(key, ctr),
-                        groups=3)
-        # each counter read once, two 32-bit words written, the key read
-        b_ms, b_by = bound(8 * n + 8 * n + 16, 130 * n)
-        log(f"KA threefry2x32 n={n}: bit-exact; {ms:.5f} ms, twin "
-            f"{plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-        _keep_first_shape(rows, "threefry2x32", err, dict(
-            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None))
+    # --- KA: the fused draw — the main path's [P, R] candidate noise
+    # (first: the kernels line's row), every other form at 40,192
+    # counters, and a fold-in key (one counter through a two-word path).
+    _kernel_threefry(rows, dev, *model.replica_broker.shape)
 
     # --- KB: replica loads into broker rows (the init_state reduction),
     # with int32 ids as init_state passes them.
@@ -1033,13 +1023,15 @@ def _kernel_intra_walk(rows, state):
 
 def _kernel_population_select(rows, rng):
     """KI against its twin at K = 4, G = 4 (phase 10's population), at
-    K = 64, G = 16, at 33 and 64 goals (the population program's windowed
-    tree), and at K = 1,024, G = 64 (the normalized stacks in global
-    scratch: [K, G] does not fit shared memory), with ties, a NaN row,
-    hard goals and a move weight."""
+    K = 64, G = 16, at 23 and 28 goals (the population program's vector
+    loops, the boundary's and the final scores'), at 33 and 64 goals (its
+    windowed tree), and at K = 1,024, G = 64 (the normalized stacks in
+    global scratch: [K, G] does not fit shared memory), with ties, a NaN
+    row, hard goals and a move weight."""
     import torch
     from cruise_control_tpu_torch import kernels
-    for K, G in ((4, 4), (64, 16), (16, 33), (16, 64), (1024, 64)):
+    for K, G in ((4, 4), (64, 16), (16, 23), (16, 28), (16, 33), (16, 64),
+                 (1024, 64)):
         boundary = (rng.random((K, G)) * 10.0 ** rng.integers(-7, 4, (K, G))
                     ).astype(np.float32)
         boundary[K // 2] = boundary[K // 4]          # a tie
@@ -1052,11 +1044,14 @@ def _kernel_population_select(rows, rng):
                                                 hard)]
         dev_in = [t.cuda() for t in inputs]
         err = 0.0
-        for mw, pareto in ((0.0, False), (0.01, True)):
+        for mw, pareto, final in ((0.0, False, False), (0.01, True, False),
+                                  (0.0, False, True)):
+            if mw and 23 <= G <= 32:
+                continue        # refused: the moved rows are not read there
             got = kernels.population_select(*dev_in, 1000.0, mw, n_surv,
-                                            pareto)
+                                            pareto, final)
             want = kernels.population_select_plain(*inputs, 1000.0, mw,
-                                                   n_surv, pareto)
+                                                   n_surv, pareto, final)
             for g, w in zip(got, want):
                 g, w = g.cpu(), w.to(g.dtype)
                 if g.shape != w.shape:
@@ -1078,12 +1073,102 @@ def _kernel_population_select(rows, rng):
         # K x G, K^2 G dominance tests, K^2 sort comparisons
         b_ms, b_by = bound(K * G * 4 + K * 8 + G * 5 + 3 * K * 4,
                            5 * K * G + 2 * K * K * G + 2 * K * K)
+        moved = "" if 23 <= G <= 32 else ", with a move weight"
         log(f"KI population_select K={K} G={G}: bit-exact vs twin (weighted "
-            f"and Pareto, with a move weight); {ms:.5f} ms, twin "
+            f"and Pareto{moved}, boundary and final scores); {ms:.5f} ms, twin "
             f"{plain:.4f} ms, bound {b_ms:.3g} ms ({b_by})")
         _keep_first_shape(rows, "population_select", err, dict(
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
+
+
+def ka_draws(P, R):
+    """KA's draws held to the twin in phase 3: (tag, words, shape, form,
+    keyword arguments) at the model's padded [P, R]. The first is the main
+    path's candidate noise, ``_noise(krep, ...)`` of a pass key fold_in(i)
+    -> fold_in(it) -> split()[0]; the last a fold-in key (one element
+    through one word), the shape of most of KA's launches' keys."""
+    n = P * R
+    return (
+        ("noise [P, R]", (2, 17, 0), (P, R), "affine", dict(a=1e-3, b=0.0)),
+        ("uniform", (2, 17, 0), (n,), "affine", {}),
+        ("drain noise", (2, 70_001), (n,), "affine", dict(a=0.01, b=1.0)),
+        ("bits", (2, 17, 1), (n,), "bits", {}),
+        ("keys", (2,), (n,), "keys", {}),
+        ("randint", (2, 17, 1, 2), (n,), "randint",
+         dict(minval=0, maxval=128)),
+        ("device word", ("dev", 17, 0), (n,), "affine",
+         dict(a=1e-3, b=0.0)),
+        ("fold-in key", (2,), (1,), "keys", dict(base=17)),
+    )
+
+
+def _kernel_threefry(rows, dev, P, R):
+    """KA against its twin for every form, each timed by graph replay
+    beside its bound: the bytes written (and the key read) over the card's
+    rate, or the hashes (the path's once, then one an element; 130
+    integer operations each) over its peak."""
+    import torch
+    from cruise_control_tpu_torch import _random, kernels
+    key = _random.PRNGKey(0, device=dev)
+    out_bytes = dict(affine=4, bits=4, keys=16, randint=8)
+    for tag, words, shape, form, kw in ka_draws(P, R):
+        words = tuple(torch.tensor(2, device=dev) if w == "dev" else w
+                      for w in words)
+
+        def draw(words=words, shape=shape, form=form, kw=kw):
+            return kernels.threefry_draw(key, words, shape, form, **kw)
+        got = draw()
+        want = kernels.threefry_draw_plain(
+            key.cpu(), tuple(w.cpu() if isinstance(w, torch.Tensor) else w
+                             for w in words), shape, form, **kw)
+        if got.shape != want.shape or not torch.equal(
+                got.cpu().view(want.dtype), want):
+            fail(f"threefry_draw ({tag}) differs from its twin")
+        ms = time_ms(draw, graph=True)
+        plain = time_ms(lambda: kernels.threefry_draw_plain(
+            key, words, shape, form, **kw), groups=3)
+        n = int(np.prod(shape))
+        hashes = n * (3 if form == "randint" else 1) + len(words)
+        b_ms, b_by = bound(16 + out_bytes[form] * n, 130 * hashes)
+        log(f"KA threefry_draw {tag} n={n} path {len(words)} {form}: "
+            f"bit-exact; {ms:.5f} ms, twin {plain:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by})")
+        _keep_first_shape(rows, "threefry2x32", 0.0, dict(
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
+
+
+def kj_case(C, S, P, R, B, seed, device):
+    """KJ inputs with every edge the kernel must take: broker ids -1 and
+    at or past B among the slots, partitions a cluster does not hold,
+    offline replicas, brokers invalid or down per cluster, kills and adds
+    per scenario, preferred positions shuffled."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    rb = torch.randint(-1, B + 2, (C, P, R), generator=g, dtype=torch.int32)
+    off = torch.rand(C, P, R, generator=g) < 0.05
+    pref = torch.argsort(torch.rand(C, P, R, generator=g), dim=-1).to(
+        torch.int32)
+    valid = torch.rand(C, B, generator=g) < 0.95
+    alive = torch.rand(C, B, generator=g) < 0.9
+    dead = torch.rand(C, S, B, generator=g) < 0.1
+    add = torch.rand(C, S, B, generator=g) < 0.05
+    pvalid = torch.rand(C, P, generator=g) < 0.9
+    return tuple(t.to(device) for t in (rb, off, pref, valid, alive, dead,
+                                        add, pvalid))
+
+
+#: KJ's edge shapes (C, S, P, R, B), as ``tests/test_torch_kernels_cuda.py``
+#: holds them: broker counts 33, 104 and 1,001, every compiled R and one
+#: past them (the row kernel), P off the 1,024-partition tile and off a
+#: multiple of 4 (element stores), one cluster, one scenario, and an S x B
+#: whose masks fill several chunks
+KJ_EDGES = ((3, 7, 1_000, 1, 33), (2, 5, 2_052, 2, 104),
+            (2, 5, 2_050, 2, 104), (2, 9, 777, 3, 1_001),
+            (3, 4, 1_029, 4, 104), (1, 1, 5, 2, 104), (4, 1, 4_096, 2, 104),
+            (1, 3, 64, 1, 1_001), (1, 6, 4_096, 5, 33), (2, 3, 3, 2, 2),
+            (1, 2_000, 64, 2, 60_000))
 
 
 def _kernel_fleet_failover(rows, model):
@@ -1094,7 +1179,7 @@ def _kernel_fleet_failover(rows, model):
     NUM_BROKERS scenarios a cluster). Each cluster thus reads placements,
     masks and scenarios that no other cluster has, so a kernel that
     mixed up clusters would differ from the twin. The twin runs once, on
-    the card."""
+    the card. Then KJ's edge shapes (``KJ_EDGES``), twin on the CPU."""
     import torch
     from cruise_control_tpu_torch import kernels
     dev = model.device
@@ -1133,12 +1218,25 @@ def _kernel_fleet_failover(rows, model):
     nbytes = (C * P * R * 9 + 2 * C * B + 2 * C * S * B + C * P  # inputs
               + C * S * P * R * 9 + C * S * P)                 # outputs
     b_ms, b_by = bound(nbytes, 8 * C * S * P * R)
-    log(f"KJ fleet_scenario_failover C={C} S={S} P={P} R={R} B={B}: "
-        f"bit-exact vs twin; {ms:.4f} ms, twin {plain:.3f} ms (once), bound "
-        f"{b_ms:.5f} ms ({b_by})")
+    log(f"KJ fleet_scenario_failover C={C} S={S} P={P} R={R} B={B} "
+        f"(scenario chunk {kernels.fleet_failover_chunk(C, S, P, R, B)}): "
+        f"bit-exact vs twin; {ms:.4f} ms (the row kernel: "
+        f"{EARLIER_MS[('KJ', 'phase 12')]} ms), twin {plain:.3f} "
+        f"ms (once), bound {b_ms:.5f} ms ({b_by}), "
+        f"{100 * b_ms / ms:.1f}% of the bound")
     _keep_first_shape(rows, "fleet_scenario_failover", err, dict(
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=None))
+    for i, (C, S, P, R, B) in enumerate(KJ_EDGES):
+        args = kj_case(C, S, P, R, B, seed=100 + i, device=dev)
+        got = kernels.fleet_scenario_failover(*args)
+        want = kernels.fleet_scenario_failover_plain(
+            *(t.cpu() for t in args))
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            fail(f"fleet_scenario_failover differs from its twin at "
+                 f"C={C} S={S} P={P} R={R} B={B}")
+        log(f"KJ edge C={C} S={S} P={P} R={R} B={B} (scenario chunk "
+            f"{kernels.fleet_failover_chunk(C, S, P, R, B)}): bit-exact")
 
 
 def schedule_context(model, md, proposals):
@@ -1269,6 +1367,18 @@ def _optimize(opt, model, md, seed):
     return res, time.monotonic() - t0, engine.HOST_SYNCS - syncs0
 
 
+def _count_device_launches(fn):
+    """(fn's result, the kernels and copies it ran on the card), counted by
+    ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def _check_quality(res, tag):
     from cruise_control_tpu_torch.model.flat import sanity_check
     bad = [g.name for g in res.goal_results if not g.satisfied]
@@ -1295,10 +1405,20 @@ def phase_main_path(model, md, arrays):
     results = []
     for tag, seed in (("cold seed 0", 0), ("warm seed 1", 1),
                       ("warm seed 1 again", 1)):
-        res, wall, syncs = _optimize(opt, model, md, seed)
+        ka0 = kernels.LAUNCHES["threefry2x32"]
+        if tag == "warm seed 1 again":
+            (res, wall, syncs), device_launches = _count_device_launches(
+                lambda: _optimize(opt, model, md, seed))
+            tag += " (under torch.profiler)"
+        else:
+            res, wall, syncs = _optimize(opt, model, md, seed)
         _print_result(tag, res, wall, syncs)
         _check_quality(res, tag)
         results.append(res)
+        log(f"  KA launches in this optimize: "
+            f"{kernels.LAUNCHES['threefry2x32'] - ka0}")
+    log(f"warm optimize: {device_launches} device launches (kernels and "
+        f"copies, torch.profiler)")
     launches = dict(kernels.LAUNCHES)
     log(f"main-path launches: {json.dumps(launches)}")
     missing = [k for k in ("threefry2x32", "ordered_segment_sum",

@@ -4,23 +4,80 @@ The reference's candidate generators draw seeded tie-break noise from
 ``jax.random`` (threefry2x32 with ``jax_threefry_partitionable=True``). The
 port reproduces that stream exactly: keys are ``uint32[2]`` pairs held in
 int64 tensors masked to 32 bits, every draw is one KA launch
-(:func:`kernels.threefry2x32`), and the conversions to floats and integers
+(:func:`kernels.threefry_draw`), and the conversions to floats and integers
 follow ``jax._src.random``. No global RNG state is read or written.
 
 Counter layout (partitionable threefry): a draw of shape ``s`` hashes the
 row-major 64-bit iota over ``s``; ``split(key, n)[i]`` and
 ``fold_in(key, i)`` both hash counter ``i`` and keep both output words.
+
+So a key derived by fold-ins and splits is its root key and a list of
+32-bit words. :class:`KeyPath` keeps it that way: :func:`fold` and
+:func:`subkeys` launch nothing, and a draw from a path derives the key
+inside its own launch. ``fold_in`` and ``split`` return key tensors (one
+launch each), as ``jax.random`` does.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 
-from .kernels import threefry2x32
+from . import kernels
 
 _M32 = 0xFFFFFFFF
+
+
+class KeyPath:
+    """A key named by a root key tensor (int64[2]) and the words folded into
+    it (Python ints or integer scalar tensors on the root's device)."""
+
+    __slots__ = ("root", "words")
+
+    def __init__(self, root: torch.Tensor, words: tuple = ()):
+        if len(words) > kernels.MAX_PATH:
+            root, words = _materialize(root, words), ()
+        self.root = root
+        self.words = words
+
+    def fold_in(self, data) -> "KeyPath":
+        return KeyPath(self.root, self.words + (data,))
+
+    def split(self, num: int = 2) -> tuple["KeyPath", ...]:
+        return tuple(self.fold_in(i) for i in range(num))
+
+    def key(self) -> torch.Tensor:
+        """The int64[2] key tensor (one launch; the root for no words)."""
+        return _materialize(self.root, self.words)
+
+
+def _materialize(root: torch.Tensor, words: tuple) -> torch.Tensor:
+    if not words:
+        return root
+    *head, last = words
+    if isinstance(last, torch.Tensor):
+        return kernels.threefry_draw(root, head, form="keys",
+                                     counters=_word(last).reshape(1))[0]
+    return kernels.threefry_draw(root, head, (1,), "keys",
+                                 base=int(last) & _M32)[0]
+
+
+def _word(data: torch.Tensor) -> torch.Tensor:
+    return data.reshape(()).to(torch.int64) & _M32
+
+
+def path(key) -> KeyPath:
+    """``key`` (a key tensor or a :class:`KeyPath`) as a path."""
+    return key if isinstance(key, KeyPath) else KeyPath(key)
+
+
+def fold(key, data) -> KeyPath:
+    """``fold_in(key, data)`` as a path: nothing is launched."""
+    return path(key).fold_in(data)
+
+
+def subkeys(key, num: int = 2) -> tuple[KeyPath, ...]:
+    """``split(key, num)`` as paths: nothing is launched."""
+    return path(key).split(num)
 
 
 def PRNGKey(seed: int, device=None) -> torch.Tensor:
@@ -33,49 +90,43 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
     return key
 
 
-def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+def split(key, num: int = 2) -> torch.Tensor:
     """int64[num, 2] subkeys (``jax.random.split``)."""
-    x0, x1 = threefry2x32(key, torch.arange(num, device=key.device))
-    return torch.stack([x0, x1], dim=1)
+    p = path(key)
+    return kernels.threefry_draw(p.root, p.words, (num,), "keys")
 
 
-def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+def fold_in(key, data) -> torch.Tensor:
     """int64[2] key with ``data`` (a Python or 0-dim integer) folded in."""
-    if isinstance(data, torch.Tensor):
-        counter = (data.reshape(1).to(torch.int64) & _M32)
-    else:
-        counter = torch.full((1,), int(data) & _M32, dtype=torch.int64,
-                             device=key.device)
-    x0, x1 = threefry2x32(key, counter)
-    return torch.cat([x0, x1])
+    return fold(key, data).key()
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+def random_bits(key, shape) -> torch.Tensor:
     """int64 tensor of ``shape`` holding uniform 32-bit words."""
-    shape = tuple(shape)
-    n = math.prod(shape)
-    x0, x1 = threefry2x32(key, torch.arange(max(n, 1), device=key.device))
-    return (x0 ^ x1)[:n].reshape(shape)
+    p = path(key)
+    bits = kernels.threefry_draw(p.root, p.words, tuple(shape), "bits")
+    return bits.to(torch.int64) & _M32
 
 
-def uniform(key: torch.Tensor, shape) -> torch.Tensor:
+def uniform(key, shape) -> torch.Tensor:
     """float32 in [0, 1) (``jax.random.uniform`` with the defaults): the top
     23 bits become the mantissa of a float in [1, 2), minus one."""
-    bits = random_bits(key, shape)
-    one = 0x3F800000
-    floats = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp(floats, min=0.0)
+    return affine(key, shape, 1.0, 0.0)
 
 
-def randint(key: torch.Tensor, shape, minval: int, maxval: int
-            ) -> torch.Tensor:
+def affine(key, shape, a: float, b: float) -> torch.Tensor:
+    """float32 ``a * uniform(key, shape) + b`` with ``a`` and ``b`` float32
+    constants, rounded once (``b = 0``: the float32 product, as
+    ``scale * uniform`` rounds it; else ``utils.ordered.fma``'s
+    contraction), in the draw's own launch."""
+    p = path(key)
+    return kernels.threefry_draw(p.root, p.words, tuple(shape), "affine",
+                                 a=a, b=b)
+
+
+def randint(key, shape, minval: int, maxval: int) -> torch.Tensor:
     """int64 values in [minval, maxval) (``jax.random.randint`` for int32):
-    two 32-bit draws combined modulo the span."""
-    k1, k2 = split(key)
-    higher = random_bits(k1, shape)
-    lower = random_bits(k2, shape)
-    span = (maxval - minval) & _M32 if maxval > minval else 1
-    multiplier = (((2 ** 16) % span) ** 2 & _M32) % span   # uint32 wrap
-    offset = ((higher % span) * multiplier) & _M32
-    offset = (offset + lower % span) & _M32
-    return minval + offset % span
+    two 32-bit draws combined modulo the span, in one launch."""
+    p = path(key)
+    return kernels.threefry_draw(p.root, p.words, tuple(shape), "randint",
+                                 minval=minval, maxval=maxval)

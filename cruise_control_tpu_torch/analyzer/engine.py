@@ -26,7 +26,7 @@ from typing import Sequence
 import torch
 
 from .. import _random
-from ..utils.ordered import fma, top_k, tree_sum_last
+from ..utils.ordered import fma, fma_loop_sum, top_k, tree_sum_last
 from .constraint import SearchConfig
 from .goals import GoalKernel
 from .state import (Candidates, SearchContext, SearchState, apply_group,
@@ -80,28 +80,58 @@ def normalized_stacks(stacks, scales, *, contract: bool = False
     return torch.where(stacks <= tol, 0.0, norm)
 
 
-#: Goal counts past 22 and up to 32 whose compiled weighted row is not
-#: reproduced: there LLVM vectorizes the row, in loops read from small
-#: programs (``scripts/probe_sum_order.py --weighted``) that the whole
-#: population program has not been shown to compile alike
-#: (``scripts/probe_population_goals.py``), so they raise.
-UNREPRODUCED_GOALS = range(23, 33)
+#: LLVM's loop for the weighted row at 23-32 goals, as the reference's
+#: population program compiles it: read from the program's own
+#: ``multiply_reduce`` fusions, each compiled alone
+#: (``scripts/probe_row_fusion.py``). (first goal count, last, (vf, ic,
+#: epi) of :func:`~..utils.ordered.fma_loop_sum`), per site: the scores
+#: of each generation boundary (the walk's end and every polish round)
+#: and the final scores the program returns. Every product is contracted
+#: into its add, whatever the weights; the same at 2-16 plans. A single
+#: plan or a move weight changes the program's fusions: those rows are
+#: refused at 23-32 goals (:func:`weighted_row_loop`).
+WEIGHTED_ROW_LOOPS = {
+    "boundary": ((23, 23, (4, 4, 2)), (24, 27, (8, 1, 0)),
+                 (28, 31, (4, 2, 0)), (32, 32, (8, 1, 0))),
+    "final": ((23, 24, (1, 1, 0)), (25, 27, (8, 1, 0)),
+              (28, 31, (4, 2, 0)), (32, 32, (8, 2, 0))),
+}
 
 
-def _fused_weighted_sum(norm: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def weighted_row_loop(G: int, final: bool = False, plans: int = 2,
+                      move_weight: float = 0.0):
+    """(vf, ic, epi) of the weighted row's loop at G goals (23-32), at the
+    final scores or a generation boundary; None outside 23-32. Raises for
+    a single plan or a move weight there: the program compiles those rows
+    in fusions of another form, which have not been read."""
+    for lo, hi, loop in WEIGHTED_ROW_LOOPS["final" if final else "boundary"]:
+        if lo <= G <= hi:
+            if plans < 2 or move_weight:
+                raise ValueError(
+                    f"the compiled weighted row at 23-32 goals is reproduced "
+                    f"for two or more plans without a move weight, got "
+                    f"{plans} plan(s), move weight {move_weight}, {G} goals")
+            return loop
+    return None
+
+
+def _fused_weighted_sum(norm: torch.Tensor, w: torch.Tensor,
+                        final: bool = False) -> torch.Tensor:
     """float32 ``(norm * w).sum(-1)`` as XLA's CPU backend computes it inside
     the compiled population program: up to 22 goals from zero in goal
     order, each product contracted into the running sum (an FMA) when the
     weights differ, rounded on its own when they all are equal (a weight
-    of 1 leaves the product exact); past 32 goals the rounded products in
-    XLA's windowed tree. A goal may repeat. 23-32 goals raise
-    (:data:`UNREPRODUCED_GOALS`)."""
+    of 1 leaves the product exact); at 23-32 goals LLVM's vectorized loop
+    of FMAs, which differs between the generation boundaries and the
+    ``final`` scores (:data:`WEIGHTED_ROW_LOOPS`); past 32 goals the
+    rounded products in XLA's windowed tree. A goal may repeat."""
     G = norm.shape[-1]
-    if G in UNREPRODUCED_GOALS:
-        raise ValueError(f"the compiled weighted row is reproduced for 1-22 "
-                         f"or more than 32 goals, got {G}")
     if G > 32:
         return tree_sum_last(norm * w)
+    plans = norm.shape[0] if norm.dim() == 2 else 1
+    loop = weighted_row_loop(G, final, plans)
+    if loop is not None:
+        return fma_loop_sum(norm, w, *loop)
     contract = bool((w != w[0]).any()) if G else False
     acc = norm.new_zeros(norm.shape[:-1])
     for g in range(G):
@@ -112,15 +142,20 @@ def _fused_weighted_sum(norm: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def weighted_objective(stacks, scales, hard_mask, *, hard_weight: float,
                        move_weight: float = 0.0, moves=None,
-                       contract: bool = False) -> torch.Tensor:
+                       contract: bool = False,
+                       final: bool = False) -> torch.Tensor:
     """float32[K] scalarized joint objective per plan (lower is better):
     normalized violations with hard goals weighted by ``hard_weight``,
-    summed over the goals, plus ``move_weight`` per applied move."""
+    summed over the goals, plus ``move_weight`` per applied move
+    (``final``: the compiled program's final scores, see
+    :func:`_fused_weighted_sum`)."""
     norm = normalized_stacks(stacks, scales, contract=contract)
     hard = torch.as_tensor(hard_mask, dtype=torch.bool, device=norm.device)
     w = torch.where(hard, _as_f32(hard_weight), _as_f32(1.0)).to(norm.device)
     if contract:
-        obj = _fused_weighted_sum(norm, w)
+        if move_weight and moves is not None:
+            weighted_row_loop(norm.shape[-1], final, move_weight=move_weight)
+        obj = _fused_weighted_sum(norm, w, final)
     else:
         obj = tree_sum_last(norm * w)
     if move_weight and moves is not None:
@@ -245,7 +280,7 @@ def make_goal_pass(goal: GoalKernel, prev_goals: Sequence[GoalKernel],
             r = 0
             while r < cfg.drain_rounds:
                 c = goal.bulk_drain(state, steer_ctx(state, ctx),
-                                    _random.fold_in(key, 70_000 + r), cfg)
+                                    _random.fold(key, 70_000 + r), cfg)
                 elig = eligibility(state, ctx, c)
                 state = apply_group(state, ctx, c, elig)
                 r += 1
@@ -255,7 +290,7 @@ def make_goal_pass(goal: GoalKernel, prev_goals: Sequence[GoalKernel],
         it = 0
         stalls = 0
         while stalls < cfg.stall_patience and it < cfg.max_iters_per_goal:
-            k = _random.fold_in(key, it)
+            k = _random.fold(key, it)
             cands = goal.propose(state, steer_ctx(state, ctx), k, cfg)
             elig = eligibility(state, ctx, cands)
             delta = goal.delta(state, ctx, cands)
@@ -283,7 +318,7 @@ def make_chain_step(goals: Sequence[GoalKernel], cfg: SearchConfig):
     def step(state, ctx, key):
         stack = None
         for i, p in enumerate(passes):
-            state, _, stack, _ = p(state, ctx, _random.fold_in(key, i))
+            state, _, stack, _ = p(state, ctx, _random.fold(key, i))
         return state, stack
 
     return step
@@ -321,7 +356,7 @@ class CompiledGoalChain:
         aux = self.aux(state, ctx)
         iters, bounds, moves = [], [], []
         for i, run in enumerate(self.passes):
-            state, it, stack, m = run(state, ctx, _random.fold_in(key, i))
+            state, it, stack, m = run(state, ctx, _random.fold(key, i))
             iters.append(it)
             bounds.append(stack)
             moves.append(m)

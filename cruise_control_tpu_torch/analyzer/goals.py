@@ -49,7 +49,8 @@ def _zeros_per_scenario(ctx: SearchContext) -> torch.Tensor:
 
 
 def _noise(key, shape, scale):
-    return scale * _random.uniform(key, shape)
+    """float32 ``scale * uniform(key, shape)``, drawn in one launch."""
+    return _random.affine(key, shape, scale, 0.0)
 
 
 def _unit01(x: torch.Tensor, mask: torch.Tensor | None = None):
@@ -126,7 +127,7 @@ def _top_replica_dest_grid(state: SearchState, ctx: SearchContext, key,
     P, R = replica_priority.shape
     K = min(cfg.num_replica_candidates, P * R)
     D = min(cfg.num_dest_candidates, dest_priority.shape[0])
-    krep, kdst = _random.split(key)
+    krep, kdst = _random.subkeys(key)
 
     rp = torch.where(ctx.movable, replica_priority, _NEG)
     rp = torch.where(state.offline,
@@ -469,7 +470,7 @@ class IntervalGoal(GoalKernel):
                 & ((quota[src_b] > 0.0) | state.offline))
 
         # Sort by (broker, must-first, weight-desc-with-noise).
-        noise = fma(0.01, _random.uniform(key, (P, R)), 1.0)
+        noise = _random.affine(key, (P, R), 0.01, 1.0)
         flat_b = src_b.reshape(-1)
         flat_w = w.reshape(-1)
         flat_cand = cand.reshape(-1)
@@ -578,7 +579,7 @@ class IntervalGoal(GoalKernel):
         can = can & has_dst
         dstb = fb[torch.arange(P, device=dev), r_sel]
 
-        noise = fma(0.01, _random.uniform(key, (P,)), 1.0)
+        noise = _random.affine(key, (P,), 0.01, 1.0)
         sort_w = torch.where(can, w * noise, -1.0)
 
         # Pass 1 — shed quota per source broker (heaviest transfers first).
@@ -630,11 +631,11 @@ class IntervalGoal(GoalKernel):
 
         parts = []
         if self.actions in ("replica", "both"):
-            kg, key = _random.split(key)
+            kg, key = _random.subkeys(key)
             parts.append(self._flow_candidates(state, ctx, kg, cfg, values,
                                                lo, up, excess, deficit))
             if cfg.num_swap_candidates > 0 and self.metric[0] != "count":
-                ks, key = _random.split(key)
+                ks, key = _random.subkeys(key)
                 parts.append(self._swap_candidates(state, ctx, ks, cfg,
                                                    values, lo, up, excess,
                                                    deficit))
@@ -644,7 +645,7 @@ class IntervalGoal(GoalKernel):
             gain = _norm01(excess)[src_b] + _norm01(deficit)[dst_b]
             prio = torch.where((excess[src_b] > 0.0) | (deficit[dst_b] > 0.0),
                                gain, _NEG)
-            kl, key = _random.split(key)
+            kl, key = _random.subkeys(key)
             parts.append(_top_leadership(state, ctx, kl, cfg, prio))
         out = parts[0]
         for extra in parts[1:]:
@@ -677,7 +678,7 @@ class IntervalGoal(GoalKernel):
         B1 = values.shape[0]
         dev = state.rb.device
         K = min(cfg.num_replica_candidates, P * R)
-        krep, kdst = _random.split(key)
+        krep, kdst = _random.subkeys(key)
 
         # --- source replicas: offline > excess-broker > deficit-assist tiers
         q, finite = _unit01(self._replica_weight(state, ctx))       # [P, R]
@@ -751,7 +752,7 @@ class IntervalGoal(GoalKernel):
         P, R = state.rb.shape
         dev = state.rb.device
         K = min(cfg.num_swap_candidates, P * R)
-        kh, kl, kshift = _random.split(key, 3)
+        kh, kl, kshift = _random.subkeys(key, 3)
         q, finite = _unit01(self._replica_weight(state, ctx))       # [P, R]
         src_b = state.rb
         swappable = (ctx.movable & ~state.offline

@@ -345,7 +345,7 @@ class TorchGoalOptimizer:
                     on_goal_start(goal.name)
                 tp = time.monotonic()
                 state, iters, stack, moves = chain.passes[i](
-                    state, ctx, _random.fold_in(key, i))
+                    state, ctx, _random.fold(key, i))
                 fetched.append((iters, _host(stack), _host(moves)))
                 durations.append(time.monotonic() - tp)
 
@@ -400,7 +400,7 @@ class TorchGoalOptimizer:
             if cfg.fused_chain:
                 tp0 = time.monotonic()
                 state, _aux2, it2, b2, m2 = chain.fused(
-                    state, ctx, _random.fold_in(key, 50_000 + rnd))
+                    state, ctx, _random.fold(key, 50_000 + rnd))
                 b2, m2 = _host(b2), _host(m2)
                 w = time.monotonic() - tp0
                 tot = max(sum(it2), 1)
@@ -422,7 +422,7 @@ class TorchGoalOptimizer:
             for i in todo:
                 tp = time.monotonic()
                 state, iters, stack, moves = chain.passes[i](
-                    state, ctx, _random.fold_in(key, 1000 * (rnd + 1) + i))
+                    state, ctx, _random.fold(key, 1000 * (rnd + 1) + i))
                 boundary = _host(stack)
                 gr = goal_results[i]
                 acc = int(moves) - moves_total

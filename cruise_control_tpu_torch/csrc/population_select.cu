@@ -18,11 +18,13 @@
 // the reference's jitted population program.
 //
 // Rounding follows that program as XLA's CPU backend compiles it (probed,
-// scripts/probe_sum_order.py --weighted): the tolerance and the move term
-// are FMAs; the weighted row (weighted_row below) runs in goal order from
-// zero up to 22 goals and in XLA's windowed tree past 32 (up to 1,024
-// goals, one level of windows; 23-32 goals are refused). Every other
-// operation is rounded on its own (__fdiv_rn, __fmul_rn, __fadd_rn).
+// scripts/probe_sum_order.py --weighted, scripts/probe_row_fusion.py): the
+// tolerance and the move term are FMAs; the weighted row (weighted_row
+// below) runs in goal order from zero up to 22 goals, in LLVM's vector
+// loop of FMAs at 23-32 (its shape passed by the wrapper: it differs
+// between the generation boundaries and the final scores) and in XLA's
+// windowed tree past 32 (up to 1,024 goals, one level of windows). Every
+// other operation is rounded on its own (__fdiv_rn, __fmul_rn, __fadd_rn).
 //
 // Bound on the card: a launch. K <= 1,024 plans fit one block with one
 // thread per plan; the dominance counts and the sort positions are
@@ -36,13 +38,64 @@
 
 namespace {
 
+// lanes[0..n) folded by halves (x86's reduce.fadd): 0-3 + 4-7, ...
+__device__ float fold_halves(float* lanes, int n) {
+  for (; n > 1; n /= 2) {
+    for (int k = 0; k < n / 2; ++k) {
+      lanes[k] = __fadd_rn(lanes[k], lanes[k + n / 2]);
+    }
+  }
+  return lanes[0];
+}
+
+// LLVM's vectorized loop of FMAs (utils/ordered.py:fma_loop_sum): ic
+// accumulators of vf <= 8 lanes over the whole vf * ic chunks, in one
+// chain (the first accumulator's chunks in order, then each other one's
+// with its second chunk first), folded by halves; an epi-lane epilogue
+// seeded with that total; then the rest in order.
+__device__ float fma_loop(const float* row, const float* w, int G, int vf,
+                          int ic, int epi) {
+  float lanes[8];
+  const int iters = G / (vf * ic);
+  int pos = iters * vf * ic;
+  float total = 0.0f;
+  if (iters > 0) {
+    lanes[0] = 0.0f;
+    for (int l = 1; l < vf; ++l) lanes[l] = -0.0f;
+    for (int k = 0; k < ic; ++k) {
+      for (int t = 0; t < iters; ++t) {
+        const int it = (k > 0 && iters > 1 && t < 2) ? 1 - t : t;
+        const int c = (it * ic + k) * vf;
+        for (int l = 0; l < vf; ++l) {
+          lanes[l] = __fmaf_rn(row[c + l], w[c + l], lanes[l]);
+        }
+      }
+    }
+    total = fold_halves(lanes, vf);
+  }
+  if (epi > 0 && G - pos >= epi) {
+    lanes[0] = total;
+    for (int l = 1; l < epi; ++l) lanes[l] = -0.0f;
+    for (; G - pos >= epi; pos += epi) {
+      for (int l = 0; l < epi; ++l) {
+        lanes[l] = __fmaf_rn(row[pos + l], w[pos + l], lanes[l]);
+      }
+    }
+    total = fold_halves(lanes, epi);
+  }
+  for (; pos < G; ++pos) total = __fmaf_rn(row[pos], w[pos], total);
+  return total;
+}
+
 // sum_g row[g] * w[g] as the reference's population program computes it
 // (analyzer/engine.py:_fused_weighted_sum): up to 22 goals from zero in
 // goal order, each product contracted into the sum when the weights differ
-// and rounded on its own when they are all equal; past 32 goals XLA's
-// windowed tree of the rounded products. The wrapper refuses 23-32 goals.
+// and rounded on its own when they are all equal; at 23-32 goals the loop
+// (vf, ic, epi) of FMAs; past 32 goals XLA's windowed tree of the rounded
+// products.
 __device__ float weighted_row(const float* row, const float* w, int G,
-                              bool contract) {
+                              bool contract, int vf, int ic, int epi) {
+  if (vf > 0) return fma_loop(row, w, G, vf, ic, epi);
   if (G > 32) {
     // windows of 32 (the padding split evenly in front and behind), each
     // in order from zero, then the window sums in order from zero
@@ -83,7 +136,8 @@ __global__ void population_select_kernel(
     const float* __restrict__ boundary, const int32_t* __restrict__ moves,
     const float* __restrict__ scales, const uint8_t* __restrict__ hard,
     float hard_weight, float move_weight, int32_t with_moves, int32_t K,
-    int32_t G, int32_t n_surv, int32_t pareto, float* norm_global,
+    int32_t G, int32_t vf, int32_t ic, int32_t epi, int32_t n_surv,
+    int32_t pareto, float* norm_global,
     int32_t* __restrict__ ranks, float* __restrict__ weighted,
     int32_t* __restrict__ perm) {
   extern __shared__ float shared[];
@@ -116,7 +170,7 @@ __global__ void population_select_kernel(
 
   if (j < K) {
     const float* row = norm + j * G;
-    float acc = weighted_row(row, w, G, contract);
+    float acc = weighted_row(row, w, G, contract, vf, ic, epi);
     if (with_moves) {
       acc = __fmaf_rn(move_weight, static_cast<float>(moves[j]), acc);
     }
@@ -165,6 +219,7 @@ extern "C" int cc_population_select(const void* boundary, const void* moves,
                                     const void* scales, const void* hard,
                                     float hard_weight, float move_weight,
                                     int64_t with_moves, int64_t K, int64_t G,
+                                    int64_t vf, int64_t ic, int64_t epi,
                                     int64_t n_surv, int64_t pareto,
                                     void* norm_scratch, void* ranks,
                                     void* weighted, void* perm,
@@ -200,7 +255,9 @@ extern "C" int cc_population_select(const void* boundary, const void* moves,
       static_cast<const int32_t*>(moves), static_cast<const float*>(scales),
       static_cast<const uint8_t*>(hard), hard_weight, move_weight,
       static_cast<int32_t>(with_moves), static_cast<int32_t>(K),
-      static_cast<int32_t>(G), static_cast<int32_t>(n_surv),
+      static_cast<int32_t>(G), static_cast<int32_t>(vf),
+      static_cast<int32_t>(ic), static_cast<int32_t>(epi),
+      static_cast<int32_t>(n_surv),
       static_cast<int32_t>(pareto),
       staged ? nullptr : static_cast<float*>(norm_scratch),
       static_cast<int32_t*>(ranks),

@@ -252,7 +252,7 @@ class FleetOptimizer:
         states = [s for s, _ in pairs]
         ctxs = [c for _, c in pairs]
         seed_key = _random.PRNGKey(preps[0]["opts"].seed, device=self.device)
-        keys_main = [_random.fold_in(seed_key, i) for i in range(G)]
+        keys_main = _random.subkeys(seed_key, G)
 
         t_disp = time.monotonic()
         audit_before = ([self.optimizer._audit(audit, s, c)
@@ -314,7 +314,7 @@ class FleetOptimizer:
             enab = ~(boundary_np <= polish_eps)
             if not enab.any():
                 break
-            keys_rnd = [_random.fold_in(seed_key, 1000 * (rnd + 1) + i)
+            keys_rnd = [_random.fold(seed_key, 1000 * (rnd + 1) + i)
                         for i in range(G)]
             with self.tracer.span("fleet.polish", round=rnd,
                                   clusters=int(enab.any(axis=1).sum())):

@@ -2,8 +2,10 @@
 
 Three kernels carry the dry-run proposal path (sources in ``csrc/``):
 
-- **KA** ``threefry2x32`` — counter-mode threefry2x32 bits (the
-  ``jax.random`` stream the goal kernels draw tie-break noise from);
+- **KA** ``threefry2x32`` — counter-mode threefry2x32 draws (the
+  ``jax.random`` stream the goal kernels draw tie-break noise from), the
+  key's fold-ins and splits and the float conversion fused into the one
+  launch (:func:`threefry_draw`);
 - **KB** ``ordered_segment_sum`` — float32 segment sums that add each
   segment's rows in ascending row order (broker aggregates without float
   atomics, so a seed reproduces its proposals run after run), with an
@@ -41,8 +43,10 @@ Two more carry the search modes built on the analyzer:
 One more carries the fleet's scenario sweeps:
 
 - **KJ** ``fleet_scenario_failover`` — KD's placement edit and failover
-  over a fleet's ``[C, S]`` grid in one launch, one thread per (cluster,
-  scenario, partition) row.
+  over a fleet's ``[C, S]`` grid in one launch: a block a (cluster,
+  partition tile, scenario chunk), the chunk's broker masks as bits in
+  shared memory, a thread's partitions in registers across the scenarios,
+  16-byte stores.
 
 Each wrapper takes the plain twin for a tensor on the CPU, and for a CUDA
 tensor launches its kernel or raises: there is no fallback. Each launch
@@ -178,7 +182,9 @@ def load_library():
             kind = "load" if library_path().exists() else "build"
             lib = ctypes.CDLL(str(build_library()))
             p, i64 = ctypes.c_void_p, ctypes.c_int64
-            lib.cc_threefry2x32.argtypes = [p, p, p, p, i64, p]
+            lib.cc_threefry_draw.argtypes = [
+                p, _DrawPath, p, i64, i64, ctypes.c_int32, ctypes.c_float,
+                ctypes.c_float, i64, ctypes.c_uint32, ctypes.c_uint32, p, p]
             lib.cc_ordered_segment_sum.argtypes = [p, p, ctypes.c_int, p, p,
                                                    i64, i64, i64, i64, p, p,
                                                    p]
@@ -203,12 +209,14 @@ def load_library():
             lib.cc_intra_broker_walk_shared.restype = i64
             f32 = ctypes.c_float
             lib.cc_population_select.argtypes = [p, p, p, p, f32, f32, i64,
-                                                 i64, i64, i64, i64, p, p, p,
-                                                 p, p]
+                                                 i64, i64, i64, i64, i64,
+                                                 i64, i64, p, p, p, p, p]
             lib.cc_fleet_scenario_failover.argtypes = [p, p, p, p, p, p, p,
                                                        p, p, p, p, p, i64,
                                                        i64, i64, i64, i64, p]
-            for fn in (lib.cc_threefry2x32, lib.cc_ordered_segment_sum,
+            lib.cc_fleet_failover_chunk.argtypes = [i64, i64, i64, i64, i64]
+            lib.cc_fleet_failover_chunk.restype = i64
+            for fn in (lib.cc_threefry_draw, lib.cc_ordered_segment_sum,
                        lib.cc_ordered_range_sum,
                        lib.cc_net_broker_flow, lib.cc_scenario_failover,
                        lib.cc_first_fit, lib.cc_delta_row_scatter,
@@ -245,19 +253,30 @@ def _check(rc: int, name: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# KA: threefry2x32
+# KA: threefry2x32 draws
 # ---------------------------------------------------------------------------
 
 _M32 = 0xFFFFFFFF
+#: words a draw's derivation path holds (``csrc/threefry.cu:kMaxPath``)
+MAX_PATH = 8
+#: output forms of a draw (``csrc/threefry.cu:Form``)
+DRAW_FORMS = {"keys": 0, "bits": 1, "affine": 2, "randint": 3}
 
 
-def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
+class _DrawPath(ctypes.Structure):
+    _fields_ = [("words", ctypes.c_uint32 * MAX_PATH),
+                ("ptrs", ctypes.c_void_p * MAX_PATH),
+                ("n", ctypes.c_int32)]
+
+
+def _rotl(x, d: int):
     return ((x << d) | (x >> (32 - d))) & _M32
 
 
-def threefry2x32_plain(key: torch.Tensor, counters: torch.Tensor):
-    """Twin of KA: the same twenty rounds on int64 tensors masked to 32
-    bits (the counter's high word enters as x0, its low word as x1)."""
+def threefry2x32_plain(key, counters):
+    """Twin of KA's hash: the twenty rounds on int64 tensors (or Python
+    ints) masked to 32 bits (the counter's high word enters as x0, its low
+    word as x1)."""
     k0 = key[0] & _M32
     k1 = key[1] & _M32
     k2 = k0 ^ k1 ^ 0x1BD11BDA
@@ -274,25 +293,128 @@ def threefry2x32_plain(key: torch.Tensor, counters: torch.Tensor):
     return x0, x1
 
 
+def _randint_span(minval: int, maxval: int):
+    """(span, multiplier) of ``jax.random.randint`` for int32: the span as
+    uint32 (1 for an empty range) and ``(2**16 % span)**2 % span`` with
+    uint32 wrap."""
+    span = (maxval - minval) & _M32 if maxval > minval else 1
+    return span, (((2 ** 16) % span) ** 2 & _M32) % span
+
+
+def threefry_draw_plain(key, words=(), shape=(), form="bits", *, a=1.0,
+                        b=0.0, minval=0, maxval=1, base=0, counters=None):
+    """Twin of KA (:func:`threefry_draw`): the path's key folded in on the
+    host (Python ints), then the draw's hashes and form on tensors."""
+    k = (int(key[0]) & _M32, int(key[1]) & _M32)
+    for w in words:
+        k = threefry2x32_plain(k, int(w) & _M32)
+    dev = key.device
+    shape = tuple(shape) if counters is None else tuple(counters.shape)
+    if counters is None:
+        counters = base + torch.arange(math.prod(shape), device=dev)
+    ktensor = torch.tensor(k, dtype=torch.int64, device=dev)
+    if form == "keys":
+        x0, x1 = threefry2x32_plain(ktensor, counters)
+        return torch.stack([x0, x1], dim=-1).reshape(*shape, 2)
+    if form == "randint":
+        span, mult = _randint_span(minval, maxval)
+        hi, lo = (threefry2x32_plain(
+            torch.tensor(threefry2x32_plain(k, i), device=dev), counters)
+            for i in (0, 1))
+        hi, lo = hi[0] ^ hi[1], lo[0] ^ lo[1]
+        off = ((hi % span) * mult) & _M32
+        off = (off + lo % span) & _M32
+        return (minval + off % span).reshape(shape)
+    x0, x1 = threefry2x32_plain(ktensor, counters)
+    bits = (x0 ^ x1).to(torch.int32).reshape(shape)
+    if form == "bits":
+        return bits
+    if form != "affine":
+        raise ValueError(f"unknown draw form {form!r}")
+    u = torch.clamp(((bits >> 9) & 0x7FFFFF | 0x3F800000).view(
+        torch.float32) - 1.0, min=0.0)
+    f64 = (torch.tensor(a, dtype=torch.float32).double() * u.double()
+           + torch.tensor(b, dtype=torch.float32).double())
+    return f64.to(torch.float32)
+
+
+def threefry_draw(key, words=(), shape=(), form="bits", *, a=1.0, b=0.0,
+                  minval=0, maxval=1, base=0, counters=None):
+    """One draw from the key ``key`` (int64[2]) with the words ``words``
+    folded in (``fold_in(key, w)`` and ``split(key, n)[w]`` alike; at most
+    :data:`MAX_PATH`; a word is a Python int or an integer scalar tensor),
+    over counters ``base + i`` for i < prod(``shape``) or the int64
+    ``counters`` (whose shape is then the draw's), in the output form
+    ``form``:
+
+    - ``"keys"``: int64[*shape, 2] keys (both hash words);
+    - ``"bits"``: int32[*shape] random bits (``x0 ^ x1``, as uint32 bits);
+    - ``"affine"``: float32[*shape] ``a * uniform + b`` rounded once
+      (``a=1, b=0`` is ``jax.random.uniform``);
+    - ``"randint"``: int64[*shape] ``jax.random.randint(key, shape,
+      minval, maxval)`` for int32.
+
+    See ``csrc/threefry.cu``."""
+    if key.numel() != 2:
+        raise ValueError("threefry2x32 takes a key of two words")
+    if form not in DRAW_FORMS:
+        raise ValueError(f"unknown draw form {form!r}")
+    if len(words) > MAX_PATH:
+        raise ValueError(f"a draw folds in at most {MAX_PATH} words, "
+                         f"got {len(words)}")
+    shape = tuple(shape) if counters is None else tuple(counters.shape)
+    n = math.prod(shape)
+    tensors = [w for w in words if isinstance(w, torch.Tensor)]
+    if any(w.numel() != 1 or w.dtype.is_floating_point or w.is_complex()
+           for w in tensors):
+        raise ValueError("a word must be an integer scalar")
+    if _on_cpu(key, counters, *tensors):
+        return threefry_draw_plain(key, words, shape, form, a=a, b=b,
+                                   minval=minval, maxval=maxval, base=base,
+                                   counters=counters)
+    if key.dtype != torch.int64:
+        raise TypeError("threefry_draw takes an int64 key")
+    path = _DrawPath(n=len(words))
+    keep = []                   # the scalars the kernel reads, alive
+    for j, w in enumerate(words):
+        if isinstance(w, torch.Tensor):
+            w = w.reshape(1).to(torch.int64)
+            keep.append(w)
+            path.ptrs[j] = w.data_ptr()
+        else:
+            path.words[j] = int(w) & _M32
+    if counters is not None:
+        if counters.dtype != torch.int64:
+            raise TypeError("threefry_draw takes int64 counters")
+        counters = counters.contiguous()
+    dev = key.device
+    out_dtype = {"keys": torch.int64, "bits": torch.int32,
+                 "affine": torch.float32, "randint": torch.int64}[form]
+    out = torch.empty(shape + ((2,) if form == "keys" else ()),
+                      dtype=out_dtype, device=dev)
+    span, mult = _randint_span(minval, maxval)
+    key = key.contiguous()
+    rc = load_library().cc_threefry_draw(
+        key.data_ptr(), path,
+        None if counters is None else counters.data_ptr(), int(base), n,
+        DRAW_FORMS[form], float(a), float(b), int(minval), span, mult,
+        out.data_ptr(), _stream())
+    LAUNCHES["threefry2x32"] += 1
+    _check(rc, "threefry2x32")
+    return out
+
+
 def threefry2x32(key: torch.Tensor, counters: torch.Tensor):
     """(x0, x1) int64[N] in [0, 2**32): threefry2x32 of ``key`` (int64[2])
-    over 64-bit ``counters`` (int64[N])."""
+    over 64-bit ``counters`` (int64[N]) — KA's ``"keys"`` form."""
     if key.numel() != 2:
         raise ValueError("threefry2x32 takes a key of two words")
     if _on_cpu(key, counters):
         return threefry2x32_plain(key, counters)
     if key.dtype != torch.int64 or counters.dtype != torch.int64:
         raise TypeError("threefry2x32 takes int64 key and counters")
-    key = key.contiguous()
-    counters = counters.contiguous()
-    out0 = torch.empty_like(counters)
-    out1 = torch.empty_like(counters)
-    rc = load_library().cc_threefry2x32(
-        key.data_ptr(), counters.data_ptr(), out0.data_ptr(),
-        out1.data_ptr(), counters.numel(), _stream())
-    LAUNCHES["threefry2x32"] += 1
-    _check(rc, "threefry2x32")
-    return out0, out1
+    pairs = threefry_draw(key, (), form="keys", counters=counters)
+    return pairs[:, 0], pairs[:, 1]
 
 
 # ---------------------------------------------------------------------------
@@ -513,8 +635,11 @@ def _failover_rows_plain(rb, off, pref, up, pvalid):
                                      device=up.device)], dim=-1)
 
     def on_up(brokers):
-        return torch.gather(up1, -1, brokers.reshape(*lead, -1).long()
-                            ).reshape(brokers.shape)
+        # an id outside [0, B) reads the sentinel column, which is down
+        # (JAX wraps -1 onto it and clamps ids past it)
+        ids = brokers.reshape(*lead, -1).long()
+        ids = torch.where((ids < 0) | (ids > B), B, ids)
+        return torch.gather(up1, -1, ids).reshape(brokers.shape)
 
     pv = pvalid[..., None]
     rb = torch.where(pv, rb, B).expand(shape).to(torch.int32)
@@ -947,7 +1072,8 @@ _MAX_POPULATION_GOALS = 1024
 
 
 def population_select_plain(boundary, moves, scales, hard, hard_weight: float,
-                            move_weight: float, n_surv: int, pareto: bool):
+                            move_weight: float, n_surv: int, pareto: bool,
+                            final: bool = False):
     """Twin of KI: the reference program's ``_scores`` and
     ``_survivor_perm`` through ``analyzer/engine.py``'s scoring helpers in
     their contracted (compiled) form."""
@@ -957,7 +1083,7 @@ def population_select_plain(boundary, moves, scales, hard, hard_weight: float,
     weighted = weighted_objective(boundary, scales, hard,
                                   hard_weight=hard_weight,
                                   move_weight=move_weight, moves=moves,
-                                  contract=True)
+                                  contract=True, final=final)
     ranks = pareto_ranks(boundary, scales, contract=True)
     primary = (ranks.to(torch.float32) if pareto
                else torch.zeros_like(weighted))
@@ -969,11 +1095,14 @@ def population_select_plain(boundary, moves, scales, hard, hard_weight: float,
 
 
 def population_select(boundary, moves, scales, hard, hard_weight: float,
-                      move_weight: float, n_surv: int, pareto: bool):
+                      move_weight: float, n_surv: int, pareto: bool,
+                      final: bool = False):
     """(ranks int32[K], weighted float32[K], perm int32[K]) of one
-    generation boundary: ``boundary`` float32[K, G] violation stacks,
-    ``moves`` int[K] cumulative moves, ``scales`` float32[G], ``hard``
-    bool[G] — see ``csrc/population_select.cu``."""
+    generation boundary (``final``: the scores the search returns, whose
+    weighted row the reference compiles in another loop at some goal
+    counts): ``boundary`` float32[K, G] violation stacks, ``moves`` int[K]
+    cumulative moves, ``scales`` float32[G], ``hard`` bool[G] — see
+    ``csrc/population_select.cu``."""
     K, G = boundary.shape
     if moves.shape != (K,) or scales.shape != (G,) or hard.shape != (G,):
         raise ValueError("population_select takes boundary [K, G], moves [K], "
@@ -984,14 +1113,12 @@ def population_select(boundary, moves, scales, hard, hard_weight: float,
         raise ValueError(f"population_select sums at most "
                          f"{_MAX_POPULATION_GOALS} goals (one level of "
                          f"32-goal windows), got {G}")
-    from .analyzer.engine import UNREPRODUCED_GOALS
-    if G in UNREPRODUCED_GOALS:
-        raise ValueError(f"the compiled weighted row is reproduced for 1-22 "
-                         f"or more than 32 goals, got {G}")
+    from .analyzer.engine import weighted_row_loop
+    loop = weighted_row_loop(G, final, K, move_weight)
     args = (boundary, moves, scales, hard)
     if _on_cpu(*args):
         return population_select_plain(*args, hard_weight, move_weight,
-                                       n_surv, pareto)
+                                       n_surv, pareto, final)
     if hard.dtype != torch.bool:
         raise TypeError("population_select takes a bool hard mask")
     if not 1 <= K <= _MAX_POPULATION:
@@ -1007,10 +1134,12 @@ def population_select(boundary, moves, scales, hard, hard_weight: float,
     perm = torch.empty(K, dtype=torch.int32, device=dev)
     # the normalized stacks where [K, G] does not fit shared memory
     scratch = torch.empty(K * G, dtype=torch.float32, device=dev)
+    vf, ic, epi = loop or (0, 0, 0)
     rc = load_library().cc_population_select(
         boundary.data_ptr(), moves.data_ptr(), scales.data_ptr(),
         hard.data_ptr(), float(hard_weight), float(move_weight),
-        int(bool(move_weight)), K, G, int(n_surv), int(bool(pareto)),
+        int(bool(move_weight)), K, G, vf, ic, epi, int(n_surv),
+        int(bool(pareto)),
         scratch.data_ptr(), ranks.data_ptr(), weighted.data_ptr(), perm.data_ptr(), _stream())
     LAUNCHES["population_select"] += 1
     _check(rc, "population_select")
@@ -1030,6 +1159,13 @@ def fleet_scenario_failover_plain(rb, off, pref, broker_valid, broker_alive,
           & ~dead)                                              # [C, S, B]
     return _failover_rows_plain(rb[:, None], off[:, None], pref[:, None],
                                 up, pvalid[:, None])
+
+
+def fleet_failover_chunk(C: int, S: int, P: int, R: int, B: int) -> int:
+    """Scenarios a block of KJ's tiled kernel serves at this shape on the
+    current card; 0 where the row kernel runs (R past 4, or one scenario's
+    broker mask past the shared-memory allotment)."""
+    return int(load_library().cc_fleet_failover_chunk(C, S, P, R, B))
 
 
 def fleet_scenario_failover(rb, off, pref, broker_valid, broker_alive, dead,

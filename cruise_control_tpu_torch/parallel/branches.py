@@ -39,7 +39,7 @@ def make_branched_search(goals: Sequence[GoalKernel], cfg: SearchConfig,
     def run(state, ctx, key):
         states, stacks = [], []
         for i in range(n):
-            st, stack = chain(state, ctx, _random.fold_in(key, i))
+            st, stack = chain(state, ctx, _random.fold(key, i))
             states.append(st)
             stacks.append(stack)
         return states, torch.stack(stacks)

@@ -35,7 +35,7 @@ import torch
 from .. import _random
 from ..analyzer import engine
 from ..analyzer.constraint import PopulationConfig, SearchConfig
-from ..analyzer.engine import UNREPRODUCED_GOALS, violation_stack
+from ..analyzer.engine import violation_stack, weighted_row_loop
 from ..analyzer.goals import GoalKernel
 from ..kernels import population_select
 from .batching import pow2_bucket
@@ -65,9 +65,10 @@ def n_survivors(size: int, fraction: float) -> int:
     return max(1, min(math.ceil(size * fraction), size - 1))
 
 
-def _member_key(key: torch.Tensor, m: int) -> torch.Tensor:
+def _member_key(key, m: int) -> _random.KeyPath:
     # Member 0 is the anchor: its stream is the request key itself.
-    return key if m == 0 else _random.fold_in(key, _MEMBER_KEY_SALT + m)
+    return (_random.path(key) if m == 0
+            else _random.fold(key, _MEMBER_KEY_SALT + m))
 
 
 def _read_host(*tensors):
@@ -105,11 +106,9 @@ def make_population_search(passes: Sequence, goals: Sequence[GoalKernel],
     goals = list(goals)
     passes = list(passes)
     G = len(goals)
-    if G in UNREPRODUCED_GOALS:
-        # refused before any walk runs (KI would refuse the first boundary)
-        raise ValueError(f"the population's weighted row is reproduced for "
-                         f"1-22 or more than 32 goals, got {G}")
     K = pow2_bucket(max(int(pop_cfg.size), 1))
+    # refused before any walk runs (KI would refuse the first boundary)
+    weighted_row_loop(G, plans=K, move_weight=pop_cfg.move_weight)
     R = cfg.polish_passes + 1 if cfg.polish_passes else 0
     polish_eps = min(cfg.epsilon, 1e-6)
     hard = [g.hard for g in goals]
@@ -122,7 +121,7 @@ def make_population_search(passes: Sequence, goals: Sequence[GoalKernel],
         iters, bounds, moves = [], [], []
         for i, run_pass in enumerate(passes):
             state, it, stack, mv = run_pass(state, ctx,
-                                            _random.fold_in(mkey, i))
+                                            _random.fold(mkey, i))
             iters.append(it)
             bounds.append(stack)
             moves.append(mv)
@@ -140,17 +139,17 @@ def make_population_search(passes: Sequence, goals: Sequence[GoalKernel],
         for i, run_pass in enumerate(passes):
             if round_do and not (boundary[i] <= polish_eps):
                 state, it, prev, mv = run_pass(
-                    state, ctx, _random.fold_in(mkey, 1000 * (rnd + 1) + i))
+                    state, ctx, _random.fold(mkey, 1000 * (rnd + 1) + i))
             else:
                 it, mv = 0, state.moves_applied
             iters.append(it)
             moves.append(mv)
         return state, iters, prev, torch.stack(moves)
 
-    def select(boundary, moves, scales, hard_mask):
+    def select(boundary, moves, scales, hard_mask, final=False):
         return population_select(boundary, moves, scales, hard_mask,
                                  pop_cfg.hard_weight, pop_cfg.move_weight,
-                                 n_surv, pareto)
+                                 n_surv, pareto, final)
 
     def run(state, ctx, key):
         dev = state.rb.device
@@ -206,7 +205,8 @@ def make_population_search(passes: Sequence, goals: Sequence[GoalKernel],
             iters = iters + np.asarray(it_r, np.int64).reshape(K, G)
             perms.append(perm.astype(np.int32))
             rows.append(boundary)
-        ranks, weighted, _ = select(boundary_d, moves_d, scales, hard_mask)
+        ranks, weighted, _ = select(boundary_d, moves_d, scales, hard_mask,
+                                    final=True)
         polish_rows = (np.stack(rows) if rows
                        else np.zeros((0, K, G), np.float32))
         perm_arr = (np.stack(perms) if perms

@@ -153,6 +153,45 @@ def vector_loop_sum(x: torch.Tensor, vf: int, ic: int = 1, epi: int = 0,
     return total
 
 
+def fma_loop_sum(x: torch.Tensor, w: torch.Tensor, vf: int, ic: int = 1,
+                 epi: int = 0) -> torch.Tensor:
+    """float32 ``[...]`` sums of ``x[..., g] * w[g]`` in the order of LLVM's
+    vectorized loop with every product contracted into its add (an FMA):
+    ``ic`` accumulators of ``vf`` lanes over the whole ``vf * ic`` chunks,
+    which the backend re-associates into one chain — the first
+    accumulator's chunks in order, then each other one's with its second
+    chunk first (its first add became an FMA whose addend is that chunk's
+    product) — folded by halves; an ``epi``-lane epilogue seeded with that
+    total; then the rest in order. ``vf = 1`` is goal order."""
+    x = x.to(torch.float32)
+    G = x.shape[-1]
+    chunk = vf * ic
+    iters = G // chunk
+    total = x.new_zeros(x.shape[:-1])
+    pos = iters * chunk
+    if iters:
+        lanes = x.new_full(x.shape[:-1] + (vf,), -0.0)
+        lanes[..., 0] = 0.0
+        for k in range(ic):
+            its = list(range(iters))
+            if k and iters > 1:
+                its[:2] = [1, 0]
+            for it in its:
+                c = (it * ic + k) * vf
+                lanes = fma(x[..., c:c + vf], w[c:c + vf], lanes)
+        total = _fold_halves(lanes)
+    if epi and G - pos >= epi:
+        lanes = torch.cat([total[..., None], x.new_full(
+            x.shape[:-1] + (epi - 1,), -0.0)], dim=-1)
+        while G - pos >= epi:
+            lanes = fma(x[..., pos:pos + epi], w[pos:pos + epi], lanes)
+            pos += epi
+        total = _fold_halves(lanes)
+    for g in range(pos, G):
+        total = fma(x[..., g], w[g], total)
+    return total
+
+
 def _fold_halves(lanes: torch.Tensor) -> torch.Tensor:
     """x86's lowering of a ``reassoc`` ``llvm.vector.reduce.fadd``: lanes
     folded by halves (0-3 + 4-7, 0-1 + 2-3, 0 + 1)."""

@@ -459,7 +459,10 @@ def test_intra_broker_walk_edge_cases(cuda_device, case):
                                       (64, 48, "mixed"), (32, 96, "mixed"),
                                       (16, 64, "mixed"), (64, 64, "soft"),
                                       (1024, 64, "mixed"),
-                                      (256, 300, "soft")])
+                                      (256, 300, "soft"), (4, 23, "mixed"),
+                                      (16, 24, "hard"), (64, 27, "soft"),
+                                      (4, 28, "mixed"), (2, 31, "mixed"),
+                                      (1024, 32, "mixed")])
 def test_population_select_matches_twin(cuda_device, K, G, hard):
     gen = torch.Generator().manual_seed(K + G)
     boundary = torch.rand(K, G, generator=gen) * torch.pow(
@@ -472,14 +475,24 @@ def test_population_select_matches_twin(cuda_device, K, G, hard):
             "hard": torch.ones(G, dtype=torch.bool),
             "mixed": torch.arange(G) % 3 == 0}[hard]
     moves = torch.randint(0, 100_000, (K,), generator=gen)
-    for move_weight, pareto in ((0.0, False), (0.1, True)):
+    for move_weight, pareto, final in ((0.0, False, False),
+                                       (0.1, True, False),
+                                       (0.0, True, True)):
         n_surv = max(1, min(K // 2, K - 1))
+        if move_weight and 23 <= G <= 32:
+            # refused there: the program's moved rows have not been read
+            with pytest.raises(ValueError, match="without a move weight"):
+                kernels.population_select(
+                    *(t.to(cuda_device) for t in (boundary, moves, scales,
+                                                  mask)),
+                    1000.0, move_weight, n_surv, pareto, final)
+            continue
         got = kernels.population_select(
             *(t.to(cuda_device) for t in (boundary, moves, scales, mask)),
-            1000.0, move_weight, n_surv, pareto)
+            1000.0, move_weight, n_surv, pareto, final)
         want = kernels.population_select_plain(
             boundary, moves, scales, mask, 1000.0, move_weight, n_surv,
-            pareto)
+            pareto, final)
         for g, w in zip(got, want):
             # bit for bit, NaN (the NaN row's score) equal to NaN
             torch.testing.assert_close(g.cpu(), w.to(g.dtype), rtol=0,
@@ -489,17 +502,25 @@ def test_population_select_matches_twin(cuda_device, K, G, hard):
 @pytest.mark.cuda
 @pytest.mark.parametrize("G", [23, 32])
 def test_population_select_refuses_23_to_32_goals(cuda_device, G):
-    """KI refuses the rows whose vectorized order is not reproduced, on the
-    card as on the CPU, and launches nothing."""
-    kernels.reset_launch_counts()
-    with pytest.raises(ValueError, match="1-22 or more than 32 goals"):
-        kernels.population_select(
-            torch.rand(16, G, device=cuda_device),
-            torch.zeros(16, dtype=torch.int32, device=cuda_device),
-            torch.ones(G, device=cuda_device),
-            torch.zeros(G, dtype=torch.bool, device=cuda_device), 1000.0,
-            0.0, 8, False)
-    assert kernels.LAUNCHES["population_select"] == 0
+    """(Named for the refusal it replaced.) KI scores 23-32 goals in the
+    reference's vector loops, the boundary's and the final scores' (which
+    differ at 23 and 32 goals), equal to its twin, one launch each."""
+    gen = torch.Generator().manual_seed(G)
+    boundary = torch.rand(16, G, generator=gen) * 1e3
+    scales = torch.rand(G, generator=gen) * 1e3
+    mask = torch.arange(G) % 3 == 0
+    moves = torch.zeros(16, dtype=torch.int32)
+    for final in (False, True):
+        kernels.reset_launch_counts()
+        got = kernels.population_select(
+            *(t.to(cuda_device) for t in (boundary, moves, scales, mask)),
+            1000.0, 0.0, 8, False, final)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["population_select"] == 1
+        want = kernels.population_select_plain(
+            boundary, moves, scales, mask, 1000.0, 0.0, 8, False, final)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.to(g.dtype))
 
 
 @pytest.mark.cuda
@@ -534,3 +555,70 @@ def test_fleet_scenario_failover_matches_twin(cuda_device, C, S, P, R, B):
             pvalid[c].expand(S, P).contiguous())))
         for g, k in zip(got, kd):
             assert torch.equal(g[c], k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 7, 1_000, 1, 33), (2, 5, 2_052, 2, 104),
+                                   (2, 5, 2_050, 2, 104), (2, 9, 777, 3, 1_001),
+                                   (3, 4, 1_029, 4, 104), (1, 1, 5, 2, 104),
+                                   (4, 1, 4_096, 2, 104), (1, 3, 64, 1, 1_001),
+                                   (1, 6, 4_096, 5, 33), (2, 3, 3, 2, 2),
+                                   (1, 2_000, 64, 2, 60_000)], ids=str)
+def test_fleet_scenario_failover_edges(cuda_device, shape):
+    """KJ's tiled kernel (R of 1-4) and its row kernel (R = 5) against the
+    twin: broker counts 33, 104 and 1,001, P off the 1,024-partition tile
+    and off a multiple of 4 (element stores), one cluster, one scenario,
+    broker ids -1 and at or past B, partitions a cluster does not hold,
+    and an S x B whose broker masks fill several scenario chunks."""
+    import chip_smoke
+    C, S, P, R, B = shape
+    args = chip_smoke.kj_case(C, S, P, R, B, seed=sum(shape),
+                              device=cuda_device)
+    chunk = kernels.fleet_failover_chunk(C, S, P, R, B)
+    assert (chunk == 0) == (R > 4)
+    if S * B >= 1_000_000:
+        assert 0 < chunk < S            # the masks must be chunked
+    got = kernels.fleet_scenario_failover(*args)
+    want = kernels.fleet_scenario_failover_plain(*(t.cpu() for t in args))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["noise", "uniform", "drain", "bits",
+                                  "keys", "randint", "device word"])
+@pytest.mark.parametrize("n", [1, 31, 40_192])
+def test_threefry_draw_matches_twin(cuda_device, form, n):
+    """KA's fused draw, each output form through a four-word path (and a
+    device scalar word), bit for bit against its twin, one launch."""
+    key = _random.PRNGKey(9, device=cuda_device)
+    words = (2, 17, 0, 1)
+    if form == "device word":
+        words = (torch.tensor(2, device=cuda_device), 17, 0, 1)
+    kind, kw = {"noise": ("affine", dict(a=1e-3, b=0.0)),
+                "uniform": ("affine", {}),
+                "drain": ("affine", dict(a=0.01, b=1.0)),
+                "bits": ("bits", {}), "keys": ("keys", {}),
+                "randint": ("randint", dict(minval=3, maxval=77)),
+                "device word": ("affine", dict(a=1e-3, b=0.0))}[form]
+    kernels.reset_launch_counts()
+    got = kernels.threefry_draw(key, words, (n,), kind, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["threefry2x32"] == 1
+    want = kernels.threefry_draw_plain(
+        key.cpu(), tuple(w.cpu() if isinstance(w, torch.Tensor) else w
+                         for w in words), (n,), kind, **kw)
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_key_paths_match_public_draws(cuda_device):
+    """The search's key paths on the card: fold-ins and splits drawn
+    through one launch equal the step-by-step public keys."""
+    k = _random.PRNGKey(4, device=cuda_device)
+    step = _random.fold_in(_random.fold_in(k, 3), 11)
+    step = _random.split(step)[1]
+    path = _random.subkeys(_random.fold(_random.fold(k, 3), 11))[1]
+    assert torch.equal(path.key(), step)
+    assert torch.equal(_random.uniform(path, (513,)),
+                       _random.uniform(step, (513,)))

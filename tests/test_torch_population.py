@@ -3,8 +3,9 @@
 the reference's K = 1, K = 2 against the reference's optimizer telemetry,
 the joint-scoring helpers and KI's twin against the reference's eager and
 compiled forms (ties at the tolerance cutoff, NaN, hard and move weights,
-every goal count up to 22, and the refusal of 23-32 goals; wider rows:
-``test_torch_weighted_row.py``), the layout and survivor arithmetic, plan
+every goal count up to 22, and at 23-32 goals the program's own
+fusions and the refusal of a single plan or a move weight there; wider
+rows: ``test_torch_weighted_row.py``), the layout and survivor arithmetic, plan
 selection, the constructor's exclusivity, the tuner and the tuned-config
 store, and the aliasing of adopted plans. The port runs on
 ``device="cpu"``, where KI takes its plain twin; equal means bit for bit.
@@ -247,20 +248,53 @@ def test_population_select_twin_matches_reference(G, weights):
 
 @pytest.mark.parametrize("G", [23, 24, 27, 32])
 def test_population_select_refuses_wider_rows(G):
-    """At 23-32 goals the compiled weighted row is not reproduced (LLVM
-    vectorizes it, and the whole population program has not been shown to
-    compile the loops read from small programs): KI and its twin refuse
-    such rows, for a single plan or several, rather than score them
-    differently from the reference."""
-    for K in (1, 4):
-        boundary = torch.zeros(K, G)
-        args = (torch.zeros(K, dtype=torch.int32), torch.ones(G),
-                torch.zeros(G, dtype=torch.bool), 1000.0, 0.0, 1, False)
-        with pytest.raises(ValueError, match="1-22 or more than 32 goals"):
-            kernels.population_select(boundary, *args)
-        with pytest.raises(ValueError, match="1-22 or more than 32 goals"):
-            teng.weighted_objective(boundary, torch.ones(G), args[2],
-                                    hard_weight=1000.0, contract=True)
+    """At 23-32 goals KI's twin scores a generation boundary and the final
+    scores of several plans in the two loops the reference's population
+    program compiles: its weighted scores equal the program's own fusions
+    compiled alone (``tests/weighted_row_fusions``, shapes set to G goals
+    and 4 plans), with mixed weights, a tie and a converged goal. A single
+    plan, or a move weight, is compiled in fusions of another form that
+    have not been read: KI and its twin refuse those rows rather than
+    score them differently from the reference."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+    import probe_row_fusion as prf
+    rng = np.random.default_rng(G)
+    hard = np.arange(G) % 3 == 0
+    w = np.where(hard, np.float32(1000.0), np.float32(1.0))
+    K = 4
+    scales = (rng.random(G) * 10.0 ** rng.integers(-2, 4, G)).astype(
+        np.float32)
+    boundary = ((1 + rng.random((K, G))) * np.maximum(scales, 1) * 4
+                ).astype(np.float32)
+    boundary[:, 1] = 0.0
+    boundary[-1] = boundary[0]
+    norm = teng.normalized_stacks(boundary, scales, contract=True)
+    args = (torch.from_numpy(boundary), torch.zeros(K, dtype=torch.int32),
+            torch.from_numpy(scales), torch.from_numpy(hard), 1000.0)
+    for final, site in ((False, "polish"), (True, "final")):
+        text = (Path(__file__).parent / "weighted_row_fusions"
+                / f"weighted_row_{site}_23.hlo").read_text()
+        module = prf.at_shape(text, 23, G, 4, K)
+        run, _ = prf.compile_module(module)
+        want = run(*[dict(norm=norm.numpy(), stacks=boundary, w=w,
+                          scales=scales)[r] for r in prf._roles(module)])
+        _, weighted, _ = kernels.population_select(*args, 0.0, 1, False,
+                                                   final)
+        np.testing.assert_array_equal(weighted.numpy().view(np.int32),
+                                      want.view(np.int32))
+        with pytest.raises(ValueError, match="two or more plans without "
+                                             "a move weight"):
+            kernels.population_select(*args, 0.1, 1, False, final)
+        with pytest.raises(ValueError, match="two or more plans without "
+                                             "a move weight"):
+            kernels.population_select(args[0][:1], args[1][:1], *args[2:],
+                                      0.0, 1, False, final)
+    with pytest.raises(ValueError, match="two or more plans without "
+                                         "a move weight"):
+        teng.weighted_objective(boundary[:1], scales, hard,
+                                hard_weight=1000.0, contract=True)
 
 
 def test_pareto_ranks_and_weighted_objective_units():

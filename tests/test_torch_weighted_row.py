@@ -1,12 +1,16 @@
-"""The population program's weighted row past 32 goals: KI's twin
+"""The population program's weighted row past 22 goals: KI's twin
 (``kernels.population_select`` on the CPU) and ``engine._fused_weighted_sum``
 against the reference's compiled population scoring
 (``parallel/population.py:_scores`` and ``_survivor_perm``, as
 ``test_torch_population.py:_reference_select`` compiles them) at 33-128
 goals, with mixed, shared and unit weights, a move weight, several
-population sizes and goals listed more than once; and the refusal of
-23-32 goals, whose vectorized row is not reproduced. Equal means bit for
-bit."""
+population sizes and goals listed more than once; and at 23-32 goals,
+where LLVM vectorizes the row, against the reference population
+program's own weighted-row fusions, compiled alone from their committed
+HLO text (``tests/weighted_row_fusions``). Equal means bit for bit."""
+
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -17,8 +21,9 @@ import torch
 import cruise_control_tpu.analyzer.engine as jeng
 import cruise_control_tpu_torch.analyzer.engine as teng
 from cruise_control_tpu_torch import kernels
-from cruise_control_tpu_torch.analyzer import PopulationConfig, SearchConfig
-from cruise_control_tpu_torch.parallel import make_population_search
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+import probe_row_fusion as prf  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -99,22 +104,55 @@ def test_fused_weighted_sum_with_repeated_goals(G):
             teng._fused_weighted_sum(norm, w).numpy(), want)
 
 
+#: the reference population program's weighted-row fusions at 23 goals and
+#: 4 plans, each as a module of its own (``scripts/probe_row_fusion.py
+#: --save``): the final scores, a polish round's and the walk's end
+FUSIONS = {site: (Path(__file__).parent / "weighted_row_fusions"
+                  / f"weighted_row_{site}_23.hlo").read_text()
+           for site in ("final", "polish", "walk_end")}
+
+
 @pytest.mark.parametrize("G", range(23, 33))
 def test_weighted_row_refuses_23_to_32_goals(G):
-    """LLVM vectorizes the row at 23-32 goals in loops read only from small
-    programs: the fused sum, KI's twin and the population search's
-    builder raise there."""
+    """(Named for the refusal it replaced.) At 23-32 goals LLVM
+    vectorizes the row, differently at the generation boundaries and at
+    the final scores: the fused sum and KI's twin equal each of the
+    program's three fusions compiled alone (their shapes set to G goals
+    and K plans), bit for bit, with mixed, unit and shared weights and
+    with goals listed more than once."""
     rng = np.random.default_rng(G)
-    boundary, moves, scales = _inputs(G, 4, rng, False)
-    hard = rng.random(G) < 0.4
-    with pytest.raises(ValueError, match="1-22 or more than 32 goals"):
-        kernels.population_select(
-            torch.from_numpy(boundary), torch.from_numpy(moves),
-            torch.from_numpy(scales), torch.from_numpy(hard), 1000.0, 0.0,
-            2, True)
-    norm = teng.normalized_stacks(boundary, scales, contract=True)
-    with pytest.raises(ValueError, match="1-22 or more than 32 goals"):
-        teng._fused_weighted_sum(norm, torch.ones(G))
-    with pytest.raises(ValueError, match="1-22 or more than 32 goals"):
-        make_population_search([], [None] * G, SearchConfig(),
-                               PopulationConfig(size=4))
+    for site, text in FUSIONS.items():
+        K = 8 if site == "polish" else 4
+        module = prf.at_shape(text, 23, G, 4, K)
+        run, _ = prf.compile_module(module)
+        roles = prf._roles(module)
+        final = site == "final"
+        for weights in ("mixed", "one", "shared", "repeated"):
+            if weights == "repeated":
+                pick = rng.integers(0, 7, G)
+                hard = (rng.random(7) < 0.5)[pick]
+                base, moves, scales = _inputs(7, K, rng, False)
+                boundary = np.ascontiguousarray(base[:, pick])
+                scales = np.ascontiguousarray(scales[pick])
+            else:
+                hard = {"one": np.zeros(G, bool), "shared": np.ones(G, bool),
+                        "mixed": rng.random(G) < 0.4}[weights]
+                boundary, moves, scales = _inputs(G, K, rng,
+                                                  weights != "mixed")
+            boundary[:, rng.random(G) < 0.2] = 0.0      # converged goals
+            norm = teng.normalized_stacks(boundary, scales, contract=True)
+            w = np.where(hard, np.float32(1000.0), np.float32(1.0))
+            bounds = (rng.random((K, G, G)) * 100).astype(np.float32)
+            bounds[:, G - 1] = boundary
+            want = run(*[dict(norm=norm.numpy(), stacks=boundary, w=w,
+                              scales=scales, bounds=bounds)[r]
+                         for r in roles])
+            got = teng._fused_weighted_sum(norm, torch.from_numpy(w), final)
+            np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                          want.view(np.int32))
+            _, weighted, _ = kernels.population_select(
+                torch.from_numpy(boundary), torch.from_numpy(moves),
+                torch.from_numpy(scales), torch.from_numpy(hard), 1000.0,
+                0.0, 2, True, final)
+            np.testing.assert_array_equal(weighted.numpy().view(np.int32),
+                                          want.view(np.int32))
