@@ -18,11 +18,12 @@ Phases (every failure raises; nothing is caught):
 3. kernels vs twins — KA (threefry draws: the main path's noise, every
    output form, a fold-in key), KB (ordered segment sum, also on
    the what-if sweep's batched layout), KC (net broker flow), KD
-   (scenario failover), KF (delta row scatter), KG (cluster stats), KH
+   (scenario failover, at the N-1 sweep's and the boundary audit's
+   shapes), KF (delta row scatter), KG (cluster stats), KH
    (intra-broker walk, at phase 11's shape and a small one), KI
-   (population selection) and KJ (fleet scenario failover, at phase 12's
-   N-1 shape, every cluster with its own placement, masks and kills, and
-   at edge shapes)
+   (population selection, ``KI_SHAPES``) and KJ (fleet scenario failover,
+   at phase 12's N-1 shape, every cluster with its own placement, masks
+   and kills, and at edge shapes)
    against their plain versions, with times and bounds; KE
    (first fit) is held to its twin after phase 4, at the shape of the main
    path's own schedule;
@@ -100,13 +101,17 @@ MAIN_SEARCH = dict(num_replica_candidates=512, num_dest_candidates=16,
                    fused_chain=True)
 #: the previous designs' times (KB sorting the ids, KC a thread a row, KE a
 #: block testing every slot, KH rebuilding every disk sum each iteration,
-#: KJ a thread a row; same method, NVIDIA H100 80GB HBM3 at 700 W;
-#: PERF.md), printed beside this run's: KB by rows, KC by M, KE, KH and KJ
-#: by shape
+#: KJ and KD a thread a row, KI a thread a plan; same method, NVIDIA H100
+#: 80GB HBM3 at 700 W; PERF.md), printed beside this run's: KB by rows, KC
+#: by M, KI by (K, G), the others by shape
 EARLIER_MS = {("KB", 40_192): 0.2029, ("KB", 400_128): 0.2322,
               ("KB", 4_019_200): 0.8807, ("KC", 512): 0.08195,
               ("KC", 1024): 0.16520, ("KE", "schedule"): 30.932,
-              ("KH", "phase 11"): 8.433, ("KJ", "phase 12"): 0.5291}
+              ("KH", "phase 11"): 8.433, ("KJ", "phase 12"): 0.5291,
+              ("KD", "N-1"): 0.03526, ("KI", (4, 4)): 0.00439,
+              ("KI", (16, 23)): 0.02128, ("KI", (16, 28)): 0.02223,
+              ("KI", (16, 33)): 0.02669, ("KI", (16, 64)): 0.04678,
+              ("KI", (1024, 64)): 7.42848}
 #: the audit waives RackAwareGoal, as the reference bench does
 WAIVED = frozenset({"RackAwareGoal"})
 #: phase 7's and phase 8's results as the reference computes them (the
@@ -200,6 +205,9 @@ REFERENCE_SEARCH = dict(
         moves=19167, proposals=13595, digest="b811bc8eb48d995f"),
     branches=dict(winner=0, stacks="f5a5fd42d16a2030", moves=19173,
                   proposals=13488, digest="dae2e5ca7d020381"))
+#: phase 3's KD at the boundary audit's shape: one placement per batch
+#: boundary (phase 8 audits 174)
+KD_BOUNDARIES = 174
 #: phase 12 (bench scenario 6, ``bench.py:287-410``; the forecast sweep
 #: of ``bench.py:577-700``): FLEET_CLUSTERS members, member c phase 4's
 #: cluster with its loads scaled by float32(1 + 0.01 c), the 4-goal chain
@@ -245,7 +253,7 @@ KERNEL_INFO = {
         source="cruise_control_tpu_torch/csrc/net_flow.cu",
         replaces="cruise_control_tpu/analyzer/goals.py:254"),
     "scenario_failover": dict(
-        source="cruise_control_tpu_torch/csrc/scenario_failover.cu",
+        source="cruise_control_tpu_torch/csrc/failover.cu",
         replaces="cruise_control_tpu/whatif/engine.py:599"),
     "first_fit": dict(
         source="cruise_control_tpu_torch/csrc/first_fit.cu",
@@ -263,7 +271,7 @@ KERNEL_INFO = {
         source="cruise_control_tpu_torch/csrc/population_select.cu",
         replaces="cruise_control_tpu/parallel/population.py:262"),
     "fleet_scenario_failover": dict(
-        source="cruise_control_tpu_torch/csrc/fleet_failover.cu",
+        source="cruise_control_tpu_torch/csrc/failover.cu",
         replaces="cruise_control_tpu/fleet/engine.py:780"),
 }
 
@@ -767,22 +775,35 @@ def phase_kernels(model, main_arrays: dict, scale_arrays: dict,
     args = (model.replica_broker, model.replica_offline,
             model.replica_pref_pos, model.broker_valid, model.broker_alive,
             dead, add, pvalid)
-    got = kernels.scenario_failover(*args)
-    want = kernels.scenario_failover_plain(*(t.cpu() for t in args))
-    err = max(float((g.cpu().long() - w.long()).abs().max())
-              for g, w in zip(got, want))
-    if err != 0:
-        fail("scenario_failover differs from its twin at the N-1 shape")
-    ms = time_ms(lambda: kernels.scenario_failover(*args), graph=True)
-    plain = time_ms(lambda: kernels.scenario_failover_plain(*args), groups=3)
-    nbytes = (P * R * 9 + 2 * B + 2 * S * B + S * P      # inputs
-              + S * P * R * 9 + S * P)                   # outputs
-    b_ms, b_by = bound(nbytes, 8 * S * P * R)
-    log(f"KD scenario_failover S={S} P={P} R={R} B={B}: bit-exact vs twin; "
-        f"{ms:.4f} ms, twin {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-    _keep_first_shape(rows, "scenario_failover", err, dict(
-        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None))
+    for tag, kd_args in (("N-1", args),
+                         ("boundary audit", kd_boundary_case(model, seed=8))):
+        Sk = kd_args[5].shape[0]
+        got = kernels.scenario_failover(*kd_args)
+        want = kernels.scenario_failover_plain(*(t.cpu() for t in kd_args))
+        err = max(float((g.cpu().long() - w.long()).abs().max())
+                  for g, w in zip(got, want))
+        if err != 0:
+            fail(f"scenario_failover differs from its twin at the {tag} "
+                 f"shape")
+        ms = time_ms(lambda: kernels.scenario_failover(*kd_args), graph=True)
+        plain = time_ms(lambda: kernels.scenario_failover_plain(*kd_args),
+                        groups=3)
+        per_s = kd_args[0].dim() == 3
+        pv_per_s = kd_args[7].stride(0) != 0
+        nbytes = ((Sk if per_s else 1) * P * R * 9 + 2 * B + 2 * Sk * B
+                  + (Sk if pv_per_s else 1) * P              # inputs
+                  + Sk * P * R * 9 + Sk * P)                 # outputs
+        b_ms, b_by = bound(nbytes, 8 * Sk * P * R)
+        earlier = EARLIER_MS.get(("KD", tag))
+        log(f"KD scenario_failover {tag} S={Sk} P={P} R={R} B={B} "
+            f"(placement {'per scenario' if per_s else 'shared'}, pvalid "
+            f"{'per scenario' if pv_per_s else 'shared'}; scenario chunk "
+            f"{kernels.failover_chunk(1, Sk, P, R, B)}): bit-exact vs twin; "
+            f"{ms:.5f} ms (earlier design: {earlier or 'not measured'} ms), "
+            f"twin {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        _keep_first_shape(rows, "scenario_failover", err, dict(
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
 
     # --- KB on the sweep's batched layout: one launch, a batch axis of S
     # scenarios, each scenario's int32 broker ids into its own B1 rows (as
@@ -1021,23 +1042,34 @@ def _kernel_intra_walk(rows, state):
             library_ms=None))
 
 
+#: KI's phase-3 shapes: (K plans, G goals, hard goals), phase 10's
+#: population first
+KI_SHAPES = ((4, 4, "mixed"), (4, 4, "hard"), (1, 4, "mixed"),
+             (1, 23, "mixed"), (1, 28, "mixed"), (1, 32, "mixed"),
+             (1, 28, "hard"), (64, 16, "mixed"), (16, 23, "mixed"),
+             (16, 28, "mixed"), (16, 32, "mixed"), (16, 28, "hard"),
+             (16, 32, "hard"), (16, 33, "mixed"), (16, 64, "mixed"),
+             (1024, 64, "mixed"))
+
+
 def _kernel_population_select(rows, rng):
-    """KI against its twin at K = 4, G = 4 (phase 10's population), at
-    K = 64, G = 16, at 23 and 28 goals (the population program's vector
-    loops, the boundary's and the final scores'), at 33 and 64 goals (its
-    windowed tree), and at K = 1,024, G = 64 (the normalized stacks in
-    global scratch: [K, G] does not fit shared memory), with ties, a NaN
-    row, hard goals and a move weight."""
+    """KI against its twin at ``KI_SHAPES``: phase 10's population (K = 4,
+    G = 4, mixed and all-hard weights), one plan, the population program's
+    vector loops at 23, 28 and 32 goals (the boundary's and the final
+    scores', of FMAs where the weights differ and of rounded products
+    where they are all equal), its windowed tree at 33 and 64 goals, and
+    K = 1,024 plans (past one block: a grid and a second launch), with
+    ties, a NaN row, the weighted and the Pareto objective, and a move
+    weight."""
     import torch
     from cruise_control_tpu_torch import kernels
-    for K, G in ((4, 4), (64, 16), (16, 23), (16, 28), (16, 33), (16, 64),
-                 (1024, 64)):
+    for K, G, kind in KI_SHAPES:
         boundary = (rng.random((K, G)) * 10.0 ** rng.integers(-7, 4, (K, G))
                     ).astype(np.float32)
         boundary[K // 2] = boundary[K // 4]          # a tie
-        boundary[1, 0] = np.nan                      # sorts last
+        boundary[min(1, K - 1), 0] = np.nan          # sorts last
         scales = (rng.random(G) * 1e4).astype(np.float32)
-        hard = np.arange(G) % 3 == 0
+        hard = np.arange(G) % 3 == 0 if kind == "mixed" else np.ones(G, bool)
         moves = rng.integers(0, 20_000, K)
         n_surv = max(1, min(K // 2, K - 1))
         inputs = [torch.from_numpy(a) for a in (boundary, moves, scales,
@@ -1045,9 +1077,7 @@ def _kernel_population_select(rows, rng):
         dev_in = [t.cuda() for t in inputs]
         err = 0.0
         for mw, pareto, final in ((0.0, False, False), (0.01, True, False),
-                                  (0.0, False, True)):
-            if mw and 23 <= G <= 32:
-                continue        # refused: the moved rows are not read there
+                                  (0.0, False, True), (0.01, False, True)):
             got = kernels.population_select(*dev_in, 1000.0, mw, n_surv,
                                             pareto, final)
             want = kernels.population_select_plain(*inputs, 1000.0, mw,
@@ -1064,7 +1094,7 @@ def _kernel_population_select(rows, rng):
                 err = max(err, float(diff.max()) if diff.numel() else 0.0)
                 if not bool(((g == w) | both_nan).all()):
                     fail(f"population_select differs from its twin (K={K}, "
-                         f"G={G})")
+                         f"G={G}, {kind}, move weight {mw}, final {final})")
         ms = time_ms(lambda: kernels.population_select(
             *dev_in, 1000.0, 0.0, n_surv, False), graph=True)
         plain = time_ms(lambda: kernels.population_select_plain(
@@ -1073,9 +1103,13 @@ def _kernel_population_select(rows, rng):
         # K x G, K^2 G dominance tests, K^2 sort comparisons
         b_ms, b_by = bound(K * G * 4 + K * 8 + G * 5 + 3 * K * 4,
                            5 * K * G + 2 * K * K * G + 2 * K * K)
-        moved = "" if 23 <= G <= 32 else ", with a move weight"
-        log(f"KI population_select K={K} G={G}: bit-exact vs twin (weighted "
-            f"and Pareto{moved}, boundary and final scores); {ms:.5f} ms, twin "
+        earlier = EARLIER_MS.get(("KI", (K, G)) if kind == "mixed" else None)
+        one = kernels.population_select_single(K, G)
+        log(f"KI population_select K={K} G={G} {kind} "
+            f"({'one block' if one else 'a grid and a second launch'}): "
+            f"bit-exact vs twin (weighted and Pareto, with and without a "
+            f"move weight, boundary and final scores); {ms:.5f} ms "
+            f"(earlier design: {earlier or 'not measured'} ms), twin "
             f"{plain:.4f} ms, bound {b_ms:.3g} ms ({b_by})")
         _keep_first_shape(rows, "population_select", err, dict(
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
@@ -1137,6 +1171,36 @@ def _kernel_threefry(rows, dev, P, R):
         _keep_first_shape(rows, "threefry2x32", 0.0, dict(
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
+
+
+def kd_boundary_case(model, seed):
+    """KD's inputs as the move scheduler's boundary audit passes them
+    (``executor/schedule.py:_violating_boundaries``): KD_BOUNDARIES
+    placements ``[S, P, R]``, boundary k the template with the first
+    ``k * moves`` partitions of a seeded order moved to seeded brokers
+    (their slots renumbered 0..R-1, online), the template's pvalid
+    expanded over the boundaries, nothing killed or added."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    dev = model.replica_broker.device
+    P, R = model.replica_broker.shape
+    B = model.num_brokers_padded
+    S = KD_BOUNDARIES
+    order = torch.randperm(P, generator=gen)
+    step = P // (2 * S)
+    moved = torch.arange(P)[None] < (torch.arange(1, S + 1)[:, None] * step)
+    rows = torch.zeros((S, P), dtype=torch.bool)
+    rows[:, order] = moved
+    rows = rows.to(dev)[..., None]
+    new_rb = torch.randint(0, int(model.broker_valid.sum()), (P, R),
+                           generator=gen, dtype=torch.int32).to(dev)
+    slots = torch.arange(R, dtype=torch.int32, device=dev).expand(P, R)
+    rb = torch.where(rows, new_rb, model.replica_broker)
+    pref = torch.where(rows, slots, model.replica_pref_pos)
+    off = rows.logical_not() & model.replica_offline
+    none = torch.zeros((S, B), dtype=torch.bool, device=dev)
+    return (rb, off, pref, model.broker_valid, model.broker_alive, none,
+            none.clone(), model.partition_valid.expand(S, P))
 
 
 def kj_case(C, S, P, R, B, seed, device):
@@ -1219,7 +1283,7 @@ def _kernel_fleet_failover(rows, model):
               + C * S * P * R * 9 + C * S * P)                 # outputs
     b_ms, b_by = bound(nbytes, 8 * C * S * P * R)
     log(f"KJ fleet_scenario_failover C={C} S={S} P={P} R={R} B={B} "
-        f"(scenario chunk {kernels.fleet_failover_chunk(C, S, P, R, B)}): "
+        f"(scenario chunk {kernels.failover_chunk(C, S, P, R, B)}): "
         f"bit-exact vs twin; {ms:.4f} ms (the row kernel: "
         f"{EARLIER_MS[('KJ', 'phase 12')]} ms), twin {plain:.3f} "
         f"ms (once), bound {b_ms:.5f} ms ({b_by}), "
@@ -1236,7 +1300,7 @@ def _kernel_fleet_failover(rows, model):
             fail(f"fleet_scenario_failover differs from its twin at "
                  f"C={C} S={S} P={P} R={R} B={B}")
         log(f"KJ edge C={C} S={S} P={P} R={R} B={B} (scenario chunk "
-            f"{kernels.fleet_failover_chunk(C, S, P, R, B)}): bit-exact")
+            f"{kernels.failover_chunk(C, S, P, R, B)}): bit-exact")
 
 
 def schedule_context(model, md, proposals):

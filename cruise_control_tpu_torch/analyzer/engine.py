@@ -26,7 +26,8 @@ from typing import Sequence
 import torch
 
 from .. import _random
-from ..utils.ordered import fma, fma_loop_sum, top_k, tree_sum_last
+from ..utils.ordered import (fma, fma_loop_sum, top_k, tree_sum_last,
+                             vector_loop_sum)
 from .constraint import SearchConfig
 from .goals import GoalKernel
 from .state import (Candidates, SearchContext, SearchState, apply_group,
@@ -81,36 +82,59 @@ def normalized_stacks(stacks, scales, *, contract: bool = False
 
 
 #: LLVM's loop for the weighted row at 23-32 goals, as the reference's
-#: population program compiles it: read from the program's own
-#: ``multiply_reduce`` fusions, each compiled alone
-#: (``scripts/probe_row_fusion.py``). (first goal count, last, (vf, ic,
-#: epi) of :func:`~..utils.ordered.fma_loop_sum`), per site: the scores
-#: of each generation boundary (the walk's end and every polish round)
-#: and the final scores the program returns. Every product is contracted
-#: into its add, whatever the weights; the same at 2-16 plans. A single
-#: plan or a move weight changes the program's fusions: those rows are
-#: refused at 23-32 goals (:func:`weighted_row_loop`).
+#: population program compiles it: read from the program's own fusions,
+#: each compiled alone (``scripts/probe_row_fusion.py``). Per weight form
+#: and site, (first goal count, last, (vf, ic, epi)); vf = 1 is goal order.
+#: The forms: weights that differ reach the fusion as a buffer, and every
+#: product is contracted into its add (:func:`~..utils.ordered.
+#: fma_loop_sum`); equal weights are a splat constant of the program, and
+#: every product is rounded on its own before the adds of
+#: :func:`~..utils.ordered.vector_loop_sum` — a weight of 1 leaves no
+#: product at all, and the row is a plain sum in loops of its own. The
+#: sites: the scores of each generation boundary (the walk's end and every
+#: polish round) and the final scores the program returns, at two or more
+#: plans; and the final scores of a single plan, whose fusion drops the
+#: plan axis (its boundary scores are dead code there: one plan's
+#: permutation is fixed). A move term is added after the row, contracted.
 WEIGHTED_ROW_LOOPS = {
-    "boundary": ((23, 23, (4, 4, 2)), (24, 27, (8, 1, 0)),
-                 (28, 31, (4, 2, 0)), (32, 32, (8, 1, 0))),
-    "final": ((23, 24, (1, 1, 0)), (25, 27, (8, 1, 0)),
-              (28, 31, (4, 2, 0)), (32, 32, (8, 2, 0))),
+    "mixed": {
+        "boundary": ((23, 23, (4, 4, 2)), (24, 27, (8, 1, 0)),
+                     (28, 31, (4, 2, 0)), (32, 32, (8, 1, 0))),
+        "final": ((23, 24, (1, 1, 0)), (25, 27, (8, 1, 0)),
+                  (28, 31, (4, 2, 0)), (32, 32, (8, 2, 0))),
+        "single": ((23, 27, (1, 1, 0)), (28, 31, (4, 2, 0)),
+                   (32, 32, (8, 1, 0)))},
+    "equal": {
+        "boundary": ((23, 24, (1, 1, 0)), (25, 32, (8, 1, 0))),
+        "final": ((23, 27, (1, 1, 0)), (28, 31, (8, 1, 0)),
+                  (32, 32, (8, 2, 0))),
+        "single": ((23, 29, (1, 1, 0)), (30, 32, (8, 1, 0)))},
+    "unit": {
+        "boundary": ((23, 27, (1, 1, 0)), (28, 32, (8, 1, 0))),
+        "final": ((23, 29, (1, 1, 0)), (30, 31, (8, 1, 0)),
+                  (32, 32, (8, 2, 0))),
+        "single": ((23, 32, (1, 1, 0)),)},
 }
+#: the forms in KI's order (``csrc/population_select.cu:RowForm``)
+WEIGHT_FORMS = ("mixed", "equal", "unit")
+
+
+def weight_form(w: torch.Tensor) -> str:
+    """The form of a weight vector in the compiled program: 'mixed' where
+    the weights differ, else 'unit' for weights of 1 and 'equal'."""
+    if w.numel() and bool((w != w[0]).any()):
+        return "mixed"
+    return "unit" if not w.numel() or float(w[0]) == 1.0 else "equal"
 
 
 def weighted_row_loop(G: int, final: bool = False, plans: int = 2,
-                      move_weight: float = 0.0):
-    """(vf, ic, epi) of the weighted row's loop at G goals (23-32), at the
-    final scores or a generation boundary; None outside 23-32. Raises for
-    a single plan or a move weight there: the program compiles those rows
-    in fusions of another form, which have not been read."""
-    for lo, hi, loop in WEIGHTED_ROW_LOOPS["final" if final else "boundary"]:
+                      weights: str = "mixed"):
+    """(vf, ic, epi) of the weighted row's loop at G goals (23-32) of
+    ``plans`` plans, at the final scores or a generation boundary, for a
+    weight form of :data:`WEIGHT_FORMS`; None outside 23-32."""
+    site = "single" if plans < 2 else "final" if final else "boundary"
+    for lo, hi, loop in WEIGHTED_ROW_LOOPS[weights][site]:
         if lo <= G <= hi:
-            if plans < 2 or move_weight:
-                raise ValueError(
-                    f"the compiled weighted row at 23-32 goals is reproduced "
-                    f"for two or more plans without a move weight, got "
-                    f"{plans} plan(s), move weight {move_weight}, {G} goals")
             return loop
     return None
 
@@ -118,26 +142,23 @@ def weighted_row_loop(G: int, final: bool = False, plans: int = 2,
 def _fused_weighted_sum(norm: torch.Tensor, w: torch.Tensor,
                         final: bool = False) -> torch.Tensor:
     """float32 ``(norm * w).sum(-1)`` as XLA's CPU backend computes it inside
-    the compiled population program: up to 22 goals from zero in goal
-    order, each product contracted into the running sum (an FMA) when the
-    weights differ, rounded on its own when they all are equal (a weight
-    of 1 leaves the product exact); at 23-32 goals LLVM's vectorized loop
-    of FMAs, which differs between the generation boundaries and the
-    ``final`` scores (:data:`WEIGHTED_ROW_LOOPS`); past 32 goals the
+    the compiled population program: where the weights differ, each product
+    contracted into the running sum (an FMA), from zero in goal order up to
+    22 goals and in LLVM's vectorized loop at 23-32; where they are all
+    equal, each product rounded on its own (a weight of 1 leaves it
+    exact), in goal order or LLVM's loop of adds. The loops differ between
+    the generation boundaries and the ``final`` scores, for a single plan
+    and by weight form (:data:`WEIGHTED_ROW_LOOPS`). Past 32 goals the
     rounded products in XLA's windowed tree. A goal may repeat."""
     G = norm.shape[-1]
     if G > 32:
         return tree_sum_last(norm * w)
     plans = norm.shape[0] if norm.dim() == 2 else 1
-    loop = weighted_row_loop(G, final, plans)
-    if loop is not None:
+    form = weight_form(w)
+    loop = weighted_row_loop(G, final, plans, form) or (1, 1, 0)
+    if form == "mixed":
         return fma_loop_sum(norm, w, *loop)
-    contract = bool((w != w[0]).any()) if G else False
-    acc = norm.new_zeros(norm.shape[:-1])
-    for g in range(G):
-        acc = (fma(norm[..., g], w[g], acc) if contract
-               else acc + norm[..., g] * w[g])
-    return acc
+    return vector_loop_sum(norm * w, *loop)
 
 
 def weighted_objective(stacks, scales, hard_mask, *, hard_weight: float,
@@ -153,8 +174,6 @@ def weighted_objective(stacks, scales, hard_mask, *, hard_weight: float,
     hard = torch.as_tensor(hard_mask, dtype=torch.bool, device=norm.device)
     w = torch.where(hard, _as_f32(hard_weight), _as_f32(1.0)).to(norm.device)
     if contract:
-        if move_weight and moves is not None:
-            weighted_row_loop(norm.shape[-1], final, move_weight=move_weight)
         obj = _fused_weighted_sum(norm, w, final)
     else:
         obj = tree_sum_last(norm * w)

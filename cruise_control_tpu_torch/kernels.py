@@ -22,7 +22,8 @@ Three kernels carry the dry-run proposal path (sources in ``csrc/``):
 Two more carry the what-if sweep and the move scheduler:
 
 - **KD** ``scenario_failover`` — each scenario's placement edit and
-  leadership failover, one thread per (scenario, partition) row;
+  leadership failover: one cluster of KJ's tiled kernel, the placement
+  kept in registers across a scenario chunk or read per scenario;
 - **KE** ``first_fit`` — the move schedule's first-fit batch assignment,
   one block walking the moves in order.
 
@@ -38,15 +39,17 @@ Two more carry the search modes built on the analyzer:
 - **KH** ``intra_broker_walk`` — the intra-broker disk walk, every
   iteration of every broker in one launch (one block per broker);
 - **KI** ``population_select`` — one generation boundary of the population
-  search: joint scoring, Pareto ranks and the survivor permutation.
+  search: joint scoring, Pareto ranks and the survivor permutation, a
+  warp a plan over the others (one block, or a grid of plan tiles and a
+  second launch past what one block holds).
 
 One more carries the fleet's scenario sweeps:
 
 - **KJ** ``fleet_scenario_failover`` — KD's placement edit and failover
-  over a fleet's ``[C, S]`` grid in one launch: a block a (cluster,
-  partition tile, scenario chunk), the chunk's broker masks as bits in
-  shared memory, a thread's partitions in registers across the scenarios,
-  16-byte stores.
+  over a fleet's ``[C, S]`` grid in one launch of the same kernel
+  (``csrc/failover.cu``): a block a (cluster, partition tile, scenario
+  chunk), the chunk's broker masks as bits in shared memory, a thread's
+  partitions in registers across the scenarios, 16-byte stores.
 
 Each wrapper takes the plain twin for a tensor on the CPU, and for a CUDA
 tensor launches its kernel or raises: there is no fallback. Each launch
@@ -54,10 +57,10 @@ adds one to ``LAUNCHES[name]``.
 
 The kernels are built from ``csrc/*.cu`` at first use with ``nvcc`` into
 ``build/torch_kernels/`` (one ``nvcc`` per source, all started together,
-then one link), keyed by a hash of the sources, the headers they include
-and the flags, and loaded with ctypes. Each C entry returns
-``cudaGetLastError()``. Each build or load is reported to the default
-device-runtime collector, which counts it as a compile event.
+then one link), keyed by a hash of the sources and the flags, and loaded
+with ctypes. Each C entry returns ``cudaGetLastError()``. Each build or
+load is reported to the default device-runtime collector, which counts it
+as a compile event.
 """
 
 from __future__ import annotations
@@ -77,12 +80,9 @@ import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
-SOURCES = ("threefry.cu", "segment_sum.cu", "net_flow.cu",
-           "scenario_failover.cu", "first_fit.cu", "delta_scatter.cu",
-           "cluster_stats.cu", "intra_walk.cu", "population_select.cu",
-           "fleet_failover.cu")
-#: headers the sources include: part of the build's digest
-HEADERS = ("failover_row.cuh",)
+SOURCES = ("threefry.cu", "segment_sum.cu", "net_flow.cu", "failover.cu",
+           "first_fit.cu", "delta_scatter.cu", "cluster_stats.cu",
+           "intra_walk.cu", "population_select.cu")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -123,7 +123,7 @@ def _nvcc() -> str:
 
 def source_digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
+    for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -193,9 +193,9 @@ def load_library():
             lib.cc_ordered_segment_sum_scratch.restype = None
             lib.cc_ordered_range_sum.argtypes = [p, p, p, i64, i64, p]
             lib.cc_net_broker_flow.argtypes = [p, p, p, p, p, p, p, p, i64, p]
-            lib.cc_scenario_failover.argtypes = [p, p, p, i64, p, p, p, p, p,
-                                                 p, p, p, p, i64, i64, i64,
-                                                 i64, p]
+            lib.cc_failover.argtypes = [p] * 12 + [i64] * 8 + [p]
+            lib.cc_failover_chunk.argtypes = [i64, i64, i64, i64, i64]
+            lib.cc_failover_chunk.restype = i64
             lib.cc_first_fit.argtypes = [p, p, p, p, p, i64, ctypes.c_float,
                                          p, p, p, p, i64, i64, i64, i64, p]
             lib.cc_first_fit_shared_slots.argtypes = [i64, i64, i64]
@@ -208,21 +208,16 @@ def load_library():
             lib.cc_intra_broker_walk_shared.argtypes = [i64, i64]
             lib.cc_intra_broker_walk_shared.restype = i64
             f32 = ctypes.c_float
-            lib.cc_population_select.argtypes = [p, p, p, p, f32, f32, i64,
-                                                 i64, i64, i64, i64, i64,
-                                                 i64, i64, p, p, p, p, p]
-            lib.cc_fleet_scenario_failover.argtypes = [p, p, p, p, p, p, p,
-                                                       p, p, p, p, p, i64,
-                                                       i64, i64, i64, i64, p]
-            lib.cc_fleet_failover_chunk.argtypes = [i64, i64, i64, i64, i64]
-            lib.cc_fleet_failover_chunk.restype = i64
+            lib.cc_population_select.argtypes = [p, p, p, p, f32, f32,
+                                                 *[i64] * 14, p, p, p, p]
+            lib.cc_population_select_single.argtypes = [i64, i64]
+            lib.cc_population_select_single.restype = i64
             for fn in (lib.cc_threefry_draw, lib.cc_ordered_segment_sum,
                        lib.cc_ordered_range_sum,
-                       lib.cc_net_broker_flow, lib.cc_scenario_failover,
+                       lib.cc_net_broker_flow, lib.cc_failover,
                        lib.cc_first_fit, lib.cc_delta_row_scatter,
                        lib.cc_cluster_stats, lib.cc_intra_broker_walk,
-                       lib.cc_population_select,
-                       lib.cc_fleet_scenario_failover):
+                       lib.cc_population_select):
                 fn.restype = ctypes.c_int
             _LIB = lib
             default_collector().record_library(kind,
@@ -625,7 +620,7 @@ def net_broker_flow(src, dst, earlier, d_src, d_dst):
 
 def _failover_rows_plain(rb, off, pref, up, pvalid):
     """The literal array form of ``whatif/engine.py``'s placement edit and
-    failover over rows ``[*L, P]`` (``csrc/failover_row.cuh``): ``up``
+    failover over rows ``[*L, P]`` (``csrc/failover.cu``): ``up``
     bool[*L, B] is each row's broker-up mask; ``rb``/``off``/``pref``
     broadcast to ``[*L, P, R]`` and ``pvalid`` to ``[*L, P]``."""
     *lead, B = up.shape
@@ -668,15 +663,60 @@ def scenario_failover_plain(rb, off, pref, broker_valid, broker_alive, dead,
     return _failover_rows_plain(rb, off, pref, up, pvalid)
 
 
+def failover_chunk(C: int, S: int, P: int, R: int, B: int) -> int:
+    """Scenarios a block of KD's and KJ's tiled kernel serves at this shape
+    on the current card; 0 where the row kernel runs (R past 4, or one
+    scenario's broker mask past the shared-memory allotment)."""
+    return int(load_library().cc_failover_chunk(C, S, P, R, B))
+
+
+def _shared_row(t: torch.Tensor) -> torch.Tensor | None:
+    """``t [S, ...]``'s first row where every scenario is a view of it (an
+    ``expand``ed stride of 0, or one scenario), else None."""
+    if t.shape[0] == 1 or (t.shape[0] > 1 and t.stride(0) == 0):
+        return t[0]
+    return None
+
+
+def _failover(name, rb, off, pref, valid, alive, dead, add, pvalid,
+              in_per_s: bool, pv_per_s: bool):
+    """One launch of ``csrc/failover.cu`` over the ``[C, S, P]`` rows of
+    ``dead [C, S, B]``: outputs ``[C, S, P, R]`` and ``[C, S, P]``."""
+    if any(t.dtype != torch.bool for t in (off, valid, alive, dead, add,
+                                           pvalid)):
+        raise TypeError(f"{name} takes bool masks")
+    C, S, B = dead.shape
+    P, R = rb.shape[-2:]
+    rb = rb.to(torch.int32).contiguous()
+    pref = pref.to(torch.int32).contiguous()
+    off, valid, alive, dead, add, pvalid = (
+        t.contiguous() for t in (off, valid, alive, dead, add, pvalid))
+    dev = rb.device
+    rb_out = torch.empty((C, S, P, R), dtype=torch.int32, device=dev)
+    pref_out = torch.empty((C, S, P, R), dtype=torch.int32, device=dev)
+    off_out = torch.empty((C, S, P, R), dtype=torch.bool, device=dev)
+    has_alive = torch.empty((C, S, P), dtype=torch.bool, device=dev)
+    rc = load_library().cc_failover(
+        rb.data_ptr(), off.data_ptr(), pref.data_ptr(), valid.data_ptr(),
+        alive.data_ptr(), dead.data_ptr(), add.data_ptr(), pvalid.data_ptr(),
+        rb_out.data_ptr(), pref_out.data_ptr(), off_out.data_ptr(),
+        has_alive.data_ptr(), C, S, P, R, B, int(in_per_s), int(pv_per_s),
+        -1, _stream())
+    LAUNCHES[name] += 1
+    _check(rc, name)
+    return rb_out, pref_out, off_out, has_alive
+
+
 def scenario_failover(rb, off, pref, broker_valid, broker_alive, dead, add,
                       pvalid):
     """(rb int32, pref int32, off bool [S, P, R], has_alive bool [S, P]):
     the placements of S scenarios after their broker kills/adds, partition
-    enables and leadership failover — see ``csrc/scenario_failover.cu``.
-    ``rb``/``off``/``pref`` are the template's ``[P, R]`` (shared by every
-    scenario) or one ``[S, P, R]`` placement per scenario;
-    ``broker_valid``/``broker_alive`` ``[B]``; ``dead``/``add`` ``[S, B]``;
-    ``pvalid`` ``[S, P]``."""
+    enables and leadership failover — see ``csrc/failover.cu`` (one
+    cluster of its grid). ``rb``/``off``/``pref`` are the template's
+    ``[P, R]`` (shared by every scenario) or one ``[S, P, R]`` placement per
+    scenario; ``broker_valid``/``broker_alive`` ``[B]``; ``dead``/``add``
+    ``[S, B]``; ``pvalid`` ``[S, P]``, read once where it is one row
+    expanded over the scenarios (the move scheduler's boundary audit)."""
     S, B = dead.shape
     P, R = rb.shape[-2:]
     if rb.dim() not in (2, 3) or (rb.dim() == 3 and rb.shape[0] != S):
@@ -690,28 +730,12 @@ def scenario_failover(rb, off, pref, broker_valid, broker_alive, dead, add,
     args = (rb, off, pref, broker_valid, broker_alive, dead, add, pvalid)
     if _on_cpu(*args):
         return scenario_failover_plain(*args)
-    if any(t.dtype != torch.bool for t in (off, broker_valid, broker_alive,
-                                           dead, add, pvalid)):
-        raise TypeError("scenario_failover takes bool masks")
-    rb = rb.to(torch.int32).contiguous()
-    pref = pref.to(torch.int32).contiguous()
-    off, broker_valid, broker_alive, dead, add, pvalid = (
-        t.contiguous() for t in (off, broker_valid, broker_alive, dead, add,
-                                 pvalid))
-    dev = rb.device
-    rb_out = torch.empty((S, P, R), dtype=torch.int32, device=dev)
-    pref_out = torch.empty((S, P, R), dtype=torch.int32, device=dev)
-    off_out = torch.empty((S, P, R), dtype=torch.bool, device=dev)
-    has_alive = torch.empty((S, P), dtype=torch.bool, device=dev)
-    rc = load_library().cc_scenario_failover(
-        rb.data_ptr(), off.data_ptr(), pref.data_ptr(),
-        P * R if rb.dim() == 3 else 0, broker_valid.data_ptr(),
-        broker_alive.data_ptr(), dead.data_ptr(), add.data_ptr(),
-        pvalid.data_ptr(), rb_out.data_ptr(), pref_out.data_ptr(),
-        off_out.data_ptr(), has_alive.data_ptr(), S, P, R, B, _stream())
-    LAUNCHES["scenario_failover"] += 1
-    _check(rc, "scenario_failover")
-    return rb_out, pref_out, off_out, has_alive
+    pv = _shared_row(pvalid)
+    outs = _failover("scenario_failover", rb, off, pref, broker_valid[None],
+                     broker_alive[None], dead[None], add[None],
+                     pvalid if pv is None else pv, rb.dim() == 3,
+                     pv is None)
+    return tuple(o[0] for o in outs)
 
 
 # ---------------------------------------------------------------------------
@@ -1094,6 +1118,12 @@ def population_select_plain(boundary, moves, scales, hard, hard_weight: float,
     return ranks, weighted, perm.to(torch.int32)
 
 
+def population_select_single(K: int, G: int) -> bool:
+    """Whether one block of KI serves K plans of G goals in one launch on
+    the current card (else a grid of plan tiles and a second launch)."""
+    return bool(load_library().cc_population_select_single(K, G))
+
+
 def population_select(boundary, moves, scales, hard, hard_weight: float,
                       move_weight: float, n_surv: int, pareto: bool,
                       final: bool = False):
@@ -1113,8 +1143,9 @@ def population_select(boundary, moves, scales, hard, hard_weight: float,
         raise ValueError(f"population_select sums at most "
                          f"{_MAX_POPULATION_GOALS} goals (one level of "
                          f"32-goal windows), got {G}")
-    from .analyzer.engine import weighted_row_loop
-    loop = weighted_row_loop(G, final, K, move_weight)
+    from .analyzer.engine import WEIGHT_FORMS, weighted_row_loop
+    loops = [v for form in WEIGHT_FORMS
+             for v in weighted_row_loop(G, final, K, form) or (0, 0, 0)]
     args = (boundary, moves, scales, hard)
     if _on_cpu(*args):
         return population_select_plain(*args, hard_weight, move_weight,
@@ -1122,8 +1153,9 @@ def population_select(boundary, moves, scales, hard, hard_weight: float,
     if hard.dtype != torch.bool:
         raise TypeError("population_select takes a bool hard mask")
     if not 1 <= K <= _MAX_POPULATION:
-        raise ValueError(f"population_select runs one block: 1..."
-                         f"{_MAX_POPULATION} plans, got K={K}")
+        raise ValueError(f"population_select places 1...{_MAX_POPULATION} "
+                         f"plans (their scores in one block's shared "
+                         f"memory), got K={K}")
     dev = boundary.device
     boundary = boundary.to(torch.float32).contiguous()
     scales = scales.to(torch.float32).contiguous()
@@ -1132,15 +1164,12 @@ def population_select(boundary, moves, scales, hard, hard_weight: float,
     ranks = torch.empty(K, dtype=torch.int32, device=dev)
     weighted = torch.empty(K, dtype=torch.float32, device=dev)
     perm = torch.empty(K, dtype=torch.int32, device=dev)
-    # the normalized stacks where [K, G] does not fit shared memory
-    scratch = torch.empty(K * G, dtype=torch.float32, device=dev)
-    vf, ic, epi = loop or (0, 0, 0)
     rc = load_library().cc_population_select(
         boundary.data_ptr(), moves.data_ptr(), scales.data_ptr(),
         hard.data_ptr(), float(hard_weight), float(move_weight),
-        int(bool(move_weight)), K, G, vf, ic, epi, int(n_surv),
-        int(bool(pareto)),
-        scratch.data_ptr(), ranks.data_ptr(), weighted.data_ptr(), perm.data_ptr(), _stream())
+        int(bool(move_weight)), K, G, *loops,
+        int(n_surv), int(bool(pareto)), ranks.data_ptr(),
+        weighted.data_ptr(), perm.data_ptr(), _stream())
     LAUNCHES["population_select"] += 1
     _check(rc, "population_select")
     return ranks, weighted, perm
@@ -1161,19 +1190,12 @@ def fleet_scenario_failover_plain(rb, off, pref, broker_valid, broker_alive,
                                 up, pvalid[:, None])
 
 
-def fleet_failover_chunk(C: int, S: int, P: int, R: int, B: int) -> int:
-    """Scenarios a block of KJ's tiled kernel serves at this shape on the
-    current card; 0 where the row kernel runs (R past 4, or one scenario's
-    broker mask past the shared-memory allotment)."""
-    return int(load_library().cc_fleet_failover_chunk(C, S, P, R, B))
-
-
 def fleet_scenario_failover(rb, off, pref, broker_valid, broker_alive, dead,
                             add, pvalid):
     """(rb int32, pref int32, off bool [C, S, P, R], has_alive bool
     [C, S, P]): the placements of S scenarios of each of C clusters after
     their broker kills/adds and leadership failover — see
-    ``csrc/fleet_failover.cu``. ``rb``/``off``/``pref`` are each cluster's
+    ``csrc/failover.cu``. ``rb``/``off``/``pref`` are each cluster's
     ``[C, P, R]`` placement; ``broker_valid``/``broker_alive`` ``[C, B]``;
     ``dead``/``add`` ``[C, S, B]``; ``pvalid`` ``[C, P]``."""
     if rb.dim() != 3 or dead.dim() != 3:
@@ -1190,25 +1212,4 @@ def fleet_scenario_failover(rb, off, pref, broker_valid, broker_alive, dead,
     args = (rb, off, pref, broker_valid, broker_alive, dead, add, pvalid)
     if _on_cpu(*args):
         return fleet_scenario_failover_plain(*args)
-    if any(t.dtype != torch.bool for t in (off, broker_valid, broker_alive,
-                                           dead, add, pvalid)):
-        raise TypeError("fleet_scenario_failover takes bool masks")
-    rb = rb.to(torch.int32).contiguous()
-    pref = pref.to(torch.int32).contiguous()
-    off, broker_valid, broker_alive, dead, add, pvalid = (
-        t.contiguous() for t in (off, broker_valid, broker_alive, dead, add,
-                                 pvalid))
-    dev = rb.device
-    rb_out = torch.empty((C, S, P, R), dtype=torch.int32, device=dev)
-    pref_out = torch.empty((C, S, P, R), dtype=torch.int32, device=dev)
-    off_out = torch.empty((C, S, P, R), dtype=torch.bool, device=dev)
-    has_alive = torch.empty((C, S, P), dtype=torch.bool, device=dev)
-    rc = load_library().cc_fleet_scenario_failover(
-        rb.data_ptr(), off.data_ptr(), pref.data_ptr(),
-        broker_valid.data_ptr(), broker_alive.data_ptr(), dead.data_ptr(),
-        add.data_ptr(), pvalid.data_ptr(), rb_out.data_ptr(),
-        pref_out.data_ptr(), off_out.data_ptr(), has_alive.data_ptr(),
-        C, S, P, R, B, _stream())
-    LAUNCHES["fleet_scenario_failover"] += 1
-    _check(rc, "fleet_scenario_failover")
-    return rb_out, pref_out, off_out, has_alive
+    return _failover("fleet_scenario_failover", *args, False, False)

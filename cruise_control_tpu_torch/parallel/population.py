@@ -35,7 +35,7 @@ import torch
 from .. import _random
 from ..analyzer import engine
 from ..analyzer.constraint import PopulationConfig, SearchConfig
-from ..analyzer.engine import violation_stack, weighted_row_loop
+from ..analyzer.engine import violation_stack
 from ..analyzer.goals import GoalKernel
 from ..kernels import population_select
 from .batching import pow2_bucket
@@ -107,8 +107,6 @@ def make_population_search(passes: Sequence, goals: Sequence[GoalKernel],
     passes = list(passes)
     G = len(goals)
     K = pow2_bucket(max(int(pop_cfg.size), 1))
-    # refused before any walk runs (KI would refuse the first boundary)
-    weighted_row_loop(G, plans=K, move_weight=pop_cfg.move_weight)
     R = cfg.polish_passes + 1 if cfg.polish_passes else 0
     polish_eps = min(cfg.epsilon, 1e-6)
     hard = [g.hard for g in goals]

@@ -59,10 +59,11 @@ def _union_us(intervals):
 HAND_WRITTEN = ("threefry_draw_kernel", "tile_group_kernel",
                 "tile_chain_kernel", "ordered_segment_sum_kernel",
                 "ordered_range_sum_kernel", "net_broker_flow_kernel",
-                "scenario_failover_kernel", "first_fit_kernel",
-                "delta_row_scatter_kernel", "cluster_stats_kernel",
-                "intra_walk_kernel", "population_select_kernel",
-                "fleet_failover_tiled_kernel", "fleet_failover_rows_kernel")
+                "first_fit_kernel", "delta_row_scatter_kernel",
+                "cluster_stats_kernel", "intra_walk_kernel",
+                "population_select_kernel", "population_rank_kernel",
+                "population_place_kernel", "failover_tiled_kernel",
+                "failover_rows_kernel")
 
 
 def profiled(fn):

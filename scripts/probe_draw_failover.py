@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Time design variants of KA (``csrc/threefry.cu``) and KJ
-(``csrc/fleet_failover.cu``) against the kept kernels, on one CUDA card.
+"""Time design variants of KA (``csrc/threefry.cu``) and of KD and KJ's
+shared failover kernel (``csrc/failover.cu``) against the kept kernels,
+and the failover kernel's scenario chunks, on one CUDA card.
 
 Each variant is the kept source with a few lines replaced (``VARIANTS``
 below), compiled by ``nvcc`` into a library of its own (all at once) and
 called through the same C entry as the kept kernel. Every variant's
-outputs must equal the kept kernel's bit for bit; the script then times
-each, kept first and last, by replaying a CUDA graph of launches between
-two events:
+outputs must equal the kept kernel's (the failover's: its twin's) bit for
+bit; the script then times each, kept first and last, by replaying a CUDA
+graph of launches between two events:
 
-- KJ at the fleet N-1 sweep's shape (16 clusters x 100 scenarios x
-  20,096 partitions x 2 replicas, 104 brokers), beside ``zero_()`` of as
-  many bytes (what one write-only launch takes on this card);
+- the failover at KD's N-1 shape (phase 7: the template's placement,
+  pvalid per scenario, 100 x 20,096 x 2, 104 brokers), KD's boundary-audit
+  shape (phase 8: 174 placements, pvalid shared) and KJ's fleet N-1 shape
+  (16 clusters x 100 scenarios x 20,096 partitions x 2 replicas), beside
+  ``zero_()`` of KJ's bytes (what one write-only launch takes on this
+  card);
 - KA's scaled-noise draw of 40,192 elements through a three-word path
   (the main path's candidate noise) and a fold-in key (one element, one
-  word).
+  word);
+- the kept failover kernel with every scenario chunk in ``CHUNKS`` (0 is
+  the row kernel, -1 ``cc_failover_chunk``'s rule) at the three shapes.
 
 Prints the card's name and power limit, then one line a variant:
 
@@ -38,68 +44,21 @@ sys.path.insert(0, ROOT)
 
 #: name -> (source, [(kept text, variant text), ...])
 VARIANTS = {
-    "KJ kept": ("fleet_failover.cu", []),
-    "KJ the row kernel (a thread a row)": ("fleet_failover.cu", [(
-        "  if (s_chunk > 0) {", "  if (false) {")]),
-    "KJ cached stores": ("fleet_failover.cu", [(
+    "KD/KJ kept": ("failover.cu", []),
+    "KD/KJ cached stores": ("failover.cu", [(
         "void store(T* p, T v) { __stcs(p, v); }",
         "void store(T* p, T v) { *p = v; }")]),
-    "KJ registers uncapped": ("fleet_failover.cu", [(
+    "KD/KJ registers uncapped": ("failover.cu", [(
         "__launch_bounds__(kThreads, kMinBlocks)",
         "__launch_bounds__(kThreads)")]),
-    "KJ grid of 8 blocks an SM": ("fleet_failover.cu", [(
-        "kBlocksPerSm = 16;", "kBlocksPerSm = 8;")]),
-    "KJ cached stores, registers uncapped, grid of 8 (first tiled design)": (
-        "fleet_failover.cu", [
-            ("void store(T* p, T v) { __stcs(p, v); }",
-             "void store(T* p, T v) { *p = v; }"),
-            ("__launch_bounds__(kThreads, kMinBlocks)",
-             "__launch_bounds__(kThreads)"),
-            ("kBlocksPerSm = 16;", "kBlocksPerSm = 8;")]),
-    "KJ stores only (no failover: each input slot written back)": (
-        "fleet_failover.cu", [(re.compile(
-            r"#pragma unroll\n    for \(int v = 0; v < kV; \+\+v\) \{\n"
-            r"      bool u\[R\];.*?(?=    const int64_t row = )", re.S),
-            """#pragma unroll
-    for (int v = 0; v < kV; ++v) {
-      ha[v] = pv[v] ? 1 : 0;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        ob[v][r] = bk[v][r] + s;
-        op[v][r] = pref[v][r];
-        oo[v][r] = off[v][r] ? 1 : 0;
-      }
-    }
-
-""")]),
-    "KJ rows laid out block by block (a layout probe: wrong outputs)": (
-        "fleet_failover.cu", [("    const int64_t row = (c * S + s0 + s) * P + p0;   // first row's index\n",
-         """    const int64_t row = (static_cast<int64_t>(blockIdx.x) * s_chunk + s)
-                        * kTile + threadIdx.x * kV;
-    if (row + kV > (gridDim.x / (chunks * tiles)) * S * P) continue;
-""")]),
-    "KJ stores only, rows laid out block by block (a layout probe)": (
-        "fleet_failover.cu", [(re.compile(
-            r"#pragma unroll\n    for \(int v = 0; v < kV; \+\+v\) \{\n"
-            r"      bool u\[R\];.*?(?=    const int64_t row = )", re.S),
-            """#pragma unroll
-    for (int v = 0; v < kV; ++v) {
-      ha[v] = pv[v] ? 1 : 0;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        ob[v][r] = bk[v][r] + s;
-        op[v][r] = pref[v][r];
-        oo[v][r] = off[v][r] ? 1 : 0;
-      }
-    }
-
-"""), ("    const int64_t row = (c * S + s0 + s) * P + p0;   // first row's index\n",
-         """    const int64_t row = (static_cast<int64_t>(blockIdx.x) * s_chunk + s)
-                        * kTile + threadIdx.x * kV;
-    if (row + kV > (gridDim.x / (chunks * tiles)) * S * P) continue;
-""")]),
-    "KJ 8 partitions a thread": ("fleet_failover.cu", [(
-        "constexpr int kV = 4;", "constexpr int kV = 8;")]),
+    "KD/KJ grid of 16 blocks an SM (the earlier rule)": ("failover.cu", [(
+        "kBlocksPerSm = 64;", "kBlocksPerSm = 16;")]),
+    "KD/KJ first loads before the masks at every form": ("failover.cu", [(
+        "constexpr bool kEarly = !kInPerS && !kPvPerS;",
+        "constexpr bool kEarly = true;")]),
+    "KD/KJ first loads after the masks at every form": ("failover.cu", [(
+        "constexpr bool kEarly = !kInPerS && !kPvPerS;",
+        "constexpr bool kEarly = false;")]),
     "KA kept": ("threefry.cu", []),
     "KA key derived by warp 0 a block": ("threefry.cu", [(
         """  if (i >= n) return;
@@ -145,8 +104,6 @@ def build(tmp: str) -> dict:
         src = os.path.join(tmp, f"{tag}.cu")
         with open(src, "w") as f:
             f.write(text)
-        for header in kernels.HEADERS:
-            shutil.copy(os.path.join(kernels.CSRC, header), tmp)
         lib = os.path.join(tmp, f"lib{tag}.so")
         procs[name] = (lib, subprocess.Popen(
             [nvcc, *kernels.NVCC_FLAGS, "-shared", "-o", lib, src],
@@ -184,21 +141,69 @@ def graph_ms(fn, launches: int) -> float:
     return float(np.median(times))
 
 
-def kj_call(lib, args, outs):
+#: scenario chunks timed at each failover shape (0: the row kernel, -1:
+#: the rule of ``cc_failover_chunk``)
+CHUNKS = (-1, 0, 1, 2, 4, 8, 16, 32)
+
+
+def failover_call(lib, args, outs, in_per_s, pv_per_s, s_chunk=-1):
+    """One ``cc_failover`` launch over ``dead [C, S, B]``'s rows."""
     import torch
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn = lib.cc_fleet_scenario_failover
-    fn.argtypes = [p] * 12 + [i64] * 5 + [p]
+    fn = lib.cc_failover
+    fn.argtypes = [p] * 12 + [i64] * 8 + [p]
     fn.restype = ctypes.c_int
     C, S, B = args[5].shape
-    P, R = args[0].shape[1:]
+    P, R = args[0].shape[-2:]
 
     def call():
         rc = fn(*(t.data_ptr() for t in args + outs), C, S, P, R, B,
+                in_per_s, pv_per_s, s_chunk,
                 torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"cudaError {rc}")
     return call
+
+
+def _outs(C, S, P, R, dev):
+    import torch
+    return (torch.empty((C, S, P, R), dtype=torch.int32, device=dev),
+            torch.empty((C, S, P, R), dtype=torch.int32, device=dev),
+            torch.empty((C, S, P, R), dtype=torch.bool, device=dev),
+            torch.empty((C, S, P), dtype=torch.bool, device=dev))
+
+
+def failover_shapes(dev):
+    """(tag, C-axis inputs of cc_failover, in_per_s, pv_per_s, twin's
+    outputs [C, S, ...]) of KD's two shapes and KJ's."""
+    import torch
+    import chip_smoke
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.model.spec import flatten_spec
+    model, _ = flatten_spec(chip_smoke.build_spec(), device=dev)
+    B = model.num_brokers_padded
+    P, R = model.replica_broker.shape
+    S = chip_smoke.NUM_BROKERS
+    dead = torch.zeros((S, B), dtype=torch.bool, device=dev)
+    dead[torch.arange(S), torch.arange(S)] = True
+    n1 = (model.replica_broker, model.replica_offline,
+          model.replica_pref_pos, model.broker_valid, model.broker_alive,
+          dead, torch.zeros_like(dead),
+          model.partition_valid.expand(S, P).contiguous())
+    audit = chip_smoke.kd_boundary_case(model, seed=8)
+    out = []
+    for tag, a, per_s, pv_s in (("KD N-1", n1, False, True),
+                                ("KD boundary audit", audit, True, False)):
+        want = kernels.scenario_failover_plain(*(t.cpu() for t in a))
+        pv = a[7] if pv_s else a[7][0]
+        grid = (a[0].contiguous(), a[1].contiguous(), a[2].contiguous(),
+                a[3][None], a[4][None], a[5][None], a[6][None],
+                pv.contiguous())
+        out.append((tag, grid, per_s, pv_s, [w[None] for w in want]))
+    kj = chip_smoke.kj_case(16, 100, 20_096, 2, 104, seed=1, device=dev)
+    want = kernels.fleet_scenario_failover_plain(*(t.cpu() for t in kj))
+    out.append(("KJ fleet N-1", kj, False, False, list(want)))
+    return out
 
 
 def ka_call(lib, key, words, n, form, a, b, out):
@@ -240,41 +245,37 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="variants-", dir=kernels.BUILD_DIR)
     try:
         libs = build(tmp)
-        kj_args = chip_smoke.kj_case(16, 100, 20_096, 2, 104, seed=1,
-                                     device=dev)
-        C, S, B = kj_args[5].shape
-        P, R = kj_args[0].shape[1:]
+        shapes = failover_shapes(dev)
         key = _random.PRNGKey(0, device=dev)
         results, want = [], {}
-        names = list(VARIANTS) + ["KJ kept", "KA kept"]
+        names = list(VARIANTS) + ["KD/KJ kept", "KA kept"]
         for name in names:
             lib = libs[name]
-            if name.startswith("KJ"):
-                outs = (torch.empty((C, S, P, R), dtype=torch.int32,
-                                    device=dev),
-                        torch.empty((C, S, P, R), dtype=torch.int32,
-                                    device=dev),
-                        torch.empty((C, S, P, R), dtype=torch.bool,
-                                    device=dev),
-                        torch.empty((C, S, P), dtype=torch.bool, device=dev))
-                call = kj_call(lib, kj_args, outs)
-                call()
-                got = [o.clone() for o in outs]
-                ref = want.setdefault("KJ", got)
-                same = all(torch.equal(g, r) for g, r in zip(got, ref))
-                ms = graph_ms(call, 20)
-                results.append(f"{name}: {ms:.4f} ms at C {C} S {S} P {P} "
-                               f"R {R} B {B}, equal to the kept: {same}")
-                if name == "KJ kept" and "fill" not in want:
-                    # a yardstick: writing as many bytes with one fill
-                    buf = torch.empty(sum(o.numel() * o.element_size()
-                                          for o in outs), dtype=torch.uint8,
-                                      device=dev)
-                    want["fill"] = graph_ms(buf.zero_, 20)
-                    print(f"  zero_() of the same {buf.numel()} bytes: "
-                          f"{want['fill']:.4f} ms", flush=True)
-                    del buf
-                del got, outs
+            if name.startswith("KD/KJ"):
+                line = [name + ":"]
+                for tag, args, per_s, pv_s, twin in shapes:
+                    C, S, B = args[5].shape
+                    P, R = args[0].shape[-2:]
+                    outs = list(_outs(C, S, P, R, dev))
+                    call = failover_call(lib, list(args), outs, int(per_s),
+                                         int(pv_s))
+                    call()
+                    same = all(torch.equal(o.cpu(), w)
+                               for o, w in zip(outs, twin))
+                    ms = graph_ms(call, 20 if C > 1 else 200)
+                    line.append(f"{tag} {ms:.5f} ms"
+                                f"{'' if same else ' (DIFFERS from the twin)'}")
+                    if C > 1 and "fill" not in want:
+                        # a yardstick: writing as many bytes with one fill
+                        buf = torch.empty(sum(o.numel() * o.element_size()
+                                              for o in outs),
+                                          dtype=torch.uint8, device=dev)
+                        want["fill"] = graph_ms(buf.zero_, 20)
+                        print(f"  zero_() of KJ's {buf.numel()} bytes: "
+                              f"{want['fill']:.4f} ms", flush=True)
+                        del buf
+                    del outs
+                results.append(", ".join(line))
             else:
                 line = [name + ":"]
                 for tag, words, n, form, a in (
@@ -292,6 +293,23 @@ def main() -> int:
                                 f"kept: {same})")
                 results.append(" ".join(line))
             print(results[-1], flush=True)
+        lib = libs["KD/KJ kept"]
+        for tag, args, per_s, pv_s, want in shapes:
+            C, S, B = args[5].shape
+            P, R = args[0].shape[-2:]
+            outs = list(_outs(C, S, P, R, dev))
+            line = [f"{tag} (C {C} S {S} P {P} R {R} B {B}, rule "
+                    f"{kernels.failover_chunk(C, S, P, R, B)}):"]
+            for chunk in CHUNKS:
+                call = failover_call(lib, list(args), outs, int(per_s),
+                                     int(pv_s), chunk)
+                call()
+                same = all(torch.equal(o.cpu(), w)
+                           for o, w in zip(outs, want))
+                ms = graph_ms(call, 20 if C > 1 else 200)
+                line.append(f"chunk {chunk} {ms:.5f} ms"
+                            f"{'' if same else ' (DIFFERS from the twin)'}")
+            print(" ".join(line), flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return 0

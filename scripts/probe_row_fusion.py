@@ -8,23 +8,38 @@ own kernel, and LLVM vectorizes one function at a time, so the fusion
 compiled alone should get the loop the whole program gets — in seconds,
 where the whole program takes 800-1,600 s to compile at 23-33 goals.
 
-For each goal count G the script
+The program's form decides the fusions that hold the row:
+- two or more plans, weights that differ (the probe chain: one hard goal
+  in three): ``multiply_reduce`` fusions at the walk's end, after each
+  polish round and at the end, the weights a buffer;
+- a move weight: ``multiply_add`` fusions, the same reduce and then the
+  move term added;
+- one plan: one ``reduce_bitcast`` fusion, the final scores with the plan
+  axis dropped (the boundaries' scores are dead code: one plan's
+  permutation is fixed);
+- every weight equal (an all-hard or all-soft chain): the weights a
+  splat constant inside the fusion.
 
-1. runs the reference's population program at G goals (the chain and
-   cluster of ``scripts/probe_population_goals.py``) in a child process
-   with ``XLA_FLAGS=--xla_dump_to``, and stops the child once the
-   optimized module (``*jit_run.cpu_after_optimizations.txt``) is written,
-   before LLVM's code generation;
-2. takes every ``multiply_reduce`` fusion of that module (the weighted row
-   at the walk's end, after each polish round and at the end) with its
-   reducer, and makes each fusion's body the entry computation of a
-   module of its own; ``--save DIR`` writes the first as
-   ``DIR/weighted_row_G.hlo``;
-3. compiles that module alone on the CPU backend (its optimized IR dumped)
-   and feeds it seeded stacks, scales and weights — one hard goal in three
-   ("mixed"), no hard goal ("one") and every goal hard ("shared") — and
-   prints the orders of ``scripts/probe_sum_order.py``'s models that
-   matched every trial, beside the vector shapes of the fusion's IR.
+For each program (``--programs G[:K[:move weight[:chain]]],...``) the
+script
+
+1. runs the reference's population program (the chains and cluster of
+   ``scripts/probe_population_goals.py``) in a child process with
+   ``XLA_FLAGS=--xla_dump_to``, and stops the child once the optimized
+   module (``*jit_run.cpu_after_optimizations.txt``) is written, before
+   LLVM's code generation;
+2. takes every fusion of the entry computation that holds the row (the
+   1e-06 cutoff and a reduce), with its reducer, and makes each fusion's
+   body the entry computation of a module of its own; the programs of one
+   form at other goal counts must equal its first (the base) reshaped;
+3. compiles each base fusion alone on the CPU backend at every goal count
+   of ``--goals`` (its optimized IR dumped) and feeds it seeded stacks,
+   scales, weights and moves — for a weight buffer one hard goal in three
+   ("mixed"), no hard goal ("one") and every goal hard ("shared"), for a
+   splat the fusion's own — and prints the orders of
+   ``scripts/probe_sum_order.py``'s models that matched every trial;
+   ``--save DIR`` writes each as ``DIR/weighted_row_<site>_<G><form>.hlo``
+   (``_k1``, ``_mw``, ``_hard``, ``_soft``: :func:`_form`).
 
 The route is trusted only if the lone fusions agree with what the whole
 program was shown to compute (``probe_population_goals.py``): goal order
@@ -32,12 +47,15 @@ with FMAs at 23 goals with mixed weights, XLA's windowed tree of the
 rounded products at 33.
 
     JAX_PLATFORMS=cpu python scripts/probe_row_fusion.py \\
-        [--goals 23,28,32,33] [--trials 8] [--save DIR] [--dumps DIR]
+        [--programs 23,28,32,33,23:1,23:4:0.1,23:4:0:hard] \\
+        [--goals 23,...,33] [--plans 4] [--trials 8] [--save DIR] \\
+        [--dumps DIR]
 
-``--dumps DIR`` keeps each program's dump in ``DIR/G`` and reuses one
-already there (by default a new directory under ``build/row_fusion/``,
-where each lone fusion's dump goes too). Each program dump takes about 8 minutes of CPU time (XLA's
-passes over a 500 MB module); the child processes run in parallel.
+``--dumps DIR`` keeps each program's dump in ``DIR/<G><form>`` and reuses
+one already there (by default a new directory under
+``build/row_fusion/``, where each lone fusion's dump goes too). Each
+program dump takes 10-18 minutes of CPU time and 15-20 GB of memory
+(XLA's passes over a 500 MB module); the child processes run in parallel.
 """
 
 from __future__ import annotations
@@ -59,9 +77,10 @@ PROGRAM = "jit_run.cpu_after_optimizations.txt"
 # 1. The whole program's optimized module
 # ---------------------------------------------------------------------------
 
-def _child(G: int, K: int, move_weight: float) -> None:
+def _child(G: int, K: int, move_weight: float, chain: str) -> None:
     """Compile the reference's population program of K plans at G goals
-    with the given move weight (the dump flags come from the parent)."""
+    of one of ``probe_population_goals.CHAINS`` with the given move weight
+    (the dump flags come from the parent)."""
     sys.path[:0] = [ROOT, os.path.join(ROOT, "tests"),
                     os.path.join(ROOT, "scripts")]
     import jax
@@ -69,23 +88,17 @@ def _child(G: int, K: int, move_weight: float) -> None:
     import cruise_control_tpu.analyzer as ja
     from torch_parity_util import build_both
     (jm, jmd), _ = build_both(12, 240, seed=3)
-    goals = [pp.BASE[i % 3] for i in range(G)]
-    jc = ja.BalancingConstraint(**pp.CONSTRAINT)
-    jopt = ja.TpuGoalOptimizer(
-        goals=ja.goals_by_name(goals, jc), constraint=jc,
-        config=ja.SearchConfig(**pp.CFG),
-        population=ja.PopulationConfig(size=K, objective="weighted",
-                                       move_weight=move_weight))
+    jopt, _ = pp.optimizers(G, chain, K, move_weight)
     jcfg, jgoals, jchain, jctx, jstate, _ = jopt._prepare(
         jm, jmd, ja.OptimizationOptions(**pp.OPTS))
     jrun, _, _, _ = jopt._population_run_for(jcfg, jgoals, jchain)
     jrun.lower(jstate, jctx, jax.random.PRNGKey(pp.OPTS["seed"])).compile()
 
 
-def start_dump(G: int, K: int, move_weight: float, out: str):
-    """A child compiling the program of K plans at G goals (and the move
-    weight) into ``out``, or None if ``out`` already holds its optimized
-    module."""
+def start_dump(G: int, K: int, move_weight: float, chain: str, out: str):
+    """A child compiling the program of K plans at G goals of the chain
+    (and the move weight) into ``out``, or None if ``out`` already holds
+    its optimized module."""
     if glob.glob(os.path.join(out, f"*{PROGRAM}")):
         return None
     os.makedirs(out, exist_ok=True)
@@ -93,7 +106,7 @@ def start_dump(G: int, K: int, move_weight: float, out: str):
         f"--xla_dump_to={out} --xla_dump_hlo_as_text "
         f"--xla_dump_hlo_module_re=jit_run"))
     return subprocess.Popen([sys.executable, __file__, "--child", str(G),
-                             str(K), str(move_weight)],
+                             str(K), str(move_weight), chain],
                             env=env, stdout=subprocess.DEVNULL,
                             stderr=subprocess.DEVNULL)
 
@@ -136,18 +149,25 @@ def _computations(path: str, names: set) -> dict:
 
 
 def weighted_fusions(path: str) -> list:
-    """[(fusion name, module text)] for every multiply_reduce fusion of the
-    optimized module: the fused computation as the entry computation,
-    with its reducer."""
+    """[(fusion name, module text)] for every fusion of the optimized
+    module's entry computation that holds the weighted row: its body has
+    the satisfied cutoff (a 1e-06 constant) and a reduce. At K >= 2 plans
+    these are ``multiply_reduce`` fusions, or ``multiply_add`` ones with a
+    move weight (the reduce, then the move term added); at K = 1 a
+    ``reduce_bitcast`` fusion with the plan axis dropped. Each is returned
+    as the fused computation made the entry computation, with its
+    reducer."""
     calls = {}
-    pat = re.compile(r"%(multiply_reduce_fusion[\w.]*) = f32\[\d+\]\{0\} "
-                     r"fusion\(.*calls=%([\w.]+)")
+    pat = re.compile(r"%([\w.\-]+) = f32\[\d+\]\{0\} fusion\(.*calls=%"
+                     r"([\w.]+), metadata=\{op_name=\"jit\(run\)/\w+\"")
     with open(path) as f:
         for line in f:
             m = pat.search(line)
             if m:
                 calls[m.group(2)] = m.group(1)
-    bodies = _computations(path, set(calls))
+    bodies = {name: text for name, text in _computations(
+        path, set(calls)).items()
+        if "constant(1e-06)" in text and " reduce(" in text}
     regions = {re.search(r"to_apply=%([\w.]+)", text).group(1)
                for text in bodies.values()}
     regions = _computations(path, regions)
@@ -188,7 +208,7 @@ def compile_module(text: str, dump: str | None = None):
     entry = text[text.index("ENTRY"):]
     params = re.findall(r"parameter\((\d+)\)", entry)
     shapes = {}
-    for m in re.finditer(r"= f32\[([\d,]*)\]\{[\d,]*\} parameter\((\d+)\)",
+    for m in re.finditer(r"= \w+\[([\d,]*)\]\{[\d,]*\} parameter\((\d+)\)",
                          entry):
         dims = tuple(int(d) for d in m.group(1).split(",") if d)
         shapes[int(m.group(2))] = dims
@@ -201,25 +221,29 @@ def compile_module(text: str, dump: str | None = None):
 
 def _roles(text: str) -> list:
     """Each entry parameter's role: 'bounds' (the walk's [K, G, G]
-    boundaries, sliced at the last pass), 'w' (a [G] row broadcast
-    straight into the product), 'scales' (the other [G] row), 'stacks'
-    (compared with the cutoff) or 'norm' (the stacks already divided)."""
+    boundaries, sliced at the last pass), 'moves' (the int32 [K, G]
+    cumulative moves, whose last column is each plan's), 'stacks'
+    (compared with the cutoff), 'norm' (the stacks already divided, the
+    value the cutoff selects), 'scales' (scaled into the cutoff) or 'w'
+    (the other [G] row, the weights)."""
     entry = text[text.index("ENTRY"):]
     roles = {}
-    for name, dims, i in re.findall(r"%([\w.]+) = f32\[([\d,]*)\]"
-                                    r"\{[\d,]*\} parameter\((\d+)\)",
-                                    entry):
+    for name, dtype, dims, i in re.findall(
+            r"%([\w.]+) = (\w+)\[([\d,]*)\]\{[\d,]*\} parameter\((\d+)\)",
+            entry):
         esc = re.escape(name)
-        rank = len(dims.split(","))
-        if rank == 3:
+        if dtype == "s32":
+            role = "moves"
+        elif len(dims.split(",")) == 3:
             role = "bounds"
-        elif rank == 1:
-            role = ("w" if re.search(rf"f32\[\d+,\d+\]\{{1,0\}} "
-                                     rf"broadcast\(%{esc}\)", entry)
-                    else "scales")
+        elif re.search(rf"compare\(%{esc}\b", entry):
+            role = "stacks"
+        elif re.search(rf"select\(%[\w.]+, %[\w.]+, %{esc}\)", entry):
+            role = "norm"
+        elif re.search(rf"multiply\(%{esc}, %broadcast", entry):
+            role = "scales"
         else:
-            role = "stacks" if re.search(rf"compare\(%{esc}\b",
-                                         entry) else "norm"
+            role = "w"
         roles[int(i)] = role
     return [roles[i] for i in range(len(roles))]
 
@@ -319,7 +343,7 @@ def at_shape(text: str, G0: int, G: int, K0: int, K: int) -> str:
         new = {str(G0): str(G), str(K0): str(K)}
         return "[" + ",".join(new.get(d, d) for d in m.group(1).split(","))\
             + "]"
-    text = re.sub(r"(?<=f32)\[([\d,]+)\]", dims, text)
+    text = re.sub(r"(?<=f32|s32)\[([\d,]+)\]", dims, text)
     text = re.sub(r"(?<=pred)\[([\d,]+)\]", dims, text)
     text = text.replace(f"[{G0 - 1}:{G0}]", f"[{G - 1}:{G}]")
     text = text.replace(f"[0:{G0}]", f"[0:{G}]").replace(
@@ -328,27 +352,64 @@ def at_shape(text: str, G0: int, G: int, K0: int, K: int) -> str:
 
 
 def _structure(text: str) -> str:
-    """A module's text without ids and metadata."""
+    """A module's text without metadata, its instructions renamed in the
+    order they are defined (XLA's names differ between programs)."""
     text = re.sub(r", metadata=\{[^}]*\}", "", text)
-    return re.sub(r"(%[A-Za-z_\-]+|param_\d+|reduce_sum)[.\d]*", r"\1",
+    names = {}
+    for m in re.finditer(r"%([\w.\-]+)", text):
+        names.setdefault(m.group(1), f"%v{len(names)}")
+    text = re.sub(r"%([\w.\-]+)", lambda m: names[m.group(1)], text)
+    return re.sub(r"\b(param|reduce_sum)_?[\w.]*(?=:)", r"\1", text)
+
+
+def _constant(text: str, name: str) -> float:
+    """The value of the named instruction, a constant or a broadcast of
+    one."""
+    m = re.search(rf"%{re.escape(name)} = \w+\[[\d,]*\]\{{?[\d,]*\}}? "
+                  rf"(constant\(\{{?([^{{}})]+)\}}?\)|broadcast\(%([\w.\-]+)\))",
                   text)
+    return float(m.group(2)) if m.group(2) else _constant(text, m.group(3))
 
 
 def read(module: str, G: int, trials: int, lone_dump: str) -> dict:
-    """{weight kind: models matching every trial} of one lone fusion."""
+    """{weight kind: models matching every trial} of one lone fusion. A
+    fusion with a move term (a ``moves`` parameter and its weight, a
+    constant of the fusion) is read with the term added after the row,
+    contracted (``+ fma move``) or rounded on its own (``+ move``)."""
     import numpy as np
     from probe_sum_order import _fma, _spread
     f32 = np.float32
     run, shapes = compile_module(module, lone_dump)
     roles = _roles(module)
-    K = next(s[0] for s in shapes if len(s) >= 2)
+    K = next((s[0] for s in shapes if len(s) >= 2), 1)
+    mw = None
+    if "moves" in roles:
+        mw = f32(_constant(module, re.search(
+            r"multiply\(%convert[\w.\-]*, %([\w.\-]+)\)", module).group(1)))
+    kinds = ("mixed", "one", "shared")
+    if "w" not in roles:
+        # every weight equal, a constant of the fusion (1 multiplies
+        # nothing: the row is a plain sum)
+        m = re.search(r"multiply\(%select[\w.\-]*, %([\w.\-]+)\)", module)
+        kinds = (("equal", _constant(module, m.group(1)) if m else 1.0),)
     hits = {}
-    for kind in ("mixed", "one", "shared"):
+    for kind in kinds:
+        if isinstance(kind, tuple):
+            kind, value = kind
+            w = np.full(G, value, f32)
+        else:
+            hard = {"one": np.zeros(G, bool), "shared": np.ones(G, bool),
+                    "mixed": np.arange(G) % 3 == 0}[kind]
+            w = np.where(hard, f32(1000.0), f32(1.0)).astype(f32)
         rng = np.random.default_rng(G * 10 + len(kind))
-        hard = {"one": np.zeros(G, bool), "shared": np.ones(G, bool),
-                "mixed": np.arange(G) % 3 == 0}[kind]
-        w = np.where(hard, f32(1000.0), f32(1.0)).astype(f32)
         models = models_for(G)
+        if mw is not None:
+            models = {f"{name} + {how}": (
+                lambda x, w, m, f=f, how=how: (
+                    _fma(f32(m), mw, f(x, w)) if how == "fma move"
+                    else f32(f(x, w) + f32(f32(m) * mw))))
+                for name, f in models.items()
+                for how in ("fma move", "move")}
         ok = dict.fromkeys(models, True)
         for t in range(trials):
             scales = (_spread(rng, (G,)) % 100 + 1).astype(f32)
@@ -360,108 +421,116 @@ def read(module: str, G: int, trials: int, lone_dump: str) -> dict:
                             b / np.maximum(scales, f32(1))).astype(f32)
             bounds = _spread(rng, (K, G, G))
             bounds[:, G - 1, :] = b
-            got = run(*[dict(norm=norm, stacks=b, w=w, scales=scales,
-                             bounds=bounds)[r] for r in roles])
+            moves = rng.integers(0, 200_000, (K, G)).astype(np.int32)
+            feed = dict(norm=norm, stacks=b, w=w, scales=scales,
+                        bounds=bounds, moves=moves)
+            # a fusion of one plan takes its rows without the plan axis
+            got = run(*[feed[r] if len(shape) == feed[r].ndim else feed[r][0]
+                        for r, shape in zip(roles, shapes)])
             for name, f in models.items():
                 if ok[name]:
-                    want = np.array([f(norm[j], w) for j in range(K)], f32)
-                    ok[name] = np.array_equal(want, got)
+                    want = np.array(
+                        [f(norm[j], w) if mw is None
+                         else f(norm[j], w, moves[j, -1])
+                         for j in range(K)], f32)
+                    ok[name] = np.array_equal(want, got.reshape(-1))
         hits[kind] = [m for m, v in ok.items() if v]
     return hits
 
 
+def _form(K: int, mw: float, chain: str) -> str:
+    """A program's form, the suffix of its saved fusions: '' for two or
+    more plans of mixed weights, '_k1' for one plan, '_mw' with a move
+    weight, '_hard' / '_soft' for a chain of equal weights."""
+    return (("_k1" if K == 1 else "") + ("_mw" if mw else "")
+            + ("" if chain == "mixed" else f"_{chain}"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--dump", default="23,33",
-                    help="goal counts whose whole program is compiled "
-                         "(the first is the base the others are read from)")
+    ap.add_argument("--programs", default="23,33",
+                    help="programs compiled whole, G[:K[:move weight"
+                         "[:chain]]] each (K 4, no move weight, the mixed "
+                         "chain by default); the first of each form is the "
+                         "base the form is read from")
     ap.add_argument("--goals", default="23,24,25,26,27,28,29,30,31,32,33")
-    ap.add_argument("--plans", default="4")
+    ap.add_argument("--plans", default="4",
+                    help="plan counts a form of several plans is read at")
     ap.add_argument("--trials", type=int, default=8)
     ap.add_argument("--save", default=None)
     ap.add_argument("--dumps", default=None)
-    ap.add_argument("--single", default="",
-                    help="goal counts whose program of one plan is "
-                         "compiled (the first is the base of K = 1)")
-    ap.add_argument("--moved", default="",
-                    help="goal counts whose program with a move weight of "
-                         "0.1 is compiled (compared with the base)")
-    ap.add_argument("--child", nargs=3, default=None)
+    ap.add_argument("--child", nargs="+", default=None,
+                    help="G K move_weight [chain]: compile one program")
     args = ap.parse_args()
     if args.child is not None:
-        _child(int(args.child[0]), int(args.child[1]),
-               float(args.child[2]))
+        G, K, mw, *chain = args.child
+        _child(int(G), int(K), float(mw), chain[0] if chain else "mixed")
         return 0
-    runs = ([(int(g), 4, 0.0) for g in args.dump.split(",")]
-            + [(int(g), 1, 0.0) for g in args.single.split(",") if g]
-            + [(int(g), 4, 0.1) for g in args.moved.split(",") if g])
+    runs = []
+    for spec in args.programs.split(","):
+        G, K, mw, chain = (spec.split(":") + ["4", "0", "mixed"][
+            spec.count(":"):])[:4]
+        runs.append((int(G), int(K), float(mw), chain))
     build = os.path.join(ROOT, "build", "row_fusion")
     os.makedirs(build, exist_ok=True)
     root = args.dumps or tempfile.mkdtemp(prefix="row-fusion-", dir=build)
 
-    def where(G, K, mw):
-        return os.path.join(root, f"{G}{'' if K == 4 else f'-k{K}'}"
-                                  f"{'-mw' if mw else ''}")
+    def where(G, K, mw, chain):
+        return os.path.join(root, f"{G}{_form(K, mw, chain).replace('_', '-')}")
     procs = {r: start_dump(*r, where(*r)) for r in runs}
     lone_dump = tempfile.mkdtemp(prefix="lone-row-", dir=build)
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
     fusions = {r: weighted_fusions(wait_dump(procs[r], where(*r)))
                for r in runs}
-    # the base of each population size: its first compiled program
+    # the base of each form: its first compiled program
     bases = {}
-    for G, K, mw in runs:
-        if not mw:
-            bases.setdefault(K, (G, {site(_roles(t)): t
-                                     for _n, t in fusions[G, K, mw]}))
+    for r in runs:
+        bases.setdefault(_form(*r[1:]), (r, {site(_roles(t)): t
+                                            for _n, t in fusions[r]}))
     agree = True
-    for G, K, mw in runs:
-        G0, base = bases[K]
-        if G == G0 and not mw:
+    for r in runs:
+        (G0, K, *_), base = bases[_form(*r[1:])]
+        G = r[0]
+        if G == G0:
             continue
-        if not fusions[G, K, mw]:
-            print(f"G={G} K={K} move weight {mw}: no multiply_reduce "
-                  f"fusion: the program holds the row in fusions of "
-                  f"another form (past 32 goals XLA's windowed reduce)",
-                  flush=True)
-        for _n, t in fusions[G, K, mw]:
+        if not fusions[r]:
+            print(f"{r}: no weighted-row fusion: the program holds the row "
+                  f"in fusions of another form (past 32 goals XLA's "
+                  f"windowed reduce)", flush=True)
+        for _n, t in fusions[r]:
             same = _structure(t) == _structure(at_shape(
                 base[site(_roles(t))], G0, G, K, K))
             agree &= same
-            print(f"G={G} K={K} move weight {mw} {site(_roles(t))}: the "
-                  f"program's fusion {'equals' if same else 'DIFFERS FROM'} "
-                  f"the base's at {G} goals", flush=True)
+            print(f"{r} {site(_roles(t))}: the program's fusion "
+                  f"{'equals' if same else 'DIFFERS FROM'} the base's at "
+                  f"{G} goals", flush=True)
             if not same:
                 print(t, flush=True)
     results = {}
-    for K in [int(k) for k in args.plans.split(",")]:
-        K0 = 1 if K == 1 and 1 in bases else 4
-        G0, base = bases[K0]
-        if not base:
-            print(f"K={K}: no multiply_reduce fusion in the base program; "
-                  f"not read", flush=True)
-            continue
-        for G in [int(g) for g in args.goals.split(",")]:
-            for place, text in sorted(base.items()):
-                module = at_shape(text, G0, G, K0, K)
-                if args.save and K in (1, 4):
-                    os.makedirs(args.save, exist_ok=True)
-                    name = (f"weighted_row_{place.replace(' ', '_')}_{G}"
-                            f"{'_k1' if K == 1 else ''}.hlo")
-                    with open(os.path.join(args.save, name), "w") as f:
-                        f.write(module)
-                hits = read(module, G, args.trials, lone_dump)
-                results[G, K, place] = hits
-                common = [m for m in hits["mixed"]
-                          if all(m in v for v in hits.values())]
-                print(f"G={G:2d} K={K:2d} {place:<8} mixed {hits['mixed'][:1]}"
-                      f" one {hits['one'][:1]} shared {hits['shared'][:1]}"
-                      f"; every kind: {common[:1]}", flush=True)
+    for form, ((G0, K0, *_), base) in bases.items():
+        for K in ([1] if K0 == 1 else [int(k) for k in args.plans.split(",")]):
+            for G in [int(g) for g in args.goals.split(",")]:
+                for place, text in sorted(base.items()):
+                    module = at_shape(text, G0, G, K0, K)
+                    if args.save and K in (1, 4):
+                        os.makedirs(args.save, exist_ok=True)
+                        name = (f"weighted_row_{place.replace(' ', '_')}_"
+                                f"{G}{form}.hlo")
+                        with open(os.path.join(args.save, name), "w") as f:
+                            f.write(module)
+                    hits = read(module, G, args.trials, lone_dump)
+                    results[form, G, K, place] = hits
+                    common = [m for m in next(iter(hits.values()))
+                              if all(m in v for v in hits.values())]
+                    print(f"{form or 'mixed'} G={G:2d} K={K:2d} {place:<8} "
+                          + " ".join(f"{k} {v[:1]}" for k, v in hits.items())
+                          + f"; every kind: {common[:1]}", flush=True)
     checks = []
-    if (23, 4, "final") in results:
-        checks.append("in order" in results[23, 4, "final"]["mixed"])
-    if (33, 4, "final") in results:
+    if ("", 23, 4, "final") in results:
+        checks.append("in order" in results["", 23, 4, "final"]["mixed"])
+    if ("", 33, 4, "final") in results:
         checks.append(all("tree" in v for v in
-                          results[33, 4, "final"].values()))
+                          results["", 33, 4, "final"].values()))
     holds = agree and all(checks) and bool(checks)
     print(f"route {'holds' if holds else 'fails'}: the programs' fusions "
           f"{'keep' if agree else 'do not keep'} their form across goal "

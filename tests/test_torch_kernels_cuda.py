@@ -181,6 +181,33 @@ def test_scenario_failover_matches_twin(cuda_device, batched):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 3, 100])
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("form", ["shared", "per-scenario"])
+def test_scenario_failover_forms_match_twin(cuda_device, form, R, S):
+    """KD's tiled kernel (R of 1-4) and its row kernel (R = 5) against the
+    twin, for a placement shared by the scenarios and one per scenario
+    (the boundary audit's), each with pvalid per scenario and expanded
+    over them; P off a multiple of 4 for odd R (element loads and
+    stores), broker ids -1 and at or past B."""
+    gen = torch.Generator().manual_seed(100 * R + S)
+    B = 104
+    P = 2_050 if R % 2 else 2_052
+    args = list(_failover_inputs(gen, S, P, R, B, form == "per-scenario"))
+    args[0][..., :3, 0] = torch.tensor([-1, B, B + 7], dtype=torch.int32)
+    assert (kernels.failover_chunk(1, S, P, R, B) == 0) == (R > 4)
+    dev = [t.to(cuda_device) for t in args]
+    # an expanded pvalid is read once (stride 0 kept on the card)
+    expanded = args[7][0].expand(S, P)
+    for pvalid, on_card in ((args[7], dev[7]),
+                            (expanded, dev[7][0].expand(S, P))):
+        got = kernels.scenario_failover(*dev[:7], on_card)
+        want = kernels.scenario_failover_plain(*args[:7], pvalid)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("budget", [float("inf"), 150.0])
 def test_first_fit_matches_twin(cuda_device, budget):
     """KE bit for bit against its twin, with and without a bandwidth
@@ -479,14 +506,6 @@ def test_population_select_matches_twin(cuda_device, K, G, hard):
                                        (0.1, True, False),
                                        (0.0, True, True)):
         n_surv = max(1, min(K // 2, K - 1))
-        if move_weight and 23 <= G <= 32:
-            # refused there: the program's moved rows have not been read
-            with pytest.raises(ValueError, match="without a move weight"):
-                kernels.population_select(
-                    *(t.to(cuda_device) for t in (boundary, moves, scales,
-                                                  mask)),
-                    1000.0, move_weight, n_surv, pareto, final)
-            continue
         got = kernels.population_select(
             *(t.to(cuda_device) for t in (boundary, moves, scales, mask)),
             1000.0, move_weight, n_surv, pareto, final)
@@ -497,6 +516,44 @@ def test_population_select_matches_twin(cuda_device, K, G, hard):
             # bit for bit, NaN (the NaN row's score) equal to NaN
             torch.testing.assert_close(g.cpu(), w.to(g.dtype), rtol=0,
                                        atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,G", [
+    (K, G) for K in (1, 2, 31, 32, 33, 1024)
+    for G in (1, 22, 23, 28, 32, 33, 64, 1024)
+    if K * G <= 1024 * 64])            # the twin's [K, K, G] dominance test
+def test_population_select_block_and_grid_match_twin(cuda_device, K, G):
+    """KI's one-block form and its grid (past one block's compares or
+    shared memory) against the twin: a warp's lanes over 31-33 plans, one
+    plan, 1,024 plans, 1-1,024 goals; a NaN row, tied rows and a zero row;
+    mixed and all-hard weights; the weighted and the Pareto objective;
+    with and without a move weight, at the boundaries and the final
+    scores."""
+    gen = torch.Generator().manual_seed(7 * K + G)
+    boundary = torch.rand(K, G, generator=gen) * torch.pow(
+        10.0, torch.randint(-7, 4, (K, G), generator=gen).float())
+    boundary[K // 2] = boundary[K // 3]                 # a tie
+    boundary[min(1, K - 1), 0] = float("nan")           # sorts last
+    boundary[K - 1] = 0.0
+    scales = torch.rand(G, generator=gen) * 1e4
+    moves = torch.randint(0, 100_000, (K,), generator=gen)
+    n_surv = max(1, min(K // 2, K - 1))
+    for mask in (torch.arange(G) % 3 == 0, torch.ones(G, dtype=torch.bool)):
+        for move_weight, pareto, final in ((0.0, False, False),
+                                           (0.1, True, False),
+                                           (0.0, True, True),
+                                           (0.1, False, True)):
+            got = kernels.population_select(
+                *(t.to(cuda_device) for t in (boundary, moves, scales,
+                                              mask)),
+                1000.0, move_weight, n_surv, pareto, final)
+            want = kernels.population_select_plain(
+                boundary, moves, scales, mask, 1000.0, move_weight, n_surv,
+                pareto, final)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g.cpu(), w.to(g.dtype), rtol=0,
+                                           atol=0, equal_nan=True)
 
 
 @pytest.mark.cuda
@@ -574,7 +631,7 @@ def test_fleet_scenario_failover_edges(cuda_device, shape):
     C, S, P, R, B = shape
     args = chip_smoke.kj_case(C, S, P, R, B, seed=sum(shape),
                               device=cuda_device)
-    chunk = kernels.fleet_failover_chunk(C, S, P, R, B)
+    chunk = kernels.failover_chunk(C, S, P, R, B)
     assert (chunk == 0) == (R > 4)
     if S * B >= 1_000_000:
         assert 0 < chunk < S            # the masks must be chunked

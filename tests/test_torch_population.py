@@ -248,14 +248,13 @@ def test_population_select_twin_matches_reference(G, weights):
 
 @pytest.mark.parametrize("G", [23, 24, 27, 32])
 def test_population_select_refuses_wider_rows(G):
-    """At 23-32 goals KI's twin scores a generation boundary and the final
-    scores of several plans in the two loops the reference's population
-    program compiles: its weighted scores equal the program's own fusions
-    compiled alone (``tests/weighted_row_fusions``, shapes set to G goals
-    and 4 plans), with mixed weights, a tie and a converged goal. A single
-    plan, or a move weight, is compiled in fusions of another form that
-    have not been read: KI and its twin refuse those rows rather than
-    score them differently from the reference."""
+    """(Named for the refusal it replaced.) At 23-32 goals KI's twin
+    scores a generation boundary and the final scores in the loops the
+    reference's population program compiles: its weighted scores equal
+    the program's own fusions compiled alone (``tests/weighted_row_fusions``,
+    shapes set to G goals), with mixed weights, a tie and a converged goal,
+    for 4 plans and for a single plan (whose fusion drops the plan axis),
+    each without and with a move weight (added after the row)."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
@@ -263,38 +262,36 @@ def test_population_select_refuses_wider_rows(G):
     rng = np.random.default_rng(G)
     hard = np.arange(G) % 3 == 0
     w = np.where(hard, np.float32(1000.0), np.float32(1.0))
-    K = 4
     scales = (rng.random(G) * 10.0 ** rng.integers(-2, 4, G)).astype(
         np.float32)
-    boundary = ((1 + rng.random((K, G))) * np.maximum(scales, 1) * 4
-                ).astype(np.float32)
-    boundary[:, 1] = 0.0
-    boundary[-1] = boundary[0]
-    norm = teng.normalized_stacks(boundary, scales, contract=True)
-    args = (torch.from_numpy(boundary), torch.zeros(K, dtype=torch.int32),
-            torch.from_numpy(scales), torch.from_numpy(hard), 1000.0)
-    for final, site in ((False, "polish"), (True, "final")):
+    for K, site, final, form in ((4, "polish", False, ""),
+                                 (4, "final", True, ""),
+                                 (4, "polish", False, "_mw"),
+                                 (4, "final", True, "_mw"),
+                                 (1, "final", True, "_k1"),
+                                 (1, "final", True, "_k1_mw")):
+        mw = 0.1 if "mw" in form else 0.0
+        boundary = ((1 + rng.random((K, G))) * np.maximum(scales, 1) * 4
+                    ).astype(np.float32)
+        boundary[:, 1] = 0.0
+        boundary[-1] = boundary[0]
+        walk = rng.integers(0, 20_000, (K, G)).astype(np.int32)
+        norm = teng.normalized_stacks(boundary, scales, contract=True)
         text = (Path(__file__).parent / "weighted_row_fusions"
-                / f"weighted_row_{site}_23.hlo").read_text()
-        module = prf.at_shape(text, 23, G, 4, K)
-        run, _ = prf.compile_module(module)
-        want = run(*[dict(norm=norm.numpy(), stacks=boundary, w=w,
-                          scales=scales)[r] for r in prf._roles(module)])
-        _, weighted, _ = kernels.population_select(*args, 0.0, 1, False,
-                                                   final)
+                / f"weighted_row_{site}_23{form}.hlo").read_text()
+        module = prf.at_shape(text, 23, G, K, K)
+        run, shapes = prf.compile_module(module)
+        feed = dict(norm=norm.numpy(), stacks=boundary, w=w, scales=scales,
+                    moves=walk)
+        want = run(*[feed[r] if len(shape) == feed[r].ndim else feed[r][0]
+                     for r, shape in zip(prf._roles(module), shapes)])
+        _, weighted, perm = kernels.population_select(
+            torch.from_numpy(boundary), torch.from_numpy(walk[:, -1]),
+            torch.from_numpy(scales), torch.from_numpy(hard), 1000.0, mw, 1,
+            False, final)
         np.testing.assert_array_equal(weighted.numpy().view(np.int32),
-                                      want.view(np.int32))
-        with pytest.raises(ValueError, match="two or more plans without "
-                                             "a move weight"):
-            kernels.population_select(*args, 0.1, 1, False, final)
-        with pytest.raises(ValueError, match="two or more plans without "
-                                             "a move weight"):
-            kernels.population_select(args[0][:1], args[1][:1], *args[2:],
-                                      0.0, 1, False, final)
-    with pytest.raises(ValueError, match="two or more plans without "
-                                         "a move weight"):
-        teng.weighted_objective(boundary[:1], scales, hard,
-                                hard_weight=1000.0, contract=True)
+                                      want.reshape(-1).view(np.int32))
+        assert perm[0] == 0
 
 
 def test_pareto_ranks_and_weighted_objective_units():

@@ -104,33 +104,57 @@ def test_fused_weighted_sum_with_repeated_goals(G):
             teng._fused_weighted_sum(norm, w).numpy(), want)
 
 
-#: the reference population program's weighted-row fusions at 23 goals and
-#: 4 plans, each as a module of its own (``scripts/probe_row_fusion.py
-#: --save``): the final scores, a polish round's and the walk's end
-FUSIONS = {site: (Path(__file__).parent / "weighted_row_fusions"
-                  / f"weighted_row_{site}_23.hlo").read_text()
-           for site in ("final", "polish", "walk_end")}
+#: the reference population program's weighted-row fusions at 23 goals,
+#: each as a module of its own (``scripts/probe_row_fusion.py --save``):
+#: (site, form) -> (text, plans it was read at, plans tested, move weight,
+#: the weights it compiles). Sites: the final scores, a polish round's and
+#: the walk's end; forms: weights that differ (a buffer of the program),
+#: with a move weight of 0.1 (the move term added after the row), one plan
+#: (the plan axis dropped; its final scores only), every weight 1000
+#: (``_hard``) and every weight 1 (``_soft``), of several plans or one:
+#: splat constants of the program
+FUSIONS = {(site, form): (
+    (Path(__file__).parent / "weighted_row_fusions"
+     / f"weighted_row_{site}_23{form}.hlo").read_text(),
+    1 if "k1" in form else 4,
+    1 if "k1" in form else 8 if site == "polish" else 4,
+    0.1 if "mw" in form else 0.0,
+    ("shared",) if "hard" in form else ("one",) if "soft" in form
+    else ("mixed", "repeated"))
+    for site in ("final", "polish", "walk_end")
+    for form in ("", "_mw", "_k1", "_k1_mw", "_hard", "_soft", "_k1_hard",
+                 "_k1_soft")
+    if site == "final" or "k1" not in form}
+
+
+def _feed(roles, shapes, arrays):
+    """The fusion's parameters from named arrays (a fusion of one plan
+    takes its rows without the plan axis)."""
+    return [arrays[r] if len(shape) == arrays[r].ndim else arrays[r][0]
+            for r, shape in zip(roles, shapes)]
 
 
 @pytest.mark.parametrize("G", range(23, 33))
 def test_weighted_row_refuses_23_to_32_goals(G):
     """(Named for the refusal it replaced.) At 23-32 goals LLVM
-    vectorizes the row, differently at the generation boundaries and at
-    the final scores: the fused sum and KI's twin equal each of the
-    program's three fusions compiled alone (their shapes set to G goals
-    and K plans), bit for bit, with mixed, unit and shared weights and
-    with goals listed more than once."""
+    vectorizes the row, differently at the generation boundaries, at the
+    final scores, for a single plan and for equal weights: the fused sum,
+    the weighted objective and KI's twin equal each of the program's
+    fusions compiled alone (their shapes set to G goals), bit for bit,
+    with mixed weights, goals listed more than once, all-hard and
+    all-soft chains, and with and without a move weight."""
     rng = np.random.default_rng(G)
-    for site, text in FUSIONS.items():
-        K = 8 if site == "polish" else 4
-        module = prf.at_shape(text, 23, G, 4, K)
-        run, _ = prf.compile_module(module)
+    for (site, form), (text, K0, K, mw, kinds) in FUSIONS.items():
+        module = prf.at_shape(text, 23, G, K0, K)
+        run, shapes = prf.compile_module(module)
         roles = prf._roles(module)
         final = site == "final"
-        for weights in ("mixed", "one", "shared", "repeated"):
+        for weights in kinds:
             if weights == "repeated":
                 pick = rng.integers(0, 7, G)
-                hard = (rng.random(7) < 0.5)[pick]
+                # seven goals, hard and soft both among those picked
+                hard = (np.arange(7) % 2 == 0)[pick]
+                hard[:2] = (True, False)
                 base, moves, scales = _inputs(7, K, rng, False)
                 boundary = np.ascontiguousarray(base[:, pick])
                 scales = np.ascontiguousarray(scales[pick])
@@ -144,15 +168,25 @@ def test_weighted_row_refuses_23_to_32_goals(G):
             w = np.where(hard, np.float32(1000.0), np.float32(1.0))
             bounds = (rng.random((K, G, G)) * 100).astype(np.float32)
             bounds[:, G - 1] = boundary
-            want = run(*[dict(norm=norm.numpy(), stacks=boundary, w=w,
-                              scales=scales, bounds=bounds)[r]
-                         for r in roles])
-            got = teng._fused_weighted_sum(norm, torch.from_numpy(w), final)
+            # cumulative moves a goal; a plan's moves are its last column
+            walk = rng.integers(0, 100_000, (K, G)).astype(np.int32)
+            walk[:, -1] = moves
+            want = run(*_feed(roles, shapes, dict(
+                norm=norm.numpy(), stacks=boundary, w=w, scales=scales,
+                bounds=bounds, moves=walk))).reshape(-1)
+            got = teng.weighted_objective(
+                boundary, scales, hard, hard_weight=1000.0, move_weight=mw,
+                moves=moves, contract=True, final=final)
             np.testing.assert_array_equal(got.numpy().view(np.int32),
                                           want.view(np.int32))
+            if not mw:
+                got = teng._fused_weighted_sum(norm, torch.from_numpy(w),
+                                               final)
+                np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                              want.view(np.int32))
             _, weighted, _ = kernels.population_select(
                 torch.from_numpy(boundary), torch.from_numpy(moves),
                 torch.from_numpy(scales), torch.from_numpy(hard), 1000.0,
-                0.0, 2, True, final)
+                mw, max(1, K // 2), True, final)
             np.testing.assert_array_equal(weighted.numpy().view(np.int32),
                                           want.view(np.int32))
