@@ -19,7 +19,9 @@ Phases (every failure raises; nothing is caught):
    output form, a fold-in key), KB (ordered segment sum, also on
    the what-if sweep's batched layout), KC (net broker flow), KD
    (scenario failover, at the N-1 sweep's and the boundary audit's
-   shapes), KF (delta row scatter), KG (cluster stats), KH
+   shapes), a launch's floor (an empty kernel), KF (delta row scatter,
+   out of place), KG (cluster stats and counts, at the main path's
+   brokers, the scale cell's and 20,000), KH
    (intra-broker walk, at phase 11's shape and a small one), KI
    (population selection, ``KI_SHAPES``) and KJ (fleet scenario failover,
    at phase 12's N-1 shape, every cluster with its own placement, masks
@@ -44,7 +46,8 @@ Phases (every failure raises; nothing is caught):
 9. served cycle — the main-path cluster as a simulated Kafka cluster
    feeding ``LoadMonitor`` with dense samples: a cold full upload, three
    1%-churn metric-only cycles that must each be a KF delta of exactly 200
-   rows at epoch 1 with nothing built after warmup, ``stats_summary``
+   rows at epoch 1 with nothing built after warmup (the device operations
+   of the last one logged by ``torch.profiler``), ``stats_summary``
    (KG) before and after an optimize of the resident model, then a broker
    death that must rebuild at epoch 2 and drain; planes, summaries and
    proposals held to the reference's (``REFERENCE_SERVED_*``);
@@ -101,7 +104,8 @@ MAIN_SEARCH = dict(num_replica_candidates=512, num_dest_candidates=16,
                    fused_chain=True)
 #: the previous designs' times (KB sorting the ids, KC a thread a row, KE a
 #: block testing every slot, KH rebuilding every disk sum each iteration,
-#: KJ and KD a thread a row, KI a thread a plan; same method, NVIDIA H100
+#: KJ and KD a thread a row, KI a thread a plan, KF in place, KG a warp a
+#: column reading global memory; same method, NVIDIA H100
 #: 80GB HBM3 at 700 W; PERF.md), printed beside this run's: KB by rows, KC
 #: by M, KI by (K, G), the others by shape
 EARLIER_MS = {("KB", 40_192): 0.2029, ("KB", 400_128): 0.2322,
@@ -111,7 +115,8 @@ EARLIER_MS = {("KB", 40_192): 0.2029, ("KB", 400_128): 0.2322,
               ("KD", "N-1"): 0.03526, ("KI", (4, 4)): 0.00439,
               ("KI", (16, 23)): 0.02128, ("KI", (16, 28)): 0.02223,
               ("KI", (16, 33)): 0.02669, ("KI", (16, 64)): 0.04678,
-              ("KI", (1024, 64)): 7.42848}
+              ("KI", (1024, 64)): 7.42848, ("KF", "served"): 0.00128,
+              ("KG", "main path"): 0.01372}
 #: the audit waives RackAwareGoal, as the reference bench does
 WAIVED = frozenset({"RackAwareGoal"})
 #: phase 7's and phase 8's results as the reference computes them (the
@@ -584,8 +589,7 @@ def _check_summation_bound(got, want, src, dst, earlier, d_src, d_dst):
                  f"the two orders' summation bounds (M={len(s)})")
 
 
-def phase_kernels(model, main_arrays: dict, scale_arrays: dict,
-                  intra_state):
+def phase_kernels(model, main_arrays: dict, scale_model, intra_state):
     """Each kernel against its twin at the main path's shapes."""
     import torch
     from cruise_control_tpu_torch import _random, kernels
@@ -595,6 +599,7 @@ def phase_kernels(model, main_arrays: dict, scale_arrays: dict,
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     rows = {}
+    scale_arrays = scale_model.to_numpy()
 
     # --- KA: the fused draw — the main path's [P, R] candidate noise
     # (first: the kernels line's row), every other form at 40,192
@@ -851,82 +856,135 @@ def phase_kernels(model, main_arrays: dict, scale_arrays: dict,
         del v, g, flat_ids, flat_vals, got
         torch.cuda.empty_cache()
 
-    # --- KF: a 1%-churn delta (phase 9's shape) into the [P, 4] planes.
+    # --- a launch's floor: an empty kernel in the same graph replay.
+    floor_ms = time_ms(kernels.empty_launch, graph=True)
+    log(f"launch floor: an empty kernel (one warp), graph replay: "
+        f"{floor_ms:.5f} ms")
+    _kernel_delta_scatter(rows, main_arrays, rng, floor_ms)
+    _kernel_cluster_stats(rows, model, scale_model, rng, floor_ms)
+    _kernel_intra_walk(rows, intra_state)
+    _kernel_population_select(rows, rng)
+    _kernel_fleet_failover(rows, model)
+    return rows
+
+
+def _kernel_delta_scatter(rows, main_arrays, rng, floor_ms):
+    """KF at phase 9's shape: a 1%-churn payload in random order (one row
+    dropped at index P), packed as the resident state packs it, into fresh
+    copies of the main path's [P, 4] planes."""
+    import torch
+    from cruise_control_tpu_torch import kernels
+    dev = torch.device("cuda")
     lead = torch.from_numpy(main_arrays["leader_load"]).to(dev)
     foll = torch.from_numpy(main_arrays["follower_load"]).to(dev)
+    before = lead.clone(), foll.clone()
     P, C = lead.shape
     K = SERVED_CHURN_ROWS
-    idx = torch.from_numpy(np.concatenate([
-        rng.choice(NUM_PARTITIONS, K - 1, replace=False),
-        [P]]).astype(np.int32)).to(dev)            # the last row is dropped
-    lead_rows = torch.from_numpy(rng.random((K, C)).astype(np.float32)).to(dev)
-    foll_rows = torch.from_numpy(rng.random((K, C)).astype(np.float32)).to(dev)
-    got = kernels.delta_row_scatter(lead.clone(), foll.clone(), idx,
-                                    lead_rows, foll_rows)
-    want = kernels.delta_row_scatter_plain(lead.clone(), foll.clone(), idx,
-                                           lead_rows, foll_rows)
+    idx = np.concatenate([rng.choice(NUM_PARTITIONS, K - 1, replace=False),
+                          [P]]).astype(np.int32)
+    lead_rows = rng.random((K, C)).astype(np.float32)
+    foll_rows = rng.random((K, C)).astype(np.float32)
+    payload = torch.from_numpy(kernels.pack_delta_rows(
+        idx, lead_rows, foll_rows)).to(dev)
+    got = kernels.delta_row_scatter(lead, foll, payload)
+    want = kernels.delta_row_scatter_plain(lead, foll, payload)
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     if err != 0.0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
         fail("delta_row_scatter differs from its twin")
-    tl, tf = lead.clone(), foll.clone()
-    ms = time_ms(lambda: kernels.delta_row_scatter(tl, tf, idx, lead_rows,
-                                                   foll_rows), graph=True)
+    if not (torch.equal(lead, before[0]) and torch.equal(foll, before[1])):
+        fail("delta_row_scatter wrote its input planes")
+    ms = time_ms(lambda: kernels.delta_row_scatter(lead, foll, payload),
+                 graph=True)
     plain = time_ms(lambda: kernels.delta_row_scatter_plain(
-        tl, tf, idx, lead_rows, foll_rows), groups=3)
-    kept, kept_rows = idx[:-1].long(), slice(0, K - 1)
-    lib_ms = time_ms(lambda: (tl.index_copy_(0, kept, lead_rows[kept_rows]),
-                              tf.index_copy_(0, kept, foll_rows[kept_rows])),
-                     graph=True)
-    # indices and both row blocks read once, both planes' rows written once
-    b_ms, b_by = bound(K * 4 + 2 * K * C * 4 + 2 * (K - 1) * C * 4, 0)
-    log(f"KF delta_row_scatter K={K} into [{P}, {C}] x2: bit-exact vs twin; "
-        f"{ms:.5f} ms, twin {plain:.4f} ms, index_copy_ x2 {lib_ms:.5f} ms, "
+        lead, foll, payload), groups=3)
+    order = np.argsort(idx)
+    kept = order[idx[order] < P]
+    rows_kept = torch.from_numpy(idx[kept].astype(np.int64)).to(dev)
+    lead_kept = torch.from_numpy(lead_rows[kept]).to(dev)
+    foll_kept = torch.from_numpy(foll_rows[kept]).to(dev)
+    lib_ms = time_ms(lambda: (
+        lead.clone().index_copy_(0, rows_kept, lead_kept),
+        foll.clone().index_copy_(0, rows_kept, foll_kept)), graph=True)
+    # both planes read once and written once, the payload read once
+    b_ms, b_by = bound(4 * P * C * 4 + payload.numel() * 4, 0)
+    log(f"KF delta_row_scatter K={K} (random order, one dropped) into fresh "
+        f"[{P}, {C}] x2: bit-exact vs twin, inputs untouched; {ms:.5f} ms "
+        f"({ms / floor_ms:.2f}x the launch floor; earlier design, in place "
+        f"without the planes' copy: {EARLIER_MS[('KF', 'served')]} ms), "
+        f"twin {plain:.4f} ms, clone + index_copy_ x2 {lib_ms:.5f} ms, "
         f"bound {b_ms:.7f} ms ({b_by})")
     _keep_first_shape(rows, "delta_row_scatter", err, dict(
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib_ms))
 
-    # --- KG: cluster stats over the main path's brokers.
+
+def _kg_inputs(model):
+    """KG's inputs for a model: the broker aggregates, the alive mask and
+    the replica and partition masks."""
     from cruise_control_tpu_torch.model.flat import (broker_leader_counts,
                                                      broker_potential_nw_out,
                                                      broker_replica_counts,
                                                      broker_utilization)
-    B = model.num_brokers_padded
-    alive_mask = model.broker_alive & model.broker_valid
-    args = (broker_utilization(model), broker_replica_counts(model),
+    return (broker_utilization(model), broker_replica_counts(model),
             broker_leader_counts(model), broker_potential_nw_out(model),
-            alive_mask)
-    got, n = kernels.cluster_stats(*args)
-    want, n_want = kernels.cluster_stats_plain(*(t.cpu() for t in args))
-    err = float((got.cpu() - want).abs().max())
-    if not torch.equal(got.cpu(), want) or int(n) != int(n_want):
-        fail("cluster_stats differs from its twin")
-    ms = time_ms(lambda: kernels.cluster_stats(*args), graph=True)
-    plain = time_ms(lambda: kernels.cluster_stats_plain(*args), groups=3)
-    vals = torch.cat([args[0], args[1].float()[:, None],
-                      args[2].float()[:, None], args[3][:, None]],
-                     dim=1)[alive_mask].contiguous()
+            model.broker_alive & model.broker_valid, model.replica_valid,
+            model.partition_valid)
 
-    def library():
-        torch.std_mean(vals, dim=0, correction=0)
-        vals.amax(dim=0)
-        vals.amin(dim=0)
-    lib_ms = time_ms(library, graph=True)
-    n_alive = int(n)
-    # inputs read once (util, two counts, potential, the mask), 29 values
-    # written; per column: a masked sum, a subtract, a square and a sum
-    # over the alive brokers, a max and a min
-    b_ms, b_by = bound(B * (16 + 4 + 4 + 4 + 1) + 29 * 4, 7 * 6 * n_alive)
-    log(f"KG cluster_stats B={B} ({n_alive} alive) x 7 columns: bit-exact vs "
-        f"twin; {ms:.5f} ms, twin {plain:.4f} ms, std_mean+amax+amin "
-        f"{lib_ms:.5f} ms, bound {b_ms:.7f} ms ({b_by})")
-    _keep_first_shape(rows, "cluster_stats", err, dict(
-        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms))
-    _kernel_intra_walk(rows, intra_state)
-    _kernel_population_select(rows, rng)
-    _kernel_fleet_failover(rows, model)
-    return rows
+
+def _kernel_cluster_stats(rows, model, scale_model, rng, floor_ms):
+    """KG at the main path's shape (its row), the scale cell's and 20,000
+    random brokers over the main path's masks."""
+    import torch
+    from cruise_control_tpu_torch import kernels
+    dev = torch.device("cuda")
+    B = 20_000
+    wide = (torch.from_numpy((rng.random((B, 4)) * [100.0, 1e4, 1e4, 1e6])
+                             .astype(np.float32)).to(dev),
+            torch.from_numpy(rng.integers(0, 500, B).astype(np.int32)).to(dev),
+            torch.from_numpy(rng.integers(0, 250, B).astype(np.int32)).to(dev),
+            torch.from_numpy((rng.random(B) * 1e4).astype(np.float32)).to(dev),
+            torch.from_numpy(rng.random(B) < 0.9).to(dev),
+            model.replica_valid, model.partition_valid)
+    for tag, args in (("main path", _kg_inputs(model)),
+                      ("scale cell", _kg_inputs(scale_model)),
+                      ("20,000 random brokers", wide)):
+        B = args[0].shape[0]
+        got = kernels.cluster_stats(*args)
+        want = kernels.cluster_stats_plain(*(t.cpu() for t in args))
+        err = float((got.cpu() - want).abs().max())
+        if not torch.equal(got.cpu(), want):
+            fail(f"cluster_stats differs from its twin ({tag})")
+        ms = time_ms(lambda: kernels.cluster_stats(*args), graph=True)
+        plain = time_ms(lambda: kernels.cluster_stats_plain(*args), groups=3)
+        util, replicas, leaders, potential, alive, rvalid, pvalid = args
+        vals = torch.cat([util, replicas.float()[:, None],
+                          leaders.float()[:, None], potential[:, None]],
+                         dim=1)[alive].contiguous()
+
+        def library():
+            torch.std_mean(vals, dim=0, correction=0)
+            vals.amax(dim=0)
+            vals.amin(dim=0)
+            rvalid.sum()
+            pvalid.sum()
+        lib_ms = time_ms(library, graph=True)
+        n_alive = int(alive.sum())
+        # inputs read once (util, two counts, potential, the three masks),
+        # 31 words written; per column: a masked sum, a subtract, a square
+        # and a sum over the alive brokers, a max and a min
+        b_ms, b_by = bound(B * (16 + 4 + 4 + 4 + 1) + rvalid.numel()
+                           + pvalid.numel() + 31 * 4, 7 * 6 * n_alive)
+        earlier = EARLIER_MS.get(("KG", tag))
+        earlier = ("not measured" if earlier is None
+                   else f"{earlier} ms, without the counts")
+        log(f"KG cluster_stats {tag}: B={B} ({n_alive} alive) x 7 columns, "
+            f"counts over P x R {tuple(rvalid.shape)}: bit-exact vs twin; "
+            f"{ms:.5f} ms ({ms / floor_ms:.2f}x the launch floor; earlier "
+            f"design: {earlier}), twin {plain:.4f} ms, std_mean + amax + "
+            f"amin + sum x2 {lib_ms:.5f} ms, bound {b_ms:.7f} ms ({b_by})")
+        _keep_first_shape(rows, "cluster_stats", err, dict(
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms))
 
 
 def _once_ms(fn):
@@ -1431,16 +1489,23 @@ def _optimize(opt, model, md, seed):
     return res, time.monotonic() - t0, engine.HOST_SYNCS - syncs0
 
 
-def _count_device_launches(fn):
-    """(fn's result, the kernels and copies it ran on the card), counted by
-    ``torch.profiler``."""
+def _device_ops(fn):
+    """(fn's result, the names of the kernels and copies it ran on the
+    card), read by ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    return out, sum(1 for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return out, [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _count_device_launches(fn):
+    """(fn's result, the number of kernels and copies it ran on the
+    card)."""
+    out, ops = _device_ops(fn)
+    return out, len(ops)
 
 
 def _check_quality(res, tag):
@@ -1783,12 +1848,14 @@ def served_setup(pkg, spec):
 
 
 def served_cycle(pkg, spec, check_planes=None,
-                 dead_broker=SERVED_DEAD_BROKER):
+                 dead_broker=SERVED_DEAD_BROKER, device_ops=None):
     """Phase 9's sequence over one package's modules (``pkg``, see
     ``port_package``; ``scripts/served_reference.py`` passes the JAX
     package's): cold cycle, warmup, metric-only cycles, stats, optimize,
     broker death, drain. Returns what it saw; the caller gates it.
-    ``check_planes(resident)`` runs after each delta cycle."""
+    ``check_planes(resident)`` runs after each delta cycle;
+    ``device_ops(fn)`` (``fn``'s result, the device operations it ran)
+    wraps the last delta cycle's build."""
     sim, monitor, keys, vals, ingest, now_ms = served_setup(pkg, spec)
     resident = monitor.resident
 
@@ -1818,7 +1885,11 @@ def served_cycle(pkg, spec, check_planes=None,
         # slot (the aggregator never serves the current window)
         ingest(vals, 2)
         mark = max((sp.span_id for sp in pkg.tracer.spans()), default=0)
-        res, wall = build()
+        ops = None
+        if device_ops is not None and c == SERVED_CYCLES - 1:
+            (res, wall), ops = device_ops(build)
+        else:
+            res, wall = build()
         spans = {}
         for sp in pkg.tracer.spans():
             if sp.span_id > mark:
@@ -1827,7 +1898,7 @@ def served_cycle(pkg, spec, check_planes=None,
         out["cycles"].append(dict(
             wall=wall, update=resident.last_update, epoch=resident.epoch,
             rows=resident.last_delta_rows, bytes=resident.last_delta_bytes,
-            planes=_sha(lead, foll), spans=spans,
+            planes=_sha(lead, foll), spans=spans, device_ops=ops,
             rebuild_equal=(None if check_planes is None
                            else check_planes(resident))))
     after = pkg.collector.snapshot()
@@ -1915,7 +1986,8 @@ def phase_served(spec):
     # it, and a delta cycle that has to load it fails the gate below.
     kernels._LIB = None
     kernels.reset_launch_counts()
-    out = served_cycle(pkg, spec, check_planes=_rebuild_equal)
+    out = served_cycle(pkg, spec, check_planes=_rebuild_equal,
+                       device_ops=_device_ops)
     launches = dict(kernels.LAUNCHES)
     cold = out["cold"]
     log(f"cold cycle: {cold['update']} at epoch {cold['epoch']}, wall "
@@ -1937,6 +2009,11 @@ def phase_served(spec):
         if (c["update"] != "delta" or c["epoch"] != 1
                 or c["rows"] != SERVED_CHURN_ROWS or not c["rebuild_equal"]):
             fail(f"delta cycle {i} broke the resident contract: {c}")
+    # logged, not gated: in a process that profiled before, torch.profiler
+    # has been seen to drop a short window's events
+    ops = out["cycles"][-1]["device_ops"]
+    log(f"device operations of delta cycle {len(out['cycles']) - 1} "
+        f"(torch.profiler): {len(ops)} {ops}")
     log(f"kernel-library loads: {out['warmup_builds']} in warmup, "
         f"{out['builds_after_warmup']} after it")
     if out["warmup_builds"] != 1:
@@ -2499,7 +2576,7 @@ def main() -> int:
     from cruise_control_tpu_torch.analyzer import build_disk_state
     intra = intra_setup(port_search_package(), spec)
     intra_state, _ = build_disk_state(*intra)
-    rows = phase_kernels(model, arrays, scale_model.to_numpy(), intra_state)
+    rows = phase_kernels(model, arrays, scale_model, intra_state)
     launches, seed1 = phase_main_path(model, md, arrays)
     phase_first_fit(model, md, seed1.proposals, rows)
     phase_drain(model, md)

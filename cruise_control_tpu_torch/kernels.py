@@ -30,9 +30,11 @@ Two more carry the what-if sweep and the move scheduler:
 Two more carry the monitor's device-resident model cycle:
 
 - **KF** ``delta_row_scatter`` — a metric-only cycle's changed partition
-  rows written into both resident load planes in place;
-- **KG** ``cluster_stats`` — per-resource and count statistics over the
-  alive brokers, summed in XLA's CPU tree order.
+  rows, uploaded as one packed payload (:func:`pack_delta_rows`), written
+  into fresh copies of both resident load planes in one launch;
+- **KG** ``cluster_stats`` — per-resource statistics over the alive
+  brokers, summed in XLA's CPU tree order, and the alive, replica and
+  leader counts, into one buffer in one launch (any broker count).
 
 Two more carry the search modes built on the analyzer:
 
@@ -76,13 +78,14 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 SOURCES = ("threefry.cu", "segment_sum.cu", "net_flow.cu", "failover.cu",
            "first_fit.cu", "delta_scatter.cu", "cluster_stats.cu",
-           "intra_walk.cu", "population_select.cu")
+           "intra_walk.cu", "population_select.cu", "launch_floor.cu")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -201,8 +204,12 @@ def load_library():
             lib.cc_first_fit_shared_slots.argtypes = [i64, i64, i64]
             lib.cc_first_fit_shared_slots.restype = i64
             lib.cc_delta_row_scatter.argtypes = [p, p, p, p, p, i64, i64,
-                                                 i64, p]
-            lib.cc_cluster_stats.argtypes = [p, p, p, p, p, p, p, i64, p]
+                                                 i64, ctypes.c_int, p]
+            lib.cc_cluster_stats.argtypes = [p, p, p, p, p, p, i64, p, i64,
+                                             p, p, i64, p]
+            lib.cc_cluster_stats_scratch.argtypes = [i64]
+            lib.cc_cluster_stats_scratch.restype = i64
+            lib.cc_empty_kernel.argtypes = [p]
             lib.cc_intra_broker_walk.argtypes = [p, p, p, p, p, p, p, p, p,
                                                  i64, i64, i64, i64, p, p, p]
             lib.cc_intra_broker_walk_shared.argtypes = [i64, i64]
@@ -217,7 +224,7 @@ def load_library():
                        lib.cc_net_broker_flow, lib.cc_failover,
                        lib.cc_first_fit, lib.cc_delta_row_scatter,
                        lib.cc_cluster_stats, lib.cc_intra_broker_walk,
-                       lib.cc_population_select):
+                       lib.cc_population_select, lib.cc_empty_kernel):
                 fn.restype = ctypes.c_int
             _LIB = lib
             default_collector().record_library(kind,
@@ -245,6 +252,12 @@ def _check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
+
+
+def empty_launch() -> None:
+    """Launch the empty kernel (``csrc/launch_floor.cu``) on the current
+    stream: a launch's floor, timed beside the kernels. Counted nowhere."""
+    _check(load_library().cc_empty_kernel(_stream()), "empty_kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -828,44 +841,82 @@ def first_fit(rows, dest_rows, size_mb, valid, caps, cluster_cap: int,
 # KF: delta row scatter
 # ---------------------------------------------------------------------------
 
-def delta_row_scatter_plain(lead, foll, idx, lead_rows, foll_rows):
-    """Twin of KF: the rows whose index lies in [0, P) copied into both
-    planes in place (``index_copy_`` of the kept rows)."""
-    P = lead.shape[0]
-    keep = (idx >= 0) & (idx < P)
+def delta_payload_words(num_rows: int, num_cols: int) -> int:
+    """4-byte words of a packed payload of ``num_rows`` rows of
+    ``num_cols`` columns: both row blocks, then the indices."""
+    return num_rows * (2 * num_cols + 1)
+
+
+def pack_delta_rows(idx, lead_rows, foll_rows, out=None):
+    """KF's payload on the host: ``lead_rows`` and ``foll_rows``
+    (float32[K, C]) then ``idx`` (int32[K]) as one float32 array of
+    :func:`delta_payload_words` words, the rows in ascending index order
+    (a stable sort; indices must be unique). Written into ``out`` (a
+    float32 array at least that long) where given; returns the packed
+    words."""
+    idx = np.asarray(idx)
+    K, C = np.shape(lead_rows)
+    if idx.shape != (K,) or np.shape(foll_rows) != (K, C):
+        raise ValueError("pack_delta_rows takes idx [K] and rows [K, C]")
+    n = delta_payload_words(K, C)
+    buf = np.empty(n, np.float32) if out is None else out[:n]
+    order = np.argsort(idx, kind="stable")
+    buf[:K * C].reshape(K, C)[:] = np.asarray(lead_rows)[order]
+    buf[K * C:2 * K * C].reshape(K, C)[:] = np.asarray(foll_rows)[order]
+    buf[2 * K * C:].view(np.int32)[:] = idx[order]
+    return buf
+
+
+def _unpack_delta(payload, num_cols: int):
+    """(idx int32[K], lead_rows, foll_rows float32[K, C]): views of a
+    packed payload."""
+    words = payload.shape[0]
+    if payload.dim() != 1 or words % (2 * num_cols + 1):
+        raise ValueError(f"a delta payload of {num_cols} columns holds "
+                         f"K * {2 * num_cols + 1} words, got "
+                         f"{tuple(payload.shape)}")
+    K = words // (2 * num_cols + 1)
+    return (payload[2 * K * num_cols:].view(torch.int32),
+            payload[:K * num_cols].view(K, num_cols),
+            payload[K * num_cols:2 * K * num_cols].view(K, num_cols))
+
+
+def delta_row_scatter_plain(lead, foll, payload):
+    """Twin of KF: copies of both planes with the payload's rows whose
+    index lies in [0, P) copied in (``clone`` + ``index_copy_`` of the
+    kept rows)."""
+    idx, lead_rows, foll_rows = _unpack_delta(payload, lead.shape[1])
+    keep = (idx >= 0) & (idx < lead.shape[0])
     rows = idx[keep].long()
-    lead.index_copy_(0, rows, lead_rows[keep])
-    foll.index_copy_(0, rows, foll_rows[keep])
-    return lead, foll
+    return (lead.clone().index_copy_(0, rows, lead_rows[keep]),
+            foll.clone().index_copy_(0, rows, foll_rows[keep]))
 
 
-def delta_row_scatter(lead, foll, idx, lead_rows, foll_rows):
-    """Write ``lead_rows``/``foll_rows`` (float32[K, C]) into rows ``idx``
-    (int32[K], unique) of the planes ``lead``/``foll`` (float32[P, C]) in
-    place, dropping indices outside [0, P); returns the two planes — see
-    ``csrc/delta_scatter.cu``."""
+def delta_row_scatter(lead, foll, payload):
+    """(lead_out, foll_out): fresh float32[P, C] copies of the planes
+    ``lead``/``foll`` with the rows of ``payload`` (float32 words packed by
+    :func:`pack_delta_rows`: rows sorted by unique index) written at their
+    indices, indices outside [0, P) dropped; the inputs are not written —
+    see ``csrc/delta_scatter.cu``."""
     P, C = lead.shape
-    K = idx.shape[0]
-    if foll.shape != (P, C) or lead_rows.shape != (K, C) or \
-            foll_rows.shape != (K, C) or idx.dim() != 1:
-        raise ValueError("delta_row_scatter takes planes [P, C], idx [K] and "
-                         "rows [K, C]")
-    if _on_cpu(lead, foll, idx, lead_rows, foll_rows):
-        return delta_row_scatter_plain(lead, foll, idx, lead_rows, foll_rows)
-    if any(t.dtype != torch.float32 for t in (lead, foll, lead_rows,
-                                              foll_rows)):
-        raise TypeError("delta_row_scatter takes float32 planes and rows")
-    if not (lead.is_contiguous() and foll.is_contiguous()):
-        raise ValueError("delta_row_scatter writes contiguous planes in place")
-    idx = idx.to(torch.int32).contiguous()
-    lead_rows = lead_rows.contiguous()
-    foll_rows = foll_rows.contiguous()
+    if foll.shape != (P, C):
+        raise ValueError("delta_row_scatter takes two planes [P, C]")
+    _unpack_delta(payload, C)
+    if _on_cpu(lead, foll, payload):
+        return delta_row_scatter_plain(lead, foll, payload)
+    if any(t.dtype != torch.float32 for t in (lead, foll, payload)):
+        raise TypeError("delta_row_scatter takes float32 planes and payload")
+    lead, foll, payload = (t.contiguous() for t in (lead, foll, payload))
+    row16 = C == 4 and all(t.data_ptr() % 16 == 0
+                           for t in (lead, foll, payload))
+    lead_out, foll_out = torch.empty_like(lead), torch.empty_like(foll)
     rc = load_library().cc_delta_row_scatter(
-        lead.data_ptr(), foll.data_ptr(), idx.data_ptr(),
-        lead_rows.data_ptr(), foll_rows.data_ptr(), K, C, P, _stream())
+        lead.data_ptr(), foll.data_ptr(), payload.data_ptr(),
+        lead_out.data_ptr(), foll_out.data_ptr(),
+        payload.shape[0] // (2 * C + 1), C, P, int(row16), _stream())
     LAUNCHES["delta_row_scatter"] += 1
     _check(rc, "delta_row_scatter")
-    return lead, foll
+    return lead_out, foll_out
 
 
 # ---------------------------------------------------------------------------
@@ -875,7 +926,9 @@ def delta_row_scatter(lead, foll, idx, lead_rows, foll_rows):
 #: KG's seven value columns, in output order
 STATS_COLUMNS = ("cpu", "nw_in", "nw_out", "disk", "replica_count",
                  "leader_count", "potential_nw_out")
-_MAX_STATS_BROKERS = 16_384
+#: KG's output counts, after the table, in order
+STATS_COUNTS = ("num_alive_brokers", "num_replicas", "num_leaders")
+_TABLE_WORDS = 4 * len(STATS_COLUMNS)
 
 
 def _tree_sum_rows_plain(x: torch.Tensor) -> torch.Tensor:
@@ -898,9 +951,18 @@ def _tree_sum_rows_plain(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def cluster_stats_plain(util, replicas, leaders, potential, alive):
+def split_cluster_stats(out):
+    """(table float32[4, 7], counts int32[3]): views of KG's output buffer
+    — rows avg, std, max, min of :data:`STATS_COLUMNS`, then
+    :data:`STATS_COUNTS`. No copy: on the card, nothing is read."""
+    return (out[:_TABLE_WORDS].view(4, len(STATS_COLUMNS)),
+            out[_TABLE_WORDS:].view(torch.int32))
+
+
+def cluster_stats_plain(util, replicas, leaders, potential, alive,
+                        replica_valid, partition_valid):
     """Twin of KG: ``model/stats.py``'s masked mean, variance, max and min
-    per column, the sums in tree order."""
+    per column, the sums in tree order, and the counts, in KG's buffer."""
     vals = torch.cat([util.to(torch.float32),
                       replicas.to(torch.float32)[:, None],
                       leaders.to(torch.float32)[:, None],
@@ -916,42 +978,59 @@ def cluster_stats_plain(util, replicas, leaders, potential, alive):
     # torch's vectorized float32 sqrt on the CPU is not always correctly
     # rounded; the float64 root rounded once to float32 is.
     std = torch.sqrt(var.to(torch.float64)).to(torch.float32)
-    return torch.stack([mean, std, big, small]), count
+    out = vals.new_empty(_TABLE_WORDS + len(STATS_COUNTS))
+    table, counts = split_cluster_stats(out)
+    table.copy_(torch.stack([mean, std, big, small]))
+    counts.copy_(torch.stack([count, replica_valid.sum(dtype=torch.int32),
+                              partition_valid.sum(dtype=torch.int32)]))
+    return out
 
 
-def cluster_stats(util, replicas, leaders, potential, alive):
-    """(stats float32[4, 7], num_alive int32[]): rows avg, std, max, min of
-    the columns :data:`STATS_COLUMNS` over the brokers where ``alive``
-    (bool[B]) is set. ``util`` float32[B, 4], ``replicas``/``leaders``
-    int32[B], ``potential`` float32[B] — see ``csrc/cluster_stats.cu``."""
+def cluster_stats(util, replicas, leaders, potential, alive, replica_valid,
+                  partition_valid):
+    """KG's buffer float32[31] (:func:`split_cluster_stats` views it): the
+    avg, std, max and min of the columns :data:`STATS_COLUMNS` over the
+    brokers where ``alive`` (bool[B]) is set, then the alive count and the
+    set entries of ``replica_valid`` (bool[P, R]) and ``partition_valid``
+    (bool[P]). ``util`` float32[B, 4], ``replicas``/``leaders`` int32[B],
+    ``potential`` float32[B]. One launch at any B — see
+    ``csrc/cluster_stats.cu``."""
     B = alive.shape[0]
     if util.shape != (B, 4) or replicas.shape != (B,) or \
             leaders.shape != (B,) or potential.shape != (B,):
         raise ValueError("cluster_stats takes util [B, 4] and replicas, "
                          "leaders, potential and alive [B]")
-    args = (util, replicas, leaders, potential, alive)
+    args = (util, replicas, leaders, potential, alive, replica_valid,
+            partition_valid)
     if _on_cpu(*args):
         return cluster_stats_plain(*args)
-    if alive.dtype != torch.bool:
-        raise TypeError("cluster_stats takes a bool alive mask")
-    if B > _MAX_STATS_BROKERS:
-        raise ValueError(f"cluster_stats runs one block: at most "
-                         f"{_MAX_STATS_BROKERS} brokers, got {B}")
+    if any(t.dtype != torch.bool
+           for t in (alive, replica_valid, partition_valid)):
+        raise TypeError("cluster_stats takes bool masks")
     util, potential = (t.to(torch.float32).contiguous()
                        for t in (util, potential))
+    if util.data_ptr() % 16:
+        util = util.clone()             # KG reads a broker's row in 16 bytes
     replicas, leaders = (t.to(torch.int32).contiguous()
                          for t in (replicas, leaders))
-    alive = alive.contiguous()
-    out = torch.empty((4, len(STATS_COLUMNS)), dtype=torch.float32,
-                      device=util.device)
-    count = torch.empty((), dtype=torch.int32, device=util.device)
-    rc = load_library().cc_cluster_stats(
+    alive, replica_valid, partition_valid = (
+        t.contiguous() for t in (alive, replica_valid, partition_valid))
+    dev = util.device
+    lib = load_library()
+    out = torch.empty(_TABLE_WORDS + len(STATS_COUNTS), dtype=torch.float32,
+                      device=dev)
+    scratch_bytes = lib.cc_cluster_stats_scratch(B)
+    scratch = (torch.empty(scratch_bytes // 4, dtype=torch.float32,
+                           device=dev) if scratch_bytes else None)
+    rc = lib.cc_cluster_stats(
         util.data_ptr(), replicas.data_ptr(), leaders.data_ptr(),
-        potential.data_ptr(), alive.data_ptr(), out.data_ptr(),
-        count.data_ptr(), B, _stream())
+        potential.data_ptr(), alive.data_ptr(), replica_valid.data_ptr(),
+        replica_valid.numel(), partition_valid.data_ptr(),
+        partition_valid.numel(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), B, _stream())
     LAUNCHES["cluster_stats"] += 1
     _check(rc, "cluster_stats")
-    return out, count
+    return out
 
 
 # ---------------------------------------------------------------------------

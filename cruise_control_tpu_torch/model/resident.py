@@ -7,13 +7,14 @@ card** and splits updates into two regimes:
 - **Metric-only cycles** (the steady state): the monitor's dense assembler
   produces the same host arrays it always did; this class diffs the load
   planes (``leader_load``/``follower_load``) against its host mirrors,
-  uploads only the changed partition rows as a compact ``(idx, leader_rows,
-  follower_rows)`` payload, and writes them with ONE launch of KF
-  (``kernels.delta_row_scatter``) into device copies of the two planes,
-  which the next model serves. Unchanged structural arrays — replica
-  placement, topology masks, broker axes — are the same device tensors
-  cycle after cycle. A cycle whose arrays are all unchanged uploads
-  nothing at all (a ``noop``).
+  uploads only the changed partition rows as ONE packed payload
+  (``kernels.pack_delta_rows``: the row blocks, then the indices) in one
+  host-to-device copy, and writes them with ONE launch of KF
+  (``kernels.delta_row_scatter``), which copies the two planes into fresh
+  ones with the rows in place; the next model serves those. Unchanged
+  structural arrays — replica placement, topology masks, broker axes —
+  are the same device tensors cycle after cycle. A cycle whose arrays are
+  all unchanged uploads nothing at all (a ``noop``).
 - **Structural cycles**: any change outside the load planes (broker
   add/remove/death, partition add/remove, leadership or placement drift,
   capacity/rack/broker-set change, padded-shape change) bumps the
@@ -29,11 +30,14 @@ row count, so ``last_delta_bytes`` counts the unpadded payload and is
 smaller than the reference's for the same cycle.
 
 A model handed out by an earlier cycle keeps its loads, as the reference's
-copy-on-write ``.at[].set`` does: KF writes into device-to-device copies
-of the planes (two ``[P, 4]`` float32 copies, 640 KB at 20K partitions),
-never into planes a served model holds. Memory note: the host mirrors are
-the previous cycle's assembled arrays, kept by reference (callers must
-not mutate arrays after passing them in).
+``.at[].set`` into fresh buffers does: KF is out of place (it reads the
+planes and writes two new ``[P, 4]`` float32 planes, 640 KB at 20K
+partitions), never writing planes a served model holds. On the card the
+payload is packed into a pinned host buffer the state reuses, and copied
+without blocking; before the host packs the next payload into it, it
+waits on an event recorded after the previous copy. Memory note: the host
+mirrors are the previous cycle's assembled arrays, kept by reference
+(callers must not mutate arrays after passing them in).
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ import threading
 import numpy as np
 import torch
 
-from ..kernels import delta_row_scatter
+from ..kernels import delta_payload_words, delta_row_scatter, pack_delta_rows
 from ..utils.device import resolve_device
 
 LOG = logging.getLogger(__name__)
@@ -121,6 +125,10 @@ class ResidentClusterState:
         self.last_full_bytes = 0
         self._scatter = self.collector.track("resident.delta-ingest",
                                              delta_row_scatter)
+        #: the pinned staging buffer of KF's payloads (card only), and the
+        #: event recorded after the last copy out of it
+        self._pinned: torch.Tensor | None = None
+        self._copied: torch.cuda.Event | None = None
         name = MetricRegistry.name
         g = RESIDENT_SENSOR
         self._full_counter = self.registry.counter(name(g, "full-rebuilds"))
@@ -177,18 +185,38 @@ class ResidentClusterState:
         LOG.info("resident state epoch %d: full rebuild (%d bytes uploaded)",
                  self.epoch, self.last_full_bytes)
 
+    def _upload(self, idx: np.ndarray, lead_rows: np.ndarray,
+                foll_rows: np.ndarray) -> torch.Tensor:
+        """KF's packed payload on the state's device, uploaded in one copy
+        (on the card: packed into the pinned staging buffer, copied without
+        blocking)."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(pack_delta_rows(idx, lead_rows,
+                                                    foll_rows))
+        n = delta_payload_words(*lead_rows.shape)
+        if self._copied is not None:
+            # the previous payload must have left the buffer before the
+            # host writes this one over it
+            self._copied.synchronize()
+        if self._pinned is None or self._pinned.numel() < n:
+            self._pinned = torch.empty(n, dtype=torch.float32,
+                                       pin_memory=True)
+        pack_delta_rows(idx, lead_rows, foll_rows, out=self._pinned.numpy())
+        payload = self._pinned[:n].to(self.device, non_blocking=True)
+        self._copied = torch.cuda.Event()
+        self._copied.record(torch.cuda.current_stream(self.device))
+        return payload
+
     def _scatter_rows(self, idx: np.ndarray, lead_rows: np.ndarray,
                       foll_rows: np.ndarray) -> int:
-        """Upload one payload, write it with KF into copies of the
-        resident planes and serve a model over the copies (a model handed
-        out earlier keeps its planes); returns the bytes uploaded."""
-        nbytes = idx.nbytes + lead_rows.nbytes + foll_rows.nbytes
+        """Upload one payload and write it with KF into fresh planes,
+        served by a new model (a model handed out earlier keeps its
+        planes); returns the bytes uploaded."""
+        payload = self._upload(idx, lead_rows, foll_rows)
+        nbytes = payload.numel() * payload.element_size()
         self.collector.record_h2d(nbytes)
-        dev = self.device
-        lead, foll = self._scatter(
-            self._model.leader_load.clone(), self._model.follower_load.clone(),
-            torch.from_numpy(idx).to(dev), torch.from_numpy(lead_rows).to(dev),
-            torch.from_numpy(foll_rows).to(dev))
+        lead, foll = self._scatter(self._model.leader_load,
+                                   self._model.follower_load, payload)
         self._model = self._model.replace(leader_load=lead, follower_load=foll)
         return int(nbytes)
 
@@ -326,7 +354,8 @@ class ResidentClusterState:
     # ------------------------------------------------------------ warmup
     def warmup(self) -> bool:
         """Load the kernel library and launch KF once on an all-dropped
-        payload (one row at index P — no state change), so the first real
+        payload (one row at index P, uploaded as every payload is; its
+        planes are dropped — no state change), so the first real
         metric-only cycle builds and loads nothing. No-op (returns False)
         before the first full rebuild."""
         with self._lock, self.collector.warming():
@@ -334,10 +363,9 @@ class ResidentClusterState:
                 return False
             lead = self._model.leader_load
             P, C = lead.shape
-            rows = torch.zeros((1, C), dtype=lead.dtype, device=self.device)
+            rows = np.zeros((1, C), np.float32)
             self._scatter(lead, self._model.follower_load,
-                          torch.full((1,), P, dtype=torch.int32,
-                                     device=self.device), rows, rows)
+                          self._upload(np.array([P], np.int32), rows, rows))
             return True
 
     # ------------------------------------------------------------- reads

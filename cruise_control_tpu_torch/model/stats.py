@@ -9,7 +9,8 @@ the ``summary`` of ``/load`` and ``loadAfterOptimization`` of a rebalance.
 The broker aggregates come from the model's reductions (KB for the float
 planes); one launch of KG (``kernels.cluster_stats``) reduces them all, in
 the reference's float order, so every value equals the reference's bit for
-bit.
+bit, and counts the alive brokers, replicas and leaders into the same
+buffer, which ``stats_summary`` reads from the card in one copy.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from ..core.resources import NUM_RESOURCES, RESOURCE_NAMES
 from ..kernels import cluster_stats as _cluster_stats_kernel
+from ..kernels import split_cluster_stats
 from ..utils.device import resolve_device
 from .flat import (FlatClusterModel, broker_leader_counts, broker_replica_counts,
                    broker_utilization, broker_potential_nw_out)
@@ -25,17 +27,14 @@ from .flat import (FlatClusterModel, broker_leader_counts, broker_replica_counts
 _STATS = ("avg", "std", "max", "min")
 
 
-def _stats_table(model: FlatClusterModel):
-    """(table float32[4 stats, 7 columns], counts int32[3]: alive brokers,
-    replicas, leaders)."""
+def _stats_buffer(model: FlatClusterModel, util):
+    """KG's buffer for ``model``: the [4 stats, 7 columns] table, then the
+    alive broker, replica and leader counts."""
     alive = model.broker_alive & model.broker_valid
-    table, num_alive = _cluster_stats_kernel(
-        broker_utilization(model), broker_replica_counts(model),
-        broker_leader_counts(model), broker_potential_nw_out(model), alive)
-    counts = torch.stack([num_alive,
-                          model.replica_valid.sum(dtype=torch.int32),
-                          model.partition_valid.sum(dtype=torch.int32)])
-    return table, counts
+    return _cluster_stats_kernel(
+        util, broker_replica_counts(model), broker_leader_counts(model),
+        broker_potential_nw_out(model), alive, model.replica_valid,
+        model.partition_valid)
 
 
 def _groups(table) -> dict:
@@ -51,9 +50,10 @@ def cluster_stats(model: FlatClusterModel) -> dict:
     """Device-side stats dict, keyed as the reference's pytree. All entries
     are computed over alive brokers (dead/padding brokers excluded, matching
     ref ClusterModelStats which iterates aliveBrokers)."""
-    table, counts = _stats_table(model)
+    util = broker_utilization(model)
+    table, counts = split_cluster_stats(_stats_buffer(model, util))
     return {"num_alive_brokers": counts[0],
-            "utilization": broker_utilization(model),
+            "utilization": util,
             **_groups(table),
             "num_replicas": counts[1],
             "num_leaders": counts[2]}
@@ -73,8 +73,9 @@ def stats_summary(model: FlatClusterModel, device=None) -> dict:
     dev = resolve_device(device)
     if model.device != dev:
         raise ValueError(f"the model lies on {model.device}, not {dev}")
-    table, counts = _stats_table(model)
-    groups = _groups(table.cpu().numpy())               # two reads in all
+    table, counts = split_cluster_stats(
+        _stats_buffer(model, broker_utilization(model)).cpu())  # one read
+    groups = _groups(table.numpy())
     num_alive, num_replicas, num_leaders = counts.tolist()
     out = {"numAliveBrokers": num_alive, "numReplicas": num_replicas,
            "numLeaders": num_leaders, "resources": {}}

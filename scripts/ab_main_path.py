@@ -13,6 +13,14 @@ one JSON line; the script prints them, then the median warm wall of each
 root over its turns. Pass the roots in the order to run them (A B B A):
 
     python3 scripts/ab_main_path.py PARENT_ROOT . . PARENT_ROOT
+
+With ``--served N`` each process instead drives phase 9's served monitor
+cycle (``chip_smoke.served_setup``: the main-path cluster as a simulated
+Kafka cluster feeding a resident ``LoadMonitor``): a cold full upload,
+``warmup``, then N 1%-churn metric-only cycles, recording each cycle's
+``resident.update`` span (the diff, the upload and KF, host clock), then
+one more under ``torch.profiler`` naming the kernels and copies it ran on
+the card; the summary is the median span of each root.
 """
 
 from __future__ import annotations
@@ -59,13 +67,52 @@ def child(root: str, warm: int) -> dict:
                 device_launches=device, moves_proposals=sorted(moves))
 
 
+def served_child(root: str, cycles: int) -> dict:
+    sys.path.insert(0, root)
+    import torch
+    import chip_smoke
+    pkg = chip_smoke.port_package()
+    _sim, monitor, keys, vals, ingest, now_ms = chip_smoke.served_setup(
+        pkg, chip_smoke.build_spec())
+    ingest(vals, chip_smoke.SERVED_WINDOWS + 1)
+    monitor.cluster_model(now_ms())
+    monitor.resident.warmup()
+
+    def cycle(c):
+        nonlocal vals
+        vals = vals.copy()
+        vals[:len(keys) // 100] += 1.0 + c
+        ingest(vals, 2)
+        mark = max((sp.span_id for sp in pkg.tracer.spans()), default=0)
+        monitor.cluster_model(now_ms())
+        torch.cuda.synchronize()
+        if monitor.resident.last_update != "delta":
+            raise RuntimeError(f"cycle {c} was {monitor.resident.last_update}")
+        return sum(sp.duration_s for sp in pkg.tracer.spans()
+                   if sp.span_id > mark and sp.name == "resident.update")
+    spans = [cycle(c) for c in range(cycles)]
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cycle(cycles)
+    ops = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(root=root, card=torch.cuda.get_device_name(0),
+                update_s=spans, device_ops=len(ops), ops=ops)
+
+
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
         print(json.dumps(child(argv[1], int(argv[2]))), flush=True)
         return 0
-    warm = 5
+    if argv[:1] == ["--served-child"]:
+        print(json.dumps(served_child(argv[1], int(argv[2]))), flush=True)
+        return 0
+    warm, mode, key = 5, "--child", "warm_s"
     if argv[:1] == ["--warm"]:
         warm, argv = int(argv[1]), argv[2:]
+    elif argv[:1] == ["--served"]:
+        warm, argv = int(argv[1]), argv[2:]
+        mode, key = "--served-child", "update_s"
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -79,14 +126,14 @@ def main(argv) -> int:
         root = os.path.abspath(root)
         out = subprocess.run([sys.executable, os.path.join(here,
                                                            "ab_main_path.py"),
-                              "--child", root, str(warm)], cwd=root,
+                              mode, root, str(warm)], cwd=root,
                              capture_output=True, text=True, check=True)
         line = out.stdout.strip().splitlines()[-1]
         print(line, flush=True)
-        walls.setdefault(root, []).extend(json.loads(line)["warm_s"])
+        walls.setdefault(root, []).extend(json.loads(line)[key])
     for root, w in walls.items():
-        print(f"{root}: median warm wall {statistics.median(w):.4f} s over "
-              f"{len(w)} optimizes", flush=True)
+        print(f"{root}: median {key} {statistics.median(w):.6f} s over "
+              f"{len(w)} runs", flush=True)
     return 0
 
 

@@ -85,12 +85,13 @@ VARIANTS = {
 }
 
 
-def build(tmp: str) -> dict:
-    """name -> loaded library of each variant (nvcc, all at once)."""
+def build(tmp: str, variants=None) -> dict:
+    """name -> loaded library of each variant (nvcc, all at once);
+    ``variants`` defaults to :data:`VARIANTS`."""
     from cruise_control_tpu_torch import kernels
     nvcc = kernels._nvcc()
     procs = {}
-    for name, (source, subs) in VARIANTS.items():
+    for name, (source, subs) in (variants or VARIANTS).items():
         text = open(os.path.join(kernels.CSRC, source)).read()
         for old, new in subs:
             if isinstance(old, re.Pattern):

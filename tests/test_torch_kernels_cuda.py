@@ -302,34 +302,48 @@ def test_first_fit_any_touched_rows(cuda_device, case, W):
 
 
 @pytest.mark.cuda
-def test_delta_row_scatter_matches_twin(cuda_device):
-    """KF writes exactly its twin's rows into both planes in place, drops
-    indices outside [0, P) and counts one launch."""
-    gen = torch.Generator().manual_seed(3)
-    P, K = 2000, 200
-    lead = torch.rand(P, 4, generator=gen)
-    foll = torch.rand(P, 4, generator=gen)
-    idx = torch.cat([torch.randperm(P, generator=gen)[:K - 2],
-                     torch.tensor([P, -1])]).to(torch.int32)
-    lead_rows = torch.rand(K, 4, generator=gen)
-    foll_rows = torch.rand(K, 4, generator=gen)
-    want = kernels.delta_row_scatter_plain(lead.clone(), foll.clone(), idx,
-                                           lead_rows, foll_rows)
+@pytest.mark.parametrize("case,K", [("random_order", 200),
+                                    ("random_order", 1),
+                                    ("random_order", 20_096),
+                                    ("padded", 512), ("negative", 64),
+                                    ("three_columns", 100)])
+def test_delta_row_scatter_matches_twin(cuda_device, case, K):
+    """KF writes exactly its twin's planes, out of place: fresh outputs,
+    the input planes untouched, indices outside [0, P) (P, the reference's
+    padding, and negatives) dropped, any K up to every row; one launch."""
+    gen = torch.Generator().manual_seed(K + len(case))
+    P, C = 20_096, 3 if case == "three_columns" else 4
+    lead = torch.rand(P, C, generator=gen)
+    foll = torch.rand(P, C, generator=gen)
+    idx = torch.randperm(P, generator=gen)[:K].to(torch.int32)
+    if case == "padded":
+        idx[40:] = P
+    elif case == "negative":
+        idx[::3] = -1 - torch.arange(idx[::3].numel(), dtype=torch.int32)
+    lead_rows = torch.rand(K, C, generator=gen)
+    foll_rows = torch.rand(K, C, generator=gen)
+    payload = torch.from_numpy(kernels.pack_delta_rows(
+        idx.numpy(), lead_rows.numpy(), foll_rows.numpy()))
+    want = kernels.delta_row_scatter_plain(lead, foll, payload)
     dl, df = lead.to(cuda_device), foll.to(cuda_device)
     kernels.reset_launch_counts()
-    out = kernels.delta_row_scatter(dl, df, idx.to(cuda_device),
-                                    lead_rows.to(cuda_device),
-                                    foll_rows.to(cuda_device))
-    assert out[0] is dl and out[1] is df
-    assert torch.equal(dl.cpu(), want[0]) and torch.equal(df.cpu(), want[1])
+    out = kernels.delta_row_scatter(dl, df, payload.to(cuda_device))
+    assert out[0] is not dl and out[1] is not df
+    assert torch.equal(dl.cpu(), lead) and torch.equal(df.cpu(), foll)
+    assert torch.equal(out[0].cpu(), want[0])
+    assert torch.equal(out[1].cpu(), want[1])
     assert kernels.LAUNCHES["delta_row_scatter"] == 1
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("brokers", [8, 24, 104, 1000])
+@pytest.mark.parametrize("brokers", [8, 24, 104, 1000, 8000, 20_000,
+                                     100_000])
 def test_cluster_stats_matches_twin(cuda_device, brokers):
     """KG equals its twin bit for bit (tree-order sums, correctly rounded
-    division and root), dead brokers excluded."""
+    division and root, dead brokers excluded, the three counts) in one
+    launch: one staged chunk up to 5,120 brokers, several past it, the
+    level sums in global scratch past about 27,000. The replica mask
+    starts off a 16-byte boundary and its length is no multiple of 16."""
     gen = torch.Generator().manual_seed(brokers)
     util = torch.rand(brokers, 4, generator=gen) * torch.tensor(
         [100.0, 1e4, 1e4, 1e6])
@@ -339,10 +353,48 @@ def test_cluster_stats_matches_twin(cuda_device, brokers):
                             dtype=torch.int32)
     potential = torch.rand(brokers, generator=gen) * 1e4
     alive = torch.rand(brokers, generator=gen) < 0.9
-    args = (util, replicas, leaders, potential, alive)
-    want, n_want = kernels.cluster_stats_plain(*args)
-    got, n = kernels.cluster_stats(*(t.to(cuda_device) for t in args))
-    assert torch.equal(got.cpu(), want) and int(n) == int(n_want)
+    P, R = 20_093, 3
+    rvalid = (torch.rand(P * R + 5, generator=gen) < 0.8)[5:].view(P, R)
+    pvalid = torch.rand(P, generator=gen) < 0.7
+    args = (util, replicas, leaders, potential, alive, rvalid, pvalid)
+    want = kernels.cluster_stats_plain(*args)
+    kernels.reset_launch_counts()
+    got = kernels.cluster_stats(*(t.to(cuda_device) for t in args))
+    assert kernels.LAUNCHES["cluster_stats"] == 1
+    assert torch.equal(got.cpu(), want)
+    assert kernels.split_cluster_stats(got.cpu())[1].tolist() == [
+        int(alive.sum()), int(rvalid.sum()), int(pvalid.sum())]
+
+
+@pytest.mark.cuda
+def test_cluster_stats_propagates_nan(cuda_device):
+    """A NaN at an alive broker makes its column's avg, std, max and min
+    NaN in KG as in the twin; a NaN at a dead broker changes nothing."""
+    gen = torch.Generator().manual_seed(5)
+    B = 104
+    util = torch.rand(B, 4, generator=gen) * 100
+    alive = torch.ones(B, dtype=torch.bool)
+    alive[7] = False
+    util[3, 1] = float("nan")
+    util[7, 2] = float("nan")
+    args = (util, torch.arange(B, dtype=torch.int32),
+            torch.arange(B, dtype=torch.int32) // 2,
+            torch.rand(B, generator=gen), alive,
+            torch.ones(40, 2, dtype=torch.bool),
+            torch.ones(40, dtype=torch.bool))
+    want = kernels.cluster_stats_plain(*args)
+    got = kernels.cluster_stats(*(t.to(cuda_device) for t in args)).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    table = kernels.split_cluster_stats(got)[0]
+    assert table[:, 1].isnan().all() and not table[:, 2].isnan().any()
+
+
+@pytest.mark.cuda
+def test_empty_kernel_launches(cuda_device):
+    kernels.reset_launch_counts()
+    kernels.empty_launch()
+    torch.cuda.synchronize()
+    assert not any(kernels.LAUNCHES.values())
 
 
 @pytest.mark.cuda

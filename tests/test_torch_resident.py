@@ -302,6 +302,20 @@ def test_export_restore_round_trip_and_reference_snapshot():
     assert tm.resident.last_update == "full" and tm.resident.epoch == 2
 
 
+def _kf_both(lead, foll, idx, lead_rows, foll_rows):
+    """(reference planes, port planes): the jitted ``_delta_scatter`` and
+    KF's twin through the packed payload, the port's input planes checked
+    untouched."""
+    want = jax.jit(jres._delta_scatter)(lead, foll, idx, lead_rows,
+                                        foll_rows)
+    tl, tf = torch.from_numpy(lead.copy()), torch.from_numpy(foll.copy())
+    got = kernels.delta_row_scatter(tl, tf, torch.from_numpy(
+        kernels.pack_delta_rows(idx, lead_rows, foll_rows)))
+    assert torch.equal(tl, torch.from_numpy(lead))
+    assert torch.equal(tf, torch.from_numpy(foll))
+    return [np.asarray(w) for w in want], [to_np(g) for g in got]
+
+
 def test_kf_twin_matches_the_reference_scatter():
     """KF's twin equals the jitted ``_delta_scatter`` on a padded payload
     whose padding rows carry index P (dropped)."""
@@ -313,14 +327,60 @@ def test_kf_twin_matches_the_reference_scatter():
     idx[:11] = rng.choice(P, 11, replace=False)
     lead_rows = rng.random((K, 4)).astype(np.float32)
     foll_rows = rng.random((K, 4)).astype(np.float32)
-    want = jax.jit(jres._delta_scatter)(lead, foll, idx, lead_rows,
-                                        foll_rows)
-    got = kernels.delta_row_scatter(
-        torch.from_numpy(lead.copy()), torch.from_numpy(foll.copy()),
-        torch.from_numpy(idx), torch.from_numpy(lead_rows),
-        torch.from_numpy(foll_rows))
+    want, got = _kf_both(lead, foll, idx, lead_rows, foll_rows)
     for w, g in zip(want, got):
-        assert np.array_equal(np.asarray(w), to_np(g))
+        assert np.array_equal(w, g)
+
+
+@pytest.mark.parametrize("case", ["random_order", "padded_bucket",
+                                  "one_dropped_row", "every_row",
+                                  "three_columns"])
+def test_kf_out_of_place_matches_the_reference(case):
+    """KF's twin, through the packer, against the jitted ``_delta_scatter``:
+    indices in random order (the packer sorts them), the reference's own
+    padded payload (a 512-row bucket, padding at index P), one all-dropped
+    row (``warmup``'s payload), every row, and a width other than 4; the
+    input planes stay as they were."""
+    rng = np.random.default_rng(len(case))
+    P, C = 300, 3 if case == "three_columns" else 4
+    lead = rng.random((P, C)).astype(np.float32)
+    foll = rng.random((P, C)).astype(np.float32)
+    if case == "padded_bucket":
+        idx = np.full(512, P, np.int32)
+        idx[:40] = np.sort(rng.choice(P, 40, replace=False))
+    elif case == "one_dropped_row":
+        idx = np.array([P], np.int32)
+    elif case == "every_row":
+        idx = rng.permutation(P).astype(np.int32)
+    else:
+        idx = rng.choice(P, 57, replace=False).astype(np.int32)
+    lead_rows = rng.random((idx.size, C)).astype(np.float32)
+    foll_rows = rng.random((idx.size, C)).astype(np.float32)
+    if case == "padded_bucket":
+        lead_rows[40:] = foll_rows[40:] = 0.0
+    want, got = _kf_both(lead, foll, idx, lead_rows, foll_rows)
+    for w, g in zip(want, got):
+        assert np.array_equal(w, g)
+    if case == "one_dropped_row":
+        assert np.array_equal(got[0], lead) and np.array_equal(got[1], foll)
+
+
+@pytest.mark.parametrize("K,C", [(1, 4), (200, 4), (7, 3)])
+def test_packed_payload_bytes(K, C):
+    """The packed payload holds K * (4 + 2 * C * 4) bytes (rows, then
+    indices; nothing padded), its rows in ascending index order."""
+    rng = np.random.default_rng(K)
+    idx = rng.choice(1000, K, replace=False).astype(np.int32)
+    lead_rows = rng.random((K, C)).astype(np.float32)
+    foll_rows = rng.random((K, C)).astype(np.float32)
+    packed = kernels.pack_delta_rows(idx, lead_rows, foll_rows)
+    assert packed.dtype == np.float32
+    assert packed.nbytes == K * (4 + 2 * C * 4)
+    order = np.argsort(idx)
+    assert np.array_equal(packed[2 * K * C:].view(np.int32), idx[order])
+    assert np.array_equal(packed[:K * C].reshape(K, C), lead_rows[order])
+    assert np.array_equal(packed[K * C:2 * K * C].reshape(K, C),
+                          foll_rows[order])
 
 
 def test_resident_state_needs_the_card(monkeypatch):

@@ -60,32 +60,54 @@ def test_stats_summary_matches_reference(both):
     assert json.dumps(got) == json.dumps(want)        # key order too
 
 
-def test_kg_twin_matches_column_stats_of_the_reference():
+@pytest.mark.parametrize("B", [8, 16, 24, 32, 40, 104, 1008, 1100, 4100,
+                               20_000])
+def test_kg_twin_matches_column_stats_of_the_reference(B):
     """KG's twin against the reference's ``_stats`` arithmetic on random
-    broker aggregates of every padded width from 8 to 1,008 brokers."""
+    broker aggregates of padded widths from 8 to 20,000 brokers: one tree
+    level (up to 1,024), two (1,100 and 4,100) and three levels of XLA's
+    windowed sums (20,000, past what KG stages at once)."""
     import jax.numpy as jnp
-    rng = np.random.default_rng(0)
-    for B in (8, 16, 24, 32, 40, 104, 1008):
-        util = (rng.random((B, 4)) * [100.0, 1e4, 1e4, 1e6]).astype(
-            np.float32)
-        counts = rng.integers(0, 500, (2, B)).astype(np.int32)
-        pot = (rng.random(B) * 1e4).astype(np.float32)
-        alive = rng.random(B) < 0.9
-        table, n = kernels.cluster_stats(
-            torch.from_numpy(util), torch.from_numpy(counts[0]),
-            torch.from_numpy(counts[1]), torch.from_numpy(pot),
-            torch.from_numpy(alive))
-        vals = np.column_stack([util, counts.T.astype(np.float32), pot])
-        a = jnp.asarray(alive)[:, None]
-        nj = jnp.maximum(jnp.asarray(alive).sum(), 1)
-        v = jnp.asarray(vals)
-        mean = jnp.where(a, v, 0.0).sum(axis=0) / nj
-        var = jnp.where(a, (v - mean) ** 2, 0.0).sum(axis=0) / nj
-        want = np.stack([np.asarray(mean), np.asarray(jnp.sqrt(var)),
-                         np.asarray(jnp.where(a, v, -jnp.inf).max(axis=0)),
-                         np.asarray(jnp.where(a, v, jnp.inf).min(axis=0))])
-        assert np.array_equal(table.numpy(), want), B
-        assert int(n) == int(alive.sum())
+    rng = np.random.default_rng(B)
+    util = (rng.random((B, 4)) * [100.0, 1e4, 1e4, 1e6]).astype(np.float32)
+    counts = rng.integers(0, 500, (2, B)).astype(np.int32)
+    pot = (rng.random(B) * 1e4).astype(np.float32)
+    alive = rng.random(B) < 0.9
+    rvalid = rng.random((37, 3)) < 0.7
+    pvalid = rng.random(37) < 0.8
+    out = kernels.cluster_stats(
+        torch.from_numpy(util), torch.from_numpy(counts[0]),
+        torch.from_numpy(counts[1]), torch.from_numpy(pot),
+        torch.from_numpy(alive), torch.from_numpy(rvalid),
+        torch.from_numpy(pvalid))
+    table, n = kernels.split_cluster_stats(out)
+    vals = np.column_stack([util, counts.T.astype(np.float32), pot])
+    a = jnp.asarray(alive)[:, None]
+    nj = jnp.maximum(jnp.asarray(alive).sum(), 1)
+    v = jnp.asarray(vals)
+    mean = jnp.where(a, v, 0.0).sum(axis=0) / nj
+    var = jnp.where(a, (v - mean) ** 2, 0.0).sum(axis=0) / nj
+    want = np.stack([np.asarray(mean), np.asarray(jnp.sqrt(var)),
+                     np.asarray(jnp.where(a, v, -jnp.inf).max(axis=0)),
+                     np.asarray(jnp.where(a, v, jnp.inf).min(axis=0))])
+    assert np.array_equal(table.numpy(), want), B
+    assert n.tolist() == [int(alive.sum()), int(rvalid.sum()),
+                          int(pvalid.sum())]
+
+
+def test_kg_counts_match_the_reference_on_a_padded_model():
+    """KG's fused counts (its buffer's last three words) equal the
+    reference's alive broker, ``num_replicas`` and ``num_leaders`` on a
+    model padded on both axes, with a dead broker."""
+    from cruise_control_tpu_torch.model.flat import broker_utilization
+    (jm, _), (tm, _) = build_both(5, 45, seed=2, dead=(3,))
+    assert not tm.partition_valid.all() and not tm.broker_valid.all()
+    want = jstats.cluster_stats(jm)
+    out = tstats._stats_buffer(tm, broker_utilization(tm))
+    _table, counts = kernels.split_cluster_stats(out)
+    assert counts.dtype == torch.int32
+    assert counts.tolist() == [int(want[k]) for k in kernels.STATS_COUNTS]
+    assert counts.tolist() == [4, 90, 45]
 
 
 def test_stats_summary_needs_the_model_on_its_device(monkeypatch):
