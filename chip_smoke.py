@@ -28,7 +28,9 @@ Phases (every failure raises; nothing is caught):
    and kills, and at edge shapes)
    against their plain versions, with times and bounds; KE
    (first fit) is held to its twin after phase 4, at the shape of the main
-   path's own schedule;
+   path's own schedule; KK (the topic-cell guards' net flow, at M = 512
+   and 1,024 with the topic and leader guards' queries, and edge shapes)
+   bit for bit;
 4. main path — 100 brokers x 20K partitions at RF 2, the 4-goal chain
    with the off-chain hard-goal audit, seeds 0, 1, 1 (proposals of the two
    seed-1 runs must be identical; KA, KB and KC must have launched; KA's
@@ -70,7 +72,17 @@ Phases (every failure raises; nothing is caught):
     tick after a 1%-churn ingest (each tick one KJ launch and no tick
     error, each member's cache and N-1 summary equal to a fleet propose
     and sweep of the same served models; the warm tick loading no kernel
-    library).
+    library);
+13. default chain — the reference's own per-proposal contract
+    (``goals=None``, nothing waived): (a) the main-path cluster, seeds 1
+    and 1 (identical proposals, each run's outcome held to
+    ``REFERENCE_DEFAULT``; KA, KB, KC and KK must have launched); (b) bench
+    scale scenario 3 (1K x 200K, the reference bench's search; no hard
+    goal left violated, no goal worse than it started); (c)
+    ``WhatIfEngine()``'s N-1 sweep with the default goals (topic counts
+    over the scenario batch; ``REFERENCE_DEFAULT_N1``); (d) the cluster in
+    ten broker sets under the catalog's part-B chain and the
+    kafka-assigner set (``REFERENCE_PARTB``, failures included).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -117,7 +129,9 @@ EARLIER_MS = {("KB", 40_192): 0.2029, ("KB", 400_128): 0.2322,
               ("KI", (16, 33)): 0.02669, ("KI", (16, 64)): 0.04678,
               ("KI", (1024, 64)): 7.42848, ("KF", "served"): 0.00128,
               ("KG", "main path"): 0.01372}
-#: the audit waives RackAwareGoal, as the reference bench does
+#: the 4-goal main path's audit waives RackAwareGoal, as the reference
+#: bench keeps it for that row (the skewed build crowds racks); phase 13
+#: runs the default chain with nothing waived
 WAIVED = frozenset({"RackAwareGoal"})
 #: phase 7's and phase 8's results as the reference computes them (the
 #: JAX package on the CPU, from the same inputs; phase 8 schedules the
@@ -257,6 +271,9 @@ KERNEL_INFO = {
     "net_broker_flow": dict(
         source="cruise_control_tpu_torch/csrc/net_flow.cu",
         replaces="cruise_control_tpu/analyzer/goals.py:254"),
+    "cell_net_flow": dict(
+        source="cruise_control_tpu_torch/csrc/cell_flow.cu",
+        replaces="cruise_control_tpu/analyzer/goals.py:1390"),
     "scenario_failover": dict(
         source="cruise_control_tpu_torch/csrc/failover.cu",
         replaces="cruise_control_tpu/whatif/engine.py:599"),
@@ -281,7 +298,12 @@ KERNEL_INFO = {
 }
 
 
+_T0 = time.monotonic()
+
+
 def log(msg: str = "") -> None:
+    if msg.startswith("== phase"):
+        msg += f" [{time.monotonic() - _T0:.1f}s]"
     print(msg, flush=True)
 
 
@@ -293,13 +315,17 @@ def fail(msg: str) -> None:
 # Inputs (numpy copies of the reference bench's builders)
 # ---------------------------------------------------------------------------
 
-def build_spec(num_brokers=NUM_BROKERS, num_partitions=NUM_PARTITIONS):
-    """Skewed cluster: half the partitions crowd onto 20% of brokers."""
+def build_spec(num_brokers=NUM_BROKERS, num_partitions=NUM_PARTITIONS,
+               broker_sets=0):
+    """Skewed cluster: half the partitions crowd onto 20% of brokers
+    (broker i in set ``s{i % broker_sets}`` when ``broker_sets``)."""
     from cruise_control_tpu_torch.model.spec import (BrokerSpec, ClusterSpec,
                                                      PartitionSpec)
     rng = np.random.default_rng(42)
     brokers = [BrokerSpec(broker_id=i, rack=f"r{i % 10}",
-                          capacity=(100.0, 1e6, 1e6, 1e8))
+                          capacity=(100.0, 1e6, 1e6, 1e8),
+                          broker_set=(f"s{i % broker_sets}" if broker_sets
+                                      else None))
                for i in range(num_brokers)]
     hot = np.arange(num_brokers // 5)
     parts = []
@@ -767,6 +793,13 @@ def phase_kernels(model, main_arrays: dict, scale_model, intra_state):
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms))
 
+    # --- KK: the topic-cell guards at M = apply_per_iter (512) and the
+    # scale cell's 1,024: the topic guard's four queries over four cell
+    # slots (first: the kernels line's row) and the leader minimum's two
+    # over two, cell ids drawn from 48 values so that many collide; then
+    # edge shapes (M = 1, an all-false prefix mask).
+    _kernel_cell_flow(rows, rng, dev)
+
     # --- KD: the N-1 sweep's placement edit and failover.
     from cruise_control_tpu_torch.model.flat import replica_loads
     from cruise_control_tpu_torch.whatif.engine import scenario_transform
@@ -866,6 +899,77 @@ def phase_kernels(model, main_arrays: dict, scale_model, intra_state):
     _kernel_population_select(rows, rng)
     _kernel_fleet_failover(rows, model)
     return rows
+
+
+#: KK's phase-3 shapes: (M, queries A, cell slots K) — the topic guard's
+#: (A = K = 4) and the leader minimum's (A = K = 2) at apply_per_iter and
+#: the scale cell's 1,024
+KK_SHAPES = ((512, 4, 4), (512, 2, 2), (1024, 4, 4), (1024, 2, 2))
+
+
+def kk_case(rng, m, a, k, dev, density=0.6, ids=48):
+    """KK's inputs in the guards' form: colliding cell ids, integer terms
+    (the topic guard's queries alternate inflow and outflow clipping; the
+    leader minimum's are unclipped 0/1 outflows), a random prefix mask."""
+    import torch
+    key = rng.integers(-1, ids, (k, m))
+    query = key[[1, 0, 3, 2][:a] if k == 4 else list(range(a))]
+    query = np.where(rng.random((a, m)) < 0.2, rng.integers(-1, ids, (a, m)),
+                     query)
+    if a == 4:
+        d = rng.integers(-4, 5, (k, m)).astype(np.float32)
+        val = np.stack([np.maximum(d, 0), np.minimum(d, 0)] * 2)
+    else:
+        val = np.broadcast_to(rng.integers(0, 2, (k, m)).astype(np.float32),
+                              (a, k, m))
+    earlier = np.tril(rng.random((m, m)) < density, k=-1)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                 for x in (query, key, val, earlier))
+
+
+def _kernel_cell_flow(rows, rng, dev):
+    """KK against its twin, bit for bit, at ``KK_SHAPES`` and edge shapes,
+    with its time, bound and the library form's time (the twin's masked
+    matmuls, TF32 off, replayed as a CUDA graph)."""
+    import torch
+    from cruise_control_tpu_torch import kernels
+    for m, a, k in KK_SHAPES:
+        args = kk_case(rng, m, a, k, dev)
+        got = kernels.cell_net_flow(*args)
+        want = kernels.cell_net_flow_plain(*(t.cpu() for t in args))
+        err = float((got.cpu() - want).abs().max())
+        if not torch.equal(got.cpu(), want):
+            fail(f"cell_net_flow differs from its twin (M={m}, A={a}, K={k})"
+                 f": max |err| {err}")
+        ms = time_ms(lambda: kernels.cell_net_flow(*args), graph=True)
+        plain = time_ms(lambda: kernels.cell_net_flow_plain(*args))
+        lib_ms = time_ms(lambda: kernels.cell_net_flow_plain(*args),
+                         graph=True)
+        q, key, _val, e = (t.cpu().numpy() for t in args)
+        nnz = int(e.sum())
+        matches = int(sum((e * (q[i][:, None] == key[j][None, :])).sum()
+                          for i in range(a) for j in range(k)))
+        b_ms, b_by = bound(m * m + 8 * m * (a + k) + 4 * m * a * (k + 1),
+                           nnz * a * k + matches)
+        log(f"KK cell_net_flow M={m} A={a} K={k}: bit-exact vs twin "
+            f"({matches} matching terms); {ms:.5f} ms, twin {plain:.4f} ms, "
+            f"torch.matmul form {lib_ms:.5f} ms, bound {b_ms:.6f} ms "
+            f"({b_by})")
+        _keep_first_shape(rows, "cell_net_flow", err, dict(
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms))
+    for tag, (m, a, k, density) in (("M = 1", (1, 4, 4, 0.6)),
+                                    ("all-false mask", (512, 4, 4, 0.0)),
+                                    ("M = 37, leaders", (37, 2, 2, 0.9))):
+        args = kk_case(rng, m, a, k, dev, density=density)
+        got = kernels.cell_net_flow(*args)
+        want = kernels.cell_net_flow_plain(*(t.cpu() for t in args))
+        if not torch.equal(got.cpu(), want):
+            fail(f"cell_net_flow differs from its twin at the edge shape "
+                 f"{tag}")
+        if density == 0.0 and bool(got.any()):
+            fail("cell_net_flow: an all-false mask gave non-zero flow")
+        log(f"KK cell_net_flow {tag}: bit-exact vs twin")
 
 
 def _kernel_delta_scatter(rows, main_arrays, rng, floor_ms):
@@ -2557,6 +2661,283 @@ def _fleet_registry_ticks(spec):
         fail("the warm registry tick built or loaded the kernel library")
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the reference's default chain
+# ---------------------------------------------------------------------------
+
+#: phase 13 (a): seeds of the two default-chain optimizes of the main-path
+#: cluster (goals=None: ``config/cruisecontrol.properties:96``), with the
+#: main path's search and nothing waived
+DEFAULT_SEEDS = (1, 1)
+#: phase 13 (b): bench scale scenario 3 as the reference runs it
+#: (``bench.py:42-44``, :2755-2777): goals=None, k 1,024, 16 destinations,
+#: 512 swaps, drain 25,000 x 8 rounds, 512 iterations a goal, seed 0
+SCALE3_SEARCH = dict(num_replica_candidates=1024, num_dest_candidates=16,
+                     num_swap_candidates=512, apply_per_iter=1024,
+                     drain_batch=25_000, drain_rounds=8,
+                     max_iters_per_goal=512)
+#: phase 13 (d): the main-path cluster in 10 broker sets with at least one
+#: leader of every t1* topic on every broker, under the catalog's part-B
+#: chain and then the kafka-assigner set (main path's search, seed 1,
+#: nothing waived)
+PARTB_SETS = 10
+PARTB_CONSTRAINT = dict(topics_with_min_leaders_per_broker="t1*",
+                        min_topic_leaders_per_broker=1)
+PARTB_CHAIN = ["BrokerSetAwareGoal", "MinTopicLeadersPerBrokerGoal",
+               "RackAwareDistributionGoal", "PreferredLeaderElectionGoal"]
+PARTB_SEED = 1
+#: phase 13 as the reference computes it (the JAX package on the CPU from
+#: the same inputs: ``scripts/default_chain_reference.py``): (a) each
+#: optimize's moves, proposals, digest, per-goal (name, iterations,
+#: violation after), audit verdicts and failure (None: no
+#: OptimizationFailureError); (c) the default-goal N-1 sweep's summary;
+#: (d) both chains' outcomes
+_REFERENCE_DEFAULT_RUN = {'moves': 18989,
+                          'proposals': 13483,
+                          'digest': 'd07b06fafcc18e45',
+                          'goals': [['RackAwareGoal', 45, 0.0],
+                                    ['MinTopicLeadersPerBrokerGoal', 0, 0.0],
+                                    ['ReplicaCapacityGoal', 0, 0.0],
+                                    ['DiskCapacityGoal', 0, 0.0],
+                                    ['NetworkInboundCapacityGoal', 0, 0.0],
+                                    ['NetworkOutboundCapacityGoal', 0, 0.0],
+                                    ['CpuCapacityGoal', 0, 0.0],
+                                    ['ReplicaDistributionGoal', 6, 0.0],
+                                    ['PotentialNwOutGoal', 0, 0.0],
+                                    ['DiskUsageDistributionGoal', 6, 0.0],
+                                    ['NetworkInboundUsageDistributionGoal', 0, 0.0],
+                                    ['NetworkOutboundUsageDistributionGoal', 6, 0.0],
+                                    ['CpuUsageDistributionGoal', 0, 0.0],
+                                    ['TopicReplicaDistributionGoal', 10, 0.0],
+                                    ['LeaderReplicaDistributionGoal', 6, 0.0],
+                                    ['LeaderBytesInDistributionGoal', 5, 0.0]],
+                          'audit': [],
+                          'failure': None}
+REFERENCE_DEFAULT = [_REFERENCE_DEFAULT_RUN] * len(DEFAULT_SEEDS)
+REFERENCE_DEFAULT_N1 = {'riskiest': 'loss:0',
+                        'max_risk': 0.3609523809523809,
+                        'violated': 100,
+                        'risk4_sum': 36.1,
+                        'digest': '18981659e991ecdd'}
+REFERENCE_PARTB = {'partb': {'moves': 29560,
+                             'proposals': 18395,
+                             'digest': '5abb7ea11c42b702',
+                             'goals': [['BrokerSetAwareGoal', 205, 7507.0],
+                                       ['MinTopicLeadersPerBrokerGoal', 22, 7783.0],
+                                       ['RackAwareDistributionGoal', 20, 13342.0],
+                                       ['PreferredLeaderElectionGoal', 25, 768.0]],
+                             'audit': [['ReplicaCapacityGoal', True],
+                                       ['DiskCapacityGoal', True],
+                                       ['NetworkInboundCapacityGoal', True],
+                                       ['NetworkOutboundCapacityGoal', True],
+                                       ['CpuCapacityGoal', True]],
+                             'failure': 'hard goals still violated after optimization: '
+                                        "['BrokerSetAwareGoal', "
+                                        "'MinTopicLeadersPerBrokerGoal', "
+                                        "'RackAwareDistributionGoal']"},
+                   'kafka_assigner': {'moves': 14815,
+                                      'proposals': 8558,
+                                      'digest': '18acede2ed190e1d',
+                                      'goals': [['KafkaAssignerEvenRackAwareGoal',
+                                                 47,
+                                                 0.0],
+                                                ['KafkaAssignerDiskUsageDistributionGoal',
+                                                 6,
+                                                 0.0]],
+                                      'audit': [['MinTopicLeadersPerBrokerGoal', False],
+                                                ['ReplicaCapacityGoal', True],
+                                                ['DiskCapacityGoal', True],
+                                                ['NetworkInboundCapacityGoal', True],
+                                                ['NetworkOutboundCapacityGoal', True],
+                                                ['CpuCapacityGoal', True]],
+                                      'failure': 'hard goals still violated after '
+                                                 'optimization: '
+                                                 "['MinTopicLeadersPerBrokerGoal'] "
+                                                 '(off-chain, caught by the '
+                                                 'registered-hard-goal audit: '
+                                                 "['MinTopicLeadersPerBrokerGoal'])"}}
+
+
+def chain_outcome(pkg, opt, model, md, options):
+    """(result, summary) of one optimize; an OptimizationFailureError is
+    part of the outcome (its message and the result it carries)."""
+    try:
+        res, failure = opt.optimize(model, md, options), None
+    except pkg.OptimizationFailureError as err:
+        res, failure = err.result, str(err)
+    return res, dict(
+        moves=res.num_moves, proposals=len(res.proposals),
+        digest=_proposals_sha(res),
+        goals=[[g.name, g.iterations, g.violation_after]
+               for g in res.goal_results],
+        audit=[[g.name, g.satisfied] for g in res.hard_goal_audit],
+        failure=failure)
+
+
+def default_chain_main(pkg, model, md):
+    """Phase 13 (a) over one package's modules (``pkg``, see
+    ``port_default_package``; ``scripts/default_chain_reference.py``
+    passes the JAX package's): each optimize's outcome, and the port's
+    readings (walls, results)."""
+    out = dict(a=[], walls=[], results=[])
+    opt = pkg.optimizer(None, None, MAIN_SEARCH)
+    for seed in DEFAULT_SEEDS:
+        pkg.sync()
+        t0 = time.monotonic()
+        res, summary = pkg.measure(lambda: chain_outcome(
+            pkg, opt, model, md, pkg.options(seed=seed)))
+        pkg.sync()
+        out["walls"].append(time.monotonic() - t0)
+        out["results"].append(res)
+        out["a"].append(summary)
+    return out
+
+
+def default_chain_rest(pkg, model, md):
+    """Phase 13 (c) and (d) over one package's modules: the default-goal
+    N-1 summary and both part-B chains' outcomes on the cluster in broker
+    sets, with their walls."""
+    out = dict(walls={})
+    engine = pkg.whatif()
+    scenarios = pkg.n1_sweep(pkg.alive_broker_ids(model, md))
+    t0 = time.monotonic()
+    out["c"] = _summary(engine.sweep(model, md, scenarios))
+    pkg.sync()
+    out["walls"]["n1"] = time.monotonic() - t0
+    sets_model, sets_md = pkg.flatten_spec(build_spec(broker_sets=PARTB_SETS))
+    cst = pkg.BalancingConstraint(**PARTB_CONSTRAINT)
+    out["d"] = {}
+    for tag, names in (("partb", PARTB_CHAIN),
+                       ("kafka_assigner", pkg.KAFKA_ASSIGNER_GOALS)):
+        opt = pkg.optimizer(pkg.goals_by_name(names, cst), cst, MAIN_SEARCH)
+        t0 = time.monotonic()
+        _res, out["d"][tag] = chain_outcome(pkg, opt, sets_model, sets_md,
+                                            pkg.options(seed=PARTB_SEED))
+        pkg.sync()
+        out["walls"][tag] = time.monotonic() - t0
+    return out
+
+
+def port_default_package(device="cuda"):
+    """Phase 13's view of the port on ``device``; ``measure`` runs the
+    first optimize plainly and counts the device launches of the second
+    under ``torch.profiler``."""
+    import types
+
+    import torch
+    from cruise_control_tpu_torch.analyzer import (BalancingConstraint,
+                                                   OptimizationFailureError,
+                                                   OptimizationOptions,
+                                                   SearchConfig,
+                                                   TorchGoalOptimizer,
+                                                   goals_by_name)
+    from cruise_control_tpu_torch.analyzer.goals import KAFKA_ASSIGNER_GOALS
+    from cruise_control_tpu_torch.model.spec import flatten_spec
+    from cruise_control_tpu_torch.whatif import (WhatIfEngine,
+                                                 alive_broker_ids, n1_sweep)
+    launches = []
+
+    def measure(fn):
+        if not launches:                 # the first optimize: plain
+            launches.append(None)
+            return fn()
+        out, n = _count_device_launches(fn)
+        launches.append(n)
+        return out
+
+    return types.SimpleNamespace(
+        flatten_spec=lambda spec: flatten_spec(spec, device=device),
+        optimizer=lambda goals, cst, search: TorchGoalOptimizer(
+            goals=goals, constraint=cst, config=SearchConfig(**search),
+            device=device),
+        options=lambda seed: OptimizationOptions(seed=seed),
+        OptimizationFailureError=OptimizationFailureError,
+        BalancingConstraint=BalancingConstraint, goals_by_name=goals_by_name,
+        KAFKA_ASSIGNER_GOALS=KAFKA_ASSIGNER_GOALS,
+        whatif=lambda: WhatIfEngine(device=device),
+        n1_sweep=n1_sweep, alive_broker_ids=alive_broker_ids,
+        sync=torch.cuda.synchronize if device == "cuda" else lambda: None,
+        measure=measure, launches=launches)
+
+
+def _check_outcome(tag, got, want):
+    log(f"{tag}: {got['moves']} moves, {got['proposals']} proposals, digest "
+        f"{got['digest']}, failure {got['failure']!r}")
+    for name, iters, viol in got["goals"]:
+        log(f"  {name:42s} iters={iters:4d} violation after {viol!r}")
+    log(f"  audit {got['audit']}")
+    if got != want:
+        fail(f"{tag}: the outcome differs from the reference's {want}")
+
+
+def phase_default_chain(model, md, scale_model, scale_md):
+    """Phase 13: the reference's default chain on the card. Returns the
+    kernel launches of (a), the main path of the default chain."""
+    import torch
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.analyzer import (OptimizationFailureError,
+                                                   OptimizationOptions,
+                                                   SearchConfig,
+                                                   TorchGoalOptimizer, engine)
+    log("== phase 13: the reference's default chain (goals=None, nothing "
+        "waived)")
+    pkg = port_default_package()
+    kernels.reset_launch_counts()
+    syncs0 = engine.HOST_SYNCS
+    main = default_chain_main(pkg, model, md)
+    syncs = engine.HOST_SYNCS - syncs0
+    launches = dict(kernels.LAUNCHES)
+    log(f"(a) default chain 100x20K, seeds {DEFAULT_SEEDS}: walls "
+        f"{main['walls'][0]:.3f}s (plain), {main['walls'][1]:.3f}s (under "
+        f"torch.profiler: {pkg.launches[1]} device launches, kernels and "
+        f"copies); host syncs of both {syncs}; kernel launches of both "
+        f"{json.dumps(launches)}")
+    first, second = main["results"]
+    if first.proposals != second.proposals:
+        fail("(a) the two seed-1 default-chain runs gave different proposals")
+    for i, (got, want) in enumerate(zip(main["a"], REFERENCE_DEFAULT)):
+        _check_outcome(f"(a) run {i + 1}", got, want)
+    missing = [k for k in ("threefry2x32", "ordered_segment_sum",
+                           "net_broker_flow", "cell_net_flow")
+               if not launches[k]]
+    if missing:
+        fail(f"(a) kernels never launched by the default chain: {missing}")
+    rest = default_chain_rest(pkg, model, md)
+    log(f"(c) N-1 sweep with the default goals: {rest['walls']['n1']:.3f}s")
+    _check_summary("(c) N-1, default goals", rest["c"], REFERENCE_DEFAULT_N1)
+    for tag in ("partb", "kafka_assigner"):
+        log(f"(d) {tag}: {rest['walls'][tag]:.3f}s")
+        _check_outcome(f"(d) {tag}", rest["d"][tag], REFERENCE_PARTB[tag])
+
+    opt = TorchGoalOptimizer(config=SearchConfig(**SCALE3_SEARCH),
+                             device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    syncs0 = engine.HOST_SYNCS
+    t0 = time.monotonic()
+    try:
+        res = opt.optimize(scale_model, scale_md, OptimizationOptions(seed=0))
+    except OptimizationFailureError as err:
+        fail(f"(b) scale scenario 3: {err}")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    log(f"(b) scale scenario 3, 1Kx200K, default chain: wall {wall:.3f}s, "
+        f"host syncs {engine.HOST_SYNCS - syncs0}, peak mem "
+        f"{_peak_mib():.1f} MiB, {res.num_moves} moves, "
+        f"{len(res.proposals)} proposals")
+    for g in res.goal_results:
+        log(f"  {g.name:42s} {g.violation_before!r} -> "
+            f"{g.violation_after!r} iters={g.iterations}")
+    bad = [g.name for g in res.goal_results + res.hard_goal_audit
+           if g.hard and not g.satisfied]
+    worse = [g.name for g in res.goal_results
+             if g.violation_after > g.violation_before * (1 + 1e-6) + 1e-6]
+    if bad or worse:
+        fail(f"(b) hard goals left violated {bad}; goals ended worse than "
+             f"they started {worse}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2587,6 +2968,7 @@ def main() -> int:
     search_launches = phase_search_modes(model, md)
     intra_launches = phase_intra(intra)
     fleet_launches = phase_fleet(model, md, spec)
+    default_launches = phase_default_chain(model, md, scale_model, scale_md)
 
     # Each kernel's launches come from the run of the path it serves.
     launches.update(scenario_failover=whatif_launches["scenario_failover"],
@@ -2596,7 +2978,8 @@ def main() -> int:
                     population_select=search_launches["population_select"],
                     intra_broker_walk=intra_launches["intra_broker_walk"],
                     fleet_scenario_failover=fleet_launches[
-                        "fleet_scenario_failover"])
+                        "fleet_scenario_failover"],
+                    cell_net_flow=default_launches["cell_net_flow"])
     kernels_line = [dict(name=name, route="cuda", source=info["source"],
                          replaces=info["replaces"], launches=launches[name],
                          **rows[name])

@@ -1,9 +1,12 @@
 """Goal kernels — the reference's goal catalog as vectorized cost functions.
 
-Port of ``cruise_control_tpu/analyzer/goals.py``, part A: the helpers, the
+Port of ``cruise_control_tpu/analyzer/goals.py``: the helpers, the
 parametric :class:`IntervalGoal` with both bulk drains and its candidate
-generators, and the capacity/distribution goals of the dry-run proposal
-path. Each goal is four functions over the :mod:`state` tensors —
+generators, the capacity, distribution, leader and potential-NW_OUT goals
+built on it, and the bespoke goals — rack awareness and its even-spread
+relaxations, per-topic replica balance, per-topic leader minimums, broker
+sets and preferred leaders — with the default chain, the registry and the
+kafka-assigner set. Each goal is four functions over the :mod:`state` tensors —
 ``violation`` (scalar residual, 0 == satisfied), ``propose`` (candidate
 batch), ``delta`` (per-candidate residual change), ``accepts`` (acceptance
 once the goal was optimized earlier in the chain) — plus the engine's
@@ -12,21 +15,26 @@ once the goal was optimized earlier in the chain) — plus the engine's
 Exactness: tie-break noise comes from the port's threefry stream, sorts and
 top-k are stable, float sums and prefix sums run in the reference's order
 (:mod:`..utils.ordered`), and every out-of-range index of the reference
-(clamped gathers, dropped scatters) is an explicit mask here.
+(clamped gathers, dropped scatters) is an explicit mask here. The
+topic-cell collective guards run through KC's cell form, KK
+(``kernels.cell_net_flow``).
 """
 
 from __future__ import annotations
 
 import fnmatch
 
+import numpy as np
 import torch
 
 from .. import _random
+from ..config.brokersets import topic_set_array
 from ..core.resources import Resource
-from ..kernels import net_broker_flow, ordered_segment_sum
+from ..kernels import cell_net_flow, net_broker_flow, ordered_segment_sum
 from ..model.flat import MOVE_INTER_BROKER, MOVE_LEADERSHIP, MOVE_SWAP
 from ..utils.ordered import (argsort, fma, lexsort, scan_sum, top_k,
-                              tree_sum, tree_sum_last, violation_row_sum)
+                              topic_cell_sum, tree_sum, tree_sum_last,
+                              violation_row_sum)
 from .constraint import BalancingConstraint, SearchConfig
 from .state import (Candidates, SearchContext, SearchState, concat_candidates,
                     make_leadership_candidates, make_move_candidates,
@@ -51,6 +59,13 @@ def _zeros_per_scenario(ctx: SearchContext) -> torch.Tensor:
 def _noise(key, shape, scale):
     """float32 ``scale * uniform(key, shape)``, drawn in one launch."""
     return _random.affine(key, shape, scale, 0.0)
+
+
+def _plus_noise(base: torch.Tensor, key, scale: float) -> torch.Tensor:
+    """``base + scale * uniform(key, base.shape)`` as the reference's
+    compiled program computes it: the noise's product and the add
+    contract into one FMA (no ``where`` stands between them)."""
+    return fma(scale, _random.uniform(key, tuple(base.shape)), base)
 
 
 def _unit01(x: torch.Tensor, mask: torch.Tensor | None = None):
@@ -915,108 +930,841 @@ class ReplicaDistributionGoal(IntervalGoal):
                                 integer=True)
 
 
-#: ROADMAP item that ports the rest of the catalog
-_PART_B = "ROADMAP Queue 1 item 8 (analyzer/goals.py part B)"
+class LeaderReplicaDistributionGoal(IntervalGoal):
+    """Soft balance of leader counts via leadership transfers, falling back
+    to relocating leader replicas (ref LeaderReplicaDistributionGoal.java)."""
+
+    actions = "both"
+
+    def __init__(self, constraint: BalancingConstraint):
+        super().__init__("LeaderReplicaDistributionGoal", METRIC_LEADER_COUNT,
+                         hard=False, constraint=constraint)
+
+    def bounds(self, state, ctx):
+        return self._avg_bounds(
+            state, ctx, self.constraint.leader_replica_balance_threshold,
+            integer=True)
+
+
+class LeaderBytesInDistributionGoal(IntervalGoal):
+    """Cap leader bytes-in skew: leader NW_IN <= avg * threshold (ref
+    LeaderBytesInDistributionGoal.java; upper side only)."""
+
+    actions = "leadership"
+    upper_only = True
+
+    def __init__(self, constraint: BalancingConstraint):
+        super().__init__("LeaderBytesInDistributionGoal", METRIC_LEADER_NW_IN,
+                         hard=False, constraint=constraint)
+
+    def bounds(self, state, ctx):
+        return self._avg_bounds(
+            state, ctx, self.constraint.balance_threshold(Resource.NW_IN),
+            upper_only=True)
+
+
+class PotentialNwOutGoal(IntervalGoal):
+    """Keep potential (all-leaders) NW_OUT under the capacity ceiling (ref
+    PotentialNwOutGoal.java)."""
+
+    upper_only = True
+
+    def __init__(self, constraint: BalancingConstraint):
+        super().__init__("PotentialNwOutGoal", METRIC_POTENTIAL_NW_OUT,
+                         hard=False, constraint=constraint)
+
+    def bounds(self, state, ctx):
+        thr = self.constraint.cap_threshold(Resource.NW_OUT)
+        upper = ctx.broker_capacity[..., int(Resource.NW_OUT)] * thr
+        return torch.full_like(upper, _NEG), upper
+
+    def _cap_factor(self, ctx):
+        return (ctx.broker_capacity[..., int(Resource.NW_OUT)],
+                self.constraint.cap_threshold(Resource.NW_OUT))
+
+
+# ---------------------------------------------------------------------------
+# Index helpers of the bespoke goals
+# ---------------------------------------------------------------------------
+
+def _jax_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """The row a JAX gather reads for ``idx`` along an axis of ``n``: a
+    negative index counts from the end, then the index is clamped into
+    [0, n) (padding partitions carry topic -1)."""
+    idx = idx.long()
+    return torch.clamp(torch.where(idx < 0, idx + n, idx), 0, n - 1)
+
+
+def _per_broker(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``plane[..., idx]`` for a per-broker plane ``[*L, B1]`` and broker ids
+    ``[*L, ...]`` with the same leading axes (unbatched: ``plane[idx]``)."""
+    if plane.dim() == 1:
+        return plane[idx]
+    flat = idx.reshape(plane.shape[:-1] + (-1,))
+    return torch.gather(plane, -1, flat).reshape(idx.shape)
+
+
+def _kinds(c: Candidates):
+    """(is_move, is_swap) bool[N]."""
+    return c.kind == MOVE_INTER_BROKER, c.kind == MOVE_SWAP
+
+
+def _ones(c: Candidates) -> torch.Tensor:
+    return torch.ones(c.p.shape, dtype=torch.bool, device=c.p.device)
+
+
+def _count_replicas_norm(state: SearchState) -> torch.Tensor:
+    """``_norm01(-replica_count)``: emptier brokers first."""
+    return _norm01(-state.replica_count.to(torch.float32))
+
+
+class _DeviceMask:
+    """A host array the goal was bound with, uploaded once per device."""
+
+    def __init__(self, array):
+        self.host = np.asarray(array)
+        self._on = {}
+
+    def on(self, device) -> torch.Tensor:
+        t = self._on.get(device)
+        if t is None:
+            t = torch.from_numpy(self.host).to(device)
+            self._on[device] = t
+        return t
+
+
+# ---------------------------------------------------------------------------
+# Rack awareness
+# ---------------------------------------------------------------------------
+
+class RackAwareGoal(GoalKernel):
+    """No two replicas of a partition on the same rack (ref
+    RackAwareGoal.java; hard)."""
+
+    name = "RackAwareGoal"
+    hard = True
+
+    def _dup_mask(self, state: SearchState, ctx: SearchContext):
+        """bool[P, R] — replica shares a rack with a lower slot's replica."""
+        racks = _per_broker(ctx.broker_rack, state.rb)             # [P, R]
+        valid = state.rb < ctx.num_brokers_padded
+        R = racks.shape[-1]
+        same = racks[..., :, None] == racks[..., None, :]          # [P, R, R]
+        lower = torch.tril(torch.ones((R, R), dtype=torch.bool,
+                                      device=racks.device), diagonal=-1)
+        both = valid[..., :, None] & valid[..., None, :]
+        return (same & lower & both).any(dim=-1)
+
+    def violation(self, state, ctx):
+        return self._dup_mask(state, ctx).sum(dim=(-2, -1)).to(torch.float32)
+
+    def propose(self, state, ctx, key, cfg):
+        prio = torch.where(self._dup_mask(state, ctx), 1.0, _NEG)
+        return _top_replica_dest_grid(state, ctx, key, cfg, prio,
+                                      _count_replicas_norm(state))
+
+    def _dup_change(self, state, ctx, p, r, new_broker):
+        """(before, after) count of same-rack pairs involving replica (p, r)
+        when it relocates to ``new_broker`` (pairs, not booleans, so the
+        delta agrees with the pairwise violation at any RF)."""
+        row = state.rb[p]                                          # [N, R]
+        racks = ctx.broker_rack[row]
+        valid = row < ctx.num_brokers_padded
+        R = racks.shape[-1]
+        others = valid & (torch.arange(R, device=row.device)[None, :]
+                          != r[:, None])
+        my_rack = ctx.broker_rack[state.rb[p, r]]
+        new_rack = ctx.broker_rack[new_broker]
+        before = ((racks == my_rack[:, None]) & others).sum(dim=-1)
+        after = ((racks == new_rack[:, None]) & others).sum(dim=-1)
+        return before, after
+
+    def delta(self, state, ctx, c):
+        b1, a1 = self._dup_change(state, ctx, c.p, c.r, c.dst)
+        b2, a2 = self._dup_change(state, ctx, c.p2, c.r2, c.src)
+        d1 = (a1 - b1).to(torch.float32)
+        d2 = (a2 - b2).to(torch.float32)
+        is_move, is_swap = _kinds(c)
+        return torch.where(is_move, d1, torch.where(is_swap, d1 + d2, 0.0))
+
+    def accepts(self, state, ctx, c):
+        # An inter-broker move is rejected whenever the destination rack
+        # already hosts another replica of the partition (no "was already
+        # violating" relaxation, as RackAwareGoal.actionAcceptance).
+        _, a1 = self._dup_change(state, ctx, c.p, c.r, c.dst)
+        _, a2 = self._dup_change(state, ctx, c.p2, c.r2, c.src)
+        is_move, is_swap = _kinds(c)
+        return torch.where(is_move, a1 == 0,
+                           torch.where(is_swap, (a1 == 0) & (a2 == 0), True))
+
+    def collective_guard(self, state, ctx, c, earlier):
+        # Partition-local: the engine already serializes shared rows.
+        return _ones(c)
+
+
+def _count_distinct(values: torch.Tensor, size: int) -> torch.Tensor:
+    """Number of distinct non-negative values below ``size`` along the last
+    axis: one scatter-max into ``[..., size]`` flags, ids clamped into
+    [0, size) (the reference's ``.at[clip(v)].max``)."""
+    flags = torch.zeros(values.shape[:-1] + (size,), dtype=torch.int32,
+                        device=values.device)
+    flags = flags.scatter_reduce(-1, values.long().clamp(0, size - 1),
+                                 (values >= 0).to(torch.int32), "amax")
+    return flags.sum(dim=-1)
+
+
+class RackAwareDistributionGoal(GoalKernel):
+    """At most ``ceil(RF / num_alive_racks)`` replicas of a partition per
+    rack (ref RackAwareDistributionGoal.java; hard): rack awareness
+    relaxed for RF above the rack count."""
+
+    name = "RackAwareDistributionGoal"
+    hard = True
+
+    def _limit(self, state: SearchState, ctx: SearchContext) -> torch.Tensor:
+        B1 = ctx.broker_rack.shape[-1]
+        alive_racks = torch.where(ctx.broker_alive, ctx.broker_rack.long(), -1)
+        num_racks = torch.clamp(_count_distinct(alive_racks, B1), min=1)
+        rf = (state.rb < ctx.num_brokers_padded).sum(dim=-1)         # [P]
+        rf = rf.to(torch.float32) / num_racks.to(torch.float32)[..., None]
+        return torch.ceil(rf).to(torch.int64)                        # [P]
+
+    @staticmethod
+    def _row_penalty(racks, valid, limit):
+        """Per-partition excess: the sum over racks of max(0, n_rack -
+        limit), carried by each rack group's first slot."""
+        R = racks.shape[-1]
+        same = ((racks[..., :, None] == racks[..., None, :])
+                & valid[..., :, None] & valid[..., None, :])
+        n = same.sum(dim=-1)                                         # [..., R]
+        earlier = torch.tril(torch.ones((R, R), dtype=torch.bool,
+                                        device=racks.device), diagonal=-1)
+        first = valid & ~(same & earlier).any(dim=-1)
+        excess = torch.clamp(n - limit[..., None], min=0)
+        return torch.where(first, excess, 0).sum(dim=-1)
+
+    def violation(self, state, ctx):
+        racks = _per_broker(ctx.broker_rack, state.rb)
+        valid = state.rb < ctx.num_brokers_padded
+        pen = self._row_penalty(racks, valid, self._limit(state, ctx))
+        return pen.sum(dim=-1).to(torch.float32)
+
+    def propose(self, state, ctx, key, cfg):
+        racks = ctx.broker_rack[state.rb]
+        valid = state.rb < ctx.num_brokers_padded
+        limit = self._limit(state, ctx)
+        same = ((racks[:, :, None] == racks[:, None, :])
+                & valid[:, :, None] & valid[:, None, :])
+        n = same.sum(dim=-1)
+        prio = torch.where(valid & (n > limit[:, None]), 1.0, _NEG)
+        return _top_replica_dest_grid(state, ctx, key, cfg, prio,
+                                      _count_replicas_norm(state))
+
+    def _side_delta(self, state, ctx, limit, p, r, new_broker):
+        """Partition p's penalty change when slot r relocates to
+        ``new_broker``."""
+        rb = state.rb[p]                                             # [N, R]
+        R = rb.shape[-1]
+        B = ctx.num_brokers_padded
+        lim = limit[p]
+        before = self._row_penalty(ctx.broker_rack[rb], rb < B, lim)
+        rb2 = torch.where(torch.arange(R, device=rb.device)[None, :]
+                          == r[:, None], new_broker[:, None], rb)
+        after = self._row_penalty(ctx.broker_rack[rb2], rb2 < B, lim)
+        return (after - before).to(torch.float32)
+
+    def _side_deltas(self, state, ctx, c):
+        limit = self._limit(state, ctx)
+        return (self._side_delta(state, ctx, limit, c.p, c.r, c.dst),
+                self._side_delta(state, ctx, limit, c.p2, c.r2, c.src))
+
+    def delta(self, state, ctx, c):
+        d1, d2 = self._side_deltas(state, ctx, c)
+        is_move, is_swap = _kinds(c)
+        return torch.where(is_move, d1, torch.where(is_swap, d1 + d2, 0.0))
+
+    def accepts(self, state, ctx, c):
+        # Hard, per side: a swap may not buy p2's improvement with a new
+        # violation on p.
+        d1, d2 = self._side_deltas(state, ctx, c)
+        is_move, is_swap = _kinds(c)
+        return torch.where(is_move, d1 <= 0,
+                           torch.where(is_swap, (d1 <= 0) & (d2 <= 0), True))
+
+    def collective_guard(self, state, ctx, c, earlier):
+        return _ones(c)                                  # partition-local
+
+
+class KafkaAssignerEvenRackAwareGoal(RackAwareDistributionGoal):
+    """Kafka-assigner mode's even-rack placement (ref
+    kafkaassigner/KafkaAssignerEvenRackAwareGoal.java): the even-spread
+    invariant of RackAwareDistributionGoal, reached by the batched
+    search."""
+
+    name = "KafkaAssignerEvenRackAwareGoal"
+    hard = True
+
+
+class KafkaAssignerDiskUsageDistributionGoal(ResourceDistributionGoal):
+    """Kafka-assigner mode's disk-usage balance (ref
+    kafkaassigner/KafkaAssignerDiskUsageDistributionGoal.java)."""
+
+    def __init__(self, constraint: BalancingConstraint):
+        super().__init__(Resource.DISK, constraint)
+        self.name = "KafkaAssignerDiskUsageDistributionGoal"
+
+
+# ---------------------------------------------------------------------------
+# Topic-scoped goals: [T, B1] cell tables, guarded through KK
+# ---------------------------------------------------------------------------
+
+def _topic_rows(ctx: SearchContext, p: torch.Tensor, T: int):
+    """(raw, gathered) topic of partition rows ``p``: the raw id (-1 on
+    padding rows) names a cell in the collective guards, the gathered one
+    is the table row the reference's gathers read."""
+    raw = ctx.partition_topic[p].long()
+    return raw, _jax_index(raw, T)
+
+
+class TopicReplicaDistributionGoal(GoalKernel):
+    """Per-topic replica counts balanced across alive brokers (ref
+    TopicReplicaDistributionGoal.java; gap clamping per
+    AnalyzerConfig.java:112-131)."""
+
+    name = "TopicReplicaDistributionGoal"
+    hard = False
+    uses_topic_counts = True
+
+    def __init__(self, constraint: BalancingConstraint):
+        self.constraint = constraint
+
+    def _bounds(self, state: SearchState, ctx: SearchContext):
+        """(lower, upper) float32[T] (``[*L, T]`` batched)."""
+        tc = state.topic_counts                                  # [T, B1]
+        total = torch.where(ctx.broker_valid[..., None, :], tc, 0).sum(-1)
+        n = torch.clamp(ctx.broker_alive.sum(-1), min=1)
+        avg = total.to(torch.float32) / n.to(torch.float32)[..., None]
+        cst = self.constraint
+        gap = torch.clamp(avg * (cst.topic_replica_balance_threshold - 1.0),
+                          float(cst.topic_replica_balance_min_gap),
+                          float(cst.topic_replica_balance_max_gap))
+        return torch.clamp(avg - gap, min=0.0), avg + gap
+
+    @staticmethod
+    def _penalty(counts, lower, upper, alive):
+        c = counts.to(torch.float32)
+        pen = torch.clamp(c - upper, min=0.0) + torch.clamp(lower - c, min=0.0)
+        return torch.where(alive, pen, 0.0)
+
+    def violation(self, state, ctx):
+        lower, upper = self._bounds(state, ctx)
+        pen = self._penalty(state.topic_counts, lower[..., None],
+                            upper[..., None], ctx.broker_alive[..., None, :])
+        return topic_cell_sum(pen)
+
+    def propose(self, state, ctx, key, cfg):
+        lower, upper = self._bounds(state, ctx)
+        tc = state.topic_counts.to(torch.float32)               # [T, B1]
+        T, B1 = tc.shape
+        alive = ctx.broker_alive[None, :]
+        excess = torch.where(alive, torch.clamp(tc - upper[:, None], min=0.0),
+                             tc)
+        t_of_p = _jax_index(ctx.partition_topic, T)               # [P]
+        src_excess = excess[t_of_p[:, None], state.rb]            # [P, R]
+        q, finite = _unit01(src_excess)
+        prio = torch.where(src_excess > 0.0,
+                           _tier_plus_norm01(_TIER_EXCESS, q, finite), _NEG)
+        prio = torch.where(ctx.movable, prio, _NEG)
+        prio = torch.where(state.offline, _TIER_OFFLINE, prio)
+        deficit = torch.where(alive, torch.clamp(lower[:, None] - tc, min=0.0),
+                              0.0)
+
+        # Per-candidate topic-aware destination: each short-listed replica
+        # scores every broker by its own topic's deficit (+ general
+        # headroom), masked against brokers already hosting the partition.
+        P, R = state.rb.shape
+        K = min(cfg.num_replica_candidates, P * R)
+        krep, kdst, kswap = _random.subkeys(key, 3)
+        prio = prio + torch.where(torch.isfinite(prio),
+                                  _noise(krep, prio.shape, cfg.noise_scale),
+                                  0.0)
+        vals, idx = top_k(prio.reshape(-1), K)
+        p, r = idx // R, idx % R
+        sel = torch.isfinite(vals)
+        base = (2.0 * _norm01(deficit[t_of_p[p]])
+                + _count_replicas_norm(state)[None, :])
+        score = _plus_noise(base, kdst, cfg.noise_scale)
+        dst, ok = _legal_dest_argmax(state, ctx, p, score)
+        out = make_move_candidates(state, ctx, p, r, dst, sel & ok)
+        if cfg.num_swap_candidates > 0:
+            out = concat_candidates(
+                out, self._swap_candidates(state, ctx, kswap, cfg, upper))
+        return out
+
+    def _swap_candidates(self, state, ctx, key, cfg, upper):
+        """Heavy-for-light topic swaps with topic-matched pairing: each
+        heavy replica (cell above upper) picks the broker where its topic
+        is scarcest and trades against that broker's light replica (one a
+        broker: the highest slot among the ties of a segment max of a
+        uniform draw)."""
+        tc = state.topic_counts.to(torch.float32)               # [T, B1]
+        T, B1 = tc.shape
+        dev = tc.device
+        t_of_p = _jax_index(ctx.partition_topic, T)
+        P, R = state.rb.shape
+        K = min(cfg.num_swap_candidates, P * R)
+        src_b = state.rb
+        swappable = (ctx.movable & ~state.offline
+                     & ctx.raw_dest_allowed[src_b])
+        src_over = torch.clamp(tc - upper[:, None], min=0.0)[t_of_p[:, None],
+                                                             src_b]
+        kh, kl, kd = _random.subkeys(key, 3)
+        q, finite = _unit01(src_over)
+        hprio = torch.where(swappable & (src_over > 0.0),
+                            _tier_plus_norm01(_TIER_EXCESS, q, finite), _NEG)
+        hprio = hprio + torch.where(torch.isfinite(hprio),
+                                    _noise(kh, hprio.shape, cfg.noise_scale),
+                                    0.0)
+        hv, hidx = top_k(hprio.reshape(-1), K)
+        p1, r1 = hidx // R, hidx % R
+        t1 = t_of_p[p1]                                           # [K]
+
+        # One light partner per broker: a segment max of a uniform draw
+        # over in-bounds replicas, then the highest slot holding it. An
+        # empty segment keeps the max's identity (-inf, INT32_MIN).
+        light = (swappable & (src_over <= 0.0)).reshape(-1)
+        lraw = torch.where(light, _random.uniform(kl, (P * R,)), _NEG)
+        broker_of = src_b.reshape(-1)
+        best_val = torch.full((B1,), _NEG, device=dev).scatter_reduce(
+            0, broker_of, lraw, "amax")
+        slots = torch.arange(P * R, device=dev)
+        tied = torch.isfinite(lraw) & (lraw == best_val[broker_of])
+        best_slot = torch.full((B1,), -2**31, dtype=torch.int64,
+                               device=dev).scatter_reduce(
+            0, broker_of, torch.where(tied, slots, -1), "amax")
+        has_light = best_slot >= 0
+
+        # Destination: the broker where the heavy candidate's topic is
+        # scarcest and that offers a partner, masked against the raw
+        # destination filter and the brokers hosting the partition.
+        hosting = torch.zeros((K, B1), dtype=torch.bool, device=dev)
+        hosting.scatter_(1, state.rb[p1], True)  # sentinel column B is in range
+        scarcity = _norm01(-tc)[t1]                               # [K, B1]
+        score = torch.where(
+            has_light[None, :] & ctx.raw_dest_allowed[None, :] & ~hosting,
+            _plus_noise(scarcity, kd, cfg.noise_scale), _NEG)
+        dst = torch.argmax(score, dim=1)
+        ok = torch.isfinite(score.amax(dim=1))
+        partner = best_slot[dst]
+        p2, r2 = partner // R, partner % R
+        valid = torch.isfinite(hv) & ok & (partner >= 0)
+        # An invalid pairing's partner may be negative: its row is the one
+        # the reference's gathers read.
+        return make_swap_candidates(state, ctx, p1, r1, _jax_index(p2, P),
+                                    r2, valid)
+
+    def _cell_deltas(self, ctx, c, T):
+        """Per-candidate topic-count deltas on the four (topic, broker)
+        cells a move or swap touches; a same-topic swap cancels."""
+        is_move, is_swap = _kinds(c)
+        m1 = (is_move | is_swap).to(torch.int32)       # topic of p: src -> dst
+        m2 = is_swap.to(torch.int32)                   # topic of p2: dst -> src
+        t1r, t1 = _topic_rows(ctx, c.p, T)
+        t2r, t2 = _topic_rows(ctx, c.p2, T)
+        same_t = t1r == t2r
+        m2_t1 = torch.where(same_t, m2, 0)
+        m2_t2 = torch.where(same_t, 0, m2)
+        return (t1r, t1), (t2r, t2), m2_t1 - m1, m1 - m2_t1, m2_t2
+
+    def delta(self, state, ctx, c):
+        lower, upper = self._bounds(state, ctx)
+        tc = state.topic_counts
+        (_, t1), (_, t2), d_src_t1, d_dst_t1, m2 = self._cell_deltas(
+            ctx, c, tc.shape[0])
+        alive_s, alive_d = ctx.broker_alive[c.src], ctx.broker_alive[c.dst]
+
+        def pen(t, b, alive, d):
+            cell = tc[t, b]
+            return (self._penalty(cell + d, lower[t], upper[t], alive)
+                    - self._penalty(cell, lower[t], upper[t], alive))
+        return (pen(t1, c.src, alive_s, d_src_t1)
+                + pen(t1, c.dst, alive_d, d_dst_t1)
+                + pen(t2, c.dst, alive_d, -m2)
+                + pen(t2, c.src, alive_s, m2))
+
+    def accepts(self, state, ctx, c):
+        _, upper = self._bounds(state, ctx)
+        tc = state.topic_counts
+        (_, t1), (_, t2), d_src_t1, d_dst_t1, m2 = self._cell_deltas(
+            ctx, c, tc.shape[0])
+        # Whichever side gains a topic replica stays within the upper bound
+        # or does not overtake the shrinking side.
+        dst_t1_after = tc[t1, c.dst] + d_dst_t1
+        ok1 = ((d_dst_t1 <= 0) | (dst_t1_after <= upper[t1])
+               | (dst_t1_after <= tc[t1, c.src] + d_src_t1))
+        src_t2_after = tc[t2, c.src] + m2
+        ok2 = ((m2 <= 0) | (src_t2_after <= upper[t2])
+               | (src_t2_after <= tc[t2, c.dst] - m2))
+        return ok1 & ok2
+
+    def collective_guard(self, state, ctx, c, earlier):
+        # Net flow per (topic, broker) cell, cell id topic * B1 + broker:
+        # candidates interact only where an earlier one moves a replica of
+        # the same topic onto or off the same broker. One KK launch
+        # evaluates the four one-sided queries: the gaining cells against
+        # inflow, the shrinking cells of the escape clauses against outflow.
+        _, upper = self._bounds(state, ctx)
+        tc = state.topic_counts
+        (t1r, t1), (t2r, t2), d_src_t1, d_dst_t1, m2 = self._cell_deltas(
+            ctx, c, tc.shape[0])
+        B1 = state.util.shape[0]
+        cells = torch.stack([t1r * B1 + c.src, t1r * B1 + c.dst,
+                             t2r * B1 + c.dst, t2r * B1 + c.src])   # [4, N]
+        deltas = torch.stack([d_src_t1, d_dst_t1, -m2, m2]).to(torch.float32)
+        inflow, outflow = deltas.clamp(min=0.0), deltas.clamp(max=0.0)
+        net1, lo1, net2, lo2 = cell_net_flow(
+            cells[[1, 0, 3, 2]], cells,
+            torch.stack([inflow, outflow, inflow, outflow]), earlier)
+        after1 = tc[t1, c.dst].to(torch.float32) + net1 + d_dst_t1
+        src1_lo = tc[t1, c.src].to(torch.float32) + lo1 + d_src_t1
+        ok1 = ((net1 + d_dst_t1 <= 0) | (after1 <= upper[t1])
+               | (after1 <= src1_lo))
+        after2 = tc[t2, c.src].to(torch.float32) + net2 + m2
+        src2_lo = tc[t2, c.dst].to(torch.float32) + lo2 - m2
+        ok2 = ((net2 + m2 <= 0) | (after2 <= upper[t2])
+               | (after2 <= src2_lo))
+        return ok1 & ok2
 
 
 class MinTopicLeadersPerBrokerGoal(GoalKernel):
     """Every alive broker must lead at least ``min_count`` partitions of each
-    *interested* topic (ref ``MinTopicLeadersPerBrokerGoal.java``; hard).
-
-    Ported in its inactive form only — the reference default, with no
-    interested topics — which is what the off-chain hard-goal audit meets:
-    violation 0, no candidates, every action accepted. Binding a pattern
-    that matches a topic raises until the active form lands."""
+    *interested* topic (ref MinTopicLeadersPerBrokerGoal.java; hard).
+    Interested topics are configured by name pattern
+    (``topics.with.min.leaders.per.broker``) and resolved at ``bind``; with
+    none the goal is inactive (the reference default): violation 0, no
+    candidates, every action accepted, and no [T, B1] state."""
 
     name = "MinTopicLeadersPerBrokerGoal"
     hard = True
 
     def __init__(self, constraint: BalancingConstraint, *,
-                 topic_pattern: str | None = None,
+                 interested_topics=None, topic_pattern: str | None = None,
                  min_count: int | None = None):
         self.constraint = constraint
+        #: bool[T] topics the minimum applies to (None: inactive)
+        self.interested_topics = (None if interested_topics is None
+                                  else _DeviceMask(np.asarray(
+                                      interested_topics, bool)))
         self.topic_pattern = (topic_pattern if topic_pattern is not None
                               else constraint.topics_with_min_leaders_per_broker)
         self.min_count = (min_count if min_count is not None
                           else constraint.min_topic_leaders_per_broker)
+        active = interested_topics is not None
+        self.uses_topic_counts = active
+        self.uses_topic_leader_counts = active
 
     def bind(self, metadata) -> "MinTopicLeadersPerBrokerGoal":
-        if not self.topic_pattern:
+        if self.interested_topics is not None or not self.topic_pattern:
             return self
-        if any(fnmatch.fnmatch(t, self.topic_pattern)
-               for t in metadata.topics):
-            raise NotImplementedError(
-                f"{self.name} with interested topics (pattern "
-                f"{self.topic_pattern!r}) is not yet ported: {_PART_B}")
-        return self
+        mask = np.array([fnmatch.fnmatch(t, self.topic_pattern)
+                         for t in metadata.topics], bool)
+        if not mask.any():
+            return self
+        return MinTopicLeadersPerBrokerGoal(
+            self.constraint, interested_topics=mask,
+            topic_pattern=self.topic_pattern, min_count=self.min_count)
 
     def bind_signature(self):
-        return (self.min_count, self.topic_pattern, None)
+        mask = (None if self.interested_topics is None
+                else self.interested_topics.host.tobytes())
+        return (self.min_count, self.topic_pattern, mask)
+
+    def _interested(self, device) -> torch.Tensor:
+        return self.interested_topics.on(device)
+
+    def _deficit(self, state: SearchState, ctx: SearchContext):
+        """int[T, B1] (``[*L, T, B1]``) leaders still missing per cell."""
+        tlc = state.topic_leader_counts
+        d = torch.clamp(self.min_count - tlc, min=0)
+        d = torch.where(ctx.broker_alive[..., None, :], d, 0)
+        return torch.where(self._interested(tlc.device)[:, None], d, 0)
 
     def violation(self, state, ctx):
-        return _zeros_per_scenario(ctx)
+        if self.interested_topics is None:
+            return _zeros_per_scenario(ctx)
+        return self._deficit(state, ctx).sum(dim=(-2, -1)).to(torch.float32)
 
     def propose(self, state, ctx, key, cfg):
-        # An all-invalid batch keeps the engine's shapes uniform.
-        return _top_leadership(state, ctx, key, cfg,
-                               torch.full(state.rb.shape, _NEG,
-                                          device=state.rb.device))
+        if self.interested_topics is None:
+            # An all-invalid batch keeps the engine's shapes uniform.
+            return _top_leadership(state, ctx, key, cfg,
+                                   torch.full(state.rb.shape, _NEG,
+                                              device=state.rb.device))
+        deficit = self._deficit(state, ctx)                        # [T, B1]
+        tlc = state.topic_leader_counts
+        t_of_p = _jax_index(ctx.partition_topic, tlc.shape[0])
+        # Leadership transfers: slot r>0 whose broker needs a leader of
+        # this topic, from a leader whose broker has surplus.
+        surplus_src = (tlc[t_of_p, state.rb[:, 0]]
+                       > self.min_count)[:, None]                  # [P, 1]
+        gain = deficit[t_of_p[:, None], state.rb] > 0              # [P, R]
+        prio = torch.where(gain & surplus_src, 1.0, _NEG)
+        lead = _top_leadership(state, ctx, key, cfg, prio)
+        # Fallback: relocate leader replicas onto deficit brokers.
+        slot0 = (torch.arange(state.rb.shape[1], device=tlc.device)
+                 == 0)[None, :]
+        rprio = torch.where(slot0 & surplus_src, 1.0, _NEG)
+        dest_prio = _norm01(deficit.sum(dim=0).to(torch.float32))
+        moves = _top_replica_dest_grid(state, ctx, key, cfg, rprio, dest_prio)
+        return concat_candidates(lead, moves)
+
+    @staticmethod
+    def _cell_delta(c):
+        """Leadership of the candidate's topic arriving at dst (d1) and the
+        swap counterpart's arriving at src (d2)."""
+        is_lead = c.kind == MOVE_LEADERSHIP
+        is_move, is_swap = _kinds(c)
+        d1 = torch.where(is_lead | ((is_move | is_swap) & (c.r == 0)), 1, 0)
+        d2 = torch.where(is_swap & (c.r2 == 0), 1, 0)
+        return d1, d2
 
     def delta(self, state, ctx, c):
-        return torch.zeros(c.p.shape, dtype=torch.float32, device=c.p.device)
+        if self.interested_topics is None:
+            return torch.zeros(c.p.shape, dtype=torch.float32,
+                               device=c.p.device)
+        tlc = state.topic_leader_counts
+        interested = self._interested(tlc.device)
+        _, t1 = _topic_rows(ctx, c.p, tlc.shape[0])
+        _, t2 = _topic_rows(ctx, c.p2, tlc.shape[0])
+        d1, d2 = self._cell_delta(c)
+
+        def pen(t, b, d):
+            cell = tlc[t, b]
+            active = ctx.broker_alive[b] & interested[t]
+            before = torch.clamp(self.min_count - cell, min=0)
+            after = torch.clamp(self.min_count - (cell + d), min=0)
+            return torch.where(active, after - before, 0)
+        out = (pen(t1, c.src, -d1) + pen(t1, c.dst, d1)
+               + pen(t2, c.dst, -d2) + pen(t2, c.src, d2))
+        return out.to(torch.float32)
 
     def accepts(self, state, ctx, c):
-        return torch.ones(c.p.shape, dtype=torch.bool, device=c.p.device)
+        # Hard: the losing cells may not sink below the minimum.
+        if self.interested_topics is None:
+            return _ones(c)
+        tlc = state.topic_leader_counts
+        interested = self._interested(tlc.device)
+        _, t1 = _topic_rows(ctx, c.p, tlc.shape[0])
+        _, t2 = _topic_rows(ctx, c.p2, tlc.shape[0])
+        d1, d2 = self._cell_delta(c)
+
+        def ok(t, b, d):
+            active = interested[t] & ctx.broker_alive[b]
+            return ~active | (d >= 0) | (tlc[t, b] + d >= self.min_count)
+        return ok(t1, c.src, -d1) & ok(t2, c.dst, -d2)
 
     def collective_guard(self, state, ctx, c, earlier):
-        return torch.ones(c.p.shape, dtype=torch.bool, device=c.p.device)
+        if self.interested_topics is None:
+            return _ones(c)
+        # Pessimistic (outflow-only) prefix accounting on the two losing
+        # cells, both queries in one KK launch.
+        tlc = state.topic_leader_counts
+        interested = self._interested(tlc.device)
+        B1 = state.util.shape[0]
+        t1r, t1 = _topic_rows(ctx, c.p, tlc.shape[0])
+        t2r, t2 = _topic_rows(ctx, c.p2, tlc.shape[0])
+        d1, d2 = self._cell_delta(c)
+        cells = torch.stack([t1r * B1 + c.src, t2r * B1 + c.dst])  # losing
+        outs = torch.stack([d1, d2]).to(torch.float32)
+        net = cell_net_flow(cells, cells, outs.expand(2, 2, -1), earlier)
+
+        def ok(t, b, net_out, d):
+            active = interested[t] & ctx.broker_alive[b]
+            after = tlc[t, b].to(torch.float32) - net_out - d
+            return ~active | (d <= 0) | (after >= self.min_count)
+        return (ok(t1, c.src, net[0], d1.to(torch.float32))
+                & ok(t2, c.dst, net[1], d2.to(torch.float32)))
 
 
-#: The reference's default chain in priority order
-#: (``config/cruisecontrol.properties:96``) with each goal's hardness.
-DEFAULT_GOALS = (
-    ("RackAwareGoal", True),
-    ("MinTopicLeadersPerBrokerGoal", True),
-    ("ReplicaCapacityGoal", True),
-    ("DiskCapacityGoal", True),
-    ("NetworkInboundCapacityGoal", True),
-    ("NetworkOutboundCapacityGoal", True),
-    ("CpuCapacityGoal", True),
-    ("ReplicaDistributionGoal", False),
-    ("PotentialNwOutGoal", False),
-    ("DiskUsageDistributionGoal", False),
-    ("NetworkInboundUsageDistributionGoal", False),
-    ("NetworkOutboundUsageDistributionGoal", False),
-    ("CpuUsageDistributionGoal", False),
-    ("TopicReplicaDistributionGoal", False),
-    ("LeaderReplicaDistributionGoal", False),
-    ("LeaderBytesInDistributionGoal", False),
-)
+class BrokerSetAwareGoal(GoalKernel):
+    """Replicas of a topic stay inside the topic's broker set (ref
+    BrokerSetAwareGoal.java; hard). ``topic_set[T]`` comes from the
+    broker-set mapping policy (:mod:`..config.brokersets`), the brokers'
+    sets from the model; a topic or broker without a set (-1) is
+    unconstrained, and a model without broker sets leaves the goal
+    inactive."""
+
+    name = "BrokerSetAwareGoal"
+    hard = True
+
+    def __init__(self, constraint: BalancingConstraint, *, topic_set=None):
+        self.constraint = constraint
+        #: int32[T] or None
+        self.topic_set = (None if topic_set is None
+                          else _DeviceMask(np.asarray(topic_set, np.int32)))
+
+    def bind(self, metadata) -> "BrokerSetAwareGoal":
+        if self.topic_set is not None or not metadata.broker_sets:
+            return self
+        return BrokerSetAwareGoal(self.constraint, topic_set=topic_set_array(
+            metadata.topics, metadata.broker_sets))
+
+    def bind_signature(self):
+        return None if self.topic_set is None else self.topic_set.host.tobytes()
+
+    def _want(self, ctx, p=None) -> torch.Tensor:
+        """The broker set each partition row (or row ``p``) belongs in."""
+        sets = self.topic_set.on(ctx.partition_topic.device)
+        topic = ctx.partition_topic if p is None else ctx.partition_topic[p]
+        return sets[_jax_index(topic, sets.shape[0])]
+
+    def _mismatch(self, state, ctx) -> torch.Tensor:
+        """bool[P, R] — replica sits outside its topic's broker set."""
+        if self.topic_set is None:
+            return torch.zeros(state.rb.shape, dtype=torch.bool,
+                               device=state.rb.device)
+        want = self._want(ctx)[..., None]                          # [P, 1]
+        have = _per_broker(ctx.broker_set, state.rb)               # [P, R]
+        valid = state.rb < ctx.num_brokers_padded
+        return valid & (want >= 0) & (have >= 0) & (have != want)
+
+    def violation(self, state, ctx):
+        return self._mismatch(state, ctx).sum(dim=(-2, -1)).to(torch.float32)
+
+    def propose(self, state, ctx, key, cfg):
+        prio = torch.where(self._mismatch(state, ctx), 1.0, _NEG)
+        return _top_replica_dest_grid(state, ctx, key, cfg, prio,
+                                      _count_replicas_norm(state))
+
+    def _lands_outside(self, ctx, p, broker):
+        """bool[N] — partition row p's replica would sit outside its set on
+        ``broker``."""
+        want = self._want(ctx, p)
+        have = ctx.broker_set[broker]
+        return (want >= 0) & (have >= 0) & (have != want)
+
+    def delta(self, state, ctx, c):
+        if self.topic_set is None:
+            return torch.zeros(c.p.shape, dtype=torch.float32,
+                               device=c.p.device)
+        mism = self._mismatch(state, ctx)
+        d1 = (self._lands_outside(ctx, c.p, c.dst).to(torch.float32)
+              - mism[c.p, c.r].to(torch.float32))
+        d2 = (self._lands_outside(ctx, c.p2, c.src).to(torch.float32)
+              - mism[c.p2, c.r2].to(torch.float32))
+        is_move, is_swap = _kinds(c)
+        return torch.where(is_move, d1, torch.where(is_swap, d1 + d2, 0.0))
+
+    def accepts(self, state, ctx, c):
+        if self.topic_set is None:
+            return _ones(c)
+        ok1 = ~self._lands_outside(ctx, c.p, c.dst)
+        ok2 = ~self._lands_outside(ctx, c.p2, c.src)
+        is_move, is_swap = _kinds(c)
+        return torch.where(is_move, ok1, torch.where(is_swap, ok1 & ok2, True))
+
+    def collective_guard(self, state, ctx, c, earlier):
+        return _ones(c)                       # a per-replica property
+
+
+class PreferredLeaderElectionGoal(GoalKernel):
+    """Make the original first replica the leader again (ref
+    PreferredLeaderElectionGoal.java; used by DemoteBroker and the
+    kafka-assigner mode)."""
+
+    name = "PreferredLeaderElectionGoal"
+    hard = False
+
+    def violation(self, state, ctx):
+        wrong = ctx.partition_valid & (state.pos[..., 0] != 0)
+        return wrong.sum(dim=-1).to(torch.float32)
+
+    def propose(self, state, ctx, key, cfg):
+        # The slot holding the preferred replica, where the leader is not it.
+        prio = torch.where((state.pos == 0) & (state.pos[:, 0:1] != 0),
+                           1.0, _NEG)
+        return _top_leadership(state, ctx, key, cfg, prio)
+
+    def delta(self, state, ctx, c):
+        is_lead = c.kind == MOVE_LEADERSHIP
+        fixes = (state.pos[c.p, c.r] == 0) & (state.pos[c.p, 0] != 0)
+        breaks = state.pos[c.p, 0] == 0
+        return torch.where(is_lead, torch.where(
+            fixes, -1.0, torch.where(breaks, 1.0, 0.0)), 0.0)
+
+    def accepts(self, state, ctx, c):
+        return _ones(c)
+
+    def collective_guard(self, state, ctx, c, earlier):
+        return _ones(c)              # partition-local
+
+
+# ---------------------------------------------------------------------------
+# The catalog
+# ---------------------------------------------------------------------------
+
+def default_goals(constraint: BalancingConstraint | None = None
+                  ) -> list[GoalKernel]:
+    """The reference's default goal chain in priority order
+    (``config/cruisecontrol.properties:96``)."""
+    cst = constraint or BalancingConstraint()
+    return [
+        RackAwareGoal(),
+        MinTopicLeadersPerBrokerGoal(cst),   # inactive until topics configured
+        ReplicaCapacityGoal(cst),
+        CapacityGoal(Resource.DISK, cst),
+        CapacityGoal(Resource.NW_IN, cst),
+        CapacityGoal(Resource.NW_OUT, cst),
+        CapacityGoal(Resource.CPU, cst),
+        ReplicaDistributionGoal(cst),
+        PotentialNwOutGoal(cst),
+        ResourceDistributionGoal(Resource.DISK, cst),
+        ResourceDistributionGoal(Resource.NW_IN, cst),
+        ResourceDistributionGoal(Resource.NW_OUT, cst),
+        ResourceDistributionGoal(Resource.CPU, cst),
+        TopicReplicaDistributionGoal(cst),
+        LeaderReplicaDistributionGoal(cst),
+        LeaderBytesInDistributionGoal(cst),
+    ]
+
+
+#: The default chain's names with each goal's hardness (the hard-goal audit
+#: reads the hard ones).
+DEFAULT_GOALS = tuple((g.name, g.hard) for g in default_goals())
 
 GOAL_REGISTRY = {
+    "RackAwareGoal": lambda cst: RackAwareGoal(),
     "ReplicaCapacityGoal": ReplicaCapacityGoal,
     "DiskCapacityGoal": lambda cst: CapacityGoal(Resource.DISK, cst),
     "NetworkInboundCapacityGoal": lambda cst: CapacityGoal(Resource.NW_IN, cst),
     "NetworkOutboundCapacityGoal": lambda cst: CapacityGoal(Resource.NW_OUT, cst),
     "CpuCapacityGoal": lambda cst: CapacityGoal(Resource.CPU, cst),
     "ReplicaDistributionGoal": ReplicaDistributionGoal,
+    "PotentialNwOutGoal": PotentialNwOutGoal,
     "DiskUsageDistributionGoal": lambda cst: ResourceDistributionGoal(Resource.DISK, cst),
     "NetworkInboundUsageDistributionGoal": lambda cst: ResourceDistributionGoal(Resource.NW_IN, cst),
     "NetworkOutboundUsageDistributionGoal": lambda cst: ResourceDistributionGoal(Resource.NW_OUT, cst),
     "CpuUsageDistributionGoal": lambda cst: ResourceDistributionGoal(Resource.CPU, cst),
+    "TopicReplicaDistributionGoal": TopicReplicaDistributionGoal,
+    "LeaderReplicaDistributionGoal": LeaderReplicaDistributionGoal,
+    "LeaderBytesInDistributionGoal": LeaderBytesInDistributionGoal,
+    "PreferredLeaderElectionGoal": lambda cst: PreferredLeaderElectionGoal(),
     "MinTopicLeadersPerBrokerGoal": MinTopicLeadersPerBrokerGoal,
+    "BrokerSetAwareGoal": BrokerSetAwareGoal,
+    "RackAwareDistributionGoal": lambda cst: RackAwareDistributionGoal(),
+    "KafkaAssignerEvenRackAwareGoal":
+        lambda cst: KafkaAssignerEvenRackAwareGoal(),
+    "KafkaAssignerDiskUsageDistributionGoal":
+        KafkaAssignerDiskUsageDistributionGoal,
 }
 
-#: Catalog goals the reference registers that this port does not carry yet.
-NOT_YET_PORTED = frozenset({
-    "RackAwareGoal", "PotentialNwOutGoal", "TopicReplicaDistributionGoal",
-    "LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal",
-    "PreferredLeaderElectionGoal", "BrokerSetAwareGoal",
-    "RackAwareDistributionGoal", "KafkaAssignerEvenRackAwareGoal",
-    "KafkaAssignerDiskUsageDistributionGoal"})
+#: Kafka-assigner mode's minimal goal set (ref analyzer/kafkaassigner/,
+#: triggered by the kafka_assigner=true request parameter).
+KAFKA_ASSIGNER_GOALS = ["KafkaAssignerEvenRackAwareGoal",
+                        "KafkaAssignerDiskUsageDistributionGoal"]
 
-#: Documented relaxations of registered hard goals (names only: a chain
-#: carrying an alternative satisfies the strict form's audit).
+#: Documented relaxations of registered hard goals: a chain carrying one of
+#: the alternatives satisfies the strict form's audit.
 HARD_GOAL_ALTERNATIVES = {
     "RackAwareGoal": ("RackAwareDistributionGoal",
                       "KafkaAssignerEvenRackAwareGoal"),
@@ -1024,6 +1772,7 @@ HARD_GOAL_ALTERNATIVES = {
 
 
 def short_goal_name(name: str) -> str:
+    """A goal name without its package (the reference accepts both)."""
     return name.rsplit(".", 1)[-1]
 
 
@@ -1034,17 +1783,7 @@ def goals_by_name(names: list[str],
     out = []
     for n in names:
         short = short_goal_name(n)
-        if short in NOT_YET_PORTED:
-            raise ValueError(f"goal {n!r} is not yet ported to "
-                             f"cruise_control_tpu_torch: {_PART_B}")
         if short not in GOAL_REGISTRY:
             raise ValueError(f"unknown goal {n!r}")
         out.append(GOAL_REGISTRY[short](cst))
     return out
-
-
-def default_goals(constraint: BalancingConstraint | None = None
-                  ) -> list[GoalKernel]:
-    """The reference's default chain. Raises ``ValueError`` until every
-    member is ported (RackAwareGoal and the rest of part B)."""
-    return goals_by_name([name for name, _hard in DEFAULT_GOALS], constraint)

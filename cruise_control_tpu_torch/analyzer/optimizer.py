@@ -276,8 +276,8 @@ class TorchGoalOptimizer:
     def _audit_goals_for(self, chain_goals, metadata,
                          options: OptimizationOptions):
         """Registered hard goals NOT in the chain, bound to this model — the
-        post-optimization audit set. Goals are filtered by name before any
-        is built, so a waived goal that is not yet ported is never needed."""
+        post-optimization audit set. Goals are filtered by name (waivers,
+        the chain and its documented alternatives) before any is built."""
         if options.skip_hard_goal_check:
             return []
         in_chain = {g.name for g in chain_goals}

@@ -68,7 +68,7 @@ class SearchContext(_Replaceable):
 
     @property
     def num_brokers_padded(self) -> int:
-        return self.broker_capacity.shape[0] - 1
+        return self.broker_capacity.shape[-2] - 1
 
 
 @dataclass
@@ -129,7 +129,8 @@ def init_state(model: FlatClusterModel, *,
     state with the same leading axis: each float aggregate is one ordered
     segment sum with a batch axis, which adds every scenario's rows into
     its own B1 brokers in (partition, slot) order, the order of the
-    reference's vmapped scatter-add."""
+    reference's vmapped scatter-add. Topic counts (``[..., T, B1]``) come
+    from each scenario's own placement and validity."""
     rb = model.replica_broker.long().clone()               # [..., P, R]
     lead = tuple(rb.shape[:-2])
     S = math.prod(lead)
@@ -173,28 +174,29 @@ def init_state(model: FlatClusterModel, *,
     if with_topic_leader_counts and with_topic_counts is None:
         raise ValueError("with_topic_leader_counts requires the topic count "
                          "(pass with_topic_counts=num_topics)")
-    if with_topic_counts is not None and lead:
-        raise NotImplementedError(
-            "topic counts over a scenario batch are not yet ported: no "
-            "ported goal reads them (ROADMAP Queue 1 item 8, goals part B)")
     if with_topic_counts is not None:
+        # Integer scatter-adds are exact in any order. Each scenario adds
+        # its own placement into its own [T, B1] table (flat offset
+        # s * T * B1); padding partitions (topic -1) add nothing.
         T = with_topic_counts
-        topic = model.partition_topic.long()
-        tok = (topic >= 0) & (topic < T)                 # padding: topic -1
-        ok = valid & tok[:, None]
-        idx = torch.where(ok, topic[:, None] * B1 + rb, 0)
-        tc = torch.zeros(T * B1, dtype=torch.int32, device=dev).index_add_(
+        tscen = (torch.arange(S, device=dev) * (T * B1)).reshape(lead + (1,))
+        topic = model.partition_topic.long()                # [..., P]
+        tok = (topic >= 0) & (topic < T)
+        ok = valid & tok[..., None]
+        idx = torch.where(ok, (topic * B1 + tscen)[..., None] + rb, 0)
+        tc = torch.zeros(S * T * B1, dtype=torch.int32,
+                         device=dev).index_add_(
             0, idx.reshape(-1), ok.reshape(-1).to(torch.int32))
-        topic_counts = tc.reshape(T, B1)
-        topic_counts[:, B] = 0
+        topic_counts = tc.reshape(lead + (T, B1))
+        topic_counts[..., B] = 0
         if with_topic_leader_counts:
             lok = model.partition_valid & tok
-            lidx = torch.where(lok, topic * B1 + rb[:, 0], 0)
-            tlc = torch.zeros(T * B1, dtype=torch.int32,
+            lidx = torch.where(lok, topic * B1 + tscen + rb[..., 0], 0)
+            tlc = torch.zeros(S * T * B1, dtype=torch.int32,
                               device=dev).index_add_(
-                0, lidx, lok.to(torch.int32))
-            topic_leader_counts = tlc.reshape(T, B1)
-            topic_leader_counts[:, B] = 0
+                0, lidx.reshape(-1), lok.reshape(-1).to(torch.int32))
+            topic_leader_counts = tlc.reshape(lead + (T, B1))
+            topic_leader_counts[..., B] = 0
 
     pos = model.replica_pref_pos.long().clone()
     # A replica hosted on a dead (or padding) broker is offline whether or

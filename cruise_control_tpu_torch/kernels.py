@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels, their wrappers and plain twins.
 
-Three kernels carry the dry-run proposal path (sources in ``csrc/``):
+Four kernels carry the dry-run proposal path (sources in ``csrc/``):
 
 - **KA** ``threefry2x32`` — counter-mode threefry2x32 draws (the
   ``jax.random`` stream the goal kernels draw tie-break noise from), the
@@ -17,7 +17,11 @@ Three kernels carry the dry-run proposal path (sources in ``csrc/``):
 - **KC** ``net_broker_flow`` — the collective guard's pessimistic net flow
   per candidate, without the four ``[M, M]`` float masks: a warp a row,
   the mask row read in 16-byte loads, the matching terms added in
-  ascending j by ballot.
+  ascending j by ballot;
+- **KK** ``cell_net_flow`` — the same prefix accounting on (topic, broker)
+  cells for the topic goals' guards: several one-sided queries against
+  several cell slots in one launch, a warp a row (integer-valued terms,
+  exact in any order).
 
 Two more carry the what-if sweep and the move scheduler:
 
@@ -83,16 +87,18 @@ import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
-SOURCES = ("threefry.cu", "segment_sum.cu", "net_flow.cu", "failover.cu",
-           "first_fit.cu", "delta_scatter.cu", "cluster_stats.cu",
-           "intra_walk.cu", "population_select.cu", "launch_floor.cu")
+SOURCES = ("threefry.cu", "segment_sum.cu", "net_flow.cu", "cell_flow.cu",
+           "failover.cu", "first_fit.cu", "delta_scatter.cu",
+           "cluster_stats.cu", "intra_walk.cu", "population_select.cu",
+           "launch_floor.cu")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches per kernel since the last ``reset_launch_counts()``
 LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
-            "net_broker_flow": 0, "scenario_failover": 0, "first_fit": 0,
+            "net_broker_flow": 0, "cell_net_flow": 0,
+            "scenario_failover": 0, "first_fit": 0,
             "delta_row_scatter": 0, "cluster_stats": 0,
             "intra_broker_walk": 0, "population_select": 0,
             "fleet_scenario_failover": 0}
@@ -196,6 +202,7 @@ def load_library():
             lib.cc_ordered_segment_sum_scratch.restype = None
             lib.cc_ordered_range_sum.argtypes = [p, p, p, i64, i64, p]
             lib.cc_net_broker_flow.argtypes = [p, p, p, p, p, p, p, p, i64, p]
+            lib.cc_cell_net_flow.argtypes = [p, p, p, p, p, i64, i64, i64, p]
             lib.cc_failover.argtypes = [p] * 12 + [i64] * 8 + [p]
             lib.cc_failover_chunk.argtypes = [i64, i64, i64, i64, i64]
             lib.cc_failover_chunk.restype = i64
@@ -221,7 +228,8 @@ def load_library():
             lib.cc_population_select_single.restype = i64
             for fn in (lib.cc_threefry_draw, lib.cc_ordered_segment_sum,
                        lib.cc_ordered_range_sum,
-                       lib.cc_net_broker_flow, lib.cc_failover,
+                       lib.cc_net_broker_flow, lib.cc_cell_net_flow,
+                       lib.cc_failover,
                        lib.cc_first_fit, lib.cc_delta_row_scatter,
                        lib.cc_cluster_stats, lib.cc_intra_broker_walk,
                        lib.cc_population_select, lib.cc_empty_kernel):
@@ -625,6 +633,59 @@ def net_broker_flow(src, dst, earlier, d_src, d_dst):
     LAUNCHES["net_broker_flow"] += 1
     _check(rc, "net_broker_flow")
     return outs[0], outs[1], outs[2]
+
+
+# ---------------------------------------------------------------------------
+# KK: net flow on (topic, broker) cells
+# ---------------------------------------------------------------------------
+
+#: queries and cell slots KK takes at most (``csrc/cell_flow.cu:kMax``)
+CELL_FLOW_MAX = 4
+
+
+def cell_net_flow_plain(query, key, val, earlier):
+    """Twin of KK: the literal masked-matmul form of the reference's topic
+    guards — for each query, ``acc = 0`` plus one ``(earlier * (query ==
+    key[k])) @ val[a, k]`` product per cell slot k, in slot order."""
+    e = earlier.to(torch.float32)
+    out = []
+    for a in range(val.shape[0]):
+        acc = torch.zeros(query.shape[1], dtype=torch.float32,
+                          device=query.device)
+        for k in range(val.shape[1]):
+            acc = acc + (e * (query[a][:, None] == key[k][None, :])) @ val[a, k]
+        out.append(acc)
+    return torch.stack(out)
+
+
+def cell_net_flow(query, key, val, earlier):
+    """float32[A, M] ``out[a, i] = sum_j earlier[i, j] sum_k [query[a, i] ==
+    key[k, j]] val[a, k, j]`` — see ``csrc/cell_flow.cu``. ``query``
+    int[A, M] and ``key`` int[K, M] are cell ids, ``val`` float32[A, K, M]
+    each query's terms, ``earlier`` bool[M, M]; A and K are 1-4."""
+    A, M = query.shape
+    if not (1 <= A <= CELL_FLOW_MAX and 1 <= key.shape[0] <= CELL_FLOW_MAX):
+        raise ValueError(f"cell_net_flow takes 1-{CELL_FLOW_MAX} queries and "
+                         f"cell slots, got {A} and {key.shape[0]}")
+    K = key.shape[0]
+    if key.shape != (K, M) or val.shape != (A, K, M):
+        raise ValueError("key must be [K, M] and val [A, K, M] for query "
+                         "[A, M]")
+    if earlier.shape != (M, M) or earlier.dtype != torch.bool:
+        raise ValueError("earlier must be bool[M, M]")
+    if _on_cpu(query, key, val, earlier):
+        return cell_net_flow_plain(query, key, val, earlier)
+    query = query.long().contiguous()
+    key = key.long().contiguous()
+    val = val.to(torch.float32).contiguous()
+    earlier = earlier.contiguous()
+    out = torch.empty((A, M), dtype=torch.float32, device=query.device)
+    rc = load_library().cc_cell_net_flow(
+        query.data_ptr(), key.data_ptr(), val.data_ptr(), earlier.data_ptr(),
+        out.data_ptr(), M, A, K, _stream())
+    LAUNCHES["cell_net_flow"] += 1
+    _check(rc, "cell_net_flow")
+    return out
 
 
 # ---------------------------------------------------------------------------

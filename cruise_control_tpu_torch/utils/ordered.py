@@ -10,8 +10,9 @@ both and from run to run:
   partial sums remain, which are summed in order; :func:`tree_sum_last`
   reduces the last axis of a batch of rows the same way,
   :func:`violation_row_sum` as XLA reduces a goal's fused penalty row
-  (:func:`vector_loop_sum`, below), and :func:`matrix_sum` as an eager
-  ``jnp.sum`` reduces a whole matrix;
+  (:func:`vector_loop_sum`, below), :func:`matrix_sum` as an eager
+  ``jnp.sum`` reduces a whole matrix, and :func:`topic_cell_sum` as XLA
+  reduces the topic goal's ``[T, B1]`` penalty cells;
 - :func:`scan_sum` — XLA's CPU cumulative sum: sequential prefix sums in
   blocks of 16, the block totals scanned the same way and added back;
 - :func:`fma` — one rounding for ``a * b + c``, where the reference's
@@ -113,24 +114,28 @@ def tree_sum_last(x: torch.Tensor) -> torch.Tensor:
 
 
 def vector_loop_sum(x: torch.Tensor, vf: int, ic: int = 1, epi: int = 0,
-                    tail: int = 0) -> torch.Tensor:
+                    tail: int = 0, seed: torch.Tensor | None = None
+                    ) -> torch.Tensor:
     """float32 ``[...]`` sums of ``x[..., n]`` in the order of LLVM's
     vectorized reduction loop (see the module docstring): ``ic``
     accumulators of ``vf`` lanes over the whole ``vf * ic`` chunks (at
     least ``tail`` elements left for the scalar loop), combined in order
     and folded by halves; a ``epi``-lane epilogue seeded with that total;
-    then the rest in order. Every step is an element-wise float32 add."""
+    then the rest in order. Every step is an element-wise float32 add.
+    ``seed`` (``[...]``) is the running total the loop starts from, in
+    place of XLA's init 0.0 (the row loop inside a loop over rows)."""
     x = x.to(torch.float32)
     n = x.shape[-1]
-    total = x.new_zeros(x.shape[:-1])
+    total = x.new_zeros(x.shape[:-1]) if seed is None else seed
     pos = 0
     chunk = vf * ic
     iters = (n - tail) // chunk if vf > 1 else 0
     if iters:
-        # XLA's init 0.0 enters lane 0 of the first accumulator, -0.0 the
-        # others (only a -0.0 element can tell them apart)
-        init = x.new_full((vf,), -0.0)
-        init[0] = 0.0
+        # XLA's init 0.0 (or the seed) enters lane 0 of the first
+        # accumulator, -0.0 the others (only a -0.0 element can tell them
+        # apart)
+        init = torch.cat([total[..., None], x.new_full(
+            x.shape[:-1] + (vf - 1,), -0.0)], dim=-1)
         acc = [x[..., k * vf:(k + 1) * vf] for k in range(ic)]
         acc[0] = acc[0] + init
         for it in range(1, iters):
@@ -284,13 +289,13 @@ def _small_sums(xs: torch.Tensor, split: bool = False) -> torch.Tensor:
 
 
 def matrix_sum(x: torch.Tensor) -> torch.Tensor:
-    """0-dim float32 sum of a matrix x[B, D] in the order XLA's CPU backend
-    gives an eager ``jnp.sum`` over both axes (probed,
-    ``scripts/probe_sum_order.py``). One column or one row reduces as a
-    vector (:func:`tree_sum`), at most 32 x 32 as one :func:`_small_sums`
-    matrix. Larger: windows of min(n, 32) along each axis, each axis'
-    padding split evenly in front and behind, and the window sums reduce
-    as a matrix again. Each window:
+    """float32 ``[...]`` sums of matrices ``x[..., B, D]`` in the order XLA's
+    CPU backend gives an eager ``jnp.sum`` over both axes (probed,
+    ``scripts/probe_sum_order.py``), vmapped or not. One column or one row
+    reduces as a vector (:func:`tree_sum`), at most 32 x 32 as one
+    :func:`_small_sums` matrix. Larger: windows of min(n, 32) along each
+    axis, each axis' padding split evenly in front and behind, and the
+    window sums reduce as a matrix again. Each window:
 
     - without padding: as a small matrix (:func:`_small_sums`);
     - one padding column (D = 31 mod 32, D > 32): XLA peels the window's
@@ -301,29 +306,101 @@ def matrix_sum(x: torch.Tensor) -> torch.Tensor:
       of 31 rows (:func:`_lanes` accumulators), the peeled row last;
     - any other padding: the elements in row order from zero."""
     x = x.to(torch.float32)
-    B, D = x.shape
+    lead = x.shape[:-2]
+    B, D = x.shape[-2:]
+    return _matrix_sums(x.reshape((math.prod(lead), B, D))).reshape(lead)
+
+
+def _matrix_sums(xs: torch.Tensor) -> torch.Tensor:
+    """float32[n] :func:`matrix_sum` of each of n matrices xs[n, B, D]."""
+    n, B, D = xs.shape
     if B == 1 or D == 1:
-        return tree_sum(x.reshape(-1))
+        return tree_sum_last(xs.reshape(n, B * D))
     if B <= _WINDOW and D <= _WINDOW:
-        return _small_sums(x[None])[0]
+        return _small_sums(xs)
     wb, wd = min(B, _WINDOW), min(D, _WINDOW)
     nb, nd = -(-B // wb), -(-D // wd)
     pb, pd = nb * wb - B, nd * wd - D
-    xp = torch.nn.functional.pad(x, (pd // 2, pd - pd // 2,
-                                     pb // 2, pb - pb // 2))
-    windows = xp.reshape(nb, wb, nd, wd).transpose(1, 2).reshape(
-        nb * nd, wb, wd)
+    xp = torch.nn.functional.pad(xs, (pd // 2, pd - pd // 2,
+                                      pb // 2, pb - pb // 2))
+    windows = xp.reshape(n, nb, wb, nd, wd).transpose(2, 3).reshape(
+        n * nb * nd, wb, wd)
     if pd == 1:
-        windows = torch.cat([windows[:, :, :-1].reshape(nb * nd, -1),
+        windows = torch.cat([windows[:, :, :-1].reshape(n * nb * nd, -1),
                              windows[:, :, -1]], dim=1)
     if pb == 1 and pd == 0:
         parts = _small_sums(windows, split=True)
     elif pb or pd:
         parts = ordered_range_sum(windows.reshape(-1), torch.arange(
-            0, nb * nd * wb * wd + 1, wb * wd, device=x.device))
+            0, n * nb * nd * wb * wd + 1, wb * wd, device=xs.device))
     else:
         parts = _small_sums(windows)
-    return matrix_sum(parts.reshape(nb, nd))
+    return _matrix_sums(parts.reshape(n, nb, nd))
+
+
+#: The loop XLA's CPU backend gives TopicReplicaDistributionGoal's fused
+#: [T, B1] violation sum when both axes hold at most 32 cells (probed:
+#: ``scripts/probe_topic_sum_order.py``): at B1 = 23-32 LLVM vectorizes
+#: the row loop, each row a :func:`vector_loop_sum` seeded with the
+#: running total (23: (4, 4, 4, 0), 24-32: (8, 1, 0, 0)); at B1 = 9-22 it
+#: unrolls the row and vectorizes the loop over rows: VF lanes each adding
+#: whole rows, in column order (rows l, l + VF, ...), folded by halves,
+#: the rows left over added in order. VF by T: 4 rows: 4; 8 rows or 16-32:
+#: 8; any other count: no vector loop (every cell in row order). The
+#: vmapped program (the what-if and fleet scorers) differs at one shape:
+#: a single topic at B1 = 22 runs the row loop (4, 4, 4, 0).
+def _topic_loop(T: int, B1: int, batched: bool):
+    """("rows", (vf, ic, epi, tail)) or ("lanes", vf) for a fused [T, B1]
+    sum (T, B1 <= 32); raises where the loop was not read."""
+    if B1 >= 23:
+        return "rows", ((4, 4, 4, 0) if B1 == 23 else (8, 1, 0, 0))
+    if batched and T == 1 and B1 == 22:
+        return "rows", (4, 4, 4, 0)
+    if B1 < 9:
+        raise ValueError(f"XLA's order for a [{T}, {B1}] topic-cell sum is "
+                         "not identified (scripts/probe_topic_sum_order.py)")
+    if T == 4:
+        return "lanes", 4
+    if T == 8 or T >= 16:
+        return "lanes", 8
+    return "lanes", 1
+
+
+def topic_cell_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``[...]`` sums of ``x[..., T, B1]`` (a topic goal's penalty
+    cells) in the order XLA's CPU backend gives the reference's
+    ``pen.sum()``, unbatched or under ``vmap`` (a leading axis). Past 32
+    on either axis XLA's tree rewrite leaves an eager reduction
+    (:func:`matrix_sum`, probed at 8 x 33 to 400 x 1,009, vmapped and
+    nested); otherwise the fused loop of :func:`_topic_loop`."""
+    x = x.to(torch.float32)
+    lead = x.shape[:-2]
+    T, B1 = x.shape[-2:]
+    if T > _WINDOW or B1 > _WINDOW:
+        return matrix_sum(x)
+    n = math.prod(lead)
+    xs = x.reshape(n, T, B1)
+    form, shape = _topic_loop(T, B1, len(lead) > 0)
+    if form == "rows":
+        total = xs.new_zeros(n)
+        for r in range(T):
+            total = vector_loop_sum(xs[:, r], *shape, seed=total)
+        return total.reshape(lead)
+    vf = shape
+    full = T // vf * vf if vf > 1 else 0
+    runs = []
+    if full:
+        # lane l: rows l, l + vf, ... each in column order, from 0.0 (the
+        # other lanes' -0.0 start changes no bit of a non-negative sum)
+        lanes = xs[:, :full].reshape(n, full // vf, vf, B1).transpose(1, 2)
+        lanes = ordered_range_sum(lanes.reshape(-1), torch.arange(
+            0, n * full * B1 + 1, full // vf * B1, device=x.device))
+        runs.append(_fold_halves(lanes.reshape(n, vf))[:, None])
+    runs.append(xs[:, full:].reshape(n, -1))
+    seq = torch.cat(runs, dim=1)
+    m = seq.shape[1]
+    return ordered_range_sum(seq.reshape(-1), torch.arange(
+        0, n * m + 1, m, device=x.device)).reshape(lead)
 
 
 def scan_sum(x: torch.Tensor) -> torch.Tensor:

@@ -164,9 +164,9 @@ class _Batch:
 class WhatIfEngine:
     """Batched hypothetical-topology scorer.
 
-    ``goals`` default to the analyzer's default chain (which raises until
-    goals part B is ported); the engine binds them per metadata exactly
-    like the optimizer. ``device=None`` means the card and raises without
+    ``goals`` default to the analyzer's default chain (the reference's
+    16 goals); the engine binds them per metadata exactly like the
+    optimizer. ``device=None`` means the card and raises without
     one; ``device="cpu"`` runs every kernel's plain twin.
     """
 

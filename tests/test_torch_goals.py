@@ -1,7 +1,9 @@
-"""Parity of the port's goal kernels (``analyzer/goals.py``, part A) with
-the JAX package: bounds, violations and scales, candidate generation
-(flow/swap/leadership generators and both bulk drains), per-candidate
-delta/acceptance and the collective guard (through KC's twin).
+"""Parity of the port's goal kernels (``analyzer/goals.py``, every registered
+goal) with the JAX package: bounds, violations and scales, candidate
+generation (flow/swap/leadership generators and both bulk drains),
+per-candidate delta/acceptance and the collective guard (through KC's and
+KK's twins). The states carry topic and topic-leader counts, which the
+topic goals read.
 
 The reference runs every goal function inside a jitted program, so each
 JAX call here is jitted too. Tolerances: candidates (indices, kinds,
@@ -89,17 +91,24 @@ def _goal_pair(name):
 
 @pytest.fixture(scope="module", params=sorted(MODELS))
 def setup(request):
-    (jm, _), (tm, _) = MODELS[request.param]()
-    return ((js.init_state(jm), js.build_context(jm)),
-            (ts.init_state(tm), ts.build_context(tm)))
+    (jm, jmd), (tm, _) = MODELS[request.param]()
+    topics = dict(with_topic_counts=jmd.num_topics,
+                  with_topic_leader_counts=True)
+    return ((js.init_state(jm, **topics), js.build_context(jm)),
+            (ts.init_state(tm, **topics), ts.build_context(tm)))
 
 
-def _same_cands(jc, tc, what):
+def _same_cands(jc, tc, what, rows=None):
+    """Every candidate field equal. An invalid topic swap's partner row may
+    be negative in the reference; the port keeps the row the reference's
+    gathers read (``rows``: the partition rows)."""
     for name in ("p", "r", "p2", "r2", "src", "dst", "kind", "valid", "must",
                  "d_util_src", "d_util_dst", "d_cnt", "d_lead", "d_pot",
                  "d_lni"):
-        assert_same(getattr(jc, name), getattr(tc, name),
-                    what=f"{what}.{name}")
+        want = np.asarray(getattr(jc, name))
+        if name == "p2" and rows is not None:
+            want = np.where(want < 0, want + rows, want).clip(0, rows - 1)
+        assert_same(want, getattr(tc, name), what=f"{what}.{name}")
 
 
 @pytest.mark.parametrize("name", REGISTERED + EXTRA)
@@ -127,7 +136,7 @@ def test_propose_and_score(setup, name, seed):
     jk, tk = jax.random.PRNGKey(seed), _random.PRNGKey(seed)
     jc = jax.jit(lambda s, c, k: jgoal.propose(s, c, k, jcfg))(jst, jctx, jk)
     tc = tgoal.propose(tst, tctx, tk, tcfg)
-    _same_cands(jc, tc, "propose")
+    _same_cands(jc, tc, "propose", rows=tst.rb.shape[0])
 
     assert_close(jax.jit(jgoal.delta)(jst, jctx, jc),
                  tgoal.delta(tst, tctx, tc), what="delta")
@@ -203,6 +212,8 @@ def test_min_topic_leaders_inactive(setup):
 
 
 def test_min_topic_leaders_active_form_not_ported():
+    """Binding a pattern that matches a topic gives the active form (the
+    name is kept from before the active form was ported)."""
     from cruise_control_tpu_torch.model.spec import ClusterMetadata
     md = ClusterMetadata(broker_ids=[0], broker_index={0: 0},
                          topics=["orders", "logs"],
@@ -215,24 +226,30 @@ def test_min_topic_leaders_active_form_not_ported():
         TConstraint(topics_with_min_leaders_per_broker="x*"))
     assert nomatch.bind(md) is nomatch
     active = tg.MinTopicLeadersPerBrokerGoal(
-        TConstraint(topics_with_min_leaders_per_broker="ord*"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        active.bind(md)
+        TConstraint(topics_with_min_leaders_per_broker="ord*")).bind(md)
+    assert active.uses_topic_counts and active.uses_topic_leader_counts
+    assert active.interested_topics.host.tolist() == [True, False]
+    jactive = jg.MinTopicLeadersPerBrokerGoal(
+        JConstraint(topics_with_min_leaders_per_broker="ord*")).bind(md)
+    assert active.bind_signature() == jactive.bind_signature()
 
 
 def test_goal_names():
+    assert sorted(tg.GOAL_REGISTRY) == sorted(jg.GOAL_REGISTRY)
     assert [g.name for g in tg.goals_by_name(REGISTERED)] == [
         g.name for g in jg.goals_by_name(REGISTERED)]
-    for name in ("RackAwareGoal", "TopicReplicaDistributionGoal",
-                 "com.linkedin.kafka.cruisecontrol.analyzer.goals."
-                 "LeaderBytesInDistributionGoal"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            tg.goals_by_name([name])
+    assert [g.name for g in tg.goals_by_name(
+        ["com.linkedin.kafka.cruisecontrol.analyzer.goals."
+         "LeaderBytesInDistributionGoal"])] == [
+        "LeaderBytesInDistributionGoal"]
+    assert not hasattr(tg, "NOT_YET_PORTED")
     with pytest.raises(ValueError, match="unknown goal"):
         tg.goals_by_name(["NoSuchGoal"])
-    with pytest.raises(ValueError, match="RackAwareGoal"):
-        tg.default_goals()
+    assert [(g.name, g.hard) for g in tg.default_goals()] == [
+        (g.name, g.hard) for g in jg.default_goals()]
     assert [n for n, _ in tg.DEFAULT_GOALS] == [
         g.name for g in jg.default_goals()]
     assert [h for _, h in tg.DEFAULT_GOALS] == [
         g.hard for g in jg.default_goals()]
+    assert tg.KAFKA_ASSIGNER_GOALS == jg.KAFKA_ASSIGNER_GOALS
+    assert tg.HARD_GOAL_ALTERNATIVES == jg.HARD_GOAL_ALTERNATIVES

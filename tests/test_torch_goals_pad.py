@@ -38,9 +38,11 @@ PAD_MODELS = {
 
 @pytest.fixture(scope="module", params=sorted(PAD_MODELS))
 def setup(request):
-    (jm, _), (tm, _) = PAD_MODELS[request.param]()
-    return ((js.init_state(jm), js.build_context(jm)),
-            (ts.init_state(tm), ts.build_context(tm)))
+    (jm, jmd), (tm, _) = PAD_MODELS[request.param]()
+    topics = dict(with_topic_counts=jmd.num_topics,
+                  with_topic_leader_counts=True)
+    return ((js.init_state(jm, **topics), js.build_context(jm)),
+            (ts.init_state(tm, **topics), ts.build_context(tm)))
 
 
 #: capacity thresholds and balance bands that leave most brokers out of

@@ -153,6 +153,49 @@ def test_net_broker_flow_adds_in_ascending_j(cuda_device, m):
         assert torch.equal(g.cpu(), want)
 
 
+def _cell_case(gen, m, a, k, density, ids):
+    """KK's inputs on the CPU: colliding cell ids, integer terms."""
+    key = torch.randint(-1, ids, (k, m), generator=gen)
+    query = torch.where(torch.rand(a, m, generator=gen) < 0.3,
+                        torch.randint(-1, ids, (a, m), generator=gen),
+                        key[torch.arange(a) % k])
+    val = torch.randint(-4, 5, (a, k, m), generator=gen).float()
+    earlier = torch.rand(m, m, generator=gen).tril(-1) < density
+    return query, key, val, earlier
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,a,k,density", [
+    (1, 4, 4, 0.6), (31, 4, 4, 0.6), (33, 2, 2, 0.9), (256, 1, 3, 0.6),
+    (257, 4, 4, 0.6), (512, 4, 4, 0.6), (512, 2, 2, 0.6), (512, 4, 4, 0.0),
+    (1000, 3, 1, 0.5), (1024, 4, 4, 0.6), (1024, 2, 2, 1.0)])
+def test_cell_net_flow_matches_twin(cuda_device, m, a, k, density):
+    """KK bit for bit against its masked-matmul twin (every term an integer,
+    so every order is exact), with one launch counted."""
+    gen = torch.Generator().manual_seed(m * 16 + a * 4 + k)
+    args = _cell_case(gen, m, a, k, density, ids=24)
+    kernels.reset_launch_counts()
+    got = kernels.cell_net_flow(*(t.to(cuda_device) for t in args))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cell_net_flow"] == 1
+    assert torch.equal(got.cpu(), kernels.cell_net_flow_plain(*args))
+    if density == 0.0:
+        assert not got.any()
+
+
+@pytest.mark.cuda
+def test_cell_net_flow_refuses_bad_shapes(cuda_device):
+    gen = torch.Generator().manual_seed(1)
+    q, key, val, e = (t.to(cuda_device)
+                      for t in _cell_case(gen, 8, 4, 4, 0.5, ids=4))
+    with pytest.raises(ValueError):
+        kernels.cell_net_flow(q, key, val[:, :3], e)
+    with pytest.raises(ValueError):
+        kernels.cell_net_flow(torch.cat([q, q[:1]]), key, val, e)
+    with pytest.raises(ValueError):
+        kernels.cell_net_flow(q, key, val, e.float())
+
+
 def _failover_inputs(gen, S, P, R, B, batched):
     shape = (S, P, R) if batched else (P, R)
     rb = torch.randint(0, B + 1, shape, generator=gen, dtype=torch.int32)

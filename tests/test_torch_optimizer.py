@@ -120,11 +120,26 @@ def test_hard_goal_failure_matches_reference():
 
 
 def test_unwaived_rack_awareness_is_not_yet_ported():
-    _, (tm, tmd) = MODELS["tiny"]()
+    """With nothing waived the audit holds RackAwareGoal too, and its
+    verdicts equal the reference's (the name is kept from before the goal
+    was ported)."""
+    (jm, jmd), (tm, tmd) = MODELS["tiny"]()
+    cfg = dict(MAIN, fused_chain=True)
+    jopt = ja.TpuGoalOptimizer(goals=ja.goals_by_name(CHAIN),
+                               config=ja.SearchConfig(**cfg))
     topt = ta.TorchGoalOptimizer(goals=ta.goals_by_name(CHAIN),
-                                 config=ta.SearchConfig(**MAIN), device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
-        topt.optimize(tm, tmd, ta.OptimizationOptions())
+                                 config=ta.SearchConfig(**cfg), device="cpu")
+
+    def audit(opt, mod, m, md):
+        try:
+            res = opt.optimize(m, md, mod.OptimizationOptions())
+        except mod.OptimizationFailureError as err:
+            res = err.result
+        return [(g.name, g.satisfied, g.violation_before, g.violation_after)
+                for g in res.hard_goal_audit]
+    want = audit(jopt, ja, jm, jmd)
+    assert audit(topt, ta, tm, tmd) == want
+    assert "RackAwareGoal" in [row[0] for row in want] and len(want) == 7
 
 
 def test_entry_points_need_the_card(monkeypatch):
