@@ -15,7 +15,8 @@ Phases (every failure raises; nothing is caught):
 
 1. environment — the card's name and power limit, torch and CUDA versions;
 2. build — compile and load the kernel library;
-3. kernels vs twins — KA (threefry draws: the main path's noise, every
+3. kernels vs twins — KL (the goal loops' control step, every step on
+   random counters), KA (threefry draws: the main path's noise, every
    output form, a fold-in key), KB (ordered segment sum, also on
    the what-if sweep's batched layout), KC (net broker flow), KD
    (scenario failover, at the N-1 sweep's and the boundary audit's
@@ -33,9 +34,10 @@ Phases (every failure raises; nothing is caught):
    bit for bit;
 4. main path — 100 brokers x 20K partitions at RF 2, the 4-goal chain
    with the off-chain hard-goal audit, seeds 0, 1, 1 (proposals of the two
-   seed-1 runs must be identical; KA, KB and KC must have launched; KA's
-   launches of each optimize and the last one's device launches, counted
-   under ``torch.profiler``, are printed);
+   seed-1 runs must be identical; KA, KB, KC and KL must have launched;
+   no optimize may read a loop test on the host, and the warm ones may
+   capture no CUDA graph; KA's launches of each optimize and the last
+   one's device launches, counted under ``torch.profiler``, are printed);
 5. self-healing drain — the same cluster with one dead broker;
 6. scale — 1K brokers x 200K partitions at RF 2;
 7. what-if — the N-1 sweep of the main-path cluster (cold, then three
@@ -82,7 +84,15 @@ Phases (every failure raises; nothing is caught):
     ``WhatIfEngine()``'s N-1 sweep with the default goals (topic counts
     over the scenario batch; ``REFERENCE_DEFAULT_N1``); (d) the cluster in
     ten broker sets under the catalog's part-B chain and the
-    kafka-assigner set (``REFERENCE_PARTB``, failures included).
+    kafka-assigner set (``REFERENCE_PARTB``, failures included); (a)
+    reads no loop test on the host and captures the chain once;
+14. goal loops — every goal pass as one CUDA graph (``analyzer/
+    graph_loop.py``, KL) held to the host-driven loop on the card: phase
+    4's seed 1, phase 5's drain and phase 13 (a)'s default chain
+    (moves, proposals, every goal's iterations and violations, the
+    boundary trajectory and the audit), then the main path's fused walk
+    array by array; the main path's first pass timed both ways, per fine
+    iteration, beside its summed kernel time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -295,6 +305,9 @@ KERNEL_INFO = {
     "fleet_scenario_failover": dict(
         source="cruise_control_tpu_torch/csrc/failover.cu",
         replaces="cruise_control_tpu/fleet/engine.py:780"),
+    "goal_loop": dict(
+        source="cruise_control_tpu_torch/csrc/goal_loop.cu",
+        replaces="cruise_control_tpu/analyzer/engine.py:130"),
 }
 
 
@@ -394,14 +407,15 @@ def build_flat_direct(num_brokers, num_partitions, rf, seed=42):
     return model, metadata
 
 
-def main_path_optimizer():
-    """The optimizer of the main path (phases 4 and 5, and the profiler)."""
+def main_path_optimizer(goal_loop="auto"):
+    """The optimizer of the main path (phases 4 and 5, and the profiler);
+    ``goal_loop="host"``: its passes driven by host loops (phase 14)."""
     from cruise_control_tpu_torch.analyzer import (SearchConfig,
                                                    TorchGoalOptimizer,
                                                    goals_by_name)
     return TorchGoalOptimizer(goals=goals_by_name(GOALS),
                               config=SearchConfig(**MAIN_SEARCH),
-                              device="cuda")
+                              device="cuda", goal_loop=goal_loop)
 
 
 def main_path_options(seed):
@@ -898,7 +912,41 @@ def phase_kernels(model, main_arrays: dict, scale_model, intra_state):
     _kernel_intra_walk(rows, intra_state)
     _kernel_population_select(rows, rng)
     _kernel_fleet_failover(rows, model)
+    _kernel_goal_loop(rows, rng)
     return rows
+
+
+def _kernel_goal_loop(rows, rng):
+    """KL (one step of a goal pass's loop control) against its twin on
+    counters drawn at random, every step and limits, then timed at the
+    fine loop's step (the main path's limits: patience 5, 512
+    iterations)."""
+    import torch
+    from cruise_control_tpu_torch import kernels
+    n = len(kernels.GOAL_LOOP_SLOTS)
+    for trial in range(64):
+        for op in kernels.GOAL_LOOP_OPS:
+            ctr = torch.from_numpy(rng.integers(0, 6, n).astype(np.int64))
+            dev = ctr.cuda()
+            a, b = int(rng.integers(0, 6)), int(rng.integers(0, 9))
+            want = kernels.goal_loop_step_plain(ctr, op, a, b)
+            got = kernels.goal_loop_step(dev, op, a, b)
+            if bool(got) != bool(want) or not torch.equal(dev.cpu(), ctr):
+                fail(f"goal_loop differs from its twin at step {op} "
+                     f"(limits {a}, {b})")
+    ctr = torch.zeros(n, dtype=torch.int64, device="cuda")
+    ms = time_ms(lambda: kernels.goal_loop_step(ctr, "fine_step", 5, 512),
+                 graph=True)
+    plain = time_ms(lambda: kernels.goal_loop_step_plain(
+        ctr, "fine_step", 5, 512), groups=3)
+    # four counters read, four written (int64)
+    b_ms, b_by = bound(8 * 8, 8)
+    log(f"KL goal_loop: every step bit-exact vs twin (64 random counter "
+        f"sets); the fine step {ms:.5f} ms a launch in a graph, twin "
+        f"{plain:.4f} ms, bound {b_ms:.3g} ms ({b_by})")
+    _keep_first_shape(rows, "goal_loop", 0.0, dict(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None))
 
 
 #: KK's phase-3 shapes: (M, queries A, cell slots K) — the topic guard's
@@ -1582,15 +1630,32 @@ def _print_result(tag, res, wall, syncs):
             f"{'ok' if g.satisfied else 'VIOLATED'}")
 
 
+def _launch_counts():
+    """``kernels.LAUNCHES`` with the kernels the goal-loop graphs replayed
+    credited first (one read of their counters)."""
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.analyzer import graph_loop
+    graph_loop.settle()
+    return dict(kernels.LAUNCHES)
+
+
+def _captures():
+    """CUDA-graph captures so far (goal chains at a new signature)."""
+    from cruise_control_tpu_torch.core.runtime_obs import default_collector
+    return default_collector().capture_count()
+
+
 def _optimize(opt, model, md, seed):
+    """(result, wall, host syncs, new graph captures) of one optimize."""
     import torch
     from cruise_control_tpu_torch.analyzer import engine
     torch.cuda.synchronize()
-    syncs0 = engine.HOST_SYNCS
+    syncs0, caps0 = engine.HOST_SYNCS, _captures()
     t0 = time.monotonic()
     res = opt.optimize(model, md, main_path_options(seed))
     torch.cuda.synchronize()
-    return res, time.monotonic() - t0, engine.HOST_SYNCS - syncs0
+    return (res, time.monotonic() - t0, engine.HOST_SYNCS - syncs0,
+            _captures() - caps0)
 
 
 def _device_ops(fn):
@@ -1603,6 +1668,16 @@ def _device_ops(fn):
         torch.cuda.synchronize()
     return out, [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def start_profiler():
+    """One empty ``torch.profiler`` window: CUPTI, started here, traces the
+    kernels of the CUDA graphs instantiated after it (the goal chains')."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
 
 
 def _count_device_launches(fn):
@@ -1640,22 +1715,30 @@ def phase_main_path(model, md, arrays):
                       ("warm seed 1 again", 1)):
         ka0 = kernels.LAUNCHES["threefry2x32"]
         if tag == "warm seed 1 again":
-            (res, wall, syncs), device_launches = _count_device_launches(
-                lambda: _optimize(opt, model, md, seed))
+            (res, wall, syncs, caps), device_launches = \
+                _count_device_launches(lambda: _optimize(opt, model, md,
+                                                         seed))
             tag += " (under torch.profiler)"
         else:
-            res, wall, syncs = _optimize(opt, model, md, seed)
+            res, wall, syncs, caps = _optimize(opt, model, md, seed)
         _print_result(tag, res, wall, syncs)
+        log(f"  new CUDA-graph captures: {caps}")
+        if syncs:
+            fail(f"{tag}: {syncs} host reads of a loop test (the goal "
+                 f"passes run as CUDA graphs: none expected)")
+        if tag.startswith("warm") and caps:
+            fail(f"{tag}: a warm optimize captured {caps} new graphs")
         _check_quality(res, tag)
         results.append(res)
         log(f"  KA launches in this optimize: "
             f"{kernels.LAUNCHES['threefry2x32'] - ka0}")
     log(f"warm optimize: {device_launches} device launches (kernels and "
         f"copies, torch.profiler)")
-    launches = dict(kernels.LAUNCHES)
+    launches = _launch_counts()
     log(f"main-path launches: {json.dumps(launches)}")
     missing = [k for k in ("threefry2x32", "ordered_segment_sum",
-                           "net_broker_flow") if launches[k] == 0]
+                           "net_broker_flow", "goal_loop")
+               if launches[k] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     if results[1].proposals != results[2].proposals:
@@ -1686,7 +1769,9 @@ def phase_drain(model, md):
     alive = model.broker_alive.clone()
     alive[torch.from_numpy(dead).to(alive.device)] = False
     sick = model.replace(broker_alive=alive)
-    res, wall, syncs = _optimize(main_path_optimizer(), sick, md, 0)
+    res, wall, syncs, _caps = _optimize(main_path_optimizer(), sick, md, 0)
+    if syncs:
+        fail(f"drain: {syncs} host reads of a loop test")
     _print_result(f"drain (dead broker {dead.tolist()})", res, wall, syncs)
     rb = res.final_model.replica_broker.cpu().numpy()
     left = int(np.isin(rb, dead).sum())
@@ -1696,6 +1781,7 @@ def phase_drain(model, md):
     bad = [g.name for g in res.hard_goal_audit if not g.satisfied]
     if bad:
         fail(f"drain audit violated: {bad}")
+    return sick, res
 
 
 def phase_scale(model, md):
@@ -1712,7 +1798,7 @@ def phase_scale(model, md):
                             max_iters_per_goal=512),
         device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    res, wall, syncs = _optimize(opt, model, md, 0)
+    res, wall, syncs, _caps = _optimize(opt, model, md, 0)
     _print_result("scale seed 0", res, wall, syncs)
     worse = [g.name for g in res.goal_results
              if g.violation_after > g.violation_before * (1 + 1e-6) + 1e-6]
@@ -1773,7 +1859,7 @@ def phase_whatif(model, md, arrays):
         reports.append(engine.sweep(model, md, scenarios))
         torch.cuda.synchronize()
         walls.append(time.monotonic() - t0)
-    launches = dict(kernels.LAUNCHES)
+    launches = _launch_counts()
     peak = _peak_mib()
     per_sweep = {k: v // 4 for k, v in launches.items()}
     log(f"N-1 S={len(scenarios)}: cold {walls[0]:.3f}s, warm "
@@ -1787,7 +1873,7 @@ def phase_whatif(model, md, arrays):
         fail("N-1 sweeps of the same model gave different reports")
     kernels.reset_launch_counts()
     engine.sweep(model, md, scenarios[:1])
-    one = dict(kernels.LAUNCHES)
+    one = _launch_counts()
     log(f"launches of a one-scenario sweep: {json.dumps(one)}")
     if one != per_sweep:
         fail("a sweep's launches depend on its scenario count")
@@ -1853,7 +1939,7 @@ def phase_schedule(model, md, proposals):
             bandwidth_mb_per_batch=bandwidth)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = _launch_counts()
         for k, v in launches.items():
             total[k] += v
         digest = hashlib.sha256(json.dumps(sched.batches).encode()
@@ -2092,7 +2178,7 @@ def phase_served(spec):
     kernels.reset_launch_counts()
     out = served_cycle(pkg, spec, check_planes=_rebuild_equal,
                        device_ops=_device_ops)
-    launches = dict(kernels.LAUNCHES)
+    launches = _launch_counts()
     cold = out["cold"]
     log(f"cold cycle: {cold['update']} at epoch {cold['epoch']}, wall "
         f"{cold['wall']:.3f}s, {cold['bytes']} bytes uploaded")
@@ -2320,7 +2406,7 @@ def phase_search_modes(model, md):
         "branches N=4)")
     kernels.reset_launch_counts()
     out = search_modes(port_search_package(), model, md)
-    launches = dict(kernels.LAUNCHES)
+    launches = _launch_counts()
     seq, k1 = out["sequential"], out["k1"]
     log(f"sequential per-goal walk: {seq['moves']} moves, "
         f"{seq['proposals']} proposals, digest {seq['digest']}")
@@ -2363,7 +2449,7 @@ def phase_intra(setup):
     log("== phase 11: intra-broker disk rebalance 100x20K, four logdirs")
     kernels.reset_launch_counts()
     out = intra_rebalances(port_search_package(), setup)
-    launches = dict(kernels.LAUNCHES)
+    launches = _launch_counts()
     for tag in ("rebalance", "drain"):
         r = out[tag]
         log(f"{tag}: {out[tag + '_wall']:.3f}s, {r['moves']} moves "
@@ -2438,6 +2524,8 @@ def fleet_runs(pkg, model, md, *, warm=False):
         out["warm_library_events"] = (
             after["compileEvents"] + after["aotCompileEvents"]
             - before["compileEvents"] - before["aotCompileEvents"])
+        out["warm_captures"] = after["captureEvents"] - before[
+            "captureEvents"]
     out["results"] = results
     out["members"] = [[r.num_moves, len(r.proposals), _proposals_sha(r)]
                       for r in results]
@@ -2490,9 +2578,16 @@ def port_fleet_package(device="cuda"):
 
 
 def _library_events(collector, before):
+    """Kernel-library builds and loads since ``before`` (a snapshot); the
+    goal chains' CUDA-graph captures are counted apart."""
     after = collector.snapshot()
     return (after["compileEvents"] + after["aotCompileEvents"]
-            - before["compileEvents"] - before["aotCompileEvents"])
+            - before["compileEvents"] - before["aotCompileEvents"]
+            - after["captureEvents"] + before["captureEvents"])
+
+
+def _capture_events(collector, before):
+    return collector.snapshot()["captureEvents"] - before["captureEvents"]
 
 
 def phase_fleet(model, md, spec):
@@ -2520,7 +2615,8 @@ def phase_fleet(model, md, spec):
         fail(f"the fleet split into {out['groups']} groups, want 1")
     if out["warm_library_events"]:
         fail(f"the warm fleet propose built or loaded the kernel library "
-             f"{out['warm_library_events']} times")
+             f"or captured a CUDA graph {out['warm_library_events']} times "
+             f"({out['warm_captures']} captures)")
     # The sequential loop over the same members, on the card.
     opt = fo.optimizer
     torch.cuda.synchronize()
@@ -2563,7 +2659,7 @@ def phase_fleet(model, md, spec):
         fail(f"phase 12 differs from the reference's {REFERENCE_FLEET}")
     del out, fleet, seq
     _fleet_registry_ticks(spec)
-    launches = dict(kernels.LAUNCHES)
+    launches = _launch_counts()
     log(f"fleet launches: {json.dumps(launches)}")
     for name in ("threefry2x32", "ordered_segment_sum", "net_broker_flow",
                  "fleet_scenario_failover"):
@@ -2616,6 +2712,9 @@ def _fleet_registry_ticks(spec):
         summary = registry.tick()
         wall = time.monotonic() - t0
         events = _library_events(served.collector, before)
+        captures = _capture_events(served.collector, before)
+        if tag == "warm" and captures:
+            fail(f"the warm registry tick captured {captures} CUDA graphs")
         kj = kernels.LAUNCHES["fleet_scenario_failover"] - kj_before
         tick_errors = registry._tick_errors.count - errors_before
         if summary["proposed"] != 2 or summary["errors"] or tick_errors:
@@ -2625,7 +2724,7 @@ def _fleet_registry_ticks(spec):
             fail(f"registry {tag} tick launched KJ {kj} times, want 1")
         # The propose and sweep that check the tick are not the path's:
         # their launches are taken back out of the counts.
-        counts = dict(kernels.LAUNCHES)
+        counts = _launch_counts()
         models = [(cid, setups[cid][0].cluster_model(clock["now"]))
                   for cid in setups]
         fleet = FleetModel.stack(
@@ -2649,7 +2748,8 @@ def _fleet_registry_ticks(spec):
         risks = {cid: registry.member(cid).last_risk["maxRisk"]
                  for cid in setups}
         log(f"registry {tag} tick: {wall:.3f}s, {summary}, library events "
-            f"{events}, one KJ launch, no tick errors, caches and N-1 "
+            f"{events}, graph captures {captures}, one KJ launch, no tick "
+            f"errors, caches and N-1 "
             f"summaries equal to a fleet propose and sweep, N-1 max risk "
             f"{risks}")
         return events
@@ -2883,22 +2983,27 @@ def phase_default_chain(model, md, scale_model, scale_md):
         "waived)")
     pkg = port_default_package()
     kernels.reset_launch_counts()
-    syncs0 = engine.HOST_SYNCS
+    syncs0, caps0 = engine.HOST_SYNCS, _captures()
     main = default_chain_main(pkg, model, md)
-    syncs = engine.HOST_SYNCS - syncs0
-    launches = dict(kernels.LAUNCHES)
+    syncs, caps = engine.HOST_SYNCS - syncs0, _captures() - caps0
+    launches = _launch_counts()
     log(f"(a) default chain 100x20K, seeds {DEFAULT_SEEDS}: walls "
         f"{main['walls'][0]:.3f}s (plain), {main['walls'][1]:.3f}s (under "
         f"torch.profiler: {pkg.launches[1]} device launches, kernels and "
         f"copies); host syncs of both {syncs}; kernel launches of both "
         f"{json.dumps(launches)}")
+    log(f"(a) CUDA-graph captures of both runs: {caps} (the cold run's "
+        f"chain)")
+    if syncs or caps != 1:
+        fail(f"(a) {syncs} host reads of a loop test and {caps} captures: "
+             f"none and one (the cold run) expected")
     first, second = main["results"]
     if first.proposals != second.proposals:
         fail("(a) the two seed-1 default-chain runs gave different proposals")
     for i, (got, want) in enumerate(zip(main["a"], REFERENCE_DEFAULT)):
         _check_outcome(f"(a) run {i + 1}", got, want)
     missing = [k for k in ("threefry2x32", "ordered_segment_sum",
-                           "net_broker_flow", "cell_net_flow")
+                           "net_broker_flow", "cell_net_flow", "goal_loop")
                if not launches[k]]
     if missing:
         fail(f"(a) kernels never launched by the default chain: {missing}")
@@ -2935,7 +3040,141 @@ def phase_default_chain(model, md, scale_model, scale_md):
     if bad or worse:
         fail(f"(b) hard goals left violated {bad}; goals ended worse than "
              f"they started {worse}")
-    return launches
+    return launches, first
+
+
+def _loop_outcome(res):
+    """What GraphLoop and HostLoop must agree on: moves, proposals, every
+    goal's iterations, accepted moves and violations, the boundary
+    trajectory and the audit."""
+    return dict(
+        moves=res.num_moves, proposals=_proposals_sha(res),
+        goals=[(g.name, g.iterations, g.accepted, g.violation_before,
+                g.violation_after) for g in res.goal_results],
+        trajectory=(res.telemetry or {}).get("violationTrajectory"),
+        audit=[(g.name, g.violation_after) for g in res.hard_goal_audit])
+
+
+def _median_ms(fn, runs=5):
+    """Median wall (ms) of ``fn`` between synchronizes, and its result."""
+    import torch
+    times, out = [], None
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def phase_goal_loops(model, md, seed1, sick, drain, default):
+    """Phase 14: every goal pass as one CUDA graph (GraphLoop, KL) held to
+    the host-driven loop (HostLoop) on the card — phase 4's seed 1, the
+    drain of phase 5 and phase 13 (a)'s default chain, then the main
+    path's fused walk array by array — and the main path's first pass
+    timed both ways, per fine iteration, beside its summed kernel time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cruise_control_tpu_torch import _random
+    from cruise_control_tpu_torch.analyzer import (OptimizationFailureError,
+                                                   OptimizationOptions,
+                                                   SearchConfig,
+                                                   TorchGoalOptimizer)
+    log("== phase 14: goal passes as CUDA graphs against the host loop")
+    host_default = TorchGoalOptimizer(config=SearchConfig(**MAIN_SEARCH),
+                                      device="cuda", goal_loop="host")
+    graph_default = TorchGoalOptimizer(config=SearchConfig(**MAIN_SEARCH),
+                                       device="cuda")
+    walls = []
+    for _ in range(3):                  # cold (captures), then warm
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        try:
+            graph_default.optimize(model, md, OptimizationOptions(
+                seed=DEFAULT_SEEDS[0]))
+        except OptimizationFailureError:
+            pass
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    log(f"default chain through the graphs, a fresh optimizer: cold "
+        f"{walls[0]:.3f}s, warm {walls[1]:.3f}s and {walls[2]:.3f}s")
+    for tag, opt, m, options, want in (
+            ("phase 4 seed 1", main_path_optimizer("host"), model,
+             main_path_options(1), seed1),
+            ("phase 5 drain", main_path_optimizer("host"), sick,
+             main_path_options(0), drain),
+            ("phase 13 (a) default chain", host_default, model,
+             OptimizationOptions(seed=DEFAULT_SEEDS[0]), default)):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        try:
+            res = opt.optimize(m, md, options)
+        except OptimizationFailureError as err:
+            res = err.result
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        same = _loop_outcome(res) == _loop_outcome(want)
+        log(f"{tag}: host loop {wall:.3f}s, {res.num_moves} moves, "
+            f"{len(res.proposals)} proposals; equal to the graphs: {same}")
+        if not same:
+            fail(f"{tag}: the CUDA-graph passes differ from the host loop")
+
+    graph_opt, host_opt = main_path_optimizer(), main_path_optimizer("host")
+    options = main_path_options(1)
+    walks = []
+    for opt in (graph_opt, host_opt):
+        _cfg, _goals, chain, ctx, state, _audit = opt._prepare(model, md,
+                                                               options)
+        key = _random.PRNGKey(1, device="cuda")
+        walks.append((chain, ctx, state, key,
+                      chain.fused(state, ctx, key)))
+    (g_chain, ctx, state, key, g_walk), (h_chain, _, _, _, h_walk) = walks
+    same = all(torch.equal(getattr(g_walk[0], f), getattr(h_walk[0], f))
+               for f in ("rb", "pos", "offline", "util", "replica_count",
+                         "leader_count", "moves_applied"))
+    same &= all(np.array_equal(a, b) for a, b in zip(g_walk[1], h_walk[1]))
+    same &= all(np.array_equal(a, b) for a, b in zip(g_walk[2:], h_walk[2:]))
+    log(f"main path fused walk, seed 1: state, aux, iterations "
+        f"{g_walk[2].tolist()}, boundary stacks and moves bit-equal: {same}")
+    if not same:
+        fail("the main path's fused walk differs between graphs and host")
+
+    # the first pass (ReplicaDistributionGoal) from the initial state
+    k0 = _random.fold(key, 0)
+    g_ms, (_, g_it, _, _) = _median_ms(lambda: g_chain.passes[0](
+        state, ctx, k0))
+    h_ms, (_, h_it, _, _) = _median_ms(lambda: h_chain.passes[0](
+        state, ctx, k0))
+    iters = int(g_it)
+    def busy_ms(fn):
+        """Summed device time (ms) of the kernels and copies of ``fn``."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.time_range.end - e.time_range.start
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+    pass_busy = busy_ms(lambda: g_chain.passes[0](state, ctx, k0))
+    fused_busy_ms = busy_ms(lambda: g_chain.fused(state, ctx, key))
+    log(f"first pass (ReplicaDistributionGoal, {iters} fine iterations, "
+        f"{int(h_it)} by the host loop): graph {g_ms:.3f} ms "
+        f"({g_ms / max(iters, 1):.4f} ms an iteration), host loop "
+        f"{h_ms:.3f} ms ({h_ms / max(iters, 1):.4f} ms an iteration); its "
+        f"kernels and copies {pass_busy:.3f} ms on the card "
+        f"({pass_busy / max(iters, 1):.4f} ms an iteration, torch.profiler); "
+        f"the whole fused walk {fused_busy_ms:.3f} ms of kernels")
+    from cruise_control_tpu_torch.analyzer import graph_loop
+    for gl in sorted(graph_loop._LIVE, key=lambda g: len(g.segments)):
+        log(f"goal-loop graphs of {len(gl.segments)} passes (first "
+            f"{gl.segments[0].goal.name}, P x R "
+            f"{tuple(gl.state.rb.shape)}): segments captured in "
+            f"{gl.capture_s:.3f}s, pass and fused graphs built in "
+            f"{gl.graphs_s:.3f}s; carry {gl.carry_bytes / 2**20:.2f} MiB, "
+            f"capture pool {gl.pool_bytes / 2**20:.1f} MiB")
+    return dict(pass_ms=g_ms, host_pass_ms=h_ms, iters=iters,
+                busy_ms=pass_busy)
 
 
 def main() -> int:
@@ -2947,6 +3186,7 @@ def main() -> int:
 
     card = phase_environment()
     phase_build()
+    start_profiler()
     t0 = time.monotonic()
     spec = build_spec()
     model, md = flatten_spec(spec, device="cuda")
@@ -2960,7 +3200,7 @@ def main() -> int:
     rows = phase_kernels(model, arrays, scale_model, intra_state)
     launches, seed1 = phase_main_path(model, md, arrays)
     phase_first_fit(model, md, seed1.proposals, rows)
-    phase_drain(model, md)
+    sick, drain = phase_drain(model, md)
     phase_scale(scale_model, scale_md)
     whatif_launches = phase_whatif(model, md, arrays)
     schedule_launches = phase_schedule(model, md, seed1.proposals)
@@ -2968,7 +3208,10 @@ def main() -> int:
     search_launches = phase_search_modes(model, md)
     intra_launches = phase_intra(intra)
     fleet_launches = phase_fleet(model, md, spec)
-    default_launches = phase_default_chain(model, md, scale_model, scale_md)
+    default_launches, default_res = phase_default_chain(model, md,
+                                                        scale_model,
+                                                        scale_md)
+    phase_goal_loops(model, md, seed1, sick, drain, default_res)
 
     # Each kernel's launches come from the run of the path it serves.
     launches.update(scenario_failover=whatif_launches["scenario_failover"],

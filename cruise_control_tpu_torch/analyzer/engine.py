@@ -14,15 +14,20 @@ The pass ends when ``stall_patience`` iterations in a row apply nothing.
 Mandatory moves (offline replicas) apply even when they do not improve the
 goal, as long as they are legal and accepted by earlier goals.
 
-The reference runs these loops on the device (``lax.while_loop``); here
-they are host loops whose every test reads ONE packed scalar from the
-device. :data:`HOST_SYNCS` counts those reads.
+The reference runs these loops on the device (``lax.cond`` and
+``lax.while_loop``). The port cuts a pass into segments
+(:class:`PassSegments`) that two loops run: on the card
+:class:`~.graph_loop.GraphLoop` captures them into CUDA graphs whose loops
+are conditional nodes (no host read per iteration); on the CPU
+:class:`HostLoop` runs them as host loops whose every test reads ONE packed
+scalar from the device. :data:`HOST_SYNCS` counts those reads.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from .. import _random
@@ -201,32 +206,92 @@ def _chain_accepts(prev_goals: Sequence[GoalKernel], state, ctx, cands):
     return ok
 
 
-def make_goal_pass(goal: GoalKernel, prev_goals: Sequence[GoalKernel],
-                   cfg: SearchConfig,
-                   all_goals: Sequence[GoalKernel] | None = None):
-    """Build the single-goal optimization pass.
+class PassSegments:
+    """One goal pass cut into the segments its loops run, each a function
+    of the state, the context and its loop's carry that reads nothing back
+    to the host (the body of the reference's ``make_goal_pass``):
 
-    Returns ``run(state, ctx, key) -> (state, iters, violations, moves)``:
-    ``iters`` a Python int, ``violations`` the post-pass residual stack over
-    ``all_goals`` and ``moves`` the cumulative ``state.moves_applied``
-    (both tensors)."""
+    - :meth:`active`: the converged test (the pass runs where it is true);
+    - :meth:`drain`: one bulk-drain round (its test: the applied count);
+    - :meth:`propose`: the fine loop's body up to the apply rounds — the
+      goal's candidates, scored, the best ``apply_per_iter`` taken, their
+      conflicts;
+    - :meth:`round`: one apply round (its test: candidates still pending
+      and some applied);
+    - :meth:`stack`: the boundary stack over ``all_goals``.
 
-    eps = cfg.epsilon
-    G = cfg.apply_groups
-    prev_goals = list(prev_goals)
+    :class:`HostLoop` drives them with a host read per loop test; on the
+    card :class:`~.graph_loop.GraphLoop` captures each once and runs the
+    loops as CUDA graph conditional nodes."""
 
-    def eligibility(state, ctx, cands):
+    def __init__(self, goal: GoalKernel, prev_goals: Sequence[GoalKernel],
+                 cfg: SearchConfig,
+                 all_goals: Sequence[GoalKernel] | None = None):
+        self.goal = goal
+        self.prev_goals = list(prev_goals)
+        self.cfg = cfg
+        self.all_goals = list(all_goals or [goal])
+        self.guard_goals = [goal, *self.prev_goals]
+        #: whether the pass opens with the bulk-drain rounds
+        self.drains = goal.supports_bulk_drain and cfg.drain_rounds > 0
+        #: a drain round applying fewer moves ends the drain
+        self.min_applied = max(cfg.drain_batch // 64, 8)
+
+    def eligibility(self, state, ctx, cands):
         ok = base_legality(state, ctx, cands)
-        ok = ok & _chain_accepts(prev_goals, state, ctx, cands)
-        delta = goal.delta(state, ctx, cands)
-        return ok & ((delta < -eps) | cands.must)
+        ok = ok & _chain_accepts(self.prev_goals, state, ctx, cands)
+        delta = self.goal.delta(state, ctx, cands)
+        return ok & ((delta < -self.cfg.epsilon) | cands.must)
 
-    def apply_batch(state: SearchState, ctx: SearchContext,
-                    cands: Candidates, score: torch.Tensor):
-        M = min(cfg.apply_per_iter, score.shape[0])
+    def steer_ctx(self, state: SearchState, ctx: SearchContext
+                  ) -> SearchContext:
+        """Steer candidate generation toward destinations every earlier goal
+        can accept; keep the original set if the intersection is empty."""
+        if not self.prev_goals:
+            return ctx
+        recv = torch.ones_like(ctx.broker_alive)
+        for g in self.prev_goals:
+            recv = recv & g.receptive_dest(state, ctx)
+        dest = recv & ctx.dest_allowed
+        return ctx.replace(
+            dest_allowed=torch.where(dest.any(), dest, ctx.dest_allowed))
+
+    def active(self, state: SearchState, ctx: SearchContext) -> torch.Tensor:
+        """bool scalar: the goal is violated or a replica is offline (a
+        converged pass skips its loops: one violation read instead of
+        stall_patience zero-apply iterations)."""
+        return ((self.goal.violation(state, ctx) > self.cfg.epsilon)
+                | state.offline.any())
+
+    def drain(self, state: SearchState, ctx: SearchContext, key, r):
+        """Bulk-drain round ``r`` (an int or an int64 scalar tensor): up to
+        drain_batch conflict-free moves. Returns (state, int64 scalar
+        applied count)."""
+        c = self.goal.bulk_drain(state, self.steer_ctx(state, ctx),
+                                 _random.fold(key, 70_000 + r), self.cfg)
+        elig = self.eligibility(state, ctx, c)
+        return apply_group(state, ctx, c, elig), elig.sum()
+
+    def propose(self, state: SearchState, ctx: SearchContext, key, it):
+        """The fine loop's iteration ``it`` (an int or an int64 scalar
+        tensor) up to the apply rounds. Returns (the best M candidates in
+        score order, bool[M, M] conflicts with earlier ones, bool[M]
+        pending)."""
+        goal = self.goal
+        cands = goal.propose(state, self.steer_ctx(state, ctx),
+                             _random.fold(key, it), self.cfg)
+        elig = self.eligibility(state, ctx, cands)
+        delta = goal.delta(state, ctx, cands)
+        # Mandatory (offline) moves outrank everything; otherwise the most
+        # negative deltas apply first.
+        score = torch.where(
+            elig,
+            torch.where(cands.must, _MUST_FIRST,
+                        torch.clamp(delta, -1e29, 1e29)),
+            float("inf"))
+        M = min(self.cfg.apply_per_iter, score.shape[0])
         neg_best, order = top_k(-score, M)
         c = cands.take(order)
-        sel = torch.isfinite(neg_best)
 
         def same(a, b):
             return a[:, None] == b[None, :]
@@ -235,125 +300,206 @@ def make_goal_pass(goal: GoalKernel, prev_goals: Sequence[GoalKernel],
         # counterpart); broker sharing is left to the collective guards.
         conflict = (same(c.p, c.p) | same(c.p, c.p2)
                     | same(c.p2, c.p) | same(c.p2, c.p2))
-        earlier = torch.tril(torch.ones((M, M), dtype=torch.bool,
-                                        device=score.device), diagonal=-1)
-        conflict_earlier = conflict & earlier
-        guard_goals = [goal, *prev_goals]
+        return c, conflict & _earlier(M, score.device), torch.isfinite(
+            neg_best)
 
-        n = torch.zeros((), dtype=torch.int64, device=score.device)
-        pending = sel
-        rounds = 0
-        go = _read(pending.any())
-        while go and rounds < G:
-            elig = pending & eligibility(state, ctx, c)
-            blocked = (conflict_earlier & elig[None, :]).any(dim=1)
-            # Guards see exactly the earlier, eligible candidates.
-            gmask = earlier & elig[None, :]
-            ok = torch.ones_like(elig)
-            for g in guard_goals:
-                gok = g.collective_guard(state, ctx, c, gmask)
-                if gok is None:
-                    gok = ~((same(c.src, c.src) | same(c.dst, c.dst))
-                            & gmask).any(dim=1)
-                if g is goal:
-                    # The goal may not veto its own mandatory moves.
-                    gok = gok | c.must
-                ok = ok & gok
-            do = elig & ~blocked & ok
-            state = apply_group(state, ctx, c, do)
-            n = n + do.sum()
-            pending = pending & ~do
-            rounds += 1
-            if rounds < G:
-                go = _read(pending.any() & do.any())
-        return state, n
+    def round(self, state: SearchState, ctx: SearchContext, c: Candidates,
+              conflict_earlier: torch.Tensor, pending: torch.Tensor):
+        """One apply round over the pending candidates, re-validated against
+        the state and guarded by every chain goal's collective bound.
+        Returns (state, pending, int64 scalar applied, bool scalar: still
+        pending and some applied)."""
+        elig = pending & self.eligibility(state, ctx, c)
+        blocked = (conflict_earlier & elig[None, :]).any(dim=1)
+        # Guards see exactly the earlier, eligible candidates.
+        gmask = _earlier(elig.shape[0], elig.device) & elig[None, :]
+        ok = torch.ones_like(elig)
+        for g in self.guard_goals:
+            gok = g.collective_guard(state, ctx, c, gmask)
+            if gok is None:
+                gok = ~(((c.src[:, None] == c.src[None, :])
+                         | (c.dst[:, None] == c.dst[None, :]))
+                        & gmask).any(dim=1)
+            if g is self.goal:
+                # The goal may not veto its own mandatory moves.
+                gok = gok | c.must
+            ok = ok & gok
+        do = elig & ~blocked & ok
+        state = apply_group(state, ctx, c, do)
+        pending = pending & ~do
+        return state, pending, do.sum(), pending.any() & do.any()
 
-    def steer_ctx(state: SearchState, ctx: SearchContext) -> SearchContext:
-        """Steer candidate generation toward destinations every earlier goal
-        can accept; keep the original set if the intersection is empty."""
-        if not prev_goals:
-            return ctx
-        recv = torch.ones_like(ctx.broker_alive)
-        for g in prev_goals:
-            recv = recv & g.receptive_dest(state, ctx)
-        dest = recv & ctx.dest_allowed
-        return ctx.replace(
-            dest_allowed=torch.where(dest.any(), dest, ctx.dest_allowed))
+    def stack(self, state: SearchState, ctx: SearchContext) -> torch.Tensor:
+        return violation_stack(self.all_goals, state, ctx)
 
-    def run(state: SearchState, ctx: SearchContext, key: torch.Tensor):
-        # Converged-goal early exit: one violation read instead of
-        # stall_patience zero-apply iterations.
-        active = ((goal.violation(state, ctx) > eps) | state.offline.any())
+
+def _earlier(m: int, device) -> torch.Tensor:
+    """bool[m, m]: j < i (candidate j is earlier than candidate i)."""
+    return torch.tril(torch.ones((m, m), dtype=torch.bool, device=device),
+                      diagonal=-1)
+
+
+class HostLoop:
+    """A goal pass whose loop tests the host reads, one packed scalar each
+    (:data:`HOST_SYNCS`): the CPU's loop over :class:`PassSegments`, and
+    the plain twin of the card's :class:`~.graph_loop.GraphLoop`.
+
+    ``run(state, ctx, key) -> (state, iters, violations, moves)``:
+    ``iters`` a Python int, ``violations`` the post-pass residual stack over
+    ``all_goals`` and ``moves`` the cumulative ``state.moves_applied``."""
+
+    def __init__(self, seg: PassSegments):
+        self.seg = seg
+
+    def __call__(self, state: SearchState, ctx: SearchContext, key):
+        seg = self.seg
         iters = 0
-        if _read(active):
-            state, iters = _run_active(state, ctx, key)
-        stack = violation_stack(all_goals or [goal], state, ctx)
-        return state, iters, stack, state.moves_applied
+        if _read(seg.active(state, ctx)):
+            state, iters = self._run_active(state, ctx, key)
+        return state, iters, seg.stack(state, ctx), state.moves_applied
 
-    def _run_active(state: SearchState, ctx: SearchContext,
-                    key: torch.Tensor):
-        if goal.supports_bulk_drain and cfg.drain_rounds > 0:
-            # Vectorized shedding prologue: up to drain_batch conflict-free
-            # moves per round; the fine loop below finishes the tail.
-            min_applied = max(cfg.drain_batch // 64, 8)
+    def _run_active(self, state, ctx, key):
+        seg, cfg = self.seg, self.seg.cfg
+        if seg.drains:
+            # Vectorized shedding prologue; the fine loop finishes the tail.
             r = 0
             while r < cfg.drain_rounds:
-                c = goal.bulk_drain(state, steer_ctx(state, ctx),
-                                    _random.fold(key, 70_000 + r), cfg)
-                elig = eligibility(state, ctx, c)
-                state = apply_group(state, ctx, c, elig)
+                state, applied = seg.drain(state, ctx, key, r)
                 r += 1
-                if r < cfg.drain_rounds and _read(elig.sum()) < min_applied:
+                if r < cfg.drain_rounds and _read(applied) < seg.min_applied:
                     break
-
         it = 0
         stalls = 0
         while stalls < cfg.stall_patience and it < cfg.max_iters_per_goal:
-            k = _random.fold(key, it)
-            cands = goal.propose(state, steer_ctx(state, ctx), k, cfg)
-            elig = eligibility(state, ctx, cands)
-            delta = goal.delta(state, ctx, cands)
-            # Mandatory (offline) moves outrank everything; otherwise the
-            # most negative deltas apply first.
-            score = torch.where(
-                elig,
-                torch.where(cands.must, _MUST_FIRST,
-                            torch.clamp(delta, -1e29, 1e29)),
-                float("inf"))
-            state, applied = apply_batch(state, ctx, cands, score)
-            stalls = stalls + 1 if _read(applied == 0) else 0
+            c, conflict_earlier, pending = seg.propose(state, ctx, key, it)
+            n = torch.zeros((), dtype=torch.int64, device=pending.device)
+            rounds = 0
+            go = _read(pending.any())
+            while go and rounds < cfg.apply_groups:
+                state, pending, applied, more = seg.round(
+                    state, ctx, c, conflict_earlier, pending)
+                n = n + applied
+                rounds += 1
+                if rounds < cfg.apply_groups:
+                    go = _read(more)
+            stalls = stalls + 1 if _read(n == 0) else 0
             it += 1
         return state, it
 
-    return run
+
+def make_goal_pass(goal: GoalKernel, prev_goals: Sequence[GoalKernel],
+                   cfg: SearchConfig,
+                   all_goals: Sequence[GoalKernel] | None = None):
+    """Build the single-goal optimization pass.
+
+    Returns ``run(state, ctx, key) -> (state, iters, violations, moves)``:
+    ``violations`` the post-pass residual stack over ``all_goals`` and
+    ``moves`` the cumulative ``state.moves_applied``; ``iters`` a Python int
+    on the CPU and an int64 scalar on the card, where the pass runs as a
+    CUDA graph (:mod:`.graph_loop`)."""
+    return _PassRunner([PassSegments(goal, prev_goals, cfg,
+                                     all_goals)]).passes[0]
 
 
 def make_chain_step(goals: Sequence[GoalKernel], cfg: SearchConfig):
     """Compose the per-goal passes into ``step(state, ctx, key) ->
     (state, violations)``; each pass folds its goal index into the key."""
-    passes = [make_goal_pass(g, list(goals[:i]), cfg, all_goals=list(goals))
-              for i, g in enumerate(goals)]
+    return CompiledGoalChain(goals, cfg).step
 
-    def step(state, ctx, key):
+
+def _pack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The tensors' bytes, flat and back to back (one device->host read)."""
+    return torch.cat([t.reshape(-1).contiguous().view(torch.uint8)
+                      for t in tensors])
+
+
+def _unpack(buf: np.ndarray, like: Sequence[torch.Tensor]) -> list:
+    """Numpy arrays of ``like``'s dtypes and shapes from :func:`_pack`'s
+    bytes read to the host."""
+    out, off = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        dt = torch.empty((), dtype=t.dtype).numpy().dtype
+        out.append(buf[off:off + n].copy().view(dt).reshape(tuple(t.shape)))
+        off += n
+    return out
+
+
+def read_host(*xs) -> list:
+    """Numpy arrays of ``xs`` in one device->host read: the tensors among
+    them are packed into one buffer (all on one device); Python numbers
+    pass through."""
+    dev = [x for x in xs if isinstance(x, torch.Tensor)]
+    host = iter(_unpack(_pack(dev).cpu().numpy(), dev) if dev else ())
+    return [next(host) if isinstance(x, torch.Tensor) else np.asarray(x)
+            for x in xs]
+
+
+class _PassRunner:
+    """The passes of a list of :class:`PassSegments`: on the CPU (or with
+    ``loop="host"``) each is a :class:`HostLoop`; on the card every pass
+    runs through the CUDA graphs of :class:`~.graph_loop.GraphLoop`, one
+    set a state and context signature, captured at first use. A capture
+    or launch that fails raises; there is no fallback to the host loop."""
+
+    def __init__(self, segments: Sequence[PassSegments], loop: str = "auto",
+                 aux=None):
+        if loop not in ("auto", "host"):
+            raise ValueError(f"unknown goal-loop mode {loop!r}")
+        self.segments = list(segments)
+        self.loop = loop
+        self._aux = aux
+        self.host_passes = [HostLoop(s) for s in self.segments]
+        self.passes = [self._pass(i) for i in range(len(self.segments))]
+        self._graphs: dict = {}
+
+    def _pass(self, i: int):
+        def run(state, ctx, key):
+            if self._on_host(state):
+                return self.host_passes[i](state, ctx, key)
+            return self.graph_loop(state, ctx).run_pass(i, state, ctx, key)
+        return run
+
+    def _on_host(self, state) -> bool:
+        return self.loop == "host" or state.rb.device.type != "cuda"
+
+    def graph_loop(self, state, ctx):
+        """The :class:`~.graph_loop.GraphLoop` of this state and context
+        signature (captured on first use)."""
+        from .graph_loop import GraphLoop, signature
+        key = signature(state, ctx)
+        gl = self._graphs.get(key)
+        if gl is None:
+            gl = self._graphs[key] = GraphLoop(self.segments, state, ctx,
+                                               aux=self._aux)
+            while len(self._graphs) > 4:
+                self._graphs.pop(next(iter(self._graphs))).settle()
+        return gl
+
+    def step(self, state, ctx, key):
+        """Every pass back to back with fold_in(key, i); returns (state,
+        the last pass's violations)."""
         stack = None
-        for i, p in enumerate(passes):
+        for i, p in enumerate(self.passes):
             state, _, stack, _ = p(state, ctx, _random.fold(key, i))
         return state, stack
 
-    return step
 
-
-class CompiledGoalChain:
+class CompiledGoalChain(_PassRunner):
     """Per-goal passes for one (goal chain, config) pair, plus the aux
-    readings and the one-walk ``fused`` form. Nothing is compiled ahead of
-    time: ``warmup`` is a no-op kept for API parity with the reference."""
+    readings and the one-walk ``fused`` form. On the card the first call at
+    a new model shape captures the chain's segments (a compile event of
+    ``core.runtime_obs``); ``warmup`` is a no-op kept for API parity with
+    the reference."""
 
-    def __init__(self, goals: Sequence[GoalKernel], cfg: SearchConfig):
+    def __init__(self, goals: Sequence[GoalKernel], cfg: SearchConfig,
+                 loop: str = "auto"):
         self.goals = list(goals)
         self.cfg = cfg
-        self.passes = [make_goal_pass(g, self.goals[:i], cfg,
-                                      all_goals=self.goals)
-                       for i, g in enumerate(self.goals)]
+        super().__init__([PassSegments(g, self.goals[:i], cfg,
+                                       all_goals=self.goals)
+                          for i, g in enumerate(self.goals)], loop,
+                         aux=self.aux)
 
     def warmup(self, state, ctx, key) -> None:
         return None
@@ -370,8 +516,12 @@ class CompiledGoalChain:
 
     def fused(self, state, ctx, key):
         """The whole chain back to back with fold_in(key, i) per goal, like
-        the per-goal walk. Returns (state, aux, [G] iters, f32[G, G]
-        boundary stacks, [G] cumulative moves)."""
+        the per-goal walk, ending in one packed device->host read. Returns
+        (state, aux, [G] iters, f32[G, G] boundary stacks, [G] cumulative
+        moves), all but the state numpy arrays on the host (aux as in
+        :meth:`aux`)."""
+        if not self._on_host(state):
+            return self.graph_loop(state, ctx).run_fused(state, ctx, key)
         aux = self.aux(state, ctx)
         iters, bounds, moves = [], [], []
         for i, run in enumerate(self.passes):
@@ -379,4 +529,8 @@ class CompiledGoalChain:
             iters.append(it)
             bounds.append(stack)
             moves.append(m)
-        return state, aux, iters, torch.stack(bounds), torch.stack(moves)
+        bounds, moves = torch.stack(bounds), torch.stack(moves)
+        readings = [aux[0], aux[1], aux[2], bounds, moves]
+        host = _unpack(_pack(readings).cpu().numpy(), readings)
+        return (state, (host[0], host[1], host[2]),
+                np.asarray(iters, np.int64), host[3], host[4])

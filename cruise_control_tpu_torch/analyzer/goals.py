@@ -1423,7 +1423,7 @@ class TopicReplicaDistributionGoal(GoalKernel):
         deltas = torch.stack([d_src_t1, d_dst_t1, -m2, m2]).to(torch.float32)
         inflow, outflow = deltas.clamp(min=0.0), deltas.clamp(max=0.0)
         net1, lo1, net2, lo2 = cell_net_flow(
-            cells[[1, 0, 3, 2]], cells,
+            cells.reshape(2, 2, -1).flip(1).reshape(4, -1), cells,
             torch.stack([inflow, outflow, inflow, outflow]), earlier)
         after1 = tc[t1, c.dst].to(torch.float32) + net1 + d_dst_t1
         src1_lo = tc[t1, c.src].to(torch.float32) + lo1 + d_src_t1

@@ -33,7 +33,7 @@ from ..model.proposals import ExecutionProposal, diff_proposals, proposal_summar
 from ..model.spec import ClusterMetadata
 from ..utils.device import resolve_device
 from .constraint import BalancingConstraint, PopulationConfig, SearchConfig
-from .engine import CompiledGoalChain, violation_stack
+from .engine import CompiledGoalChain, read_host, violation_stack
 from .goals import (DEFAULT_GOALS, HARD_GOAL_ALTERNATIVES, GoalKernel,
                     default_goals, goals_by_name)
 from .options import OptimizationOptions
@@ -143,8 +143,14 @@ class TorchGoalOptimizer:
                  branches: int = 0,
                  mesh=None,
                  tuned_store=None,
-                 device=None):
+                 device=None,
+                 goal_loop: str = "auto"):
         self.device = resolve_device(device)
+        #: "auto": the goal passes run as CUDA graphs on the card
+        #: (``analyzer/graph_loop.py``) and as host loops on the CPU;
+        #: "host": host loops on the card too — the graphs' plain twin, for
+        #: comparison only
+        self.goal_loop = goal_loop
         self.constraint = constraint or BalancingConstraint()
         self.goals = goals if goals is not None else default_goals(self.constraint)
         self.config = config or SearchConfig()
@@ -217,7 +223,8 @@ class TorchGoalOptimizer:
                            g.bind_signature()) for g in goals))
         chain = self._chains.get(key)
         if chain is None:
-            chain = self._chains[key] = CompiledGoalChain(goals, cfg)
+            chain = self._chains[key] = CompiledGoalChain(
+                goals, cfg, loop=self.goal_loop)
             while len(self._chains) > 16:
                 self._chains.pop(next(iter(self._chains)))
         return chain
@@ -327,11 +334,9 @@ class TorchGoalOptimizer:
             if on_goal_start is not None:
                 on_goal_start(f"FusedChain[{len(goals)}]")
             t_walk = time.monotonic()
-            state, aux, iters_l, bounds, moves_arr = chain.fused(
-                state, ctx, key)
-            (has_broken_raw, scales_arr, v0), bounds_np, moves_np = (
-                tuple(_host(a) for a in aux), _host(bounds),
-                _host(moves_arr))
+            state, (has_broken_raw, scales_arr, v0), iters_np, bounds_np, \
+                moves_np = chain.fused(state, ctx, key)
+            iters_l = [int(x) for x in iters_np]
             walk_s = time.monotonic() - t_walk
             total_iters = max(sum(iters_l), 1)
             durations = [walk_s * it / total_iters for it in iters_l]
@@ -346,7 +351,7 @@ class TorchGoalOptimizer:
                 tp = time.monotonic()
                 state, iters, stack, moves = chain.passes[i](
                     state, ctx, _random.fold(key, i))
-                fetched.append((iters, _host(stack), _host(moves)))
+                fetched.append(tuple(read_host(iters, stack, moves)))
                 durations.append(time.monotonic() - tp)
 
         # ref AbstractGoal.java:110-119: the "never worsen" assertion only
@@ -401,7 +406,7 @@ class TorchGoalOptimizer:
                 tp0 = time.monotonic()
                 state, _aux2, it2, b2, m2 = chain.fused(
                     state, ctx, _random.fold(key, 50_000 + rnd))
-                b2, m2 = _host(b2), _host(m2)
+                it2 = [int(x) for x in it2]
                 w = time.monotonic() - tp0
                 tot = max(sum(it2), 1)
                 boundary = np.asarray(b2[-1])
@@ -423,7 +428,7 @@ class TorchGoalOptimizer:
                 tp = time.monotonic()
                 state, iters, stack, moves = chain.passes[i](
                     state, ctx, _random.fold(key, 1000 * (rnd + 1) + i))
-                boundary = _host(stack)
+                iters, boundary, moves = read_host(iters, stack, moves)
                 gr = goal_results[i]
                 acc = int(moves) - moves_total
                 moves_total = int(moves)
@@ -553,7 +558,7 @@ class TorchGoalOptimizer:
             on_goal_start(f"BranchedChain[{len(goals)}x{self.branches}]")
         aux = chain.aux(state, ctx)
         t_walk = time.monotonic()
-        run = make_branched_search(goals, cfg, self.branches)
+        run = make_branched_search(goals, cfg, self.branches, chain=chain)
         states, viols = run(state, ctx, key)
         if audit:
             state, best_idx, vbest = select_best_audited(

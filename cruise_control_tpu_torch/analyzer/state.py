@@ -496,7 +496,7 @@ def apply_group(state: SearchState, ctx: SearchContext, c: Candidates,
     offx = torch.cat([off, off.new_zeros((1, R))])
     offx[pw, r] = new_off_r
     offx[pw, 0] = new_off_0
-    offx[p2w, c.r2] = False
+    offx[p2w, c.r2] = torch.zeros((), dtype=torch.bool, device=off.device)
 
     # Float aggregates: util (4 planes), potential NW_OUT and leader NW_IN
     # ride one ordered segment sum — every source row first, then every

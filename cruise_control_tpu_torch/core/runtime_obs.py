@@ -12,8 +12,11 @@ run time; what stalls a cycle in its place are its own events:
   program name is seen, ``aot-warmup`` inside
   :meth:`DeviceStatsCollector.warming`, ``signature-change`` for a repeat
   of an already-built name), so a cycle that loads the library after
-  ``warmup`` shows as a compile event. No served path captures a CUDA
-  graph yet, so captures are not recorded. The reference's
+  ``warmup`` shows as a compile event. A goal chain's CUDA-graph capture
+  (``analyzer/graph_loop.py``, one a chain and state signature) is
+  reported through :meth:`DeviceStatsCollector.record_capture` as a
+  compile event with cache ``capture``; a warm call captures nothing. The
+  reference's
   ``lower``/``aot_compile`` entry points have no counterpart here.
 - **Dispatch counts.** :meth:`DeviceStatsCollector.track` wraps a callable
   (a kernel wrapper) and counts its dispatches per program name.
@@ -59,8 +62,8 @@ _tls = threading.local()
 
 
 class CompileEvent:
-    """One observed kernel-library build or load (``cache`` says which:
-    "build" or "load")."""
+    """One observed kernel-library build or load, or a CUDA-graph capture
+    (``cache`` says which: "build", "load" or "capture")."""
 
     __slots__ = ("program", "bucket", "trigger", "cache", "duration_s",
                  "time_s", "thread_name")
@@ -135,6 +138,7 @@ class DeviceStatsCollector:
         self._programs: dict[str, _ProgramStats] = {}
         self._built: set[str] = set()
         self._events: deque[CompileEvent] = deque(maxlen=max_events)
+        self._captures = 0
         self._epoch = time.perf_counter()
         self._h2d_bytes = 0
         self._d2h_bytes = 0
@@ -218,6 +222,18 @@ class DeviceStatsCollector:
         """Record one kernel-library ``build`` or ``load``."""
         if self.enabled:
             self._on_compile(KERNEL_LIBRARY_PROGRAM, kind, seconds)
+
+    def record_capture(self, program: str, seconds: float) -> None:
+        """Record one CUDA-graph capture of ``program`` (a goal chain's
+        segments at a new state signature, ``analyzer/graph_loop.py``)."""
+        if self.enabled:
+            with self._lock:
+                self._captures += 1
+            self._on_compile(program, "capture", seconds)
+
+    def capture_count(self) -> int:
+        """CUDA-graph captures recorded (every trigger)."""
+        return self._captures
 
     def _on_compile(self, name: str, cache: str, duration_s: float) -> None:
         with self._lock:
@@ -439,6 +455,7 @@ class DeviceStatsCollector:
         return {"compileEvents": self.compile_count(),
                 "aotCompileEvents": self.aot_compile_count(),
                 "recompileEvents": self.recompile_count(),
+                "captureEvents": self.capture_count(),
                 "h2dBytes": h2d, "d2hBytes": d2h}
 
     def to_json(self, recent_events: int = 64) -> dict:

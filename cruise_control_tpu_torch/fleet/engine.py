@@ -38,6 +38,7 @@ import torch
 from .. import _random
 from ..analyzer.optimizer import (GoalResult, OptimizationFailureError,
                                   OptimizerResult)
+from ..analyzer.engine import read_host
 from ..analyzer.options import OptimizationOptions
 from ..analyzer.state import build_context, init_state, to_model
 from ..model.fleet import FleetModel
@@ -374,8 +375,9 @@ class FleetOptimizer:
             for i, run in enumerate(passes):
                 if enabled[c, i]:
                     state, it, stack, mv = run(state, ctx, keys[i])
-                    prev, m = _host(stack), int(mv)
-                    iters[c, i] = it
+                    it, prev, m = read_host(it, stack, mv)
+                    iters[c, i] = int(it)
+                    m = int(m)
                 bounds[c, i] = prev
                 moves[c, i] = m
             states[c] = state

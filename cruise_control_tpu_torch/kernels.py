@@ -57,9 +57,19 @@ One more carries the fleet's scenario sweeps:
   chunk), the chunk's broker masks as bits in shared memory, a thread's
   partitions in registers across the scenarios, 16-byte stores.
 
+One more carries the goal loops:
+
+- **KL** ``goal_loop`` — one step of a goal pass's loop control (its
+  counters and the next loop test, written into a CUDA graph conditional
+  handle), the node that closes each loop of a pass's graph
+  (``analyzer/graph_loop.py``); ``csrc/goal_loop.cu`` also holds the
+  functions that build those graphs.
+
 Each wrapper takes the plain twin for a tensor on the CPU, and for a CUDA
 tensor launches its kernel or raises: there is no fallback. Each launch
-adds one to ``LAUNCHES[name]``.
+adds one to ``LAUNCHES[name]``; a kernel replayed inside a goal pass's
+CUDA graph is added when the graph's counters are read (the fused chain's
+packed read, ``graph_loop.settle`` and :func:`reset_launch_counts`).
 
 The kernels are built from ``csrc/*.cu`` at first use with ``nvcc`` into
 ``build/torch_kernels/`` (one ``nvcc`` per source, all started together,
@@ -77,6 +87,7 @@ import math
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -90,7 +101,7 @@ CSRC = _PKG / "csrc"
 SOURCES = ("threefry.cu", "segment_sum.cu", "net_flow.cu", "cell_flow.cu",
            "failover.cu", "first_fit.cu", "delta_scatter.cu",
            "cluster_stats.cu", "intra_walk.cu", "population_select.cu",
-           "launch_floor.cu")
+           "launch_floor.cu", "goal_loop.cu")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -101,7 +112,7 @@ LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
             "scenario_failover": 0, "first_fit": 0,
             "delta_row_scatter": 0, "cluster_stats": 0,
             "intra_broker_walk": 0, "population_select": 0,
-            "fleet_scenario_failover": 0}
+            "fleet_scenario_failover": 0, "goal_loop": 0}
 #: ``nvcc``/ptxas output of the build this process loaded (register and
 #: spill counts per kernel), empty when the library came from the cache
 BUILD_LOG: list[str] = []
@@ -111,6 +122,11 @@ _LIB_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
+    """Zero ``LAUNCHES``, after crediting (and so dropping) the kernels the
+    goal-loop graphs replayed since they were last counted."""
+    graph_loop = sys.modules.get(f"{__package__}.analyzer.graph_loop")
+    if graph_loop is not None:
+        graph_loop.settle()
     for k in LAUNCHES:
         LAUNCHES[k] = 0
 
@@ -226,6 +242,34 @@ def load_library():
                                                  *[i64] * 14, p, p, p, p]
             lib.cc_population_select_single.argtypes = [i64, i64]
             lib.cc_population_select_single.restype = i64
+            lib.cc_goal_loop_step.argtypes = [p, ctypes.c_int, i64, i64, p]
+            lib.cc_graph_create.argtypes = [ctypes.POINTER(p)]
+            lib.cc_graph_destroy.argtypes = [p]
+            lib.cc_graph_check_body.argtypes = [p, ctypes.c_char_p,
+                                                ctypes.c_int]
+            lib.cc_graph_add_child.argtypes = [p, p, p, ctypes.POINTER(p)]
+            lib.cc_graph_add_loop.argtypes = [p, p, p, ctypes.c_int, i64, i64,
+                                              ctypes.c_uint64, ctypes.c_int,
+                                              ctypes.POINTER(p)]
+            lib.cc_graph_handle.argtypes = [p, ctypes.POINTER(ctypes.c_uint64)]
+            lib.cc_graph_add_cond.argtypes = [p, p, ctypes.c_int,
+                                              ctypes.c_uint64,
+                                              ctypes.POINTER(p),
+                                              ctypes.POINTER(p)]
+            lib.cc_graph_instantiate.argtypes = [p, ctypes.POINTER(p)]
+            lib.cc_graph_upload.argtypes = [p, p]
+            lib.cc_graph_launch.argtypes = [p, p]
+            lib.cc_graph_exec_destroy.argtypes = [p]
+            lib.cc_cuda_versions.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+            for fn in (lib.cc_goal_loop_step,
+                       lib.cc_graph_create, lib.cc_graph_destroy,
+                       lib.cc_graph_check_body, lib.cc_graph_add_child,
+                       lib.cc_graph_add_loop, lib.cc_graph_handle,
+                       lib.cc_graph_add_cond,
+                       lib.cc_graph_instantiate, lib.cc_graph_upload,
+                       lib.cc_graph_launch, lib.cc_graph_exec_destroy,
+                       lib.cc_cuda_versions):
+                fn.restype = ctypes.c_int
             for fn in (lib.cc_threefry_draw, lib.cc_ordered_segment_sum,
                        lib.cc_ordered_range_sum,
                        lib.cc_net_broker_flow, lib.cc_cell_net_flow,
@@ -1353,3 +1397,94 @@ def fleet_scenario_failover(rb, off, pref, broker_valid, broker_alive, dead,
     if _on_cpu(*args):
         return fleet_scenario_failover_plain(*args)
     return _failover("fleet_scenario_failover", *args, False, False)
+
+
+# ---------------------------------------------------------------------------
+# KL: goal-loop control (the loop tests of a goal pass, on the device)
+# ---------------------------------------------------------------------------
+
+#: a goal pass's int64 loop counters (``csrc/goal_loop.cu:Slot``)
+GOAL_LOOP_SLOTS = ("flag", "it", "stalls", "round", "rounds", "applied",
+                   "exec_active", "exec_drain", "exec_fine", "exec_round",
+                   "exec_loop", "cond")
+#: KL's steps (``csrc/goal_loop.cu:Op``)
+GOAL_LOOP_OPS = {"active": 0, "drain_enter": 1, "drain_step": 2,
+                 "fine_enter": 3, "rounds_enter": 4, "rounds_step": 5,
+                 "fine_step": 6}
+
+
+def goal_loop_step_plain(ctr: torch.Tensor, op: str, a: int = 0,
+                         b: int = 0) -> torch.Tensor:
+    """Twin of KL: one step ``op`` of a goal pass's loop control over the
+    counters ``ctr`` (int64[len(GOAL_LOOP_SLOTS)], updated in place) with
+    the limits ``a`` and ``b``; returns the loop test (also stored in the
+    ``cond`` slot), a bool scalar on ``ctr``'s device. It reads nothing back
+    to the host and copies nothing to the device, so it captures into a
+    CUDA graph as it stands."""
+    s = {name: i for i, name in enumerate(GOAL_LOOP_SLOTS)}
+    c = ctr
+
+    def get(name):
+        return c[s[name]]
+
+    def put(name, v):
+        c[s[name]] = v
+
+    if op == "active":
+        for name in ("it", "stalls", "round", "rounds", "applied"):
+            put(name, 0)
+        cond = get("flag") != 0
+        put("exec_active", get("exec_active") + cond.long())
+    elif op == "drain_enter":
+        put("round", 0)
+        cond = torch.full((), a > 0, dtype=torch.bool, device=c.device)
+    elif op == "drain_step":
+        put("exec_drain", get("exec_drain") + 1)
+        put("round", get("round") + 1)
+        cond = (get("round") < a) & (get("flag") >= b)
+    elif op == "fine_enter":
+        put("it", 0)
+        put("stalls", 0)
+        cond = torch.full((), a > 0 and b > 0, dtype=torch.bool,
+                          device=c.device)
+    elif op == "rounds_enter":
+        put("exec_fine", get("exec_fine") + 1)
+        put("rounds", 0)
+        put("applied", 0)
+        cond = (get("flag") != 0) & (a > 0)
+    elif op == "rounds_step":
+        put("exec_round", get("exec_round") + 1)
+        put("rounds", get("rounds") + 1)
+        cond = (get("rounds") < a) & (get("flag") != 0)
+    elif op == "fine_step":
+        put("stalls", torch.where(get("applied") == 0, get("stalls") + 1, 0))
+        put("it", get("it") + 1)
+        cond = (get("stalls") < a) & (get("it") < b)
+    else:
+        raise ValueError(f"unknown goal-loop step {op!r}")
+    put("exec_loop", get("exec_loop") + 1)
+    put("cond", cond.long())
+    return cond.clone()
+
+
+def goal_loop_step(ctr: torch.Tensor, op: str, a: int = 0,
+                   b: int = 0) -> torch.Tensor:
+    """One eager step of KL (``csrc/goal_loop.cu``) over a pass's counters
+    (int64[len(GOAL_LOOP_SLOTS)], updated in place); returns the loop test
+    as a bool scalar on ``ctr``'s device. Inside a goal pass's graph the
+    same kernel runs as a node that also sets the conditional handle
+    (``analyzer/graph_loop.py``); this form holds it to its twin."""
+    if ctr.shape != (len(GOAL_LOOP_SLOTS),) or ctr.dtype != torch.int64:
+        raise ValueError(f"goal-loop counters must be int64"
+                         f"[{len(GOAL_LOOP_SLOTS)}]")
+    if op not in GOAL_LOOP_OPS:
+        raise ValueError(f"unknown goal-loop step {op!r}")
+    if _on_cpu(ctr):
+        return goal_loop_step_plain(ctr, op, a, b)
+    if not ctr.is_contiguous():
+        raise ValueError("goal-loop counters must be contiguous")
+    rc = load_library().cc_goal_loop_step(ctr.data_ptr(), GOAL_LOOP_OPS[op],
+                                          int(a), int(b), _stream())
+    LAUNCHES["goal_loop"] += 1
+    _check(rc, "goal_loop")
+    return ctr[GOAL_LOOP_SLOTS.index("cond")] != 0

@@ -29,11 +29,14 @@ from ..analyzer.goals import GoalKernel
 
 
 def make_branched_search(goals: Sequence[GoalKernel], cfg: SearchConfig,
-                         n_branches: int):
+                         n_branches: int, chain=None):
     """Build ``run(state, ctx, key) -> (states, violations)``: ``states[i]``
     is branch i's final state and ``violations[i, g]`` its final residual of
-    goal g (float32[N, G]). Use :func:`select_best` to pick the winner."""
-    chain = make_chain_step(goals, cfg)
+    goal g (float32[N, G]). Use :func:`select_best` to pick the winner.
+    ``chain``: the goals' ``CompiledGoalChain`` to run the passes of (its
+    CUDA graphs are captured once; by default a chain of its own)."""
+    chain = (make_chain_step(goals, cfg) if chain is None
+             else chain.step)
     n = int(n_branches)
 
     def run(state, ctx, key):

@@ -75,7 +75,17 @@ def _read_host(*tensors):
     """One device -> host fetch of a generation boundary's readings,
     counted in ``engine.HOST_SYNCS``."""
     engine.HOST_SYNCS += 1
-    return [t.cpu().numpy() for t in tensors]
+    return engine.read_host(*tensors)
+
+
+def _iters(iters: list):
+    """A pass's iteration counts as one int64 tensor where any is a device
+    scalar (a CUDA-graph pass), else as they are (Python ints)."""
+    like = next((x for x in iters if isinstance(x, torch.Tensor)), None)
+    if like is None:
+        return np.asarray(iters, np.int64)
+    return torch.stack([x if isinstance(x, torch.Tensor)
+                        else torch.full_like(like, x) for x in iters])
 
 
 def make_population_search(passes: Sequence, goals: Sequence[GoalKernel],
@@ -164,8 +174,10 @@ def make_population_search(passes: Sequence, goals: Sequence[GoalKernel],
             wb.append(bounds)
             mv_walk.append(mv)
         boundary_d = torch.stack([b[-1] for b in wb])            # [K, G]
-        wb_np, mv_np = _read_host(torch.stack(wb), torch.stack(mv_walk))
-        iters = np.asarray(iters, np.int64).reshape(K, G)
+        wb_np, mv_np, iters = _read_host(torch.stack(wb),
+                                         torch.stack(mv_walk),
+                                         _iters(sum(iters, [])))
+        iters = iters.astype(np.int64).reshape(K, G)
         accepted = mv_np - np.concatenate(
             [np.zeros((K, 1), mv_np.dtype), mv_np[:, :-1]], axis=1)
         moves = mv_np[:, -1]
@@ -195,12 +207,13 @@ def make_population_search(passes: Sequence, goals: Sequence[GoalKernel],
                 mv_r.append(mv)
             states = out_states
             boundary_d = torch.stack(b_r)
-            boundary, mv_r = _read_host(boundary_d, torch.stack(mv_r))
+            boundary, mv_r, it_r = _read_host(boundary_d, torch.stack(mv_r),
+                                              _iters(sum(it_r, [])))
             accepted = accepted + mv_r - np.concatenate(
                 [moves[:, None], mv_r[:, :-1]], axis=1)
             moves = mv_r[:, -1]
             moves_d = torch.from_numpy(moves).to(dev)
-            iters = iters + np.asarray(it_r, np.int64).reshape(K, G)
+            iters = iters + it_r.astype(np.int64).reshape(K, G)
             perms.append(perm.astype(np.int32))
             rows.append(boundary)
         ranks, weighted, _ = select(boundary_d, moves_d, scales, hard_mask,

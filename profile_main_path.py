@@ -5,7 +5,10 @@ Builds the 100-broker x 20K-partition cluster of ``chip_smoke.py`` and its
 main-path optimizer, runs one warm-up optimize (seed 0), then profiles with
 ``torch.profiler``, one after the other:
 
-- one optimize (seed 1), the main path;
+- one optimize (seed 1), the main path, its goal passes as CUDA graphs
+  and then driven by host loops (``goal_loop="host"``), each after a cold
+  and three timed warm optimizes; then the default chain (``goals=None``)
+  both ways;
 - one warm what-if N-1 sweep over the 100 brokers (``chip_smoke`` phase 7);
 - one schedule of the seed-1 proposals with the hard-goal boundary audit
   (``chip_smoke`` phase 8, the facade's defaults);
@@ -25,7 +28,8 @@ main-path optimizer, runs one warm-up optimize (seed 0), then profiles with
 and prints for each:
 
 - wall time and kernel launches (for the optimize also the host syncs of
-  the engine's loop tests);
+  the engine's loop tests, and its device-to-host copies and KL
+  launches);
 - device busy time (the union of CUDA kernel and memcpy intervals) and the
   device's idle share of the wall time;
 - the top kernels by total device time, with their launch counts;
@@ -63,7 +67,8 @@ HAND_WRITTEN = ("threefry_draw_kernel", "tile_group_kernel",
                 "cluster_stats_kernel", "intra_walk_kernel",
                 "population_select_kernel", "population_rank_kernel",
                 "population_place_kernel", "failover_tiled_kernel",
-                "failover_rows_kernel")
+                "failover_rows_kernel", "cell_net_flow_kernel",
+                "goal_loop_kernel")
 
 
 def profiled(fn):
@@ -86,6 +91,8 @@ def report(label, prof, wall_s, top, head) -> bool:
     device time."""
     import torch
     from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.analyzer import graph_loop
+    graph_loop.settle()
     device_events = [e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA]
     intervals = [(e.time_range.start, e.time_range.end)
@@ -107,6 +114,9 @@ def report(label, prof, wall_s, top, head) -> bool:
           f"wall: idle share {idle:.4f}; summed kernel time "
           f"{total_us / 1e3:.3f} ms; mean event "
           f"{total_us / len(device_events):.2f} us")
+    d2h = sum(len(v) for n, v in by_name.items() if "DtoH" in n)
+    print(f"device-to-host copies {d2h}; KL (graph loop tests) "
+          f"{sum(len(v) for n, v in by_name.items() if 'goal_loop' in n)}")
     print("top kernels by device time (ms, launches, mean us):")
     rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
     for name, times in rows[:top]:
@@ -137,23 +147,69 @@ def main(argv=None) -> int:
     from cruise_control_tpu_torch.model.spec import flatten_spec
 
     card = chip_smoke.phase_environment()
+    # CUPTI traces the nodes of a CUDA graph instantiated after it was
+    # started: start it before any goal chain builds its graphs
+    chip_smoke.start_profiler()
     model, md = flatten_spec(chip_smoke.build_spec(), device="cuda")
+    print(f"card: {card}")
+    res = None
+    for loop in ("auto", "host"):
+        # the goal passes as CUDA graphs ("auto"), then their host-driven
+        # twin, in the same process
+        name = "CUDA graphs" if loop == "auto" else "host loop"
+        opt = chip_smoke.main_path_optimizer(loop)
+        t0 = time.monotonic()
+        opt.optimize(model, md, chip_smoke.main_path_options(0))
+        torch.cuda.synchronize()
+        cold_s = time.monotonic() - t0
+        walls = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            opt.optimize(model, md, chip_smoke.main_path_options(1))
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+        print(f"main path, {name}: cold optimize {cold_s:.4f} s, warm "
+              f"walls {[round(w, 4) for w in walls]} s")
+        kernels.reset_launch_counts()
+        syncs0 = engine.HOST_SYNCS
+        out, prof, wall_s = profiled(
+            lambda: opt.optimize(model, md, chip_smoke.main_path_options(1)))
+        res = res or out
+        if not report(f"optimize (seed 1), {name}", prof, wall_s, args.top,
+                      f"moves {out.num_moves}, proposals "
+                      f"{len(out.proposals)}, host syncs "
+                      f"{engine.HOST_SYNCS - syncs0}, "):
+            return 1
+        if args.trace and loop == "auto":
+            prof.export_chrome_trace(args.trace)
+            print(f"trace written to {args.trace}")
+
+    from cruise_control_tpu_torch.analyzer import (OptimizationOptions,
+                                                   SearchConfig,
+                                                   TorchGoalOptimizer)
+    for loop in ("auto", "host"):
+        name = "CUDA graphs" if loop == "auto" else "host loop"
+        dopt = TorchGoalOptimizer(
+            config=SearchConfig(**chip_smoke.MAIN_SEARCH), device="cuda",
+            goal_loop=loop)
+        dopt.optimize(model, md, OptimizationOptions(seed=1))
+        walls = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            dopt.optimize(model, md, OptimizationOptions(seed=1))
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+        print(f"default chain, {name}: warm walls "
+              f"{[round(w, 4) for w in walls]} s")
+        kernels.reset_launch_counts()
+        syncs0 = engine.HOST_SYNCS
+        out, prof, wall_s = profiled(
+            lambda: dopt.optimize(model, md, OptimizationOptions(seed=1)))
+        report(f"default chain optimize (seed 1), {name}", prof, wall_s,
+               args.top, f"moves {out.num_moves}, host syncs "
+               f"{engine.HOST_SYNCS - syncs0}, ")
     opt = chip_smoke.main_path_optimizer()
     opt.optimize(model, md, chip_smoke.main_path_options(0))
-    torch.cuda.synchronize()
-
-    kernels.reset_launch_counts()
-    syncs0 = engine.HOST_SYNCS
-    res, prof, wall_s = profiled(
-        lambda: opt.optimize(model, md, chip_smoke.main_path_options(1)))
-    print(f"card: {card}")
-    if not report("optimize (seed 1)", prof, wall_s, args.top,
-                  f"moves {res.num_moves}, proposals {len(res.proposals)}, "
-                  f"host syncs {engine.HOST_SYNCS - syncs0}, "):
-        return 1
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
-        print(f"trace written to {args.trace}")
 
     from cruise_control_tpu_torch.analyzer import goals_by_name
     from cruise_control_tpu_torch.executor import (
