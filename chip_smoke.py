@@ -31,10 +31,16 @@ Phases (every failure raises; nothing is caught):
    (first fit) is held to its twin after phase 4, at the shape of the main
    path's own schedule; KK (the topic-cell guards' net flow, at M = 512
    and 1,024 with the topic and leader guards' queries, and edge shapes)
-   bit for bit;
+   bit for bit; the goal pass's own kernels KM (apply_group, at an apply
+   round's 512 candidates and a drain round's 16,384), KN (eligibility, at
+   the chain's last and first positions), KO (flow_priority, flow_match)
+   and KP (bulk_drain_fill), against their twins on the CPU at the main
+   path's shapes (KO and KP also at the scale cell's), timed beside their
+   twins and bounds;
 4. main path — 100 brokers x 20K partitions at RF 2, the 4-goal chain
    with the off-chain hard-goal audit, seeds 0, 1, 1 (proposals of the two
-   seed-1 runs must be identical; KA, KB, KC and KL must have launched;
+   seed-1 runs must be identical; KA, KB, KC, KL and KM-KP must have
+   launched;
    no optimize may read a loop test on the host, and the warm ones may
    capture no CUDA graph; KA's launches of each optimize and the last
    one's device launches, counted under ``torch.profiler``, are printed);
@@ -78,7 +84,8 @@ Phases (every failure raises; nothing is caught):
 13. default chain — the reference's own per-proposal contract
     (``goals=None``, nothing waived): (a) the main-path cluster, seeds 1
     and 1 (identical proposals, each run's outcome held to
-    ``REFERENCE_DEFAULT``; KA, KB, KC and KK must have launched); (b) bench
+    ``REFERENCE_DEFAULT``; KA, KB, KC, KK, KL and KM-KP must have
+    launched); (b) bench
     scale scenario 3 (1K x 200K, the reference bench's search; no hard
     goal left violated, no goal worse than it started); (c)
     ``WhatIfEngine()``'s N-1 sweep with the default goals (topic counts
@@ -308,7 +315,25 @@ KERNEL_INFO = {
     "goal_loop": dict(
         source="cruise_control_tpu_torch/csrc/goal_loop.cu",
         replaces="cruise_control_tpu/analyzer/engine.py:130"),
+    "apply_group": dict(
+        source="cruise_control_tpu_torch/csrc/apply_group.cu",
+        replaces="cruise_control_tpu/analyzer/state.py:420"),
+    "candidate_eligibility": dict(
+        source="cruise_control_tpu_torch/csrc/eligibility.cu",
+        replaces="cruise_control_tpu/analyzer/state.py:362"),
+    "flow_priority": dict(
+        source="cruise_control_tpu_torch/csrc/flow_candidates.cu",
+        replaces="cruise_control_tpu/analyzer/goals.py:790"),
+    "flow_match": dict(
+        source="cruise_control_tpu_torch/csrc/flow_candidates.cu",
+        replaces="cruise_control_tpu/analyzer/goals.py:827"),
+    "bulk_drain_fill": dict(
+        source="cruise_control_tpu_torch/csrc/drain_fill.cu",
+        replaces="cruise_control_tpu/analyzer/goals.py:486"),
 }
+#: KM-KP, the goal pass's own kernels: every optimize launches each
+PASS_KERNELS = ("apply_group", "candidate_eligibility", "flow_priority",
+                "flow_match", "bulk_drain_fill")
 
 
 _T0 = time.monotonic()
@@ -353,7 +378,8 @@ def build_spec(num_brokers=NUM_BROKERS, num_partitions=NUM_PARTITIONS,
     return ClusterSpec(brokers=brokers, partitions=parts)
 
 
-def build_flat_direct(num_brokers, num_partitions, rf, seed=42):
+def build_flat_direct(num_brokers, num_partitions, rf, seed=42,
+                      device="cuda"):
     """Array-native skewed model (no per-partition Python objects)."""
     from cruise_control_tpu_torch.model.flat import FlatClusterModel
     from cruise_control_tpu_torch.model.spec import ClusterMetadata, _round_up
@@ -380,7 +406,7 @@ def build_flat_direct(num_brokers, num_partitions, rf, seed=42):
     ptopic = np.full(Ppad, -1, np.int32)
     ptopic[:P] = np.arange(P) % num_topics
     model = FlatClusterModel.from_numpy(
-        device="cuda",
+        device=device,
         replica_broker=rb, leader_load=lead, follower_load=foll,
         partition_topic=ptopic, partition_valid=np.arange(Ppad) < P,
         replica_offline=np.zeros((Ppad, rf), bool),
@@ -629,7 +655,8 @@ def _check_summation_bound(got, want, src, dst, earlier, d_src, d_dst):
                  f"the two orders' summation bounds (M={len(s)})")
 
 
-def phase_kernels(model, main_arrays: dict, scale_model, intra_state):
+def phase_kernels(model, md, main_arrays: dict, scale_model, scale_md,
+                  intra_state):
     """Each kernel against its twin at the main path's shapes."""
     import torch
     from cruise_control_tpu_torch import _random, kernels
@@ -913,7 +940,157 @@ def phase_kernels(model, main_arrays: dict, scale_model, intra_state):
     _kernel_population_select(rows, rng)
     _kernel_fleet_failover(rows, model)
     _kernel_goal_loop(rows, rng)
+    _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms)
     return rows
+
+
+def _max_err(got, want):
+    """Max |got - want| over tensors (bool and int compared as int64)."""
+    err = 0.0
+    for g, w in zip(got, want):
+        g, w = g.cpu(), w.cpu()
+        if not g.dtype.is_floating_point:
+            g, w = g.long(), w.long()
+        if g.shape != w.shape:
+            return float("inf")
+        if g.numel():
+            err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def _state_fields(state):
+    import dataclasses
+    return [getattr(state, f.name) for f in dataclasses.fields(state)
+            if getattr(state, f.name) is not None]
+
+
+def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms):
+    """KM (apply_group), KN (candidate_eligibility), KO (flow_priority,
+    flow_match) and KP (bulk_drain_fill) against their twins on the CPU at
+    the main path's shapes (first: the kernels line's rows; a dead broker,
+    topic tables), timed as a CUDA graph of up to 200 launches beside their
+    twins on the card (eager) and their bounds; KM at a drain round's
+    16,384 candidates and KO / KP at the scale cell too."""
+    import torch
+    from cruise_control_tpu_torch import _random, kernels
+    from cruise_control_tpu_torch.analyzer import (SearchConfig,
+                                                   goals_by_name)
+    from cruise_control_tpu_torch.utils.ordered import top_k
+    cfg = SearchConfig(**MAIN_SEARCH)
+    goals = goals_by_name(GOALS)
+
+    def cpu(obj):
+        return to_device(obj, "cpu")
+
+    def row(name, tag, err, ms, plain, nbytes, ops):
+        b_ms, b_by = bound(nbytes, ops)
+        if err != 0.0:
+            fail(f"{name} differs from its twin ({tag}): max |err| {err}")
+        log(f"{name} {tag}: bit-exact vs twin; {ms:.5f} ms "
+            f"({ms / floor_ms:.1f} launch floors), twin {plain:.4f} ms, "
+            f"bound {b_ms:.7f} ms ({b_by})")
+        _keep_first_shape(rows, name, err, dict(
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
+
+    for shape, m, mdd in (("main", model, md), ("scale", scale_model,
+                                                 scale_md)):
+        state, ctx = pass_state(m, mdd, dead=(3,))
+        cs, cc = cpu(state), cpu(ctx)
+        P, R = state.rb.shape
+        B1 = state.util.shape[0]
+        T = state.topic_counts.shape[0]
+        n_slots = P * R
+        if shape == "main":
+            # --- KM: an apply round (M = 512), then a drain round's N
+            for n in (MAIN_SEARCH["apply_per_iter"], cfg.drain_batch):
+                c, do = km_case(state, ctx, n, seed=n)
+                got = kernels.apply_group(state, ctx, c, do)
+                want = kernels.apply_group_plain(cs, cc, cpu(c), do.cpu())
+                err = _max_err(_state_fields(got[0]) + [got[1]],
+                               _state_fields(want[0]) + [want[1]])
+                ms = time_ms(lambda: kernels.apply_group(state, ctx, c, do),
+                             graph=True)
+                plain = time_ms(lambda: kernels.apply_group_plain(
+                    state, ctx, c, do), groups=3)
+                # the placement planes copied (read and written), the
+                # aggregates and topic tables read and written, the
+                # candidates read once
+                nbytes = (2 * 17 * n_slots + 2 * 32 * B1 + 2 * 2 * 4 * T * B1
+                          + 105 * n + 24)
+                row("apply_group", f"N={n} P={P} R={R} B1={B1} T={T}", err,
+                    ms, plain, nbytes, 16 * n)
+            # --- KN: every position of the main path's chain
+            n = 2 * MAIN_SEARCH["apply_per_iter"]
+            c = kn_case(state, ctx, n, seed=5)
+            ccand = cpu(c)
+            for i in (len(goals) - 1, 0):
+                checks = kernels.GoalChecks(goals[i], goals[:i], cfg.epsilon)
+                got = kernels.candidate_eligibility(state, ctx, c, checks)
+                want = kernels.candidate_eligibility_plain(cs, cc, ccand,
+                                                           checks)
+                ms = time_ms(lambda: kernels.candidate_eligibility(
+                    state, ctx, c, checks), graph=True)
+                plain = time_ms(lambda: kernels.candidate_eligibility_plain(
+                    state, ctx, c, checks), groups=3)
+                # each candidate's fields and gathered rows, the metric
+                # planes over B1 once, the verdicts and deltas written
+                nbytes = n * (106 + 64 + 5) + B1 * 40
+                row("candidate_eligibility",
+                    f"N={n}, chain position {i} ({len(goals[:i])} earlier "
+                    f"goals), B1={B1}", _max_err(got, want), ms, plain,
+                    nbytes, n * (30 + 15 * (i + 1)) + B1 * (i + 1))
+        # --- KO: the first goal's priorities and destination match
+        K = cfg.num_replica_candidates if shape == "main" else 1_024
+        goal = goals[1]                                  # DiskUsageDistribution
+        planes = goal.propose_planes(state, ctx)
+        cplanes = [t.cpu() for t in planes]
+        krep, kdst = _random.subkeys(_random.PRNGKey(5, device=m.device))
+        crep, cdst = _random.subkeys(_random.PRNGKey(5))
+        prio = kernels.flow_priority(goal, state, ctx, krep, cfg, *planes)
+        want = kernels.flow_priority_plain(goal, cs, cc, crep, cfg, *cplanes)
+        ms = time_ms(lambda: kernels.flow_priority(goal, state, ctx, krep,
+                                                   cfg, *planes), graph=True)
+        plain = time_ms(lambda: kernels.flow_priority_plain(
+            goal, state, ctx, krep, cfg, *planes), groups=3)
+        # per slot: its broker, masks, weight and priority; ~100 integer
+        # operations of the noise's hash
+        row("flow_priority", f"{goal.name} [P={P}, R={R}], B1={B1}",
+            _max_err([prio], [want]), ms, plain, n_slots * 18 + B1 * 20,
+            n_slots * 115)
+        vals, idx = top_k(prio.reshape(-1), K)
+        match_args = (planes[0], planes[1], planes[2], planes[4], vals, idx)
+        got = kernels.flow_match(goal, state, ctx, kdst, cfg, *match_args)
+        want = kernels.flow_match_plain(goal, cs, cc, cdst, cfg, cplanes[0],
+                                        cplanes[1], cplanes[2], cplanes[4],
+                                        vals.cpu(), idx.cpu())
+        ms = time_ms(lambda: kernels.flow_match(goal, state, ctx, kdst, cfg,
+                                                *match_args), graph=True)
+        plain = time_ms(lambda: kernels.flow_match_plain(
+            goal, state, ctx, kdst, cfg, *match_args), groups=3)
+        row("flow_match", f"{goal.name} K={K}, B1={B1}", _max_err(got, want),
+            ms, plain, B1 * 21 + K * (12 + 8 * R + 1 + 4 + 25),
+            B1 * B1 + 40 * B1 + K * 20)
+        # --- KP: the first goal's drain round (a count goal)
+        drain_cfg = SearchConfig(**dict(MAIN_SEARCH, drain_batch=(
+            cfg.drain_batch if shape == "main" else 25_000)))
+        goal = goals[0]                                  # ReplicaDistribution
+        args = goal.drain_sort(state, ctx, _random.PRNGKey(11,
+                                                           device=m.device))
+        got = kernels.bulk_drain_fill(goal, state, ctx, drain_cfg, *args)
+        want = kernels.bulk_drain_fill_plain(goal, cs, cc, drain_cfg,
+                                             *(a.cpu() for a in args))
+        if not bool(got[3].any()):
+            fail(f"bulk_drain_fill placed nothing ({shape})")
+        ms = time_ms(lambda: kernels.bulk_drain_fill(goal, state, ctx,
+                                                     drain_cfg, *args),
+                     graph=True)
+        plain = time_ms(lambda: kernels.bulk_drain_fill_plain(
+            goal, state, ctx, drain_cfg, *args), groups=3)
+        N = drain_cfg.drain_batch
+        row("bulk_drain_fill", f"{goal.name} n={n_slots} slots, B1={B1}, "
+            f"N={N}", _max_err(got, want), ms, plain,
+            n_slots * 38 + B1 * 60 + N * 25, n_slots * 15 + B1 * B1)
 
 
 def _kernel_goal_loop(rows, rng):
@@ -1413,6 +1590,96 @@ def kd_boundary_case(model, seed):
             none.clone(), model.partition_valid.expand(S, P))
 
 
+def to_device(obj, device):
+    """A dataclass of tensors (a search state, context or candidate batch)
+    with every tensor on ``device``."""
+    import dataclasses
+    return dataclasses.replace(obj, **{
+        f.name: None if (t := getattr(obj, f.name)) is None else t.to(device)
+        for f in dataclasses.fields(obj)})
+
+
+def pass_state(model, md, dead=()):
+    """(state, ctx) of ``model`` as a goal pass sees them, with the topic
+    tables; brokers ``dead`` marked not alive (their replicas offline)."""
+    import torch
+    from cruise_control_tpu_torch.analyzer.state import (build_context,
+                                                         init_state)
+    if dead:
+        alive = model.broker_alive.clone()
+        alive[torch.tensor(list(dead), device=alive.device)] = False
+        model = model.replace(broker_alive=alive)
+    return (init_state(model, with_topic_counts=md.num_topics,
+                       with_topic_leader_counts=True), build_context(model))
+
+
+def _cands(state, ctx, kinds, p, r, p2, r2, dst, valid):
+    """Candidates of every kind in ``kinds`` (0 move, 1 leadership, 2 swap)
+    from numpy rows, concatenated in kind order, and that order."""
+    import torch
+    from cruise_control_tpu_torch.analyzer import state as st
+    dev = state.rb.device
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x)).to(dev)
+
+    out = None
+    for k in range(3):
+        sel = kinds == k
+        if k == 0:
+            c = st.make_move_candidates(state, ctx, t(p[sel]), t(r[sel]),
+                                        t(dst[sel]), t(valid[sel]))
+        elif k == 1:
+            c = st.make_leadership_candidates(state, ctx, t(p[sel]),
+                                              t(r[sel]), t(valid[sel]))
+        else:
+            c = st.make_swap_candidates(state, ctx, t(p[sel]), t(r[sel]),
+                                        t(p2[sel]), t(r2[sel]),
+                                        t(valid[sel]))
+        out = c if out is None else st.concat_candidates(out, c)
+    return out, np.concatenate([np.nonzero(kinds == k)[0] for k in range(3)])
+
+
+def km_case(state, ctx, n, seed):
+    """(candidates, do) of KM: a partition-disjoint group of n candidates
+    of all three kinds (swaps' counterparts in rows of their own, some in
+    slot 0), 70% of them applied."""
+    import torch
+    rng = np.random.default_rng(seed)
+    P, R = state.rb.shape
+    B1 = state.util.shape[0]
+    real = int(ctx.partition_valid.sum())
+    kinds = rng.choice(3, n, p=[0.6, 0.25, 0.15])
+    n_swap = int((kinds == 2).sum())
+    rows = rng.choice(real, size=min(n + n_swap, real), replace=False)
+    p = rows[:n]
+    p2 = p.copy()
+    p2[kinds == 2] = rows[n:n + n_swap]
+    r = rng.integers(0, R, n)
+    r[kinds == 1] = np.maximum(r[kinds == 1], 1)
+    r2 = r.copy()
+    r2[kinds == 2] = rng.integers(0, R, n_swap)
+    dst = rng.integers(0, B1 - 1, n)
+    c, order = _cands(state, ctx, kinds, p, r, p2, r2, dst, np.ones(n, bool))
+    do = torch.from_numpy(rng.random(n)[order] < 0.7).to(state.rb.device)
+    return c, do
+
+
+def kn_case(state, ctx, n, seed):
+    """KN's candidates: n of mixed kinds from random partition rows (moves,
+    some off offline replicas, leadership transfers, swaps), most legal."""
+    rng = np.random.default_rng(seed)
+    P, R = state.rb.shape
+    B1 = state.util.shape[0]
+    real = int(ctx.partition_valid.sum())
+    kinds = rng.choice(3, n, p=[0.6, 0.25, 0.15])
+    r = rng.integers(0, R, n)
+    r[kinds == 1] = np.maximum(r[kinds == 1], 1)
+    return _cands(state, ctx, kinds, rng.integers(0, real, n), r,
+                  rng.integers(0, real, n), rng.integers(0, R, n),
+                  rng.integers(0, B1, n), rng.random(n) < 0.95)[0]
+
+
 def kj_case(C, S, P, R, B, seed, device):
     """KJ inputs with every edge the kernel must take: broker ids -1 and
     at or past B among the slots, partitions a cluster does not hold,
@@ -1737,7 +2004,7 @@ def phase_main_path(model, md, arrays):
     launches = _launch_counts()
     log(f"main-path launches: {json.dumps(launches)}")
     missing = [k for k in ("threefry2x32", "ordered_segment_sum",
-                           "net_broker_flow", "goal_loop")
+                           "net_broker_flow", "goal_loop", *PASS_KERNELS)
                if launches[k] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
@@ -3003,7 +3270,8 @@ def phase_default_chain(model, md, scale_model, scale_md):
     for i, (got, want) in enumerate(zip(main["a"], REFERENCE_DEFAULT)):
         _check_outcome(f"(a) run {i + 1}", got, want)
     missing = [k for k in ("threefry2x32", "ordered_segment_sum",
-                           "net_broker_flow", "cell_net_flow", "goal_loop")
+                           "net_broker_flow", "cell_net_flow", "goal_loop",
+                           *PASS_KERNELS)
                if not launches[k]]
     if missing:
         fail(f"(a) kernels never launched by the default chain: {missing}")
@@ -3197,7 +3465,8 @@ def main() -> int:
     from cruise_control_tpu_torch.analyzer import build_disk_state
     intra = intra_setup(port_search_package(), spec)
     intra_state, _ = build_disk_state(*intra)
-    rows = phase_kernels(model, arrays, scale_model, intra_state)
+    rows = phase_kernels(model, md, arrays, scale_model, scale_md,
+                         intra_state)
     launches, seed1 = phase_main_path(model, md, arrays)
     phase_first_fit(model, md, seed1.proposals, rows)
     sick, drain = phase_drain(model, md)

@@ -31,12 +31,12 @@ import numpy as np
 import torch
 
 from .. import _random
+from ..kernels import GoalChecks, apply_group, candidate_eligibility
 from ..utils.ordered import (fma, fma_loop_sum, top_k, tree_sum_last,
                              vector_loop_sum)
 from .constraint import SearchConfig
 from .goals import GoalKernel
-from .state import (Candidates, SearchContext, SearchState, apply_group,
-                    base_legality)
+from .state import Candidates, SearchContext, SearchState
 
 # Ordering sentinel only (never added to a metric value): mandatory moves
 # sort ahead of every improving move.
@@ -199,13 +199,6 @@ def pareto_ranks(stacks, scales, *, contract: bool = False) -> torch.Tensor:
     return (le & lt).sum(dim=0, dtype=torch.int32)
 
 
-def _chain_accepts(prev_goals: Sequence[GoalKernel], state, ctx, cands):
-    ok = torch.ones_like(cands.valid)
-    for g in prev_goals:
-        ok = ok & g.accepts(state, ctx, cands)
-    return ok
-
-
 class PassSegments:
     """One goal pass cut into the segments its loops run, each a function
     of the state, the context and its loop's carry that reads nothing back
@@ -236,12 +229,14 @@ class PassSegments:
         self.drains = goal.supports_bulk_drain and cfg.drain_rounds > 0
         #: a drain round applying fewer moves ends the drain
         self.min_applied = max(cfg.drain_batch // 64, 8)
+        #: the goals a candidate is checked against (KN's goal table)
+        self.checks = GoalChecks(goal, self.prev_goals, cfg.epsilon)
 
     def eligibility(self, state, ctx, cands):
-        ok = base_legality(state, ctx, cands)
-        ok = ok & _chain_accepts(self.prev_goals, state, ctx, cands)
-        delta = self.goal.delta(state, ctx, cands)
-        return ok & ((delta < -self.cfg.epsilon) | cands.must)
+        """(bool[N] eligible, f32[N] the goal's delta): base legality, every
+        earlier goal's acceptance, and an improving delta or a mandatory
+        move (KN, ``kernels.candidate_eligibility``)."""
+        return candidate_eligibility(state, ctx, cands, self.checks)
 
     def steer_ctx(self, state: SearchState, ctx: SearchContext
                   ) -> SearchContext:
@@ -269,8 +264,8 @@ class PassSegments:
         applied count)."""
         c = self.goal.bulk_drain(state, self.steer_ctx(state, ctx),
                                  _random.fold(key, 70_000 + r), self.cfg)
-        elig = self.eligibility(state, ctx, c)
-        return apply_group(state, ctx, c, elig), elig.sum()
+        elig, _ = self.eligibility(state, ctx, c)
+        return apply_group(state, ctx, c, elig)
 
     def propose(self, state: SearchState, ctx: SearchContext, key, it):
         """The fine loop's iteration ``it`` (an int or an int64 scalar
@@ -280,8 +275,7 @@ class PassSegments:
         goal = self.goal
         cands = goal.propose(state, self.steer_ctx(state, ctx),
                              _random.fold(key, it), self.cfg)
-        elig = self.eligibility(state, ctx, cands)
-        delta = goal.delta(state, ctx, cands)
+        elig, delta = self.eligibility(state, ctx, cands)
         # Mandatory (offline) moves outrank everything; otherwise the most
         # negative deltas apply first.
         score = torch.where(
@@ -309,7 +303,7 @@ class PassSegments:
         the state and guarded by every chain goal's collective bound.
         Returns (state, pending, int64 scalar applied, bool scalar: still
         pending and some applied)."""
-        elig = pending & self.eligibility(state, ctx, c)
+        elig = pending & self.eligibility(state, ctx, c)[0]
         blocked = (conflict_earlier & elig[None, :]).any(dim=1)
         # Guards see exactly the earlier, eligible candidates.
         gmask = _earlier(elig.shape[0], elig.device) & elig[None, :]
@@ -325,9 +319,9 @@ class PassSegments:
                 gok = gok | c.must
             ok = ok & gok
         do = elig & ~blocked & ok
-        state = apply_group(state, ctx, c, do)
+        state, applied = apply_group(state, ctx, c, do)
         pending = pending & ~do
-        return state, pending, do.sum(), pending.any() & do.any()
+        return state, pending, applied, pending.any() & do.any()
 
     def stack(self, state: SearchState, ctx: SearchContext) -> torch.Tensor:
         return violation_stack(self.all_goals, state, ctx)

@@ -30,9 +30,10 @@ import torch
 from .. import _random
 from ..config.brokersets import topic_set_array
 from ..core.resources import Resource
-from ..kernels import cell_net_flow, net_broker_flow, ordered_segment_sum
+from ..kernels import (bulk_drain_fill, cell_net_flow, flow_match,
+                       flow_priority, net_broker_flow, ordered_segment_sum)
 from ..model.flat import MOVE_INTER_BROKER, MOVE_LEADERSHIP, MOVE_SWAP
-from ..utils.ordered import (argsort, fma, lexsort, scan_sum, top_k,
+from ..utils.ordered import (fma, lexsort, scan_sum, top_k,
                               topic_cell_sum, tree_sum, tree_sum_last,
                               violation_row_sum)
 from .constraint import BalancingConstraint, SearchConfig
@@ -221,6 +222,12 @@ class GoalKernel:
         (previously-optimized) goal likely rejecting the action."""
         return torch.ones_like(ctx.broker_alive)
 
+    def eligibility_row(self):
+        """This goal's row of KN's goal table (``kernels.GoalChecks``), or
+        None where its ``accepts`` and ``delta`` run in torch and reach KN
+        as a mask and an array."""
+        return None
+
     def collective_guard(self, state: SearchState, ctx: SearchContext,
                          c: Candidates, earlier: torch.Tensor
                          ) -> torch.Tensor | None:
@@ -286,10 +293,19 @@ class IntervalGoal(GoalKernel):
         return (values, torch.broadcast_to(lower, values.shape),
                 torch.broadcast_to(upper, values.shape))
 
+    def _cap_column(self):
+        """(capacity column index, threshold) when the upper bound is their
+        per-broker product, else None."""
+        return None
+
     def _cap_factor(self, ctx):
         """(capacity column, threshold) when the upper bound is their
         per-broker product, else None."""
-        return None
+        column = self._cap_column()
+        if column is None:
+            return None
+        res, thr = column
+        return ctx.broker_capacity[..., res], thr
 
     def _minus_upper(self, x, up, ctx):
         """``x - upper`` over all brokers. Where the upper bound is
@@ -310,6 +326,29 @@ class IntervalGoal(GoalKernel):
             return up - x
         col, thr = factor
         return fma(col, thr, -x)
+
+    def metric_code(self) -> int:
+        """The metric as the goal-pass kernels name it: a util column 0-3,
+        replica count 4, leader count 5, potential NW_OUT 6, leader NW_IN
+        7."""
+        which, res = self.metric
+        if which == "util":
+            return int(res)
+        return {"count": 4, "leaders": 5, "potential": 6,
+                "leader_nw_in": 7}[which]
+
+    def _row(self, form: str, t: float, *, integer: bool = False,
+             hard_cap: bool = False):
+        """A row of KN's goal table: bounds ``form`` 'average' ([avg *
+        (2 - t), avg * t]), 'capacity' (the capacity column times t) or
+        'constant' (t); ``hard_cap``: CapacityGoal's acceptance."""
+        column = self._cap_column()
+        return dict(metric=self.metric_code(),
+                    form=("average", "capacity", "constant").index(form),
+                    upper_only=self.upper_only, integer=integer,
+                    accepts=int(hard_cap),
+                    cap_col=column[0] if form == "capacity" else 0,
+                    t=t, lower=2.0 - t)
 
     # -- shared machinery ------------------------------------------------
     def _penalty(self, values, lower, upper, alive, ctx=None):
@@ -469,16 +508,22 @@ class IntervalGoal(GoalKernel):
         ``cfg.drain_batch`` partition-disjoint move candidates, sources
         ranked heaviest-first within each over-upper (or dead) broker,
         destinations assigned by a prefix-sum fill over receiver budgets
-        (capped by the replica-count ceiling and every capacity hard goal)."""
-        N = cfg.drain_batch
-        dev = state.rb.device
+        (capped by the replica-count ceiling and every capacity hard goal;
+        KP, ``kernels.bulk_drain_fill``, after the sort)."""
+        p, r, dst, ok = bulk_drain_fill(self, state, ctx, cfg,
+                                        *self.drain_sort(state, ctx, key))
+        return make_move_candidates(state, ctx, p, r, dst, ok)
+
+    def drain_sort(self, state: SearchState, ctx: SearchContext, key):
+        """The replica drain up to its fill: (values, up, deficit, quota,
+        order, flat_b, flat_w, flat_cand, flat_must) — the metric, its
+        upper bound, the deficits and shed quotas [B1], and the flat [P, R]
+        slots' order by (broker, must-first, weight-desc-with-noise), their
+        brokers, weights, candidacy and mandatory moves."""
         values, lo, up = self._bounds_b1(state, ctx)
-        alive = ctx.broker_alive
-        excess, deficit, quota, n_alive = self._shed_quota(values, lo, up,
-                                                           ctx)
+        _, deficit, quota, _ = self._shed_quota(values, lo, up, ctx)
 
         P, R = state.rb.shape
-        B1 = values.shape[0]
         src_b = state.rb
         w = self._replica_drain_weight(ctx, state.rb)              # [P, R]
         cand = (ctx.movable & ((w > 0.0) | state.offline)
@@ -492,73 +537,8 @@ class IntervalGoal(GoalKernel):
         flat_must = state.offline.reshape(-1) & flat_cand
         sort_w = torch.where(flat_cand, flat_w * noise.reshape(-1), -1.0)
         order = lexsort((-sort_w, ~flat_must, flat_b))
-        sb = flat_b[order]
-        smask = flat_cand[order]
-        sw = torch.where(smask, flat_w[order], 0.0)
-        smust = flat_must[order]
-
-        # Shed while the broker's cumulative shed (before this replica) is
-        # still below its quota; must-moves shed unconditionally.
-        within_before = _segment_cum_before(sw, sb, B1)
-        take = smask & ((within_before < quota[sb]) | smust)
-
-        # Partition-disjoint: first taken slot per partition row only.
-        sp = order // R
-        pos = torch.arange(P * R, device=dev)
-        first_pos = torch.full((P,), P * R, dtype=torch.int64,
-                               device=dev).scatter_reduce(
-            0, sp, torch.where(take, pos, P * R), reduce="amin")
-        take = take & (first_pos[sp] == pos)
-
-        grank = torch.cumsum(take, 0) - 1
-        take = take & (grank < N)
-        tw = torch.where(take, sw, 0.0)
-        total_w = torch.clamp(tree_sum(tw), min=1e-9)
-        n_take = torch.clamp(take.sum().to(torch.float32), min=1.0)
-
-        budget = torch.where(alive & ctx.dest_allowed & ctx.broker_valid,
-                             torch.clamp(self._upper_minus(values, up, ctx),
-                                         min=0.0), 0.0)
-        is_slot0 = (torch.arange(R, device=dev) == 0)[None, :, None]
-        loads = torch.where(is_slot0, ctx.leader_load[:, None, :],
-                            ctx.follower_load[:, None, :])         # [P, R, 4]
-        sorted_loads = loads.reshape(-1, 4)[order]
-        ratio = sorted_loads / torch.clamp(sw, min=1e-9)[:, None]
-        per_unit_max = torch.where(take[:, None], ratio, 0.0).amax(dim=0)
-        cst = self.constraint
-        budget = _capacity_budget_cap(budget, per_unit_max, cst,
-                                      ctx.broker_capacity, state.util)
-        if self.metric[0] != "count":
-            cnt = state.replica_count.to(torch.float32)
-            cnt_total = tree_sum(torch.where(ctx.broker_valid, cnt, 0.0))
-            cnt_avg = cnt_total / n_alive
-            cnt_up = torch.maximum(cnt_avg * cst.replica_balance_threshold,
-                                   torch.ceil(cnt_avg))
-            mean_w = total_w / n_take
-            budget = torch.minimum(
-                budget, torch.clamp(cnt_up - cnt, min=0.0) * mean_w)
-        budget = torch.clamp(budget, min=0.0)
-
-        # Prefix-sum fill over DEFICIT-FIRST receivers.
-        perm = argsort(-deficit)
-        cum_budget = scan_sum(budget[perm])
-        target = scan_sum(tw) - 0.5 * tw
-        pos_in_perm = torch.searchsorted(cum_budget, target)
-        dst = perm[torch.clamp(pos_in_perm, max=B1 - 1)]
-        ok = take & (pos_in_perm < B1) & (target < cum_budget[B1 - 1])
-
-        # Scatter into the fixed-size batch (slot = global rank); rows that
-        # are not ok park in the discard slot N, which is sliced off.
-        slot = torch.where(ok, grank, N)
-
-        def scatter(vals, dtype):
-            out = torch.zeros(N + 1, dtype=dtype, device=dev)
-            return out.scatter_(0, slot, vals.to(dtype))[:N]
-        return make_move_candidates(state, ctx,
-                                    scatter(sp, torch.int64),
-                                    scatter(order % R, torch.int64),
-                                    scatter(dst, torch.int64),
-                                    scatter(ok, torch.bool))
+        return (values, up, deficit, quota, order, flat_b, flat_w, flat_cand,
+                flat_must)
 
     def _leadership_bulk_drain(self, state: SearchState, ctx: SearchContext,
                                key, cfg: SearchConfig,
@@ -633,7 +613,10 @@ class IntervalGoal(GoalKernel):
                                           scatter(ok, torch.bool))
 
     # -- candidate generation -------------------------------------------
-    def propose(self, state, ctx, key, cfg):
+    def propose_planes(self, state, ctx):
+        """(values, lo, up, excess, deficit) [B1] of a proposal: the metric,
+        its bounds, the excess over the upper bound and the deficit under
+        the lower one."""
         values, lo, up = self._bounds_b1(state, ctx)
         alive = ctx.broker_alive
         # Load still parked on dead/invalid brokers also counts as excess.
@@ -643,7 +626,10 @@ class IntervalGoal(GoalKernel):
         deficit = (torch.zeros_like(values) if self.upper_only else
                    torch.where(alive & torch.isfinite(lo),
                                torch.clamp(lo - values, min=0.0), 0.0))
+        return values, lo, up, excess, deficit
 
+    def propose(self, state, ctx, key, cfg):
+        values, lo, up, excess, deficit = self.propose_planes(state, ctx)
         parts = []
         if self.actions in ("replica", "both"):
             kg, key = _random.subkeys(key)
@@ -688,74 +674,17 @@ class IntervalGoal(GoalKernel):
                          excess, deficit):
         """Flow-matched move candidates: top-K source replicas, each assigned
         its own destination by matching cumulative outgoing load against
-        cumulative destination headroom (a greedy transportation plan)."""
+        cumulative destination headroom (a greedy transportation plan) —
+        KO's two launches (``kernels.flow_priority``, ``flow_match``)
+        around the top-k."""
         P, R = state.rb.shape
-        B1 = values.shape[0]
-        dev = state.rb.device
         K = min(cfg.num_replica_candidates, P * R)
         krep, kdst = _random.subkeys(key)
-
-        # --- source replicas: offline > excess-broker > deficit-assist tiers
-        q, finite = _unit01(self._replica_weight(state, ctx))       # [P, R]
-        src_b = state.rb
-        any_deficit = (deficit > 0.0).any()
-        mid = torch.where(torch.isfinite(lo), (lo + up) * 0.5, up * 0.5)
-        assist = any_deficit & (values[src_b] > mid[src_b])
-        prio = torch.where(excess[src_b] > 0.0,
-                           _tier_plus_norm01(_TIER_EXCESS, q, finite),
-                           torch.where(assist,
-                                       _tier_plus_norm01(_TIER_ASSIST, q,
-                                                         finite), _NEG))
-        if self.metric[0] in ("leaders", "leader_nw_in"):
-            prio = torch.where((torch.arange(R, device=dev) == 0)[None, :],
-                               prio, _NEG)
-        prio = torch.where(ctx.movable, prio, _NEG)
-        prio = torch.where(state.offline,
-                           _tier_plus_norm01(_TIER_OFFLINE, q, finite), prio)
-        prio = prio + torch.where(torch.isfinite(prio),
-                                  _noise(krep, prio.shape, cfg.noise_scale),
-                                  0.0)
+        prio = flow_priority(self, state, ctx, krep, cfg, values, lo, up,
+                             excess, deficit)
         vals, idx = top_k(prio.reshape(-1), K)
-        p, r = idx // R, idx % R
-        sel = torch.isfinite(vals)
-
-        # --- destination matching by cumulative headroom (to the midpoint
-        # for balance goals, the ceiling for capacity-style goals).
-        ceiling = torch.where(ctx.dest_allowed,
-                              torch.clamp(self._upper_minus(values, up, ctx),
-                                          min=0.0), 0.0)
-        if self.upper_only:
-            headroom = ceiling
-        else:
-            to_mid = torch.where(ctx.dest_allowed,
-                                 torch.clamp(mid - values, min=0.0), 0.0)
-            headroom = torch.where((to_mid > 0.0).any(), to_mid, ceiling)
-        dprio = torch.where(ctx.dest_allowed,
-                            torch.where(deficit > 0.0, _TIER_EXCESS, 0.0)
-                            + _norm01(headroom, ctx.dest_allowed), _NEG)
-        dprio = dprio + torch.where(torch.isfinite(dprio),
-                                    _noise(kdst, dprio.shape,
-                                           cfg.noise_scale), 0.0)
-        order = argsort(-dprio)                                     # [B1]
-        cum_head = scan_sum(headroom[order])
-        load = torch.where(sel, self._replica_metric_load(ctx, p, r), 0.0)
-        cum_load = scan_sum(load) - 0.5 * load                      # midpoints
-        slot = torch.searchsorted(cum_head, cum_load)
-        covered = slot < B1
-        matched = order[torch.clamp(slot, max=B1 - 1)]
-        # Mandatory (offline) moves get a round-robin destination even when
-        # no headroom is left.
-        n_ok = torch.clamp(ctx.dest_allowed.sum(), min=1)
-        fallback = order[torch.arange(K, device=dev) % n_ok]
-        must = state.offline[p, r] & sel
-        dst = torch.where(covered, matched, fallback)
-        # Re-route candidates whose matched broker already hosts the
-        # partition to their best legal destination.
-        hosts_dst = (state.rb[p] == dst[:, None]).any(dim=1)
-        alt, alt_ok = _legal_dest_argmax(
-            state, ctx, p, torch.broadcast_to(dprio[None, :], (K, B1)))
-        dst = torch.where(hosts_dst & alt_ok, alt, dst)
-        valid = sel & (covered | must) & ctx.dest_allowed[dst]
+        p, r, dst, valid = flow_match(self, state, ctx, kdst, cfg, values,
+                                      lo, up, deficit, vals, idx)
         return make_move_candidates(state, ctx, p, r, dst, valid)
 
     def _swap_candidates(self, state, ctx, key, cfg, values, lo, up, excess,
@@ -847,9 +776,12 @@ class CapacityGoal(IntervalGoal):
         upper = ctx.broker_capacity[..., int(self.resource)] * thr
         return torch.full_like(upper, _NEG), upper
 
-    def _cap_factor(self, ctx):
-        return (ctx.broker_capacity[..., int(self.resource)],
+    def _cap_column(self):
+        return (int(self.resource),
                 self.constraint.cap_threshold(self.resource))
+
+    def eligibility_row(self):
+        return self._row("capacity", self._cap_column()[1], hard_cap=True)
 
     def accepts(self, state, ctx, c):
         # Hard semantics: never push a broker above its capacity ceiling;
@@ -896,6 +828,10 @@ class ResourceDistributionGoal(IntervalGoal):
         return self._avg_bounds(state, ctx,
                                 self.constraint.balance_threshold(self.resource))
 
+    def eligibility_row(self):
+        return self._row("average",
+                         self.constraint.balance_threshold(self.resource))
+
 
 class ReplicaCapacityGoal(IntervalGoal):
     """Hard cap on replica count per broker (ref ReplicaCapacityGoal.java)."""
@@ -916,6 +852,11 @@ class ReplicaCapacityGoal(IntervalGoal):
     accepts = CapacityGoal.accepts
     collective_guard = CapacityGoal.collective_guard
 
+    def eligibility_row(self):
+        return self._row("constant",
+                         float(self.constraint.max_replicas_per_broker),
+                         hard_cap=True)
+
 
 class ReplicaDistributionGoal(IntervalGoal):
     """Soft balance of replica counts (ref ReplicaDistributionGoal.java)."""
@@ -928,6 +869,10 @@ class ReplicaDistributionGoal(IntervalGoal):
         return self._avg_bounds(state, ctx,
                                 self.constraint.replica_balance_threshold,
                                 integer=True)
+
+    def eligibility_row(self):
+        return self._row("average", self.constraint.replica_balance_threshold,
+                         integer=True)
 
 
 class LeaderReplicaDistributionGoal(IntervalGoal):
@@ -944,6 +889,11 @@ class LeaderReplicaDistributionGoal(IntervalGoal):
         return self._avg_bounds(
             state, ctx, self.constraint.leader_replica_balance_threshold,
             integer=True)
+
+    def eligibility_row(self):
+        return self._row("average",
+                         self.constraint.leader_replica_balance_threshold,
+                         integer=True)
 
 
 class LeaderBytesInDistributionGoal(IntervalGoal):
@@ -962,6 +912,10 @@ class LeaderBytesInDistributionGoal(IntervalGoal):
             state, ctx, self.constraint.balance_threshold(Resource.NW_IN),
             upper_only=True)
 
+    def eligibility_row(self):
+        return self._row("average",
+                         self.constraint.balance_threshold(Resource.NW_IN))
+
 
 class PotentialNwOutGoal(IntervalGoal):
     """Keep potential (all-leaders) NW_OUT under the capacity ceiling (ref
@@ -978,9 +932,12 @@ class PotentialNwOutGoal(IntervalGoal):
         upper = ctx.broker_capacity[..., int(Resource.NW_OUT)] * thr
         return torch.full_like(upper, _NEG), upper
 
-    def _cap_factor(self, ctx):
-        return (ctx.broker_capacity[..., int(Resource.NW_OUT)],
+    def _cap_column(self):
+        return (int(Resource.NW_OUT),
                 self.constraint.cap_threshold(Resource.NW_OUT))
+
+    def eligibility_row(self):
+        return self._row("capacity", self._cap_column()[1])
 
 
 # ---------------------------------------------------------------------------

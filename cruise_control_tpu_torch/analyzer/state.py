@@ -11,9 +11,9 @@ Terminology:
 - A *candidate* is one potential balancing action (ref
   ``BalancingAction.java:20``), a struct-of-arrays scored elementwise.
 
-Float32 aggregates are built and updated through the ordered segment sum
-(KB), in the reference's scatter-add order; slot writes of candidates that
-do not apply are routed to a discard row, never to an out-of-range index.
+Float32 aggregates are built through the ordered segment sum (KB) and
+updated by KM (``kernels.apply_group``), in the reference's scatter-add
+order; slot writes of candidates that do not apply write nothing.
 Index tensors are int64 inside the search (the model keeps int32).
 """
 
@@ -26,6 +26,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core.resources import NUM_RESOURCES, Resource
+from .. import kernels
 from ..kernels import ordered_segment_sum
 from ..model.flat import (MOVE_INTER_BROKER, MOVE_LEADERSHIP, MOVE_SWAP,
                           FlatClusterModel, replica_loads)
@@ -455,117 +456,14 @@ def base_legality(state: SearchState, ctx: SearchContext,
 
 def apply_group(state: SearchState, ctx: SearchContext, c: Candidates,
                 do: torch.Tensor) -> SearchState:
-    """Apply a *partition-disjoint group* of candidates at once.
-
-    Precondition (the engine's grouping): among candidates with
-    ``do=True`` all partition rows (``p`` and swap counterpart ``p2``) are
-    distinct. Slot writes of candidates with ``do=False`` go to a discard
-    row ``P`` (sliced off), so they can never clobber a real update. Broker
-    aggregates take every candidate's delta (zero when not applied) in
-    candidate order — all source rows, then all destination rows — through
-    the ordered segment sum, exactly the reference's two scatter-adds.
-    """
-    p, r = c.p, c.r
-    is_move = (c.kind == MOVE_INTER_BROKER) & do
-    is_lead = (c.kind == MOVE_LEADERSHIP) & do
-    is_swap = (c.kind == MOVE_SWAP) & do
-    mv = is_move | is_swap
-
-    rb, pos, off = state.rb, state.pos, state.offline
-    P, R = rb.shape
-    pw = torch.where(do, p, P)
-    cur_slot = rb[p, r]
-    cur0 = rb[p, 0]
-    new_slot = torch.where(mv, c.dst, cur0)
-    new0 = torch.where(is_lead, cur_slot,
-                       torch.where(mv & (r == 0), c.dst, cur0))
-    rbx = torch.cat([rb, rb.new_zeros((1, R))])
-    rbx[pw, r] = new_slot
-    rbx[pw, 0] = new0
-    p2w = torch.where(is_swap, c.p2, P)
-    rbx[p2w, c.r2] = c.src
-
-    pos_r, pos_0 = pos[p, r], pos[p, 0]
-    posx = torch.cat([pos, pos.new_zeros((1, R))])
-    posx[pw, r] = torch.where(is_lead, pos_0, pos_r)
-    posx[pw, 0] = torch.where(is_lead, pos_r, pos_0)
-
-    off_r, off_0 = off[p, r], off[p, 0]
-    new_off_r = ~mv & torch.where(is_lead, off_0, off_r)
-    new_off_0 = torch.where(is_lead, off_r, ~(mv & (r == 0)) & off_0)
-    offx = torch.cat([off, off.new_zeros((1, R))])
-    offx[pw, r] = new_off_r
-    offx[pw, 0] = new_off_0
-    offx[p2w, c.r2] = torch.zeros((), dtype=torch.bool, device=off.device)
-
-    # Float aggregates: util (4 planes), potential NW_OUT and leader NW_IN
-    # ride one ordered segment sum — every source row first, then every
-    # destination row, each in candidate order (zero deltas for candidates
-    # that do not apply, like the reference's masked scatter-adds).
-    dof = do[:, None]
-    dpot = torch.where(mv, c.d_pot, 0.0)
-    dlni = torch.where(do, c.d_lni, 0.0)
-    src_planes = torch.cat([torch.where(dof, c.d_util_src, 0.0),
-                            -dpot[:, None], -dlni[:, None]], dim=1)
-    dst_planes = torch.cat([torch.where(dof, c.d_util_dst, 0.0),
-                            dpot[:, None], dlni[:, None]], dim=1)
-    base = torch.cat([state.util, state.potential_nw_out[:, None],
-                      state.leader_nw_in[:, None]], dim=1)
-    B1 = base.shape[0]
-    agg = ordered_segment_sum(torch.cat([src_planes, dst_planes]),
-                              torch.cat([c.src, c.dst]), B1, base=base)
-    util = agg[:, :NUM_RESOURCES]
-    potential = agg[:, NUM_RESOURCES]
-    lni = agg[:, NUM_RESOURCES + 1]
-
-    def int_delta(agg_int, d):
-        return (agg_int.index_add(0, c.src, -d)
-                .index_add(0, c.dst, d))
-
-    counts = int_delta(state.replica_count,
-                       torch.where(is_move, c.d_cnt, 0))
-    leaders = int_delta(state.leader_count, torch.where(do, c.d_lead, 0))
-
-    def topic_delta(agg_tb, moves):
-        """Signed adds into a [T, B1] table through its flat index; rows of
-        padding partitions (topic -1) go to a discard cell, sliced off."""
-        T = agg_tb.shape[0]
-        flat = torch.cat([agg_tb.reshape(-1), agg_tb.new_zeros(1)])
-        for topic, broker, d in moves:
-            ok = (topic >= 0) & (topic < T)
-            flat = flat.index_add(0, torch.where(ok, topic * B1 + broker,
-                                                 T * B1), d)
-        return flat[:-1].reshape(agg_tb.shape)
-
-    t1 = ctx.partition_topic[p].long()
-    t2 = ctx.partition_topic[c.p2].long()
-    topic_counts = state.topic_counts
-    if topic_counts is not None:
-        tc = torch.where(mv, 1, 0).to(torch.int32)
-        tc2 = torch.where(is_swap, 1, 0).to(torch.int32)
-        # the swap counterpart's topic travels the other way
-        topic_counts = topic_delta(topic_counts, (
-            (t1, c.src, -tc), (t1, c.dst, tc),
-            (t2, c.dst, -tc2), (t2, c.src, tc2)))
-
-    topic_leader_counts = state.topic_leader_counts
-    if topic_leader_counts is not None:
-        # Leadership of p lands on dst for transfers and leader-replica
-        # (r == 0) moves/swaps; a swap counterpart with r2 == 0 hauls p2's
-        # leadership to src.
-        d1 = torch.where(is_lead | (mv & (r == 0)), 1, 0).to(torch.int32)
-        d2 = torch.where(is_swap & (c.r2 == 0), 1, 0).to(torch.int32)
-        topic_leader_counts = topic_delta(topic_leader_counts, (
-            (t1, c.src, -d1), (t1, c.dst, d1),
-            (t2, c.dst, -d2), (t2, c.src, d2)))
-
-    return state.replace(rb=rbx[:P], pos=posx[:P], offline=offx[:P],
-                         util=util, replica_count=counts,
-                         leader_count=leaders,
-                         potential_nw_out=potential, leader_nw_in=lni,
-                         topic_counts=topic_counts,
-                         topic_leader_counts=topic_leader_counts,
-                         moves_applied=state.moves_applied + do.sum())
+    """Apply a *partition-disjoint group* of candidates at once: the
+    candidates where ``do`` is set, whose partition rows (``p`` and swap
+    counterpart ``p2``) are distinct, written into a new state (KM,
+    ``kernels.apply_group``; its twin on the CPU). Broker aggregates take
+    every candidate's delta (zero when not applied) in candidate order —
+    all source rows, then all destination rows — exactly the reference's
+    two scatter-adds."""
+    return kernels.apply_group(state, ctx, c, do)[0]
 
 
 def to_model(state: SearchState, template: FlatClusterModel) -> FlatClusterModel:

@@ -37,72 +37,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+#include "threefry.cuh"
 
-constexpr int kMaxPath = 8;
+namespace {
 
 enum Form : int32_t { kKeys = 0, kBits = 1, kAffine = 2, kRandint = 3 };
-
-}  // namespace
-
-// The derivation path, passed by value: word j is *ptrs[j] (low 32 bits)
-// where ptrs[j] is set, else words[j].
-struct DrawPath {
-  uint32_t words[kMaxPath];
-  const int64_t* ptrs[kMaxPath];
-  int32_t n;
-};
-
-namespace {
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, uint32_t d) {
-  return (x << d) | (x >> (32u - d));
-}
-
-__device__ __forceinline__ void round4(uint32_t& x0, uint32_t& x1,
-                                       uint32_t r0, uint32_t r1,
-                                       uint32_t r2, uint32_t r3) {
-  x0 += x1; x1 = rotl32(x1, r0); x1 ^= x0;
-  x0 += x1; x1 = rotl32(x1, r1); x1 ^= x0;
-  x0 += x1; x1 = rotl32(x1, r2); x1 ^= x0;
-  x0 += x1; x1 = rotl32(x1, r3); x1 ^= x0;
-}
-
-// threefry2x32 of the pair (x0, x1) under key (k0, k1), in place.
-__device__ __forceinline__ void threefry(uint32_t k0, uint32_t k1,
-                                         uint32_t& x0, uint32_t& x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  x0 += k0;
-  x1 += k1;
-  round4(x0, x1, 13, 15, 26, 6);
-  x0 += k1; x1 += k2 + 1u;
-  round4(x0, x1, 17, 29, 16, 24);
-  x0 += k2; x1 += k0 + 2u;
-  round4(x0, x1, 13, 15, 26, 6);
-  x0 += k0; x1 += k1 + 3u;
-  round4(x0, x1, 17, 29, 16, 24);
-  x0 += k1; x1 += k2 + 4u;
-  round4(x0, x1, 13, 15, 26, 6);
-  x0 += k2; x1 += k0 + 5u;
-}
-
-// The key one fold_in / split index further down: hash (0, word).
-__device__ __forceinline__ void fold(uint32_t& k0, uint32_t& k1,
-                                     uint32_t word) {
-  uint32_t x0 = 0u, x1 = word;
-  threefry(k0, k1, x0, x1);
-  k0 = x0;
-  k1 = x1;
-}
-
-// Random bits of 64-bit counter c under (k0, k1): x0 ^ x1 of its hash.
-__device__ __forceinline__ uint32_t bits_at(uint32_t k0, uint32_t k1,
-                                            uint64_t c) {
-  uint32_t x0 = static_cast<uint32_t>(c >> 32);
-  uint32_t x1 = static_cast<uint32_t>(c);
-  threefry(k0, k1, x0, x1);
-  return x0 ^ x1;
-}
 
 __global__ void threefry_draw_kernel(
     const int64_t* __restrict__ key, DrawPath path,
@@ -112,46 +51,30 @@ __global__ void threefry_draw_kernel(
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x
                     + threadIdx.x;
   if (i >= n) return;
-  uint32_t k0 = static_cast<uint32_t>(key[0]);
-  uint32_t k1 = static_cast<uint32_t>(key[1]);
-  // unrolled, so the path stays in the parameter space (a loop indexed
-  // at run time would copy it to the stack)
-#pragma unroll
-  for (int32_t j = 0; j < kMaxPath; ++j) {
-    if (j < path.n) {
-      const uint32_t w = path.ptrs[j] != nullptr
-                             ? static_cast<uint32_t>(*path.ptrs[j])
-                             : path.words[j];
-      fold(k0, k1, w);
-    }
-  }
+  uint32_t k0, k1;
+  threefry::derive(key, path, k0, k1);
   const uint64_t c = counters != nullptr
                          ? static_cast<uint64_t>(counters[i])
                          : static_cast<uint64_t>(base + i);
   if (form == kKeys) {
     uint32_t x0 = static_cast<uint32_t>(c >> 32);
     uint32_t x1 = static_cast<uint32_t>(c);
-    threefry(k0, k1, x0, x1);
+    threefry::hash(k0, k1, x0, x1);
     int64_t* o = static_cast<int64_t*>(out) + 2 * i;
     o[0] = static_cast<int64_t>(x0);
     o[1] = static_cast<int64_t>(x1);
   } else if (form == kBits) {
     static_cast<int32_t*>(out)[i] =
-        static_cast<int32_t>(bits_at(k0, k1, c));
+        static_cast<int32_t>(threefry::bits_at(k0, k1, c));
   } else if (form == kAffine) {
-    const uint32_t w = bits_at(k0, k1, c);
-    const float u = fmaxf(__int_as_float(static_cast<int32_t>(
-                              (w >> 9) | 0x3F800000u)) - 1.0f, 0.0f);
-    const double v = __dadd_rn(__dmul_rn(static_cast<double>(a),
-                                         static_cast<double>(u)),
-                               static_cast<double>(b));
-    static_cast<float*>(out)[i] = __double2float_rn(v);
+    static_cast<float*>(out)[i] =
+        threefry::affine(threefry::bits_at(k0, k1, c), a, b);
   } else {  // kRandint
     uint32_t h0 = k0, h1 = k1, l0 = k0, l1 = k1;
-    fold(h0, h1, 0u);
-    fold(l0, l1, 1u);
-    const uint32_t hi = bits_at(h0, h1, c);
-    const uint32_t lo = bits_at(l0, l1, c);
+    threefry::fold(h0, h1, 0u);
+    threefry::fold(l0, l1, 1u);
+    const uint32_t hi = threefry::bits_at(h0, h1, c);
+    const uint32_t lo = threefry::bits_at(l0, l1, c);
     uint32_t off = (hi % span) * multiplier + lo % span;
     off %= span;
     static_cast<int64_t*>(out)[i] = minval + static_cast<int64_t>(off);
@@ -168,7 +91,7 @@ extern "C" int cc_threefry_draw(const void* key, DrawPath path,
                                 int64_t minval, uint32_t span,
                                 uint32_t multiplier, void* out,
                                 void* stream) {
-  if (path.n < 0 || path.n > kMaxPath) {
+  if (path.n < 0 || path.n > threefry::kMaxPath) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {

@@ -65,6 +65,22 @@ One more carries the goal loops:
   (``analyzer/graph_loop.py``); ``csrc/goal_loop.cu`` also holds the
   functions that build those graphs.
 
+Five more carry a goal pass's own rounds (each in one or two launches
+where plain torch took dozens):
+
+- **KM** ``apply_group`` — one partition-disjoint group of candidates
+  applied out of place: the slot writes, the float aggregates in KB's
+  order (a warp a broker), the integer counts and topic tables;
+- **KN** ``candidate_eligibility`` — base legality, the acceptance of the
+  chain's interval goals (a table, :class:`GoalChecks`), the pass goal's
+  delta and the verdict, a thread a candidate;
+- **KO** ``flow_priority`` / ``flow_match`` — an interval goal's flow
+  candidates around the top-k: the [P, R] priorities with their noise
+  (one cluster), then the destination match (one block);
+- **KP** ``bulk_drain_fill`` — a replica drain round after its sort: the
+  segmented shed, the first slot a partition, the capped budgets and the
+  deficit-first fill (one cluster).
+
 Each wrapper takes the plain twin for a tensor on the CPU, and for a CUDA
 tensor launches its kernel or raises: there is no fallback. Each launch
 adds one to ``LAUNCHES[name]``; a kernel replayed inside a goal pass's
@@ -101,10 +117,19 @@ CSRC = _PKG / "csrc"
 SOURCES = ("threefry.cu", "segment_sum.cu", "net_flow.cu", "cell_flow.cu",
            "failover.cu", "first_fit.cu", "delta_scatter.cu",
            "cluster_stats.cu", "intra_walk.cu", "population_select.cu",
-           "launch_floor.cu", "goal_loop.cu")
+           "launch_floor.cu", "goal_loop.cu", "apply_group.cu",
+           "eligibility.cu", "flow_candidates.cu", "drain_fill.cu")
+#: headers the sources include (hashed with them)
+HEADERS = ("threefry.cuh", "ordered.cuh")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: flags of single sources: the goal-pass kernels round every float32
+#: product and sum on its own, as the reference's program does, and
+#: contract only where they write ``__fmaf_rn`` themselves
+SOURCE_FLAGS = {name: ("-fmad=false",) for name in (
+    "apply_group.cu", "eligibility.cu", "flow_candidates.cu",
+    "drain_fill.cu")}
 
 #: launches per kernel since the last ``reset_launch_counts()``
 LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
@@ -112,7 +137,9 @@ LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
             "scenario_failover": 0, "first_fit": 0,
             "delta_row_scatter": 0, "cluster_stats": 0,
             "intra_broker_walk": 0, "population_select": 0,
-            "fleet_scenario_failover": 0, "goal_loop": 0}
+            "fleet_scenario_failover": 0, "goal_loop": 0,
+            "apply_group": 0, "candidate_eligibility": 0,
+            "flow_priority": 0, "flow_match": 0, "bulk_drain_fill": 0}
 #: ``nvcc``/ptxas output of the build this process loaded (register and
 #: spill counts per kernel), empty when the library came from the cache
 BUILD_LOG: list[str] = []
@@ -148,9 +175,10 @@ def _nvcc() -> str:
 
 def source_digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
+        h.update(" ".join(SOURCE_FLAGS.get(name, ())).encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -173,7 +201,8 @@ def build_library() -> Path:
         for name in SOURCES:
             obj = tmp / (Path(name).stem + ".o")
             procs.append((name, obj, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
+                [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-c",
+                 str(CSRC / name), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         failed = []
         for name, _obj, proc in procs:
@@ -261,6 +290,19 @@ def load_library():
             lib.cc_graph_launch.argtypes = [p, p]
             lib.cc_graph_exec_destroy.argtypes = [p]
             lib.cc_cuda_versions.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+            lib.cc_apply_group.argtypes = [p, p]
+            lib.cc_candidate_eligibility.argtypes = [p, p, p]
+            lib.cc_eligibility_scratch.argtypes = [i64]
+            lib.cc_eligibility_scratch.restype = i64
+            lib.cc_flow_priority.argtypes = [p, _DrawPath, p]
+            lib.cc_flow_match.argtypes = [p, _DrawPath, p]
+            lib.cc_flow_match_scratch.argtypes = [i64, i64]
+            lib.cc_flow_match_scratch.restype = i64
+            lib.cc_drain_fill.argtypes = [p, p]
+            lib.cc_drain_fill_scratch.argtypes = [i64, i64]
+            lib.cc_drain_fill_scratch.restype = i64
+            lib.cc_drain_fill_counts.argtypes = []
+            lib.cc_drain_fill_counts.restype = i64
             for fn in (lib.cc_goal_loop_step,
                        lib.cc_graph_create, lib.cc_graph_destroy,
                        lib.cc_graph_check_body, lib.cc_graph_add_child,
@@ -276,7 +318,10 @@ def load_library():
                        lib.cc_failover,
                        lib.cc_first_fit, lib.cc_delta_row_scatter,
                        lib.cc_cluster_stats, lib.cc_intra_broker_walk,
-                       lib.cc_population_select, lib.cc_empty_kernel):
+                       lib.cc_population_select, lib.cc_empty_kernel,
+                       lib.cc_apply_group, lib.cc_candidate_eligibility,
+                       lib.cc_flow_priority, lib.cc_flow_match,
+                       lib.cc_drain_fill):
                 fn.restype = ctypes.c_int
             _LIB = lib
             default_collector().record_library(kind,
@@ -286,6 +331,27 @@ def load_library():
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def _pass_library():
+    """The kernel library, KM-KP's argument structs checked once against
+    the C structs they mirror (their sizes, from the library)."""
+    lib = load_library()
+    if not getattr(lib, "_cc_structs_checked", False):
+        for fn, struct in (("cc_apply_args_size", _ApplyArgs),
+                           ("cc_elig_args_size", _EligArgs),
+                           ("cc_goal_table_size", _GoalTable),
+                           ("cc_priority_args_size", _PriorityArgs),
+                           ("cc_match_args_size", _MatchArgs),
+                           ("cc_drain_args_size", _DrainArgs)):
+            size = getattr(lib, fn)
+            size.argtypes, size.restype = [], ctypes.c_int64
+            if size() != ctypes.sizeof(struct):
+                raise RuntimeError(
+                    f"{struct.__name__} is {ctypes.sizeof(struct)} bytes "
+                    f"here and {size()} in the kernel library")
+        lib._cc_structs_checked = True
+    return lib
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -327,6 +393,24 @@ class _DrawPath(ctypes.Structure):
     _fields_ = [("words", ctypes.c_uint32 * MAX_PATH),
                 ("ptrs", ctypes.c_void_p * MAX_PATH),
                 ("n", ctypes.c_int32)]
+
+
+def _draw_path(words):
+    """(the ``_DrawPath`` of ``words``, the int64 scalars it points at,
+    which must stay alive while the launch reads them)."""
+    if len(words) > MAX_PATH:
+        raise ValueError(f"a draw folds in at most {MAX_PATH} words, "
+                         f"got {len(words)}")
+    path = _DrawPath(n=len(words))
+    keep = []
+    for j, w in enumerate(words):
+        if isinstance(w, torch.Tensor):
+            w = w.reshape(1).to(torch.int64)
+            keep.append(w)
+            path.ptrs[j] = w.data_ptr()
+        else:
+            path.words[j] = int(w) & _M32
+    return path, keep
 
 
 def _rotl(x, d: int):
@@ -434,15 +518,7 @@ def threefry_draw(key, words=(), shape=(), form="bits", *, a=1.0, b=0.0,
                                    counters=counters)
     if key.dtype != torch.int64:
         raise TypeError("threefry_draw takes an int64 key")
-    path = _DrawPath(n=len(words))
-    keep = []                   # the scalars the kernel reads, alive
-    for j, w in enumerate(words):
-        if isinstance(w, torch.Tensor):
-            w = w.reshape(1).to(torch.int64)
-            keep.append(w)
-            path.ptrs[j] = w.data_ptr()
-        else:
-            path.words[j] = int(w) & _M32
+    path, keep = _draw_path(words)
     if counters is not None:
         if counters.dtype != torch.int64:
             raise TypeError("threefry_draw takes int64 counters")
@@ -1488,3 +1564,720 @@ def goal_loop_step(ctr: torch.Tensor, op: str, a: int = 0,
     LAUNCHES["goal_loop"] += 1
     _check(rc, "goal_loop")
     return ctr[GOAL_LOOP_SLOTS.index("cond")] != 0
+
+
+# ---------------------------------------------------------------------------
+# Argument structs of the goal-pass kernels (KM-KP): every pointer a
+# c_void_p, passed to the C entry by address
+# ---------------------------------------------------------------------------
+
+def _struct(name: str, *parts):
+    """A ctypes Structure of the fields ``parts`` in order: a string names
+    pointer fields (split on whitespace), a list holds (name, ctype)
+    fields."""
+    fields = []
+    for part in parts:
+        fields += ([(f, ctypes.c_void_p) for f in part.split()]
+                   if isinstance(part, str) else list(part))
+    return type(name, (ctypes.Structure,), {"_fields_": fields})
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _fill(args, **tensors):
+    """Set the pointer fields of ``args`` from ``tensors`` (None: null)."""
+    for name, t in tensors.items():
+        setattr(args, name, _ptr(t))
+    return args
+
+
+_I64 = ctypes.c_int64
+_F32 = ctypes.c_float
+_I32 = ctypes.c_int32
+
+
+# ---------------------------------------------------------------------------
+# KM: apply one partition-disjoint group of candidates
+# ---------------------------------------------------------------------------
+
+_ApplyArgs = _struct(
+    "_ApplyArgs",
+    "rb pos off util pot lni cnt lead tc tlc moves topic p r p2 r2 src dst "
+    "kind d_util_src d_util_dst d_cnt d_lead d_pot d_lni do_ rb_out pos_out "
+    "off_out util_out pot_out lni_out cnt_out lead_out tc_out tlc_out "
+    "moves_out count_out ids terms",
+    [(f, _I64) for f in ("P", "R", "B1", "T", "N")])
+
+
+def apply_group_plain(state, ctx, c, do):
+    """Twin of KM: ``state.py:apply_group`` in plain torch, and the count
+    of ``do``.
+
+    Precondition (the engine's grouping): among candidates with
+    ``do=True`` all partition rows (``p`` and swap counterpart ``p2``) are
+    distinct. Slot writes of candidates with ``do=False`` go to a discard
+    row ``P`` (sliced off), so they can never clobber a real update. Broker
+    aggregates take every candidate's delta (zero when not applied) in
+    candidate order — all source rows, then all destination rows — through
+    the ordered segment sum, exactly the reference's two scatter-adds.
+    """
+    from .core.resources import NUM_RESOURCES
+    from .model.flat import MOVE_INTER_BROKER, MOVE_LEADERSHIP, MOVE_SWAP
+    p, r = c.p, c.r
+    is_move = (c.kind == MOVE_INTER_BROKER) & do
+    is_lead = (c.kind == MOVE_LEADERSHIP) & do
+    is_swap = (c.kind == MOVE_SWAP) & do
+    mv = is_move | is_swap
+
+    rb, pos, off = state.rb, state.pos, state.offline
+    P, R = rb.shape
+    pw = torch.where(do, p, P)
+    cur_slot = rb[p, r]
+    cur0 = rb[p, 0]
+    new_slot = torch.where(mv, c.dst, cur0)
+    new0 = torch.where(is_lead, cur_slot,
+                       torch.where(mv & (r == 0), c.dst, cur0))
+    rbx = torch.cat([rb, rb.new_zeros((1, R))])
+    rbx[pw, r] = new_slot
+    rbx[pw, 0] = new0
+    p2w = torch.where(is_swap, c.p2, P)
+    rbx[p2w, c.r2] = c.src
+
+    pos_r, pos_0 = pos[p, r], pos[p, 0]
+    posx = torch.cat([pos, pos.new_zeros((1, R))])
+    posx[pw, r] = torch.where(is_lead, pos_0, pos_r)
+    posx[pw, 0] = torch.where(is_lead, pos_r, pos_0)
+
+    off_r, off_0 = off[p, r], off[p, 0]
+    new_off_r = ~mv & torch.where(is_lead, off_0, off_r)
+    new_off_0 = torch.where(is_lead, off_r, ~(mv & (r == 0)) & off_0)
+    offx = torch.cat([off, off.new_zeros((1, R))])
+    offx[pw, r] = new_off_r
+    offx[pw, 0] = new_off_0
+    offx[p2w, c.r2] = torch.zeros((), dtype=torch.bool, device=off.device)
+
+    # Float aggregates: util (4 planes), potential NW_OUT and leader NW_IN
+    # ride one ordered segment sum — every source row first, then every
+    # destination row, each in candidate order (zero deltas for candidates
+    # that do not apply, like the reference's masked scatter-adds).
+    dof = do[:, None]
+    dpot = torch.where(mv, c.d_pot, 0.0)
+    dlni = torch.where(do, c.d_lni, 0.0)
+    src_planes = torch.cat([torch.where(dof, c.d_util_src, 0.0),
+                            -dpot[:, None], -dlni[:, None]], dim=1)
+    dst_planes = torch.cat([torch.where(dof, c.d_util_dst, 0.0),
+                            dpot[:, None], dlni[:, None]], dim=1)
+    base = torch.cat([state.util, state.potential_nw_out[:, None],
+                      state.leader_nw_in[:, None]], dim=1)
+    B1 = base.shape[0]
+    agg = ordered_segment_sum(torch.cat([src_planes, dst_planes]),
+                              torch.cat([c.src, c.dst]), B1, base=base)
+    util = agg[:, :NUM_RESOURCES]
+    potential = agg[:, NUM_RESOURCES]
+    lni = agg[:, NUM_RESOURCES + 1]
+
+    def int_delta(agg_int, d):
+        return (agg_int.index_add(0, c.src, -d)
+                .index_add(0, c.dst, d))
+
+    counts = int_delta(state.replica_count,
+                       torch.where(is_move, c.d_cnt, 0))
+    leaders = int_delta(state.leader_count, torch.where(do, c.d_lead, 0))
+
+    def topic_delta(agg_tb, moves):
+        """Signed adds into a [T, B1] table through its flat index; rows of
+        padding partitions (topic -1) go to a discard cell, sliced off."""
+        T = agg_tb.shape[0]
+        flat = torch.cat([agg_tb.reshape(-1), agg_tb.new_zeros(1)])
+        for topic, broker, d in moves:
+            ok = (topic >= 0) & (topic < T)
+            flat = flat.index_add(0, torch.where(ok, topic * B1 + broker,
+                                                 T * B1), d)
+        return flat[:-1].reshape(agg_tb.shape)
+
+    t1 = ctx.partition_topic[p].long()
+    t2 = ctx.partition_topic[c.p2].long()
+    topic_counts = state.topic_counts
+    if topic_counts is not None:
+        tc = torch.where(mv, 1, 0).to(torch.int32)
+        tc2 = torch.where(is_swap, 1, 0).to(torch.int32)
+        # the swap counterpart's topic travels the other way
+        topic_counts = topic_delta(topic_counts, (
+            (t1, c.src, -tc), (t1, c.dst, tc),
+            (t2, c.dst, -tc2), (t2, c.src, tc2)))
+
+    topic_leader_counts = state.topic_leader_counts
+    if topic_leader_counts is not None:
+        # Leadership of p lands on dst for transfers and leader-replica
+        # (r == 0) moves/swaps; a swap counterpart with r2 == 0 hauls p2's
+        # leadership to src.
+        d1 = torch.where(is_lead | (mv & (r == 0)), 1, 0).to(torch.int32)
+        d2 = torch.where(is_swap & (c.r2 == 0), 1, 0).to(torch.int32)
+        topic_leader_counts = topic_delta(topic_leader_counts, (
+            (t1, c.src, -d1), (t1, c.dst, d1),
+            (t2, c.dst, -d2), (t2, c.src, d2)))
+
+    count = do.sum()
+    return state.replace(rb=rbx[:P], pos=posx[:P], offline=offx[:P],
+                         util=util, replica_count=counts,
+                         leader_count=leaders,
+                         potential_nw_out=potential, leader_nw_in=lni,
+                         topic_counts=topic_counts,
+                         topic_leader_counts=topic_leader_counts,
+                         moves_applied=state.moves_applied + count), count
+
+
+def apply_group(state, ctx, c, do):
+    """(state, int64 count of ``do``): ``state`` (an ``analyzer/state.py``
+    SearchState, unbatched) after the partition-disjoint group of
+    candidates ``c`` where ``do`` (bool[N]) is set, out of place — see
+    ``csrc/apply_group.cu`` (two launches)."""
+    P, R = state.rb.shape
+    N = do.shape[0]
+    if c.p.shape != (N,) or c.d_util_src.shape != (N, 4):
+        raise ValueError("apply_group takes N candidates and do [N]")
+    if _on_cpu(state.rb, do, c.p):
+        return apply_group_plain(state, ctx, c, do)
+    if do.dtype != torch.bool or state.offline.dtype != torch.bool:
+        raise TypeError("apply_group takes bool do and offline masks")
+    B1 = state.util.shape[0]
+    tc, tlc = state.topic_counts, state.topic_leader_counts
+    T = tc.shape[0] if tc is not None else (
+        tlc.shape[0] if tlc is not None else 0)
+
+    def as_(t, dtype):
+        return None if t is None else t.to(dtype).contiguous()
+
+    i64, i32, f32 = torch.int64, torch.int32, torch.float32
+    ins = dict(
+        rb=as_(state.rb, i64), pos=as_(state.pos, i64),
+        off=state.offline.contiguous(), util=as_(state.util, f32),
+        pot=as_(state.potential_nw_out, f32), lni=as_(state.leader_nw_in, f32),
+        cnt=as_(state.replica_count, i32), lead=as_(state.leader_count, i32),
+        tc=as_(tc, i32), tlc=as_(tlc, i32),
+        moves=as_(state.moves_applied, i64),
+        topic=as_(ctx.partition_topic, i32),
+        p=as_(c.p, i64), r=as_(c.r, i64), p2=as_(c.p2, i64),
+        r2=as_(c.r2, i64), src=as_(c.src, i64), dst=as_(c.dst, i64),
+        kind=as_(c.kind, i64), d_util_src=as_(c.d_util_src, f32),
+        d_util_dst=as_(c.d_util_dst, f32), d_cnt=as_(c.d_cnt, i32),
+        d_lead=as_(c.d_lead, i32), d_pot=as_(c.d_pot, f32),
+        d_lni=as_(c.d_lni, f32), do_=do.contiguous())
+    dev = state.rb.device
+    outs = dict(
+        rb_out=torch.empty_like(ins["rb"]), pos_out=torch.empty_like(ins["pos"]),
+        off_out=torch.empty_like(ins["off"]),
+        util_out=torch.empty((B1, 4), dtype=f32, device=dev),
+        pot_out=torch.empty(B1, dtype=f32, device=dev),
+        lni_out=torch.empty(B1, dtype=f32, device=dev),
+        cnt_out=torch.empty(B1, dtype=i32, device=dev),
+        lead_out=torch.empty(B1, dtype=i32, device=dev),
+        tc_out=None if tc is None else torch.empty_like(ins["tc"]),
+        tlc_out=None if tlc is None else torch.empty_like(ins["tlc"]),
+        moves_out=torch.empty((), dtype=i64, device=dev),
+        count_out=torch.empty((), dtype=i64, device=dev))
+    scratch = dict(ids=torch.empty(2 * N, dtype=i32, device=dev),
+                   terms=torch.empty((2 * N, 8), dtype=f32, device=dev))
+    args = _fill(_ApplyArgs(P=P, R=R, B1=B1, T=T, N=N), **ins, **outs,
+                 **scratch)
+    rc = _pass_library().cc_apply_group(ctypes.byref(args), _stream())
+    LAUNCHES["apply_group"] += 1
+    _check(rc, "apply_group")
+    return state.replace(
+        rb=outs["rb_out"], pos=outs["pos_out"], offline=outs["off_out"],
+        util=outs["util_out"], replica_count=outs["cnt_out"],
+        leader_count=outs["lead_out"], potential_nw_out=outs["pot_out"],
+        leader_nw_in=outs["lni_out"], topic_counts=outs["tc_out"],
+        topic_leader_counts=outs["tlc_out"],
+        moves_applied=outs["moves_out"]), outs["count_out"]
+
+
+# ---------------------------------------------------------------------------
+# KN: a goal pass's candidate eligibility
+# ---------------------------------------------------------------------------
+
+#: goal rows KN's table holds (``csrc/eligibility.cu:kMaxGoals``)
+MAX_GOAL_ROWS = 48
+
+_GoalRow = _struct("_GoalRow", [(f, _I32) for f in (
+    "metric", "form", "upper_only", "integer", "accepts", "cap_col")]
+    + [("t", _F32), ("lower", _F32)])
+_GoalTable = _struct("_GoalTable", [
+    ("rows", _GoalRow * MAX_GOAL_ROWS), ("n", _I32), ("has_pass", _I32),
+    ("neg_eps", _F32)])
+_EligArgs = _struct(
+    "_EligArgs",
+    "rb off util cnt lead pot lni movable dest lead_dest lead_movable bvalid "
+    "balive cap p r p2 r2 src dst kind valid must d_util_src d_util_dst "
+    "d_cnt d_lead d_pot d_lni extra_ok extra_delta elig delta",
+    [(f, _I64) for f in ("P", "R", "B1", "N")])
+
+
+class GoalChecks:
+    """What a chain position checks a candidate against: the pass goal
+    (its delta) and the earlier goals (their acceptance), with
+    ``epsilon``. The goals with an ``eligibility_row`` (the IntervalGoal
+    family) form KN's table, built once here; the others' ``accepts`` and
+    ``delta`` run in torch and reach KN as a mask and an array."""
+
+    def __init__(self, goal, prev_goals, epsilon: float):
+        self.goal = goal
+        self.prev_goals = list(prev_goals)
+        self.epsilon = float(epsilon)
+        rows = []
+        pass_row = goal.eligibility_row()
+        if pass_row is not None:
+            rows.append(pass_row)
+        #: earlier goals whose acceptance runs in torch
+        self.outside = []
+        for g in self.prev_goals:
+            row = g.eligibility_row()
+            if row is None or len(rows) == MAX_GOAL_ROWS:
+                self.outside.append(g)
+            else:
+                rows.append(row)
+        self.has_pass = pass_row is not None
+        self.table = _GoalTable(n=len(rows), has_pass=int(self.has_pass),
+                                neg_eps=-self.epsilon)
+        for k, row in enumerate(rows):
+            self.table.rows[k] = _GoalRow(**{f: row[f] for f, _ in
+                                             _GoalRow._fields_})
+
+
+def candidate_eligibility_plain(state, ctx, c, checks: GoalChecks):
+    """Twin of KN: ``engine.py``'s eligibility composed in torch — base
+    legality, every earlier goal's acceptance, the pass goal's delta."""
+    from .analyzer.state import base_legality
+    ok = base_legality(state, ctx, c)
+    for g in checks.prev_goals:
+        ok = ok & g.accepts(state, ctx, c)
+    delta = checks.goal.delta(state, ctx, c)
+    return ok & ((delta < -checks.epsilon) | c.must), delta
+
+
+def candidate_eligibility(state, ctx, c, checks: GoalChecks):
+    """(bool[N] eligible, float32[N] the pass goal's delta) of candidates
+    ``c`` against ``state``, ``ctx`` and the chain position ``checks`` —
+    see ``csrc/eligibility.cu``."""
+    N = c.p.shape[0]
+    if _on_cpu(state.rb, c.p):
+        return candidate_eligibility_plain(state, ctx, c, checks)
+    P, R = state.rb.shape
+    B1 = state.util.shape[0]
+    extra_ok = None
+    for g in checks.outside:
+        acc = g.accepts(state, ctx, c)
+        extra_ok = acc if extra_ok is None else extra_ok & acc
+    extra_delta = (None if checks.has_pass
+                   else checks.goal.delta(state, ctx, c).to(torch.float32)
+                   .contiguous())
+    i64, i32, f32 = torch.int64, torch.int32, torch.float32
+
+    def as_(t, dtype):
+        return t.to(dtype).contiguous()
+
+    dev = state.rb.device
+    elig = torch.empty(N, dtype=torch.bool, device=dev)
+    delta = torch.empty(N, dtype=f32, device=dev)
+    ins = dict(
+        rb=as_(state.rb, i64), off=state.offline.contiguous(),
+        util=as_(state.util, f32), cnt=as_(state.replica_count, i32),
+        lead=as_(state.leader_count, i32),
+        pot=as_(state.potential_nw_out, f32),
+        lni=as_(state.leader_nw_in, f32), movable=ctx.movable.contiguous(),
+        dest=ctx.dest_allowed.contiguous(),
+        lead_dest=ctx.leader_dest_allowed.contiguous(),
+        lead_movable=ctx.leadership_movable.contiguous(),
+        bvalid=ctx.broker_valid.contiguous(),
+        balive=ctx.broker_alive.contiguous(),
+        cap=as_(ctx.broker_capacity, f32), p=as_(c.p, i64), r=as_(c.r, i64),
+        p2=as_(c.p2, i64), r2=as_(c.r2, i64), src=as_(c.src, i64),
+        dst=as_(c.dst, i64), kind=as_(c.kind, i64), valid=c.valid.contiguous(),
+        must=c.must.contiguous(), d_util_src=as_(c.d_util_src, f32),
+        d_util_dst=as_(c.d_util_dst, f32), d_cnt=as_(c.d_cnt, i32),
+        d_lead=as_(c.d_lead, i32), d_pot=as_(c.d_pot, f32),
+        d_lni=as_(c.d_lni, f32),
+        extra_ok=None if extra_ok is None else extra_ok.contiguous(),
+        extra_delta=extra_delta)
+    args = _fill(_EligArgs(P=P, R=R, B1=B1, N=N), **ins, elig=elig,
+                 delta=delta)
+    rc = _pass_library().cc_candidate_eligibility(
+        ctypes.byref(args), ctypes.byref(checks.table), _stream())
+    LAUNCHES["candidate_eligibility"] += 1
+    _check(rc, "candidate_eligibility")
+    return elig, delta
+
+
+# ---------------------------------------------------------------------------
+# KO: flow candidates (priorities, then the destination match)
+# ---------------------------------------------------------------------------
+
+_PriorityArgs = _struct(
+    "_PriorityArgs",
+    "rb movable off leader_load follower_load values lo up excess deficit "
+    "key prio scratch",
+    [("P", _I64), ("R", _I64), ("B1", _I64), ("weight", _I32),
+     ("leader_scoped", _I32), ("noise_scale", _F32)])
+_MatchArgs = _struct(
+    "_MatchArgs", "values lo up deficit dest cap",
+    [("thr", _F32), ("upper_only", _I32), ("load", _I32)], "key",
+    [("noise_scale", _F32)],
+    "idx vals rb off leader_load follower_load p_out r_out dst_out "
+    "valid_out scratch order", [(f, _I64) for f in ("P", "R", "B1", "K")])
+#: KO's cluster (``csrc/flow_candidates.cu:kCluster``)
+_FLOW_CLUSTER = 8
+
+
+def _weight_form(goal) -> int:
+    """``IntervalGoal._replica_weight`` as KO names it: a util column,
+    potential NW_OUT (4) or the small-disk preference (5)."""
+    which, res = goal.metric
+    if which == "util":
+        return int(res)
+    return 4 if which == "potential" else 5
+
+
+def _cap_factor(goal, ctx):
+    """(float32[B1] capacity column or None, threshold): the factors of a
+    goal's upper bound where it is their per-broker product (its
+    ``_upper_minus`` then rounds once)."""
+    factor = goal._cap_factor(ctx)
+    if factor is None:
+        return None, 0.0
+    col, thr = factor
+    return col.to(torch.float32).contiguous(), thr
+
+
+def _planes(values, *planes):
+    """``planes`` (broker planes or scalar bounds) as contiguous float32
+    tensors of ``values``' shape."""
+    return [torch.broadcast_to(t, values.shape).to(torch.float32)
+            .contiguous() for t in planes]
+
+
+def flow_priority_plain(goal, state, ctx, key, cfg, values, lo, up, excess,
+                        deficit):
+    """Twin of KO's first launch: ``goals.py:_flow_candidates``' source
+    replicas' priority (offline > excess-broker > deficit-assist tiers,
+    with tie-break noise), in plain torch."""
+    from .analyzer.goals import (_NEG, _TIER_ASSIST, _TIER_EXCESS,
+                                 _TIER_OFFLINE, _noise, _tier_plus_norm01,
+                                 _unit01)
+    R = state.rb.shape[1]
+    dev = state.rb.device
+    q, finite = _unit01(goal._replica_weight(state, ctx))       # [P, R]
+    src_b = state.rb
+    any_deficit = (deficit > 0.0).any()
+    mid = torch.where(torch.isfinite(lo), (lo + up) * 0.5, up * 0.5)
+    assist = any_deficit & (values[src_b] > mid[src_b])
+    prio = torch.where(excess[src_b] > 0.0,
+                       _tier_plus_norm01(_TIER_EXCESS, q, finite),
+                       torch.where(assist,
+                                   _tier_plus_norm01(_TIER_ASSIST, q,
+                                                     finite), _NEG))
+    if goal.metric[0] in ("leaders", "leader_nw_in"):
+        prio = torch.where((torch.arange(R, device=dev) == 0)[None, :],
+                           prio, _NEG)
+    prio = torch.where(ctx.movable, prio, _NEG)
+    prio = torch.where(state.offline,
+                       _tier_plus_norm01(_TIER_OFFLINE, q, finite), prio)
+    return prio + torch.where(torch.isfinite(prio),
+                              _noise(key, prio.shape, cfg.noise_scale), 0.0)
+
+
+def flow_priority(goal, state, ctx, key, cfg, values, lo, up, excess,
+                  deficit):
+    """float32[P, R] source-replica priorities of an interval goal's flow
+    candidates, the noise drawn from ``key`` (a key or key path) — see
+    ``csrc/flow_candidates.cu`` (one launch)."""
+    from . import _random
+    if _on_cpu(state.rb, values):
+        return flow_priority_plain(goal, state, ctx, key, cfg, values, lo,
+                                   up, excess, deficit)
+    P, R = state.rb.shape
+    B1 = values.shape[0]
+    kp = _random.path(key)
+    path, keep = _draw_path(kp.words)
+    dev = state.rb.device
+    vals, lo, up, excess, deficit = _planes(values, values, lo, up,
+                                               excess, deficit)
+    prio = torch.empty((P, R), dtype=torch.float32, device=dev)
+    scratch = torch.empty(2 * _FLOW_CLUSTER, dtype=torch.float32, device=dev)
+    args = _fill(
+        _PriorityArgs(P=P, R=R, B1=B1, weight=_weight_form(goal),
+                      leader_scoped=int(goal.metric[0] in (
+                          "leaders", "leader_nw_in")),
+                      noise_scale=cfg.noise_scale),
+        rb=state.rb.to(torch.int64).contiguous(),
+        movable=ctx.movable.contiguous(), off=state.offline.contiguous(),
+        leader_load=ctx.leader_load.to(torch.float32).contiguous(),
+        follower_load=ctx.follower_load.to(torch.float32).contiguous(),
+        values=vals, lo=lo, up=up, excess=excess, deficit=deficit,
+        key=kp.root.contiguous(), prio=prio, scratch=scratch)
+    rc = _pass_library().cc_flow_priority(ctypes.byref(args), path, _stream())
+    LAUNCHES["flow_priority"] += 1
+    _check(rc, "flow_priority")
+    return prio
+
+
+def flow_match_plain(goal, state, ctx, key, cfg, values, lo, up, deficit,
+                     vals, idx):
+    """Twin of KO's second launch: ``goals.py:_flow_candidates``'
+    destination matching by cumulative headroom (to the midpoint for
+    balance goals, the ceiling for capacity-style goals), the round-robin
+    fallback of mandatory moves and the re-route of candidates whose
+    matched broker already hosts the partition; (p, r, dst, valid)."""
+    from .analyzer.goals import (_NEG, _TIER_EXCESS, _legal_dest_argmax,
+                                 _noise, _norm01)
+    from .utils.ordered import argsort, scan_sum
+    R = state.rb.shape[1]
+    B1 = values.shape[0]
+    dev = state.rb.device
+    K = idx.shape[0]
+    p, r = idx // R, idx % R
+    sel = torch.isfinite(vals)
+    mid = torch.where(torch.isfinite(lo), (lo + up) * 0.5, up * 0.5)
+    ceiling = torch.where(ctx.dest_allowed,
+                          torch.clamp(goal._upper_minus(values, up, ctx),
+                                      min=0.0), 0.0)
+    if goal.upper_only:
+        headroom = ceiling
+    else:
+        to_mid = torch.where(ctx.dest_allowed,
+                             torch.clamp(mid - values, min=0.0), 0.0)
+        headroom = torch.where((to_mid > 0.0).any(), to_mid, ceiling)
+    dprio = torch.where(ctx.dest_allowed,
+                        torch.where(deficit > 0.0, _TIER_EXCESS, 0.0)
+                        + _norm01(headroom, ctx.dest_allowed), _NEG)
+    dprio = dprio + torch.where(torch.isfinite(dprio),
+                                _noise(key, dprio.shape, cfg.noise_scale),
+                                0.0)
+    order = argsort(-dprio)                                     # [B1]
+    cum_head = scan_sum(headroom[order])
+    load = torch.where(sel, goal._replica_metric_load(ctx, p, r), 0.0)
+    cum_load = scan_sum(load) - 0.5 * load                      # midpoints
+    slot = torch.searchsorted(cum_head, cum_load)
+    covered = slot < B1
+    matched = order[torch.clamp(slot, max=B1 - 1)]
+    # Mandatory (offline) moves get a round-robin destination even when
+    # no headroom is left.
+    n_ok = torch.clamp(ctx.dest_allowed.sum(), min=1)
+    fallback = order[torch.arange(K, device=dev) % n_ok]
+    must = state.offline[p, r] & sel
+    dst = torch.where(covered, matched, fallback)
+    # Re-route candidates whose matched broker already hosts the
+    # partition to their best legal destination.
+    hosts_dst = (state.rb[p] == dst[:, None]).any(dim=1)
+    alt, alt_ok = _legal_dest_argmax(
+        state, ctx, p, torch.broadcast_to(dprio[None, :], (K, B1)))
+    dst = torch.where(hosts_dst & alt_ok, alt, dst)
+    valid = sel & (covered | must) & ctx.dest_allowed[dst]
+    return p, r, dst, valid
+
+
+def flow_match(goal, state, ctx, key, cfg, values, lo, up, deficit, vals,
+               idx):
+    """(p, r, dst int64[K], valid bool[K]): the destinations of an
+    interval goal's top-K source replicas (``idx`` int64[K] flat [P, R]
+    indices, ``vals`` float32[K] their priorities), the noise drawn from
+    ``key`` — see ``csrc/flow_candidates.cu`` (one block)."""
+    from . import _random
+    if _on_cpu(state.rb, values, idx):
+        return flow_match_plain(goal, state, ctx, key, cfg, values, lo, up,
+                                deficit, vals, idx)
+    P, R = state.rb.shape
+    B1 = values.shape[0]
+    K = idx.shape[0]
+    kp = _random.path(key)
+    path, keep = _draw_path(kp.words)
+    dev = state.rb.device
+    values, lo, up, deficit = _planes(values, values, lo, up, deficit)
+    cap, thr = _cap_factor(goal, ctx)
+    lib = _pass_library()
+    scratch = torch.empty(lib.cc_flow_match_scratch(B1, K),
+                          dtype=torch.float32, device=dev)
+    order = torch.empty(B1, dtype=torch.int64, device=dev)
+    outs = dict(p_out=torch.empty(K, dtype=torch.int64, device=dev),
+                r_out=torch.empty(K, dtype=torch.int64, device=dev),
+                dst_out=torch.empty(K, dtype=torch.int64, device=dev),
+                valid_out=torch.empty(K, dtype=torch.bool, device=dev))
+    args = _fill(
+        _MatchArgs(thr=thr, upper_only=int(goal.upper_only),
+                   load=goal.metric_code(), noise_scale=cfg.noise_scale,
+                   P=P, R=R, B1=B1, K=K),
+        values=values, lo=lo, up=up, deficit=deficit,
+        dest=ctx.dest_allowed.contiguous(), cap=cap,
+        key=kp.root.contiguous(), idx=idx.to(torch.int64).contiguous(),
+        vals=vals.to(torch.float32).contiguous(),
+        rb=state.rb.to(torch.int64).contiguous(),
+        off=state.offline.contiguous(),
+        leader_load=ctx.leader_load.to(torch.float32).contiguous(),
+        follower_load=ctx.follower_load.to(torch.float32).contiguous(),
+        scratch=scratch, order=order, **outs)
+    rc = lib.cc_flow_match(ctypes.byref(args), path, _stream())
+    LAUNCHES["flow_match"] += 1
+    _check(rc, "flow_match")
+    return outs["p_out"], outs["r_out"], outs["dst_out"], outs["valid_out"]
+
+
+# ---------------------------------------------------------------------------
+# KP: the replica bulk drain's fill
+# ---------------------------------------------------------------------------
+
+_DrainArgs = _struct(
+    "_DrainArgs",
+    "order rb w cand must quota deficit values up alive dest bvalid "
+    "capacity util cnt leader_load follower_load", [("thr", _F32 * 4)],
+    "cap", [("cap_thr", _F32), ("count_goal", _I32), ("rbt", _F32)],
+    "p_out r_out dst_out ok_out sb sw flags cum tw grank first_pos perm "
+    "counts fs", [(f, _I64) for f in ("n", "P", "R", "B1", "N")])
+
+
+def bulk_drain_fill_plain(goal, state, ctx, cfg, values, up, deficit, quota,
+                          order, flat_b, flat_w, flat_cand, flat_must):
+    """Twin of KP: ``goals.py:_replica_bulk_drain`` after its lexsort in
+    plain torch — shed while a broker's cumulative shed (before the
+    replica) is below its quota, the first taken slot of each partition,
+    the receivers' budgets capped by the replica-count ceiling and every
+    capacity hard goal, the deficit-first prefix-sum fill; (p, r, dst,
+    ok) scattered into ``cfg.drain_batch`` slots."""
+    from .analyzer.goals import _capacity_budget_cap, _segment_cum_before
+    from .utils.ordered import argsort, scan_sum, tree_sum
+    N = cfg.drain_batch
+    dev = state.rb.device
+    alive = ctx.broker_alive
+    n_alive = torch.clamp(alive.sum(), min=1)
+    P, R = state.rb.shape
+    B1 = values.shape[0]
+    sb = flat_b[order]
+    smask = flat_cand[order]
+    sw = torch.where(smask, flat_w[order], 0.0)
+    smust = flat_must[order]
+
+    # Shed while the broker's cumulative shed (before this replica) is
+    # still below its quota; must-moves shed unconditionally.
+    within_before = _segment_cum_before(sw, sb, B1)
+    take = smask & ((within_before < quota[sb]) | smust)
+
+    # Partition-disjoint: first taken slot per partition row only.
+    sp = order // R
+    pos = torch.arange(P * R, device=dev)
+    first_pos = torch.full((P,), P * R, dtype=torch.int64,
+                           device=dev).scatter_reduce(
+        0, sp, torch.where(take, pos, P * R), reduce="amin")
+    take = take & (first_pos[sp] == pos)
+
+    grank = torch.cumsum(take, 0) - 1
+    take = take & (grank < N)
+    tw = torch.where(take, sw, 0.0)
+    total_w = torch.clamp(tree_sum(tw), min=1e-9)
+    n_take = torch.clamp(take.sum().to(torch.float32), min=1.0)
+
+    budget = torch.where(alive & ctx.dest_allowed & ctx.broker_valid,
+                         torch.clamp(goal._upper_minus(values, up, ctx),
+                                     min=0.0), 0.0)
+    is_slot0 = (torch.arange(R, device=dev) == 0)[None, :, None]
+    loads = torch.where(is_slot0, ctx.leader_load[:, None, :],
+                        ctx.follower_load[:, None, :])         # [P, R, 4]
+    sorted_loads = loads.reshape(-1, 4)[order]
+    ratio = sorted_loads / torch.clamp(sw, min=1e-9)[:, None]
+    per_unit_max = torch.where(take[:, None], ratio, 0.0).amax(dim=0)
+    cst = goal.constraint
+    budget = _capacity_budget_cap(budget, per_unit_max, cst,
+                                  ctx.broker_capacity, state.util)
+    if goal.metric[0] != "count":
+        cnt = state.replica_count.to(torch.float32)
+        cnt_total = tree_sum(torch.where(ctx.broker_valid, cnt, 0.0))
+        cnt_avg = cnt_total / n_alive
+        cnt_up = torch.maximum(cnt_avg * cst.replica_balance_threshold,
+                               torch.ceil(cnt_avg))
+        mean_w = total_w / n_take
+        budget = torch.minimum(
+            budget, torch.clamp(cnt_up - cnt, min=0.0) * mean_w)
+    budget = torch.clamp(budget, min=0.0)
+
+    # Prefix-sum fill over DEFICIT-FIRST receivers.
+    perm = argsort(-deficit)
+    cum_budget = scan_sum(budget[perm])
+    target = scan_sum(tw) - 0.5 * tw
+    pos_in_perm = torch.searchsorted(cum_budget, target)
+    dst = perm[torch.clamp(pos_in_perm, max=B1 - 1)]
+    ok = take & (pos_in_perm < B1) & (target < cum_budget[B1 - 1])
+
+    # Scatter into the fixed-size batch (slot = global rank); rows that
+    # are not ok park in the discard slot N, which is sliced off.
+    slot = torch.where(ok, grank, N)
+
+    def scatter(vals, dtype):
+        out = torch.zeros(N + 1, dtype=dtype, device=dev)
+        return out.scatter_(0, slot, vals.to(dtype))[:N]
+    return (scatter(sp, torch.int64), scatter(order % R, torch.int64),
+            scatter(dst, torch.int64), scatter(ok, torch.bool))
+
+
+def bulk_drain_fill(goal, state, ctx, cfg, values, up, deficit, quota, order,
+                    flat_b, flat_w, flat_cand, flat_must):
+    """(p, r, dst int64[N], ok bool[N]), N = ``cfg.drain_batch``: one
+    replica bulk-drain round of an interval goal from the lexsort ``order``
+    of the flat [P, R] slots (``flat_b`` their brokers — the order's first
+    key —, ``flat_w`` weights, ``flat_cand`` candidates, ``flat_must``
+    mandatory moves) and the brokers' ``quota`` and ``deficit`` — see
+    ``csrc/drain_fill.cu`` (one launch)."""
+    if _on_cpu(state.rb, values, order):
+        return bulk_drain_fill_plain(goal, state, ctx, cfg, values, up,
+                                     deficit, quota, order, flat_b, flat_w,
+                                     flat_cand, flat_must)
+    P, R = state.rb.shape
+    n = P * R
+    B1 = values.shape[0]
+    N = int(cfg.drain_batch)
+    if order.shape != (n,) or flat_b.shape != (n,):
+        raise ValueError("bulk_drain_fill takes the [P * R] slots' order")
+    dev = state.rb.device
+    values, up, deficit, quota = _planes(values, values, up, deficit,
+                                            quota)
+    cap, cap_thr = _cap_factor(goal, ctx)
+    cst = goal.constraint
+    lib = _pass_library()
+    i64, f32 = torch.int64, torch.float32
+    outs = dict(p_out=torch.empty(N, dtype=i64, device=dev),
+                r_out=torch.empty(N, dtype=i64, device=dev),
+                dst_out=torch.empty(N, dtype=i64, device=dev),
+                ok_out=torch.empty(N, dtype=torch.bool, device=dev))
+    scratch = dict(
+        sb=torch.empty(n, dtype=torch.int32, device=dev),
+        sw=torch.empty(n, dtype=f32, device=dev),
+        flags=torch.empty(n, dtype=torch.uint8, device=dev),
+        cum=torch.empty(n, dtype=f32, device=dev),
+        tw=torch.empty(n, dtype=f32, device=dev),
+        grank=torch.empty(n, dtype=i64, device=dev),
+        first_pos=torch.empty(P, dtype=torch.int32, device=dev),
+        perm=torch.empty(B1, dtype=i64, device=dev),
+        counts=torch.empty(lib.cc_drain_fill_counts(), dtype=i64,
+                           device=dev),
+        fs=torch.empty(lib.cc_drain_fill_scratch(n, B1), dtype=f32,
+                       device=dev))
+    args = _fill(
+        _DrainArgs(thr=(_F32 * 4)(*cst.capacity_threshold),
+                   cap_thr=cap_thr,
+                   count_goal=int(goal.metric[0] == "count"),
+                   rbt=cst.replica_balance_threshold, n=n, P=P, R=R, B1=B1,
+                   N=N),
+        order=order.to(i64).contiguous(), rb=flat_b.to(i64).contiguous(),
+        w=flat_w.to(f32).contiguous(), cand=flat_cand.contiguous(),
+        must=flat_must.contiguous(), cap=cap, quota=quota, deficit=deficit,
+        values=values, up=up, alive=ctx.broker_alive.contiguous(),
+        dest=ctx.dest_allowed.contiguous(),
+        bvalid=ctx.broker_valid.contiguous(),
+        capacity=ctx.broker_capacity.to(f32).contiguous(),
+        util=state.util.to(f32).contiguous(),
+        cnt=state.replica_count.to(torch.int32).contiguous(),
+        leader_load=ctx.leader_load.to(f32).contiguous(),
+        follower_load=ctx.follower_load.to(f32).contiguous(),
+        **outs, **scratch)
+    rc = lib.cc_drain_fill(ctypes.byref(args), _stream())
+    LAUNCHES["bulk_drain_fill"] += 1
+    _check(rc, "bulk_drain_fill")
+    return outs["p_out"], outs["r_out"], outs["dst_out"], outs["ok_out"]

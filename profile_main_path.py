@@ -68,7 +68,9 @@ HAND_WRITTEN = ("threefry_draw_kernel", "tile_group_kernel",
                 "population_select_kernel", "population_rank_kernel",
                 "population_place_kernel", "failover_tiled_kernel",
                 "failover_rows_kernel", "cell_net_flow_kernel",
-                "goal_loop_kernel")
+                "goal_loop_kernel", "apply_stage_kernel", "apply_group_kernel",
+                "eligibility_kernel", "flow_priority_kernel",
+                "flow_match_kernel", "drain_fill_kernel")
 
 
 def profiled(fn):

@@ -774,3 +774,189 @@ def test_key_paths_match_public_draws(cuda_device):
     assert torch.equal(path.key(), step)
     assert torch.equal(_random.uniform(path, (513,)),
                        _random.uniform(step, (513,)))
+
+
+# ---------------------------------------------------------------------------
+# KM-KP: a goal pass's apply, eligibility, flow candidates and drain fill,
+# at the main path's shapes (100 brokers x 20,096 partitions) and the scale
+# cell's (B1 1,001, P 200,064), each held to its twin on the CPU with error 0
+# ---------------------------------------------------------------------------
+
+#: tight capacity thresholds so the capacity goals have work to do
+_TIGHT = dict(capacity_threshold=(0.05, 0.03, 0.03, 0.03),
+              max_replicas_per_broker=150)
+
+
+@pytest.fixture(scope="module")
+def pass_models():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import chip_smoke
+    return {"main": chip_smoke.build_flat_direct(100, 20_000, 2),
+            "scale": chip_smoke.build_flat_direct(1000, 200_000, 2)}
+
+
+def _cpu(obj):
+    import chip_smoke
+    return chip_smoke.to_device(obj, "cpu")
+
+
+def _assert_fields_equal(got, want, what):
+    """Every field equal, floats bit for bit (the sign of a zero too)."""
+    import dataclasses
+    for f in dataclasses.fields(want):
+        g, w = getattr(got, f.name), getattr(want, f.name)
+        if w is None:
+            assert g is None, f"{what}.{f.name}"
+            continue
+        assert g.dtype == w.dtype, f"{what}.{f.name}"
+        g = g.cpu()
+        if w.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), f"{what}.{f.name}"
+
+
+def _goal(name):
+    from cruise_control_tpu_torch.analyzer import (BalancingConstraint,
+                                                   goals_by_name)
+    return goals_by_name([name], BalancingConstraint(**_TIGHT))[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n", [("main", 1), ("main", 512),
+                                     ("main", 16_384), ("scale", 1_024),
+                                     ("scale", 16_384), ("negzero", 512)])
+def test_apply_group_matches_twin(cuda_device, pass_models, shape, n):
+    """KM bit for bit against its twin: a partition-disjoint group of moves,
+    leadership transfers and swaps (some in slot 0) with topic tables and a
+    dead broker; "negzero": every broker's aggregates start at -0.0, so
+    the rows of candidates that do not apply turn some to +0.0, as KB's
+    order does. The caller's state is not written."""
+    import chip_smoke
+    model, md = pass_models["main" if shape == "negzero" else shape]
+    state, ctx = chip_smoke.pass_state(model, md, dead=(3,))
+    if shape == "negzero":
+        state = state.replace(util=torch.full_like(state.util, -0.0),
+                              potential_nw_out=torch.full_like(
+                                  state.potential_nw_out, -0.0),
+                              leader_nw_in=torch.full_like(
+                                  state.leader_nw_in, -0.0))
+    c, do = chip_smoke.km_case(state, ctx, n, seed=n)
+    before = _cpu(state)
+    kernels.reset_launch_counts()
+    got, count = kernels.apply_group(state, ctx, c, do)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["apply_group"] == 1
+    want, want_count = kernels.apply_group_plain(before, _cpu(ctx), _cpu(c),
+                                                 do.cpu())
+    assert int(count) == int(want_count) == int(do.sum())
+    _assert_fields_equal(got, want, f"apply_group {shape} N={n}")
+    _assert_fields_equal(state, before, "the caller's state")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,chain,n", [
+    ("main", "main", 1), ("main", "main", 1_024), ("main", "main", 16_384),
+    ("main", "default", 1_024), ("scale", "main", 1_024),
+    ("scale", "default", 1_024)])
+def test_candidate_eligibility_matches_twin(cuda_device, pass_models, shape,
+                                            chain, n):
+    """KN bit for bit against its twin at every chain position of the main
+    path's four goals and of the default chain (whose goals outside the
+    interval family hand in their acceptance and delta)."""
+    import chip_smoke
+    from cruise_control_tpu_torch.analyzer import default_goals, goals_by_name
+    model, md = pass_models[shape]
+    state, ctx = chip_smoke.pass_state(model, md, dead=(3,))
+    c = chip_smoke.kn_case(state, ctx, n, seed=n)
+    goals = [g.bind(md) for g in (default_goals() if chain == "default"
+                                  else goals_by_name(chip_smoke.GOALS))]
+    cs, cc, ccand = _cpu(state), _cpu(ctx), _cpu(c)
+    for i, goal in enumerate(goals):
+        checks = kernels.GoalChecks(goal, goals[:i], 1e-6)
+        kernels.reset_launch_counts()
+        got = kernels.candidate_eligibility(state, ctx, c, checks)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["candidate_eligibility"] == 1
+        want = kernels.candidate_eligibility_plain(cs, cc, ccand, checks)
+        for g, w, what in zip(got, want, ("eligible", "delta")):
+            assert torch.equal(g.cpu(), w), f"{goal.name} {what}"
+
+
+_FLOW_GOALS = ["ReplicaDistributionGoal", "DiskUsageDistributionGoal",
+               "NetworkInboundUsageDistributionGoal",
+               "NetworkOutboundUsageDistributionGoal",
+               "LeaderReplicaDistributionGoal", "PotentialNwOutGoal",
+               "DiskCapacityGoal", "ReplicaCapacityGoal"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,K", [("main", 1), ("main", 512),
+                                     ("scale", 1_024)])
+@pytest.mark.parametrize("name", _FLOW_GOALS)
+def test_flow_candidates_match_twins(cuda_device, pass_models, shape, K,
+                                     name):
+    """KO's two launches bit for bit against their twins: the [P, R]
+    priorities, then the destinations of the top K (1, the main path's
+    512, the scale cell's 1,024)."""
+    import chip_smoke
+    from cruise_control_tpu_torch.analyzer import SearchConfig
+    from cruise_control_tpu_torch.utils.ordered import top_k
+    model, md = pass_models[shape]
+    state, ctx = chip_smoke.pass_state(model, md, dead=(3,))
+    cfg = SearchConfig(**dict(chip_smoke.MAIN_SEARCH,
+                              num_replica_candidates=K))
+    goal = _goal(name)
+    planes = goal.propose_planes(state, ctx)
+    cplanes = [t.cpu() for t in planes]
+    keys = [_random.subkeys(_random.PRNGKey(5, device=d)) for d in
+            (cuda_device, "cpu")]
+    cs, cc = _cpu(state), _cpu(ctx)
+    kernels.reset_launch_counts()
+    prio = kernels.flow_priority(goal, state, ctx, keys[0][0], cfg, *planes)
+    torch.cuda.synchronize()
+    want = kernels.flow_priority_plain(goal, cs, cc, keys[1][0], cfg,
+                                       *cplanes)
+    assert torch.equal(prio.cpu(), want)
+    vals, idx = top_k(prio.reshape(-1), K)
+    values, lo, up, _excess, deficit = planes
+    got = kernels.flow_match(goal, state, ctx, keys[0][1], cfg, values, lo,
+                             up, deficit, vals, idx)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flow_priority"] == 1
+    assert kernels.LAUNCHES["flow_match"] == 1
+    want = kernels.flow_match_plain(goal, cs, cc, keys[1][1], cfg,
+                                    cplanes[0], cplanes[1], cplanes[2],
+                                    cplanes[4], vals.cpu(), idx.cpu())
+    for g, w, what in zip(got, want, ("p", "r", "dst", "valid")):
+        assert torch.equal(g.cpu(), w), what
+    assert bool(got[3].any()) or K == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,batch", [("main", 1), ("main", 16_384),
+                                         ("scale", 25_000)])
+@pytest.mark.parametrize("name", ["ReplicaDistributionGoal",
+                                  "DiskUsageDistributionGoal",
+                                  "DiskCapacityGoal"])
+def test_bulk_drain_fill_matches_twin(cuda_device, pass_models, shape, batch,
+                                      name):
+    """KP bit for bit against its twin from the same lexsort: a count goal,
+    a util goal and a capacity goal, with a dead broker, at drain batches
+    of 1, 16,384 (the main path's) and 25,000 (the scale cell's)."""
+    import chip_smoke
+    from cruise_control_tpu_torch.analyzer import SearchConfig
+    model, md = pass_models[shape]
+    state, ctx = chip_smoke.pass_state(model, md, dead=(3,))
+    cfg = SearchConfig(drain_batch=batch)
+    goal = _goal(name)
+    args = goal.drain_sort(state, ctx, _random.PRNGKey(11, device=cuda_device))
+    kernels.reset_launch_counts()
+    got = kernels.bulk_drain_fill(goal, state, ctx, cfg, *args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bulk_drain_fill"] == 1
+    want = kernels.bulk_drain_fill_plain(goal, _cpu(state), _cpu(ctx), cfg,
+                                         *(a.cpu() for a in args))
+    for g, w, what in zip(got, want, ("p", "r", "dst", "ok")):
+        assert torch.equal(g.cpu(), w), what
+    assert bool(got[3].any())
