@@ -20,7 +20,9 @@ Phases (every failure raises; nothing is caught):
    output form, a fold-in key), KB (ordered segment sum, also on
    the what-if sweep's batched layout), KC (net broker flow), KD
    (scenario failover, at the N-1 sweep's and the boundary audit's
-   shapes), a launch's floor (an empty kernel), KF (delta row scatter,
+   shapes), a launch's floor (an empty kernel) and a dependent float
+   add's (the probe in ``csrc/launch_floor.cu``: the chain bounds of KM and
+   KP), KF (delta row scatter,
    out of place), KG (cluster stats and counts, at the main path's
    brokers, the scale cell's and 20,000), KH
    (intra-broker walk, at phase 11's shape and a small one), KI
@@ -31,12 +33,14 @@ Phases (every failure raises; nothing is caught):
    (first fit) is held to its twin after phase 4, at the shape of the main
    path's own schedule; KK (the topic-cell guards' net flow, at M = 512
    and 1,024 with the topic and leader guards' queries, and edge shapes)
-   bit for bit; the goal pass's own kernels KM (apply_group, at an apply
-   round's 512 candidates and a drain round's 16,384), KN (eligibility, at
-   the chain's last and first positions), KO (flow_priority, flow_match)
-   and KP (bulk_drain_fill), against their twins on the CPU at the main
-   path's shapes (KO and KP also at the scale cell's), timed beside their
-   twins and bounds;
+   bit for bit; the goal pass's own kernels KM (apply_group at
+   ``KM_SHAPES``: an apply round's 512 candidates, 16,384 spread, 16,384
+   all from broker 94, a real drain round with broker 94 dead and the
+   scale cell's 25,000, each in place and out of place), KN (eligibility,
+   at the chain's last and first positions), KO (flow_priority,
+   flow_match) and KP (bulk_drain_fill), against their twins on the CPU
+   at the main path's shapes (KO and KP also at the scale cell's), timed
+   beside their twins, bounds and (KM, KP) chain bounds;
 4. main path — 100 brokers x 20K partitions at RF 2, the 4-goal chain
    with the off-chain hard-goal audit, seeds 0, 1, 1 (proposals of the two
    seed-1 runs must be identical; KA, KB, KC, KL and KM-KP must have
@@ -934,14 +938,39 @@ def phase_kernels(model, md, main_arrays: dict, scale_model, scale_md,
     floor_ms = time_ms(kernels.empty_launch, graph=True)
     log(f"launch floor: an empty kernel (one warp), graph replay: "
         f"{floor_ms:.5f} ms")
+    add_ns = dependent_add_ns(rng)
     _kernel_delta_scatter(rows, main_arrays, rng, floor_ms)
     _kernel_cluster_stats(rows, model, scale_model, rng, floor_ms)
     _kernel_intra_walk(rows, intra_state)
     _kernel_population_select(rows, rng)
     _kernel_fleet_failover(rows, model)
     _kernel_goal_loop(rows, rng)
-    _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms)
+    _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms,
+                         add_ns)
     return rows
+
+
+#: the dependent-add probe's chain length (launch_floor.cu)
+PROBE_ADDS = 65_536
+
+
+def dependent_add_ns(rng):
+    """ns a step of the dependent-add probe (``csrc/launch_floor.cu``) in
+    each form, graph replay; the "registers" form is the chain bound's
+    step of KM and KP."""
+    import torch
+    from cruise_control_tpu_torch import kernels
+    x = torch.from_numpy(rng.random(PROBE_ADDS).astype(np.float32)).cuda()
+    out = torch.empty(1, dtype=torch.float32, device="cuda")
+    ns = {}
+    for form in kernels.DEPENDENT_ADD_FORMS:
+        ms = time_ms(lambda: kernels.dependent_add_launch(x, PROBE_ADDS, form,
+                                                          out),
+                     graph=True, launches=20)
+        ns[form] = ms * 1e6 / PROBE_ADDS
+    log(f"dependent-add probe, {PROBE_ADDS} float32 adds in a row: "
+        + ", ".join(f"{k} {v:.3f} ns a step" for k, v in ns.items()))
+    return ns["registers"]
 
 
 def _max_err(got, want):
@@ -964,13 +993,15 @@ def _state_fields(state):
             if getattr(state, f.name) is not None]
 
 
-def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms):
+def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms,
+                         add_ns):
     """KM (apply_group), KN (candidate_eligibility), KO (flow_priority,
     flow_match) and KP (bulk_drain_fill) against their twins on the CPU at
     the main path's shapes (first: the kernels line's rows; a dead broker,
     topic tables), timed as a CUDA graph of up to 200 launches beside their
-    twins on the card (eager) and their bounds; KM at a drain round's
-    16,384 candidates and KO / KP at the scale cell too."""
+    twins on the card (eager) and their bounds; KM at ``KM_SHAPES`` in
+    both forms and KO / KP at the scale cell too; KM and KP with their
+    chain bounds (their longest in-order chain x ``add_ns``)."""
     import torch
     from cruise_control_tpu_torch import _random, kernels
     from cruise_control_tpu_torch.analyzer import (SearchConfig,
@@ -982,13 +1013,16 @@ def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms):
     def cpu(obj):
         return to_device(obj, "cpu")
 
-    def row(name, tag, err, ms, plain, nbytes, ops):
+    def row(name, tag, err, ms, plain, nbytes, ops, chain=None):
         b_ms, b_by = bound(nbytes, ops)
         if err != 0.0:
             fail(f"{name} differs from its twin ({tag}): max |err| {err}")
+        chain_txt = ("" if chain is None else
+                     f", chain bound {chain * add_ns * 1e-6:.5f} ms "
+                     f"({chain} dependent adds)")
         log(f"{name} {tag}: bit-exact vs twin; {ms:.5f} ms "
             f"({ms / floor_ms:.1f} launch floors), twin {plain:.4f} ms, "
-            f"bound {b_ms:.7f} ms ({b_by})")
+            f"bound {b_ms:.7f} ms ({b_by}){chain_txt}")
         _keep_first_shape(rows, name, err, dict(
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
@@ -1001,25 +1035,12 @@ def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms):
         B1 = state.util.shape[0]
         T = state.topic_counts.shape[0]
         n_slots = P * R
+        # --- KM at KM_SHAPES' shapes of this model, in place (the
+        # goal-loop graphs' form; first: the kernels line's row) and out
+        # of place
+        for tag, case in km_cases(m, mdd, shape, state, ctx):
+            _kernel_apply_group(row, tag, *case)
         if shape == "main":
-            # --- KM: an apply round (M = 512), then a drain round's N
-            for n in (MAIN_SEARCH["apply_per_iter"], cfg.drain_batch):
-                c, do = km_case(state, ctx, n, seed=n)
-                got = kernels.apply_group(state, ctx, c, do)
-                want = kernels.apply_group_plain(cs, cc, cpu(c), do.cpu())
-                err = _max_err(_state_fields(got[0]) + [got[1]],
-                               _state_fields(want[0]) + [want[1]])
-                ms = time_ms(lambda: kernels.apply_group(state, ctx, c, do),
-                             graph=True)
-                plain = time_ms(lambda: kernels.apply_group_plain(
-                    state, ctx, c, do), groups=3)
-                # the placement planes copied (read and written), the
-                # aggregates and topic tables read and written, the
-                # candidates read once
-                nbytes = (2 * 17 * n_slots + 2 * 32 * B1 + 2 * 2 * 4 * T * B1
-                          + 105 * n + 24)
-                row("apply_group", f"N={n} P={P} R={R} B1={B1} T={T}", err,
-                    ms, plain, nbytes, 16 * n)
             # --- KN: every position of the main path's chain
             n = 2 * MAIN_SEARCH["apply_per_iter"]
             c = kn_case(state, ctx, n, seed=5)
@@ -1090,7 +1111,90 @@ def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms):
         N = drain_cfg.drain_batch
         row("bulk_drain_fill", f"{goal.name} n={n_slots} slots, B1={B1}, "
             f"N={N}", _max_err(got, want), ms, plain,
-            n_slots * 38 + B1 * 60 + N * 25, n_slots * 15 + B1 * B1)
+            n_slots * 38 + B1 * 60 + N * 25, n_slots * 15 + B1 * B1,
+            chain=kp_chain(args[5], n_slots, B1))
+
+
+#: KM's phase-3 shapes: (model, tag, case) — an apply round's M 512 (the
+#: kernels line's row), km_case's N 16,384, the same with every source on
+#: broker 94 (a drain round's hot chain), a real drain round of the main
+#: path's first goal with broker 94 dead, and the scale cell's N 25,000
+KM_SHAPES = (("main", "M 512", "apply"), ("main", "N 16,384", "spread"),
+             ("main", "N 16,384, every source on broker 94", "hot"),
+             ("main", "a real drain round, broker 94 dead", "drain"),
+             ("scale", "N 25,000", "scale"))
+
+
+def km_cases(model, md, shape, state, ctx):
+    """(tag, (state, ctx, candidates, do)) of ``KM_SHAPES`` on ``shape``."""
+    for m_shape, tag, kind in KM_SHAPES:
+        if m_shape != shape:
+            continue
+        if kind == "drain":
+            yield tag, drain_round_case(model, md, (SERVED_DEAD_BROKER,), 1)
+            continue
+        n = {"apply": MAIN_SEARCH["apply_per_iter"], "spread": 16_384,
+             "hot": 16_384, "scale": 25_000}[kind]
+        c, do = km_case(state, ctx, n, seed=n + (kind == "hot"),
+                        src=SERVED_DEAD_BROKER if kind == "hot" else None)
+        yield tag, (state, ctx, c, do)
+
+
+def _kernel_apply_group(row, tag, state, ctx, c, do):
+    """KM at one shape: in place on a copy of ``state`` and out of place,
+    each against its twin on the CPU, timed, with its chain bound."""
+    import torch
+    from cruise_control_tpu_torch import kernels
+    P, R = state.rb.shape
+    B1 = state.util.shape[0]
+    T = state.topic_counts.shape[0]
+    n = do.shape[0]
+    cs, cc, ccand = (to_device(x, "cpu") for x in (state, ctx, c))
+    want = kernels.apply_group_plain(cs, cc, ccand, do.cpu())
+    want_fields = _state_fields(want[0]) + [want[1]]
+    carry = clone_fields(state)
+    got = kernels.apply_group(carry, ctx, c, do, out=carry)
+    err_in = _max_err(_state_fields(got[0]) + [got[1]], want_fields)
+    if got[0] is not carry:
+        fail("apply_group(out=) did not return its out buffers")
+    got = kernels.apply_group(state, ctx, c, do)
+    err_out = _max_err(_state_fields(got[0]) + [got[1]], want_fields)
+    if _max_err(_state_fields(state), _state_fields(cs)) != 0.0:
+        fail("apply_group wrote the caller's state")
+    ms_in = time_ms(lambda: kernels.apply_group(carry, ctx, c, do,
+                                                out=carry), graph=True)
+    ms_out = time_ms(lambda: kernels.apply_group(state, ctx, c, do),
+                     graph=True)
+    plain = time_ms(lambda: kernels.apply_group_plain(state, ctx, c, do),
+                    groups=3)
+    chain = km_chain(c, do, B1)
+    # the candidates read once (their fields and terms), the aggregates
+    # read and written, the touched slots and topic cells; out of place
+    # also the placement planes and topic tables copied
+    touched = int(do.sum()) * (3 * 17 + 4 * 2 * 4)
+    nbytes = 105 * n + 2 * 32 * B1 + touched + 24
+    copy = 2 * 17 * P * R + 2 * 2 * 4 * T * B1
+    row("apply_group", f"{tag}, in place: N={n} P={P} R={R} B1={B1} T={T}",
+        err_in, ms_in, plain, nbytes, 16 * n, chain=chain)
+    row("apply_group", f"{tag}, out of place", err_out, ms_out, plain,
+        nbytes + copy, 16 * n, chain=chain)
+
+
+def kp_chain(flat_b, n, B1):
+    """KP's longest in-order chain: the longest broker run (KB's in-order
+    sum), then the serial steps of the two scan16s over the slots and the
+    two over the brokers (16 a level) and the two tree_sums (32 a
+    level)."""
+    run = int(np.bincount(flat_b.cpu().numpy().astype(np.int64),
+                          minlength=B1).max())
+
+    def levels(x, w):
+        k = 1
+        while x > w:
+            x, k = -(-x // w), k + 1
+        return k
+    return (run + 2 * 16 * levels(n, 16) + 2 * 16 * levels(B1, 16)
+            + 32 * levels(n, 32) + 32 * levels(B1, 32))
 
 
 def _kernel_goal_loop(rows, rng):
@@ -1599,6 +1703,14 @@ def to_device(obj, device):
         for f in dataclasses.fields(obj)})
 
 
+def clone_fields(obj):
+    """A dataclass of tensors with every tensor cloned."""
+    import dataclasses
+    return dataclasses.replace(obj, **{
+        f.name: None if (t := getattr(obj, f.name)) is None else t.clone()
+        for f in dataclasses.fields(obj)})
+
+
 def pass_state(model, md, dead=()):
     """(state, ctx) of ``model`` as a goal pass sees them, with the topic
     tables; brokers ``dead`` marked not alive (their replicas offline)."""
@@ -1640,10 +1752,11 @@ def _cands(state, ctx, kinds, p, r, p2, r2, dst, valid):
     return out, np.concatenate([np.nonzero(kinds == k)[0] for k in range(3)])
 
 
-def km_case(state, ctx, n, seed):
+def km_case(state, ctx, n, seed, src=None):
     """(candidates, do) of KM: a partition-disjoint group of n candidates
     of all three kinds (swaps' counterparts in rows of their own, some in
-    slot 0), 70% of them applied."""
+    slot 0), 70% of them applied; with ``src`` every candidate's source
+    row on that broker (a drain round's hot chain)."""
     import torch
     rng = np.random.default_rng(seed)
     P, R = state.rb.shape
@@ -1662,7 +1775,39 @@ def km_case(state, ctx, n, seed):
     dst = rng.integers(0, B1 - 1, n)
     c, order = _cands(state, ctx, kinds, p, r, p2, r2, dst, np.ones(n, bool))
     do = torch.from_numpy(rng.random(n)[order] < 0.7).to(state.rb.device)
+    if src is not None:
+        c = c.replace(src=torch.full_like(c.src, src))
     return c, do
+
+
+def drain_round_case(model, md, dead, seed, goal=None, drain_batch=None):
+    """(state, ctx, candidates, do) of a real drain round: the pass of
+    ``goal`` (the main path's first, ReplicaDistributionGoal) on ``model``
+    with brokers ``dead``, its first bulk drain (``PassSegments.drain``'s
+    candidates and eligibility)."""
+    from cruise_control_tpu_torch import _random
+    from cruise_control_tpu_torch.analyzer import (SearchConfig,
+                                                   goals_by_name)
+    from cruise_control_tpu_torch.analyzer.engine import PassSegments
+    cfg = SearchConfig(**dict(MAIN_SEARCH, drain_batch=(
+        drain_batch or SearchConfig().drain_batch)))
+    goal = goal or goals_by_name(GOALS)[0]
+    state, ctx = pass_state(model, md, dead=dead)
+    seg = PassSegments(goal.bind(md), [], cfg)
+    key = _random.PRNGKey(seed, device=model.device)
+    c = seg.goal.bulk_drain(state, seg.steer_ctx(state, ctx),
+                            _random.fold(key, 70_000), cfg)
+    do, _ = seg.eligibility(state, ctx, c)
+    return state, ctx, c, do
+
+
+def km_chain(c, do, B1):
+    """The longest broker chain KM adds in order: the most applied rows
+    (sources and destinations) on one broker."""
+    d = do.cpu().numpy()
+    rows = np.concatenate([c.src.cpu().numpy()[d], c.dst.cpu().numpy()[d]])
+    rows = rows[(rows >= 0) & (rows < B1)]
+    return int(np.bincount(rows, minlength=B1).max()) if rows.size else 0
 
 
 def kn_case(state, ctx, n, seed):

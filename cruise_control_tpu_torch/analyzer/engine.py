@@ -258,14 +258,17 @@ class PassSegments:
         return ((self.goal.violation(state, ctx) > self.cfg.epsilon)
                 | state.offline.any())
 
-    def drain(self, state: SearchState, ctx: SearchContext, key, r):
+    def drain(self, state: SearchState, ctx: SearchContext, key, r,
+              out: SearchState | None = None):
         """Bulk-drain round ``r`` (an int or an int64 scalar tensor): up to
         drain_batch conflict-free moves. Returns (state, int64 scalar
-        applied count)."""
+        applied count); with ``out`` (buffers the caller owns, possibly
+        ``state``'s own) the new state is written into them (KM's in-place
+        form) and ``out`` is returned."""
         c = self.goal.bulk_drain(state, self.steer_ctx(state, ctx),
                                  _random.fold(key, 70_000 + r), self.cfg)
         elig, _ = self.eligibility(state, ctx, c)
-        return apply_group(state, ctx, c, elig)
+        return apply_group(state, ctx, c, elig, out=out)
 
     def propose(self, state: SearchState, ctx: SearchContext, key, it):
         """The fine loop's iteration ``it`` (an int or an int64 scalar
@@ -298,11 +301,12 @@ class PassSegments:
             neg_best)
 
     def round(self, state: SearchState, ctx: SearchContext, c: Candidates,
-              conflict_earlier: torch.Tensor, pending: torch.Tensor):
+              conflict_earlier: torch.Tensor, pending: torch.Tensor,
+              out: SearchState | None = None):
         """One apply round over the pending candidates, re-validated against
         the state and guarded by every chain goal's collective bound.
         Returns (state, pending, int64 scalar applied, bool scalar: still
-        pending and some applied)."""
+        pending and some applied); ``out`` as for :meth:`drain`."""
         elig = pending & self.eligibility(state, ctx, c)[0]
         blocked = (conflict_earlier & elig[None, :]).any(dim=1)
         # Guards see exactly the earlier, eligible candidates.
@@ -319,7 +323,7 @@ class PassSegments:
                 gok = gok | c.must
             ok = ok & gok
         do = elig & ~blocked & ok
-        state, applied = apply_group(state, ctx, c, do)
+        state, applied = apply_group(state, ctx, c, do, out=out)
         pending = pending & ~do
         return state, pending, applied, pending.any() & do.any()
 

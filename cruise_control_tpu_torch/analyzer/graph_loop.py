@@ -359,10 +359,9 @@ class GraphLoop:
         def active():
             flag.copy_(seg.active(S, C))
 
+        # KM writes the drain and apply rounds into the carry itself
         def drain():
-            st, n = seg.drain(S, C, key, rnd)
-            _store(S, st)
-            flag.copy_(n)
+            flag.copy_(seg.drain(S, C, key, rnd, out=S)[1])
 
         def propose():
             c2, ce2, pend2 = seg.propose(S, C, key, it)
@@ -372,8 +371,7 @@ class GraphLoop:
             flag.copy_(pend2.any())
 
         def round_():
-            st, pend2, n, more = seg.round(S, C, *cand)
-            _store(S, st)
+            _st, pend2, n, more = seg.round(S, C, *cand, out=S)
             cand[2].copy_(pend2)
             applied.add_(n)
             flag.copy_(more)

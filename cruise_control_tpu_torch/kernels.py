@@ -65,12 +65,13 @@ One more carries the goal loops:
   (``analyzer/graph_loop.py``); ``csrc/goal_loop.cu`` also holds the
   functions that build those graphs.
 
-Five more carry a goal pass's own rounds (each in one or two launches
-where plain torch took dozens):
+Five more carry a goal pass's own rounds (each in a few launches where
+plain torch took dozens):
 
 - **KM** ``apply_group`` — one partition-disjoint group of candidates
-  applied out of place: the slot writes, the float aggregates in KB's
-  order (a warp a broker), the integer counts and topic tables;
+  applied out of place or into the caller's buffers: the slot writes, the
+  float aggregates in KB's order (the rows bucketed by broker, then a
+  warp a broker), the integer counts and topic tables;
 - **KN** ``candidate_eligibility`` — base legality, the acceptance of the
   chain's interval goals (a table, :class:`GoalChecks`), the pass goal's
   delta and the verdict, a thread a candidate;
@@ -79,7 +80,7 @@ where plain torch took dozens):
   (one cluster), then the destination match (one block);
 - **KP** ``bulk_drain_fill`` — a replica drain round after its sort: the
   segmented shed, the first slot a partition, the capped budgets and the
-  deficit-first fill (one cluster).
+  deficit-first fill (seven launches over the whole card).
 
 Each wrapper takes the plain twin for a tensor on the CPU, and for a CUDA
 tensor launches its kernel or raises: there is no fallback. Each launch
@@ -262,6 +263,7 @@ def load_library():
             lib.cc_cluster_stats_scratch.argtypes = [i64]
             lib.cc_cluster_stats_scratch.restype = i64
             lib.cc_empty_kernel.argtypes = [p]
+            lib.cc_dependent_add.argtypes = [p, i64, ctypes.c_int, p, p]
             lib.cc_intra_broker_walk.argtypes = [p, p, p, p, p, p, p, p, p,
                                                  i64, i64, i64, i64, p, p, p]
             lib.cc_intra_broker_walk_shared.argtypes = [i64, i64]
@@ -291,6 +293,8 @@ def load_library():
             lib.cc_graph_exec_destroy.argtypes = [p]
             lib.cc_cuda_versions.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
             lib.cc_apply_group.argtypes = [p, p]
+            lib.cc_apply_runs_size.argtypes = [i64, i64]
+            lib.cc_apply_runs_size.restype = i64
             lib.cc_candidate_eligibility.argtypes = [p, p, p]
             lib.cc_eligibility_scratch.argtypes = [i64]
             lib.cc_eligibility_scratch.restype = i64
@@ -301,8 +305,6 @@ def load_library():
             lib.cc_drain_fill.argtypes = [p, p]
             lib.cc_drain_fill_scratch.argtypes = [i64, i64]
             lib.cc_drain_fill_scratch.restype = i64
-            lib.cc_drain_fill_counts.argtypes = []
-            lib.cc_drain_fill_counts.restype = i64
             for fn in (lib.cc_goal_loop_step,
                        lib.cc_graph_create, lib.cc_graph_destroy,
                        lib.cc_graph_check_body, lib.cc_graph_add_child,
@@ -319,6 +321,7 @@ def load_library():
                        lib.cc_first_fit, lib.cc_delta_row_scatter,
                        lib.cc_cluster_stats, lib.cc_intra_broker_walk,
                        lib.cc_population_select, lib.cc_empty_kernel,
+                       lib.cc_dependent_add,
                        lib.cc_apply_group, lib.cc_candidate_eligibility,
                        lib.cc_flow_priority, lib.cc_flow_match,
                        lib.cc_drain_fill):
@@ -376,6 +379,25 @@ def empty_launch() -> None:
     """Launch the empty kernel (``csrc/launch_floor.cu``) on the current
     stream: a launch's floor, timed beside the kernels. Counted nowhere."""
     _check(load_library().cc_empty_kernel(_stream()), "empty_kernel")
+
+
+#: the dependent-add probe's forms (``csrc/launch_floor.cu``)
+DEPENDENT_ADD_FORMS = {"registers": 0, "loads": 1}
+
+
+def dependent_add_launch(x: torch.Tensor, n: int, form: str,
+                         out: torch.Tensor) -> None:
+    """Launch the dependent-add probe on the current stream: ``n`` float32
+    adds, each on the one before (``form``: of ``x[0]`` from a register,
+    or one load of ``x[i]`` a step), the sum into ``out[0]``. A chain's
+    floor on the card, timed beside the kernels; counted nowhere."""
+    if x.dtype != torch.float32 or out.dtype != torch.float32 or (
+            x.numel() < (n if form == "loads" else 1)):
+        raise ValueError("dependent_add takes float32 x of n (loads) or 1 "
+                         "value and a float32 out")
+    _check(load_library().cc_dependent_add(
+        x.data_ptr(), n, DEPENDENT_ADD_FORMS[form], out.data_ptr(),
+        _stream()), "dependent_add")
 
 
 # ---------------------------------------------------------------------------
@@ -1607,13 +1629,38 @@ _ApplyArgs = _struct(
     "rb pos off util pot lni cnt lead tc tlc moves topic p r p2 r2 src dst "
     "kind d_util_src d_util_dst d_cnt d_lead d_pot d_lni do_ rb_out pos_out "
     "off_out util_out pot_out lni_out cnt_out lead_out tc_out tlc_out "
-    "moves_out count_out ids terms",
+    "moves_out count_out runs terms",
     [(f, _I64) for f in ("P", "R", "B1", "T", "N")])
 
 
-def apply_group_plain(state, ctx, c, do):
+#: KM's outputs: the kernel argument of each state field it writes (the
+#: others pass through unchanged)
+_APPLY_OUTS = dict(rb_out="rb", pos_out="pos", off_out="offline",
+                   util_out="util", pot_out="potential_nw_out",
+                   lni_out="leader_nw_in", cnt_out="replica_count",
+                   lead_out="leader_count", tc_out="topic_counts",
+                   tlc_out="topic_leader_counts",
+                   moves_out="moves_applied")
+
+
+def _write_into(out, new):
+    """``out`` with ``new``'s values of KM's fields copied into its
+    buffers (the twin's in-place form)."""
+    for name in _APPLY_OUTS.values():
+        dst, src = getattr(out, name), getattr(new, name)
+        if (dst is None) != (src is None):
+            raise ValueError(f"apply_group: out.{name} does not match the "
+                             f"state's")
+        if dst is not None:
+            dst.copy_(src)
+    return out
+
+
+def apply_group_plain(state, ctx, c, do, out=None):
     """Twin of KM: ``state.py:apply_group`` in plain torch, and the count
-    of ``do``.
+    of ``do``. With ``out`` (a state of buffers shaped like ``state``'s,
+    which may be ``state`` itself) the result is written into ``out``'s
+    buffers and ``out`` is returned.
 
     Precondition (the engine's grouping): among candidates with
     ``do=True`` all partition rows (``p`` and swap counterpart ``p2``) are
@@ -1720,32 +1767,44 @@ def apply_group_plain(state, ctx, c, do):
             (t2, c.dst, -d2), (t2, c.src, d2)))
 
     count = do.sum()
-    return state.replace(rb=rbx[:P], pos=posx[:P], offline=offx[:P],
-                         util=util, replica_count=counts,
-                         leader_count=leaders,
-                         potential_nw_out=potential, leader_nw_in=lni,
-                         topic_counts=topic_counts,
-                         topic_leader_counts=topic_leader_counts,
-                         moves_applied=state.moves_applied + count), count
+    new = state.replace(rb=rbx[:P], pos=posx[:P], offline=offx[:P],
+                        util=util, replica_count=counts,
+                        leader_count=leaders,
+                        potential_nw_out=potential, leader_nw_in=lni,
+                        topic_counts=topic_counts,
+                        topic_leader_counts=topic_leader_counts,
+                        moves_applied=state.moves_applied + count)
+    return (new if out is None else _write_into(out, new)), count
 
 
-def apply_group(state, ctx, c, do):
+def apply_group(state, ctx, c, do, out=None):
     """(state, int64 count of ``do``): ``state`` (an ``analyzer/state.py``
     SearchState, unbatched) after the partition-disjoint group of
-    candidates ``c`` where ``do`` (bool[N]) is set, out of place — see
-    ``csrc/apply_group.cu`` (two launches)."""
+    candidates ``c`` where ``do`` (bool[N]) is set — see
+    ``csrc/apply_group.cu`` (two launches). Out of place by default (the
+    caller's state is not written); with ``out`` (a state of contiguous
+    buffers of ``state``'s shapes and the kernel's dtypes, possibly
+    ``state`` itself) KM writes into ``out``'s buffers and returns
+    ``out``: a plane that is its input is updated in place, any other is
+    copied first."""
     P, R = state.rb.shape
     N = do.shape[0]
     if c.p.shape != (N,) or c.d_util_src.shape != (N, 4):
         raise ValueError("apply_group takes N candidates and do [N]")
     if _on_cpu(state.rb, do, c.p):
-        return apply_group_plain(state, ctx, c, do)
+        return apply_group_plain(state, ctx, c, do, out=out)
     if do.dtype != torch.bool or state.offline.dtype != torch.bool:
         raise TypeError("apply_group takes bool do and offline masks")
     B1 = state.util.shape[0]
     tc, tlc = state.topic_counts, state.topic_leader_counts
     T = tc.shape[0] if tc is not None else (
         tlc.shape[0] if tlc is not None else 0)
+    lib = _pass_library()
+    runs = lib.cc_apply_runs_size(N, B1)
+    if N < 1 or runs < 0:
+        raise ValueError(f"apply_group takes at least one candidate, and a "
+                         f"broker id and a row of a tile in one 32-bit key "
+                         f"(any B1 below 2^20), got N {N}, B1 {B1}")
 
     def as_(t, dtype):
         return None if t is None else t.to(dtype).contiguous()
@@ -1766,32 +1825,41 @@ def apply_group(state, ctx, c, do):
         d_lead=as_(c.d_lead, i32), d_pot=as_(c.d_pot, f32),
         d_lni=as_(c.d_lni, f32), do_=do.contiguous())
     dev = state.rb.device
-    outs = dict(
-        rb_out=torch.empty_like(ins["rb"]), pos_out=torch.empty_like(ins["pos"]),
-        off_out=torch.empty_like(ins["off"]),
-        util_out=torch.empty((B1, 4), dtype=f32, device=dev),
-        pot_out=torch.empty(B1, dtype=f32, device=dev),
-        lni_out=torch.empty(B1, dtype=f32, device=dev),
-        cnt_out=torch.empty(B1, dtype=i32, device=dev),
-        lead_out=torch.empty(B1, dtype=i32, device=dev),
-        tc_out=None if tc is None else torch.empty_like(ins["tc"]),
-        tlc_out=None if tlc is None else torch.empty_like(ins["tlc"]),
-        moves_out=torch.empty((), dtype=i64, device=dev),
-        count_out=torch.empty((), dtype=i64, device=dev))
-    scratch = dict(ids=torch.empty(2 * N, dtype=i32, device=dev),
+    if out is None:
+        outs = dict(
+            rb_out=torch.empty_like(ins["rb"]),
+            pos_out=torch.empty_like(ins["pos"]),
+            off_out=torch.empty_like(ins["off"]),
+            util_out=torch.empty((B1, 4), dtype=f32, device=dev),
+            pot_out=torch.empty(B1, dtype=f32, device=dev),
+            lni_out=torch.empty(B1, dtype=f32, device=dev),
+            cnt_out=torch.empty(B1, dtype=i32, device=dev),
+            lead_out=torch.empty(B1, dtype=i32, device=dev),
+            tc_out=None if tc is None else torch.empty_like(ins["tc"]),
+            tlc_out=None if tlc is None else torch.empty_like(ins["tlc"]),
+            moves_out=torch.empty((), dtype=i64, device=dev))
+    else:
+        outs = {k: getattr(out, f) for k, f in _APPLY_OUTS.items()}
+        for k, t in outs.items():
+            want = ins[k[:-4]]                  # rb_out -> rb, ...
+            if (t is None) != (want is None) or (t is not None and (
+                    t.dtype != want.dtype or t.shape != want.shape
+                    or t.device != dev or not t.is_contiguous())):
+                raise ValueError(f"apply_group: out.{_APPLY_OUTS[k]} must "
+                                 f"be a contiguous buffer of the state's "
+                                 f"shape and the kernel's dtype")
+    count = torch.empty((), dtype=i64, device=dev)
+    scratch = dict(runs=torch.empty(runs, dtype=i32, device=dev),
                    terms=torch.empty((2 * N, 8), dtype=f32, device=dev))
     args = _fill(_ApplyArgs(P=P, R=R, B1=B1, T=T, N=N), **ins, **outs,
-                 **scratch)
-    rc = _pass_library().cc_apply_group(ctypes.byref(args), _stream())
+                 count_out=count, **scratch)
+    rc = lib.cc_apply_group(ctypes.byref(args), _stream())
     LAUNCHES["apply_group"] += 1
     _check(rc, "apply_group")
-    return state.replace(
-        rb=outs["rb_out"], pos=outs["pos_out"], offline=outs["off_out"],
-        util=outs["util_out"], replica_count=outs["cnt_out"],
-        leader_count=outs["lead_out"], potential_nw_out=outs["pot_out"],
-        leader_nw_in=outs["lni_out"], topic_counts=outs["tc_out"],
-        topic_leader_counts=outs["tlc_out"],
-        moves_applied=outs["moves_out"]), outs["count_out"]
+    if out is not None:
+        return out, count
+    return state.replace(**{_APPLY_OUTS[k]: t for k, t in outs.items()}), \
+        count
 
 
 # ---------------------------------------------------------------------------
@@ -2131,8 +2199,10 @@ _DrainArgs = _struct(
     "order rb w cand must quota deficit values up alive dest bvalid "
     "capacity util cnt leader_load follower_load", [("thr", _F32 * 4)],
     "cap", [("cap_thr", _F32), ("count_goal", _I32), ("rbt", _F32)],
-    "p_out r_out dst_out ok_out sb sw flags cum tw grank first_pos perm "
-    "counts fs", [(f, _I64) for f in ("n", "P", "R", "B1", "N")])
+    "p_out r_out dst_out ok_out sb sw flags inv grank loc0 loc1 loc2 t3 "
+    "out3 kept pmax wsum run_start per_key oscan rank perm budget "
+    "cum_budget scr",
+    [(f, _I64) for f in ("n", "P", "R", "B1", "N")])
 
 
 def bulk_drain_fill_plain(goal, state, ctx, cfg, values, up, deficit, quota,
@@ -2224,7 +2294,7 @@ def bulk_drain_fill(goal, state, ctx, cfg, values, up, deficit, quota, order,
     of the flat [P, R] slots (``flat_b`` their brokers — the order's first
     key —, ``flat_w`` weights, ``flat_cand`` candidates, ``flat_must``
     mandatory moves) and the brokers' ``quota`` and ``deficit`` — see
-    ``csrc/drain_fill.cu`` (one launch)."""
+    ``csrc/drain_fill.cu`` (seven launches)."""
     if _on_cpu(state.rb, values, order):
         return bulk_drain_fill_plain(goal, state, ctx, cfg, values, up,
                                      deficit, quota, order, flat_b, flat_w,
@@ -2246,19 +2316,20 @@ def bulk_drain_fill(goal, state, ctx, cfg, values, up, deficit, quota, order,
                 r_out=torch.empty(N, dtype=i64, device=dev),
                 dst_out=torch.empty(N, dtype=i64, device=dev),
                 ok_out=torch.empty(N, dtype=torch.bool, device=dev))
+    i32, u8 = torch.int32, torch.uint8
+    nch = -(-n // 4096)                 # chunks of 16^3 slots
+
+    def buf(size, dtype=f32):
+        return torch.empty(size, dtype=dtype, device=dev)
     scratch = dict(
-        sb=torch.empty(n, dtype=torch.int32, device=dev),
-        sw=torch.empty(n, dtype=f32, device=dev),
-        flags=torch.empty(n, dtype=torch.uint8, device=dev),
-        cum=torch.empty(n, dtype=f32, device=dev),
-        tw=torch.empty(n, dtype=f32, device=dev),
-        grank=torch.empty(n, dtype=i64, device=dev),
-        first_pos=torch.empty(P, dtype=torch.int32, device=dev),
-        perm=torch.empty(B1, dtype=i64, device=dev),
-        counts=torch.empty(lib.cc_drain_fill_counts(), dtype=i64,
-                           device=dev),
-        fs=torch.empty(lib.cc_drain_fill_scratch(n, B1), dtype=f32,
-                       device=dev))
+        sb=buf(n, i32), sw=buf(n), flags=buf(n, u8), inv=buf(n, i32),
+        grank=buf(n, i32), loc0=buf(n), loc1=buf(-(-n // 16)),
+        loc2=buf(-(-n // 256)), t3=buf(nch), out3=buf(nch),
+        kept=buf(nch, i32), pmax=buf((nch, 4)),
+        wsum=buf(max(-(-n // 32), min(n, 32))), run_start=buf(B1 + 1, i32),
+        per_key=buf(B1), oscan=buf(B1), rank=buf(B1, i32),
+        perm=buf(B1, i64), budget=buf(B1), cum_budget=buf(B1),
+        scr=buf(lib.cc_drain_fill_scratch(n, B1)))
     args = _fill(
         _DrainArgs(thr=(_F32 * 4)(*cst.capacity_threshold),
                    cap_thr=cap_thr,

@@ -68,9 +68,18 @@ HAND_WRITTEN = ("threefry_draw_kernel", "tile_group_kernel",
                 "population_select_kernel", "population_rank_kernel",
                 "population_place_kernel", "failover_tiled_kernel",
                 "failover_rows_kernel", "cell_net_flow_kernel",
-                "goal_loop_kernel", "apply_stage_kernel", "apply_group_kernel",
-                "eligibility_kernel", "flow_priority_kernel",
-                "flow_match_kernel", "drain_fill_kernel")
+                "goal_loop_kernel", "apply_bucket_kernel",
+                "apply_group_kernel", "eligibility_kernel",
+                "flow_priority_kernel", "flow_match_kernel",
+                "drain_gather_kernel", "drain_keys_kernel",
+                "drain_scans_kernel", "drain_take_kernel",
+                "drain_rank_kernel", "drain_budget_kernel",
+                "drain_scatter_kernel")
+#: kernel families summed on one line each: KM's and KP's launches, and
+#: every device-to-device copy (copy kernels and memcpy)
+FAMILIES = (("KM apply_group", ("apply_bucket_kernel", "apply_group_kernel")),
+            ("KP bulk_drain_fill", ("drain_",)),
+            ("device copies", ("copy", "DtoD")))
 
 
 def profiled(fn):
@@ -129,6 +138,11 @@ def report(label, prof, wall_s, top, head) -> bool:
         if us:
             print(f"  hand-written {k}: {us / 1e3:.3f} ms "
                   f"({us / max(total_us, 1e-9):.2%} of kernel time)")
+    for family, keys in FAMILIES:
+        hits = [v for n, v in by_name.items() if any(k in n for k in keys)]
+        us = sum(sum(v) for v in hits)
+        print(f"  family {family}: {us / 1e3:.3f} ms, "
+              f"{sum(len(v) for v in hits)} launches")
     return True
 
 

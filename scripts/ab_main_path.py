@@ -21,16 +21,37 @@ Kafka cluster feeding a resident ``LoadMonitor``): a cold full upload,
 ``resident.update`` span (the diff, the upload and KF, host clock), then
 one more under ``torch.profiler`` naming the kernels and copies it ran on
 the card; the summary is the median span of each root.
+
+With ``--kernels`` each process instead times KM (``kernels.apply_group``)
+and KP (``kernels.bulk_drain_fill``) at the shapes of ``chip_smoke.py``
+phase 3: KM at ``chip_smoke.KM_SHAPES`` (``chip_smoke.km_cases``, this
+checkout's builders run against the root's package) out of place and,
+where the root's KM has the form, in place (``out=``, checked once against
+the call out of place), KP at the main path's drain (N 16,384) and the
+scale cell's (N 25,000), each a CUDA graph of up to 200 launches replayed
+between two events (``chip_smoke.time_ms``), and the dependent-add probe
+where the root has it; the summary is each shape's median per root. With
+``--kernels --launches`` each shape's call also runs ten times under
+``torch.profiler``, and the line gives the mean device time of each of
+its launches by kernel name (which phase of a multi-launch kernel costs
+what):
+
+    python3 scripts/ab_main_path.py --kernels --launches PARENT_ROOT . . \
+        PARENT_ROOT
 """
 
 from __future__ import annotations
 
+import importlib.util
+import inspect
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def child(root: str, warm: int) -> dict:
@@ -100,6 +121,77 @@ def served_child(root: str, cycles: int) -> dict:
                 update_s=spans, device_ops=len(ops), ops=ops)
 
 
+def launch_times(fn, calls=10) -> dict:
+    """Mean device time (ms) a call of each kernel ``fn`` launches, by
+    name, over ``calls`` calls under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0][:40]
+            out[name] = out.get(name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / calls
+    return {k: round(v, 5) for k, v in out.items()}
+
+
+def kernels_child(root: str, launches: bool) -> dict:
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+    from cruise_control_tpu_torch import _random, kernels
+    from cruise_control_tpu_torch.analyzer import SearchConfig, goals_by_name
+    spec = importlib.util.spec_from_file_location(
+        "smoke_here", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    in_place = "out" in inspect.signature(kernels.apply_group).parameters
+    times: dict[str, float] = {}
+    per_launch: dict[str, dict] = {}
+
+    def timed(name, fn):
+        times[name] = cs.time_ms(fn, graph=True)
+        if launches:
+            per_launch[name] = launch_times(fn)
+    models = {"main": cs.build_flat_direct(100, 20_000, 2),
+              "scale": cs.build_flat_direct(1000, 200_000, 2)}
+    for shape, (m, md) in models.items():
+        state, ctx = cs.pass_state(m, md, dead=(3,))
+        for tag, (st, cx, c, do) in cs.km_cases(m, md, shape, state, ctx):
+            want = kernels.apply_group(st, cx, c, do)
+            timed(f"KM {tag}", lambda: kernels.apply_group(st, cx, c, do))
+            if in_place:
+                carry = cs.clone_fields(st)
+                got = kernels.apply_group(carry, cx, c, do, out=carry)
+                if cs._max_err(cs._state_fields(got[0]),
+                               cs._state_fields(want[0])) != 0.0:
+                    raise RuntimeError(f"KM in place differs: {tag}")
+                times[f"KM {tag}, in place"] = cs.time_ms(
+                    lambda: kernels.apply_group(carry, cx, c, do, out=carry),
+                    graph=True)
+        goal = goals_by_name(cs.GOALS)[0]
+        cfg = SearchConfig(**dict(cs.MAIN_SEARCH, drain_batch=(
+            16_384 if shape == "main" else 25_000)))
+        args = goal.drain_sort(state, ctx, _random.PRNGKey(11,
+                                                           device=m.device))
+        timed(f"KP {shape}",
+              lambda: kernels.bulk_drain_fill(goal, state, ctx, cfg, *args))
+    if hasattr(kernels, "dependent_add_launch"):
+        times["dependent add, ns a step"] = cs.dependent_add_ns(
+            np.random.default_rng(0))
+    out = dict(root=root, card=torch.cuda.get_device_name(0), ms=times)
+    if launches:
+        out["launch_ms"] = per_launch
+    return out
+
+
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
         print(json.dumps(child(argv[1], int(argv[2]))), flush=True)
@@ -107,33 +199,48 @@ def main(argv) -> int:
     if argv[:1] == ["--served-child"]:
         print(json.dumps(served_child(argv[1], int(argv[2]))), flush=True)
         return 0
+    if argv[:1] == ["--kernels-child"]:
+        print(json.dumps(kernels_child(argv[1], argv[2] == "1")), flush=True)
+        return 0
     warm, mode, key = 5, "--child", "warm_s"
     if argv[:1] == ["--warm"]:
         warm, argv = int(argv[1]), argv[2:]
     elif argv[:1] == ["--served"]:
         warm, argv = int(argv[1]), argv[2:]
         mode, key = "--served-child", "update_s"
+    elif argv[:1] == ["--kernels"]:
+        argv = argv[1:]
+        mode, key = "--kernels-child", "ms"
+        warm = int(argv[:1] == ["--launches"])
+        argv = argv[warm:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
-    here = os.path.dirname(os.path.abspath(__file__))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
-    walls: dict[str, list[float]] = {}
+    # {series: {root: [values]}}: the walls or spans of each root, or each
+    # kernel shape's times
+    runs: dict[str, dict[str, list[float]]] = {}
     for root in argv:
         root = os.path.abspath(root)
-        out = subprocess.run([sys.executable, os.path.join(here,
-                                                           "ab_main_path.py"),
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
                               mode, root, str(warm)], cwd=root,
-                             capture_output=True, text=True, check=True)
-        line = out.stdout.strip().splitlines()[-1]
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            print(out.stdout[-4000:], out.stderr[-8000:], file=sys.stderr)
+            return out.returncode
+        line = [x for x in out.stdout.splitlines() if x.startswith("{")][-1]
         print(line, flush=True)
-        walls.setdefault(root, []).extend(json.loads(line)[key])
-    for root, w in walls.items():
-        print(f"{root}: median {key} {statistics.median(w):.6f} s over "
-              f"{len(w)} runs", flush=True)
+        got = json.loads(line)[key]
+        for series, v in (got.items() if isinstance(got, dict)
+                          else [(key, x) for x in got]):
+            runs.setdefault(series, {}).setdefault(root, []).append(v)
+    for series, by_root in runs.items():
+        print(f"median {series}: " + "; ".join(
+            f"{os.path.relpath(r, HERE)} {statistics.median(v):.6f} over "
+            f"{len(v)}" for r, v in by_root.items()), flush=True)
     return 0
 
 

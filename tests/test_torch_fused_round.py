@@ -24,6 +24,7 @@ import cruise_control_tpu.analyzer as ja
 import cruise_control_tpu.analyzer.goals as jg
 import cruise_control_tpu.analyzer.state as js
 import cruise_control_tpu_torch.analyzer as ta
+import cruise_control_tpu_torch.analyzer.engine as te
 import cruise_control_tpu_torch.analyzer.goals as tg
 import cruise_control_tpu_torch.analyzer.state as ts
 from cruise_control_tpu.analyzer.constraint import (
@@ -357,6 +358,119 @@ def test_fused_optimize_through_the_twins():
         except mod.OptimizationFailureError as err:
             outs.append((err.result, str(err)))
     (jres, jerr), (tres, terr) = outs
+    assert terr == jerr
+    assert tres.proposals == jres.proposals
+    assert tres.num_moves == jres.num_moves > 0
+    assert [(g.name, g.iterations, g.accepted, g.violation_before,
+             g.violation_after) for g in tres.goal_results] == [
+        (g.name, g.iterations, g.accepted, g.violation_before,
+         g.violation_after) for g in jres.goal_results]
+
+
+# ---------------------------------------------------------------------------
+# KM's in-place form (``out=``), the goal-loop graphs' form
+# ---------------------------------------------------------------------------
+
+def _same_bits(a, b, what):
+    """Every field equal, floats bit for bit (the sign of a zero too),
+    integers by value (the reference keeps int32 indices)."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x is None or y is None:
+            assert x is None and y is None, f"{what}.{f.name}"
+            continue
+        x, y = np.asarray(x), np.asarray(y)
+        assert x.shape == y.shape, f"{what}.{f.name}"
+        if x.dtype.kind == "f" or y.dtype.kind == "f":
+            assert x.dtype == y.dtype == np.float32, f"{what}.{f.name}"
+            assert x.tobytes() == y.tobytes(), f"{what}.{f.name}"
+        else:
+            assert np.array_equal(x.astype(np.int64), y.astype(np.int64)), \
+                f"{what}.{f.name}"
+
+
+def _copy(state):
+    return state.replace(**{f.name: None if getattr(state, f.name) is None
+                            else getattr(state, f.name).clone()
+                            for f in dataclasses.fields(state)})
+
+
+def test_apply_group_out_form_matches_both():
+    """KM's twin written into buffers (``out=``, a copy of the state the
+    way a goal pass's carry holds it) over three rounds, each equal bit for
+    bit to the functional form and to the reference's apply_group: four
+    brokers' float aggregates start at -0.0 (the rows of candidates that
+    do not apply then turn them to +0.0), and candidates on padding
+    partitions (topic -1) do not apply. The functional form leaves its
+    inputs untouched."""
+    (jm, jmd), (tm, _) = build_both(20, 1000, seed=4)
+    (jst, jctx), (tst, tctx) = _states(jm, jmd, tm)
+    jst = jst.replace(util=jst.util.at[:4].set(-0.0),
+                      potential_nw_out=jst.potential_nw_out.at[:4].set(-0.0),
+                      leader_nw_in=jst.leader_nw_in.at[:4].set(-0.0))
+    tst = tst.replace(util=tst.util.clone(),
+                      potential_nw_out=tst.potential_nw_out.clone(),
+                      leader_nw_in=tst.leader_nw_in.clone())
+    tst.util[:4] = -0.0
+    tst.potential_nw_out[:4] = -0.0
+    tst.leader_nw_in[:4] = -0.0
+    _same_bits(jst, tst, "-0.0 bases")
+    apply_j = jax.jit(js.apply_group)
+    carry = _copy(tst)
+    for rnd in range(3):
+        g = _group(jm, 30 + rnd, "padding")
+        jc, jdo = _group_cands(js, jst, jctx, g, _jconv)
+        tc, tdo = _group_cands(ts, tst, tctx, g, _tconv)
+        do = torch.from_numpy(tdo)
+        padding = ~np.asarray(tctx.partition_valid)[np.asarray(tc.p)]
+        assert padding.any() and not (padding & tdo).any()
+        jst = apply_j(jst, jctx, jc, jnp.asarray(jdo))
+        before = _copy(tst)
+        fun, count = kernels.apply_group(tst, tctx, tc, do)
+        _same_bits(tst, before, f"round {rnd}: the functional form's input")
+        out, count_out = kernels.apply_group(carry, tctx, tc, do, out=carry)
+        assert out is carry
+        assert int(count) == int(count_out) == int(tdo.sum())
+        _same_bits(fun, carry, f"round {rnd}: out= against the functional")
+        _same_bits(jst, carry, f"round {rnd}: out= against the reference")
+        tst = fun
+
+
+def test_fused_optimize_through_the_graph_interpreter(monkeypatch):
+    """The main path's fused walk with every pass run by ``GraphLoop`` —
+    its graphs interpreted on the host, its drain and apply rounds writing
+    KM's twin into the carry (``out=``) — against the reference's fused
+    optimize: the same proposals, moves and per-goal outcomes."""
+    from test_torch_goal_loop import HostInterpreter
+    from cruise_control_tpu_torch.analyzer.graph_loop import GraphLoop
+    built = []
+
+    def graph_loop(self, state, ctx):
+        if not self._graphs:
+            self._graphs["interpreted"] = GraphLoop(
+                self.segments, state, ctx, aux=self._aux,
+                backend=HostInterpreter())
+            built.append(self._graphs["interpreted"])
+        return self._graphs["interpreted"]
+
+    monkeypatch.setattr(te._PassRunner, "_on_host", lambda self, state: False)
+    monkeypatch.setattr(te._PassRunner, "graph_loop", graph_loop)
+    (jm, jmd), (tm, tmd) = build_both(22, 400, seed=12, dead=(5,),
+                                      broker_pad_multiple=1)
+    cfg = dict(SEARCH, max_iters_per_goal=24, fused_chain=True)
+    jopt = ja.TpuGoalOptimizer(goals=ja.goals_by_name(CHAIN),
+                               config=ja.SearchConfig(**cfg))
+    topt = ta.TorchGoalOptimizer(goals=ta.goals_by_name(CHAIN),
+                                 config=ta.SearchConfig(**cfg), device="cpu")
+    outs = []
+    for opt, mod, m, md in ((jopt, ja, jm, jmd), (topt, ta, tm, tmd)):
+        try:
+            outs.append((opt.optimize(m, md, mod.OptimizationOptions(
+                seed=1)), None))
+        except mod.OptimizationFailureError as err:
+            outs.append((err.result, str(err)))
+    (jres, jerr), (tres, terr) = outs
+    assert built, "the walk did not run through GraphLoop"
     assert terr == jerr
     assert tres.proposals == jres.proposals
     assert tres.num_moves == jres.num_moves > 0

@@ -960,3 +960,200 @@ def test_bulk_drain_fill_matches_twin(cuda_device, pass_models, shape, batch,
     for g, w, what in zip(got, want, ("p", "r", "dst", "ok")):
         assert torch.equal(g.cpu(), w), what
     assert bool(got[3].any())
+
+
+# ---------------------------------------------------------------------------
+# KM's two forms and its bucketed walk at the edges; KP's launches at slot
+# counts that cut its chunks and windows anywhere
+# ---------------------------------------------------------------------------
+
+def _km_both_forms(state, ctx, c, do, what):
+    """KM out of place and in place (on a copy of ``state``) against the
+    twin on the CPU, bit for bit; the caller's state is not written."""
+    import chip_smoke
+    before = _cpu(state)
+    want, want_count = kernels.apply_group_plain(before, _cpu(ctx), _cpu(c),
+                                                 do.cpu())
+    kernels.reset_launch_counts()
+    got, count = kernels.apply_group(state, ctx, c, do)
+    carry = chip_smoke.clone_fields(state)
+    got_in, count_in = kernels.apply_group(carry, ctx, c, do, out=carry)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["apply_group"] == 2
+    assert got_in is carry
+    assert int(count) == int(count_in) == int(want_count) == int(do.sum())
+    _assert_fields_equal(got, want, f"{what} out of place")
+    _assert_fields_equal(got_in, want, f"{what} in place")
+    _assert_fields_equal(state, before, f"{what}: the caller's state")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["apply", "spread", "hot", "drain"])
+def test_apply_group_forms_match_twin(cuda_device, pass_models, kind):
+    """KM in both forms at the main path's KM shapes: an apply round's M
+    512, N 16,384 spread over the brokers, the same with every source on
+    broker 94 (an 11,000-row chain on one broker) and a real drain round
+    of ReplicaDistributionGoal with broker 94 dead."""
+    import chip_smoke
+    model, md = pass_models["main"]
+    state, ctx = chip_smoke.pass_state(model, md, dead=(3,))
+    case = dict(chip_smoke.km_cases(model, md, "main", state, ctx))
+    tag = {"apply": "M 512", "spread": "N 16,384",
+           "hot": "N 16,384, every source on broker 94",
+           "drain": "a real drain round, broker 94 dead"}[kind]
+    st, cx, c, do = case[tag]
+    if kind == "hot":
+        assert chip_smoke.km_chain(c, do, st.util.shape[0]) > 10_000
+    _km_both_forms(st, cx, c, do, tag)
+
+
+@pytest.mark.cuda
+def test_apply_group_brokers_without_rows(cuda_device, pass_models):
+    """KM with 40 candidates over 105 brokers: most brokers have no row in
+    any tile, and their aggregates pass through unchanged; one candidate
+    and none applied too."""
+    import chip_smoke
+    model, md = pass_models["main"]
+    state, ctx = chip_smoke.pass_state(model, md, dead=(3,))
+    c, do = chip_smoke.km_case(state, ctx, 40, seed=3)
+    touched = set(c.src[do].tolist()) | set(c.dst[do].tolist())
+    assert len(touched) < state.util.shape[0] // 2
+    _km_both_forms(state, ctx, c, do, "40 candidates")
+    c, do = chip_smoke.km_case(state, ctx, 1, seed=4)
+    _km_both_forms(state, ctx, c, torch.zeros_like(do), "none applied")
+
+
+@pytest.fixture(scope="module")
+def wide_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import chip_smoke
+    return chip_smoke.build_flat_direct(20_000, 40_000, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("brokers", [1_000, 20_000], ids=["B1_1001",
+                                                         "B1_20001"])
+@pytest.mark.parametrize("n,hot", [(1_024, False), (25_000, False),
+                                   (16_384, True)])
+def test_apply_group_wide_brokers(cuda_device, pass_models, wide_model,
+                                  brokers, n, hot):
+    """KM in both forms at B1 1,001 (the scale cell) and 20,001: the run
+    table holds a row of B1 a tile; N 1,024, 25,000 (25 tiles of 2,048
+    rows) and a hot chain of 16,384 on broker 7."""
+    import chip_smoke
+    model, md = pass_models["scale"] if brokers == 1_000 else wide_model
+    state, ctx = chip_smoke.pass_state(model, md, dead=(3,))
+    assert state.util.shape[0] == brokers + 1
+    c, do = chip_smoke.km_case(state, ctx, n, seed=n, src=7 if hot else None)
+    _km_both_forms(state, ctx, c, do, f"B1 {brokers + 1} N {n}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hot", [(40_000, False), (125_000, False),
+                                   (125_000, True)])
+def test_apply_group_past_32_tiles(cuda_device, pass_models, n, hot):
+    """KM in both forms past 65,536 candidates on the scale cell (B1
+    1,001): N 40,000 (20 tiles of 4,096 rows, sorted by 1,024 threads) and
+    N 125,000 (a drain batch of partitions // 8 at 1M partitions: 62
+    tiles, so a broker's warp reads its run table in two groups of 32),
+    spread and with every source on broker 7 (an ~88,000-row chain that
+    crosses every tile)."""
+    import chip_smoke
+    model, md = pass_models["scale"]
+    state, ctx = chip_smoke.pass_state(model, md, dead=(3,))
+    c, do = chip_smoke.km_case(state, ctx, n, seed=n, src=7 if hot else None)
+    if hot:
+        assert chip_smoke.km_chain(c, do, state.util.shape[0]) > 80_000
+    _km_both_forms(state, ctx, c, do, f"N {n}")
+
+
+def _slice_partitions(model, P):
+    """The model cut to its first P partition rows (no padding)."""
+    return model.replace(**{f: getattr(model, f)[:P] for f in (
+        "replica_broker", "leader_load", "follower_load", "partition_topic",
+        "partition_valid", "replica_offline", "replica_pref_pos")})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,P", [("main", 13), ("main", 2_049),
+                                     ("main", 4_099), ("main", 20_001),
+                                     ("scale", 4_099), ("scale", 100_003)])
+@pytest.mark.parametrize("case", ["sorted", "one broker", "no candidates",
+                                  "N above the taken"])
+def test_bulk_drain_fill_edges(cuda_device, pass_models, shape, P, case):
+    """KP bit for bit against its twin at slot counts (P x 2) that are no
+    multiple of 16, 32 or the 4,096-slot chunk: 26 (below one window of
+    32), 4,098 (a second chunk of 2 slots), 8,198 (the 32-windows padded
+    13 in front, so the chunk edge at 4,096 falls inside a window),
+    40,002 and 200,006 (B1 1,001); a chunk edge is a multiple of 16^3
+    and so always a 16-block edge. Cases: the drain's own order; every
+    slot on one broker (one run longer than any chunk); no candidates; N
+    above the slots taken."""
+    import chip_smoke
+    from cruise_control_tpu_torch.analyzer import SearchConfig
+    model, md = pass_models[shape]
+    model = _slice_partitions(model, P)
+    state, ctx = chip_smoke.pass_state(model, md, dead=(3,))
+    goal = _goal("ReplicaDistributionGoal")
+    args = list(goal.drain_sort(state, ctx,
+                                _random.PRNGKey(11, device=cuda_device)))
+    n = P * state.rb.shape[1]
+    if case == "one broker":
+        args[5] = torch.full_like(args[5], 5)
+    if case == "no candidates":
+        args[7] = torch.zeros_like(args[7])
+        args[8] = torch.zeros_like(args[8])
+    N = n + 5 if case == "N above the taken" else 16_384
+    cfg = SearchConfig(drain_batch=N)
+    kernels.reset_launch_counts()
+    got = kernels.bulk_drain_fill(goal, state, ctx, cfg, *args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bulk_drain_fill"] == 1
+    want = kernels.bulk_drain_fill_plain(goal, _cpu(state), _cpu(ctx), cfg,
+                                         *(a.cpu() for a in args))
+    for g, w, what in zip(got, want, ("p", "r", "dst", "ok")):
+        assert torch.equal(g.cpu(), w), what
+    if case == "no candidates":
+        assert not bool(got[3].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["registers", "loads"])
+def test_dependent_add_probe(cuda_device, form):
+    """The dependent-add probe sums its chain in order: n adds of x[0]
+    (registers) or of x[i] (loads), equal to the same float32 sum on the
+    CPU."""
+    gen = torch.Generator().manual_seed(5)
+    n = 1_000
+    x = torch.rand(n, generator=gen)
+    out = torch.empty(1, device=cuda_device)
+    kernels.dependent_add_launch(x.to(cuda_device), n, form, out)
+    terms = {"registers": x[:1].repeat(n), "loads": x}[form]
+    acc = torch.zeros((), dtype=torch.float32)
+    for t in terms:
+        acc = acc + t
+    assert out.cpu()[0].item() == acc.item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [4_099, 40_000])
+def test_bulk_drain_fill_wide_brokers(cuda_device, wide_model, P):
+    """KP bit for bit against its twin at B1 20,001: the one-block scans
+    and the budgets past what shared memory stages (2,048 brokers) and the
+    cumulative budgets read from global memory; the ranks of -deficit over
+    313 x 10 blocks."""
+    import chip_smoke
+    from cruise_control_tpu_torch.analyzer import SearchConfig
+    model, md = wide_model
+    state, ctx = chip_smoke.pass_state(_slice_partitions(model, P), md,
+                                       dead=(3,))
+    assert state.util.shape[0] == 20_001
+    goal = _goal("ReplicaDistributionGoal")
+    args = goal.drain_sort(state, ctx, _random.PRNGKey(13, device=cuda_device))
+    cfg = SearchConfig(drain_batch=16_384)
+    got = kernels.bulk_drain_fill(goal, state, ctx, cfg, *args)
+    want = kernels.bulk_drain_fill_plain(goal, _cpu(state), _cpu(ctx), cfg,
+                                         *(a.cpu() for a in args))
+    for g, w, what in zip(got, want, ("p", "r", "dst", "ok")):
+        assert torch.equal(g.cpu(), w), what
