@@ -37,10 +37,13 @@ Phases (every failure raises; nothing is caught):
    ``KM_SHAPES``: an apply round's 512 candidates, 16,384 spread, 16,384
    all from broker 94, a real drain round with broker 94 dead and the
    scale cell's 25,000, each in place and out of place), KN (eligibility,
-   at the chain's last and first positions), KO (flow_priority,
-   flow_match) and KP (bulk_drain_fill), against their twins on the CPU
-   at the main path's shapes (KO and KP also at the scale cell's), timed
-   beside their twins, bounds and (KM, KP) chain bounds;
+   N 1,024, 512 and 16,384 at the first and last positions of the main
+   chain and of the default chain, and the scale cell's N 1,024), KO's
+   range table (every weight form), KO (flow_priority, flow_match, for a
+   util goal and a count goal) and KP (bulk_drain_fill), against their
+   twins on the CPU at the main path's shapes (KO and KP also at the
+   scale cell's), timed beside their twins, bounds and (KM, KP) chain
+   bounds;
 4. main path — 100 brokers x 20K partitions at RF 2, the 4-goal chain
    with the off-chain hard-goal audit, seeds 0, 1, 1 (proposals of the two
    seed-1 runs must be identical; KA, KB, KC, KL and KM-KP must have
@@ -325,6 +328,9 @@ KERNEL_INFO = {
     "candidate_eligibility": dict(
         source="cruise_control_tpu_torch/csrc/eligibility.cu",
         replaces="cruise_control_tpu/analyzer/state.py:362"),
+    "replica_weight_range": dict(
+        source="cruise_control_tpu_torch/csrc/flow_candidates.cu",
+        replaces="cruise_control_tpu/analyzer/goals.py:808"),
     "flow_priority": dict(
         source="cruise_control_tpu_torch/csrc/flow_candidates.cu",
         replaces="cruise_control_tpu/analyzer/goals.py:790"),
@@ -335,9 +341,11 @@ KERNEL_INFO = {
         source="cruise_control_tpu_torch/csrc/drain_fill.cu",
         replaces="cruise_control_tpu/analyzer/goals.py:486"),
 }
-#: KM-KP, the goal pass's own kernels: every optimize launches each
-PASS_KERNELS = ("apply_group", "candidate_eligibility", "flow_priority",
-                "flow_match", "bulk_drain_fill")
+#: KM-KP, the goal pass's own kernels, and KO's range table (once a
+#: context): every optimize launches each
+PASS_KERNELS = ("apply_group", "candidate_eligibility",
+                "replica_weight_range", "flow_priority", "flow_match",
+                "bulk_drain_fill")
 
 
 _T0 = time.monotonic()
@@ -974,7 +982,10 @@ def dependent_add_ns(rng):
 
 
 def _max_err(got, want):
-    """Max |got - want| over tensors (bool and int compared as int64)."""
+    """Max |got - want| over tensors (bool and int compared as int64; equal
+    infinities and two NaNs are no error, a NaN against a number is an
+    infinite one)."""
+    import torch
     err = 0.0
     for g, w in zip(got, want):
         g, w = g.cpu(), w.cpu()
@@ -983,7 +994,9 @@ def _max_err(got, want):
         if g.shape != w.shape:
             return float("inf")
         if g.numel():
-            err = max(err, float((g - w).abs().max()))
+            same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+            diff = (g - w).abs().masked_fill(same, 0)
+            err = max(err, float(diff.nan_to_num(nan=float("inf")).max()))
     return err
 
 
@@ -1005,6 +1018,7 @@ def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms,
     import torch
     from cruise_control_tpu_torch import _random, kernels
     from cruise_control_tpu_torch.analyzer import (SearchConfig,
+                                                   default_goals,
                                                    goals_by_name)
     from cruise_control_tpu_torch.utils.ordered import top_k
     cfg = SearchConfig(**MAIN_SEARCH)
@@ -1031,6 +1045,7 @@ def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms,
                                                  scale_md)):
         state, ctx = pass_state(m, mdd, dead=(3,))
         cs, cc = cpu(state), cpu(ctx)
+        default_chain = [g.bind(mdd) for g in default_goals()]
         P, R = state.rb.shape
         B1 = state.util.shape[0]
         T = state.topic_counts.shape[0]
@@ -1040,13 +1055,31 @@ def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms,
         # of place
         for tag, case in km_cases(m, mdd, shape, state, ctx):
             _kernel_apply_group(row, tag, *case)
-        if shape == "main":
-            # --- KN: every position of the main path's chain
-            n = 2 * MAIN_SEARCH["apply_per_iter"]
+        # --- KO's range table, every weight form: once a context
+        R_ld = (ctx.leader_load, ctx.follower_load, R)
+        got = kernels.replica_weight_range(*R_ld)
+        want = kernels.replica_weight_range_plain(cc.leader_load,
+                                                  cc.follower_load, R)
+        if not torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32)):
+            fail(f"replica_weight_range differs from its twin ({shape})")
+        ms = time_ms(lambda: kernels.replica_weight_range(*R_ld), graph=True)
+        plain = time_ms(lambda: kernels.replica_weight_range_plain(*R_ld),
+                        groups=3)
+        # the two [P, 4] load planes read once, the table written; 11
+        # min/max folds of ~4 operations a partition row
+        row("replica_weight_range", f"6 forms, [P={P}, 4] x 2, R={R}",
+            _max_err([got], [want]), ms, plain, P * 32 + 48, P * 44)
+        # --- KN: the first and last positions of the main path's chain and
+        # of the default chain (first: the kernels line's row, N 1,024 at
+        # the main chain's last position)
+        for n, chain in KN_SHAPES[shape]:
             c = kn_case(state, ctx, n, seed=5)
             ccand = cpu(c)
-            for i in (len(goals) - 1, 0):
-                checks = kernels.GoalChecks(goals[i], goals[:i], cfg.epsilon)
+            chain_goals = goals if chain == "main" else default_chain
+            for i in (len(chain_goals) - 1, 0):
+                checks = kernels.GoalChecks(chain_goals[i], chain_goals[:i],
+                                            cfg.epsilon)
                 got = kernels.candidate_eligibility(state, ctx, c, checks)
                 want = kernels.candidate_eligibility_plain(cs, cc, ccand,
                                                            checks)
@@ -1058,40 +1091,48 @@ def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms,
                 # planes over B1 once, the verdicts and deltas written
                 nbytes = n * (106 + 64 + 5) + B1 * 40
                 row("candidate_eligibility",
-                    f"N={n}, chain position {i} ({len(goals[:i])} earlier "
-                    f"goals), B1={B1}", _max_err(got, want), ms, plain,
-                    nbytes, n * (30 + 15 * (i + 1)) + B1 * (i + 1))
-        # --- KO: the first goal's priorities and destination match
+                    f"N={n}, {chain} chain position {i} ({i} earlier "
+                    f"goals, {checks.table.n} table rows), B1={B1}",
+                    _max_err(got, want), ms, plain, nbytes,
+                    n * (30 + 15 * (i + 1)) + B1 * (i + 1))
+        # --- KO: a util goal's and a count goal's priorities and
+        # destination match (first: the kernels line's rows)
         K = cfg.num_replica_candidates if shape == "main" else 1_024
-        goal = goals[1]                                  # DiskUsageDistribution
-        planes = goal.propose_planes(state, ctx)
-        cplanes = [t.cpu() for t in planes]
-        krep, kdst = _random.subkeys(_random.PRNGKey(5, device=m.device))
-        crep, cdst = _random.subkeys(_random.PRNGKey(5))
-        prio = kernels.flow_priority(goal, state, ctx, krep, cfg, *planes)
-        want = kernels.flow_priority_plain(goal, cs, cc, crep, cfg, *cplanes)
-        ms = time_ms(lambda: kernels.flow_priority(goal, state, ctx, krep,
-                                                   cfg, *planes), graph=True)
-        plain = time_ms(lambda: kernels.flow_priority_plain(
-            goal, state, ctx, krep, cfg, *planes), groups=3)
-        # per slot: its broker, masks, weight and priority; ~100 integer
-        # operations of the noise's hash
-        row("flow_priority", f"{goal.name} [P={P}, R={R}], B1={B1}",
-            _max_err([prio], [want]), ms, plain, n_slots * 18 + B1 * 20,
-            n_slots * 115)
-        vals, idx = top_k(prio.reshape(-1), K)
-        match_args = (planes[0], planes[1], planes[2], planes[4], vals, idx)
-        got = kernels.flow_match(goal, state, ctx, kdst, cfg, *match_args)
-        want = kernels.flow_match_plain(goal, cs, cc, cdst, cfg, cplanes[0],
-                                        cplanes[1], cplanes[2], cplanes[4],
-                                        vals.cpu(), idx.cpu())
-        ms = time_ms(lambda: kernels.flow_match(goal, state, ctx, kdst, cfg,
-                                                *match_args), graph=True)
-        plain = time_ms(lambda: kernels.flow_match_plain(
-            goal, state, ctx, kdst, cfg, *match_args), groups=3)
-        row("flow_match", f"{goal.name} K={K}, B1={B1}", _max_err(got, want),
-            ms, plain, B1 * 21 + K * (12 + 8 * R + 1 + 4 + 25),
-            B1 * B1 + 40 * B1 + K * 20)
+        for goal in (goals[1], goals[0]):   # DiskUsage-, ReplicaDistribution
+            planes = goal.propose_planes(state, ctx)
+            cplanes = [t.cpu() for t in planes]
+            krep, kdst = _random.subkeys(_random.PRNGKey(5, device=m.device))
+            crep, cdst = _random.subkeys(_random.PRNGKey(5))
+            prio = kernels.flow_priority(goal, state, ctx, krep, cfg, *planes)
+            want = kernels.flow_priority_plain(goal, cs, cc, crep, cfg,
+                                               *cplanes)
+            ms = time_ms(lambda: kernels.flow_priority(
+                goal, state, ctx, krep, cfg, *planes), graph=True)
+            plain = time_ms(lambda: kernels.flow_priority_plain(
+                goal, state, ctx, krep, cfg, *planes), groups=3)
+            # per slot: its broker, masks, weight and priority; ~100
+            # integer operations of the noise's hash
+            row("flow_priority", f"{goal.name} [P={P}, R={R}], B1={B1}",
+                _max_err([prio], [want]), ms, plain, n_slots * 18 + B1 * 20,
+                n_slots * 115)
+            vals, idx = top_k(prio.reshape(-1), K)
+            match_args = (planes[0], planes[1], planes[2], planes[4], vals,
+                          idx)
+            got = kernels.flow_match(goal, state, ctx, kdst, cfg,
+                                     *match_args)
+            want = kernels.flow_match_plain(goal, cs, cc, cdst, cfg,
+                                            cplanes[0], cplanes[1],
+                                            cplanes[2], cplanes[4],
+                                            vals.cpu(), idx.cpu())
+            ms = time_ms(lambda: kernels.flow_match(goal, state, ctx, kdst,
+                                                    cfg, *match_args),
+                         graph=True)
+            plain = time_ms(lambda: kernels.flow_match_plain(
+                goal, state, ctx, kdst, cfg, *match_args), groups=3)
+            row("flow_match", f"{goal.name} K={K}, B1={B1}",
+                _max_err(got, want), ms, plain,
+                B1 * 21 + K * (12 + 8 * R + 1 + 4 + 25),
+                B1 * int(np.ceil(np.log2(B1))) + 40 * B1 + K * 20)
         # --- KP: the first goal's drain round (a count goal)
         drain_cfg = SearchConfig(**dict(MAIN_SEARCH, drain_batch=(
             cfg.drain_batch if shape == "main" else 25_000)))
@@ -1115,6 +1156,14 @@ def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms,
             chain=kp_chain(args[5], n_slots, B1))
 
 
+#: KN's phase-3 shapes: (N candidates, chain) — a proposal's 1,024 (the
+#: kernels line's row), an apply round's 512 and a drain round's 16,384,
+#: each at the first and last positions of the main chain and of the
+#: default chain; the scale cell's proposal
+KN_SHAPES = {"main": ((1_024, "main"), (512, "main"), (16_384, "main"),
+                      (1_024, "default"), (512, "default"),
+                      (16_384, "default")),
+             "scale": ((1_024, "main"),)}
 #: KM's phase-3 shapes: (model, tag, case) — an apply round's M 512 (the
 #: kernels line's row), km_case's N 16,384, the same with every source on
 #: broker 94 (a drain round's hot chain), a real drain round of the main

@@ -88,6 +88,26 @@ def _norm01(x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
     return torch.where(finite, q * 0.99, 0.0)
 
 
+def replica_weight(metric, leader_load: torch.Tensor,
+                   follower_load: torch.Tensor, R: int) -> torch.Tensor:
+    """``IntervalGoal._replica_weight`` of a goal balancing ``metric``:
+    the [*L, P, R] preference among replicas (slot 0 the leader's loads,
+    the other slots the follower's) from a context's ``[*L, P, 4]`` loads;
+    kernels.py's weight range holds its min and max a context."""
+    which, res = metric
+    is_leader = (torch.arange(R, device=leader_load.device) == 0)[:, None]
+    if which == "potential":
+        return torch.broadcast_to(
+            leader_load[..., :, None, Resource.NW_OUT],
+            (*leader_load.shape[:-1], R))
+    load = torch.where(is_leader, leader_load[..., :, None, :],
+                       follower_load[..., :, None, :])
+    if which == "util":
+        return load[..., int(res)]
+    # count-style goals: prefer cheap-to-move (small disk) replicas
+    return -load[..., Resource.DISK]
+
+
 def _tier_plus_norm01(tier: float, q: torch.Tensor,
                       finite: torch.Tensor) -> torch.Tensor:
     """``tier + _norm01(x)`` with the one rounding the reference's compiled
@@ -738,21 +758,8 @@ class IntervalGoal(GoalKernel):
 
     def _replica_weight(self, state: SearchState, ctx: SearchContext):
         """[P, R] preference among movable replicas on source brokers."""
-        which, res = self.metric
-        R = state.rb.shape[1]
-        is_leader = (torch.arange(R, device=state.rb.device) == 0)[None, :]
-        if which == "util":
-            load = torch.where(is_leader[..., None],
-                               ctx.leader_load[:, None, :],
-                               ctx.follower_load[:, None, :])
-            return load[..., int(res)]
-        if which == "potential":
-            return torch.broadcast_to(
-                ctx.leader_load[:, None, Resource.NW_OUT], state.rb.shape)
-        # count-style goals: prefer cheap-to-move (small disk) replicas
-        disk = torch.where(is_leader[..., None], ctx.leader_load[:, None, :],
-                           ctx.follower_load[:, None, :])[..., Resource.DISK]
-        return -disk
+        return replica_weight(self.metric, ctx.leader_load,
+                              ctx.follower_load, state.rb.shape[-1])
 
 
 class CapacityGoal(IntervalGoal):

@@ -66,10 +66,30 @@ class SearchContext(_Replaceable):
     raw_dest_allowed: torch.Tensor   # bool[B1]
     movable: torch.Tensor            # bool[P, R] — replica may be relocated
     leadership_movable: torch.Tensor  # bool[P]
+    #: f32[6, 2] (min, max) of the finite replica weights of each
+    #: ``IntervalGoal._replica_weight`` form (``kernels.WEIGHT_FORMS``),
+    #: -0.0 as +0.0: KO's ``_unit01`` range, built once with the context
+    #: (None where it was built without: scoring only, never proposing)
+    weight_range: torch.Tensor | None
 
     @property
     def num_brokers_padded(self) -> int:
         return self.broker_capacity.shape[-2] - 1
+
+    def replace(self, **changes):
+        """A copy with ``changes``; new loads rebuild the weight range, so
+        a context never carries a stale one."""
+        if "weight_range" in changes:
+            raise ValueError("weight_range follows leader_load and "
+                             "follower_load: replace those")
+        new = dataclasses.replace(self, **changes)
+        if new.weight_range is not None and changes.keys() & {
+                "leader_load", "follower_load"}:
+            new = dataclasses.replace(
+                new, weight_range=kernels.replica_weight_range(
+                    new.leader_load, new.follower_load,
+                    new.movable.shape[-1]))
+        return new
 
 
 @dataclass
@@ -220,14 +240,15 @@ def init_state(model: FlatClusterModel, *,
 def build_context(model: FlatClusterModel, *,
                   excluded_partitions: torch.Tensor | None = None,
                   excluded_brokers_for_replica_move: torch.Tensor | None = None,
-                  excluded_brokers_for_leadership: torch.Tensor | None = None
-                  ) -> SearchContext:
+                  excluded_brokers_for_leadership: torch.Tensor | None = None,
+                  with_weight_range: bool = True) -> SearchContext:
     """Assemble the immutable context. Exclusion masks follow
     ``OptimizationOptions`` semantics: replicas of excluded topics never move
     unless offline; excluded brokers never receive replicas / leadership.
     A model with a leading scenario axis gives a context with the same
     axis (the exclusion masks are then per broker or partition row, shared
-    by every scenario)."""
+    by every scenario). ``with_weight_range=False`` leaves out KO's table
+    (one launch over the loads) for a context that only scores."""
     axis = model.replica_broker.dim() - 2        # the broker axis: 0 or 1
 
     def _pad1(arr, fill):
@@ -263,6 +284,9 @@ def build_context(model: FlatClusterModel, *,
     leadership_movable = model.partition_valid & ~excluded_partitions
 
     return SearchContext(
+        weight_range=kernels.replica_weight_range(
+            model.leader_load, model.follower_load,
+            model.replica_broker.shape[-1]) if with_weight_range else None,
         leader_load=model.leader_load, follower_load=model.follower_load,
         partition_topic=model.partition_topic,
         partition_valid=model.partition_valid,

@@ -74,10 +74,13 @@ plain torch took dozens):
   warp a broker), the integer counts and topic tables;
 - **KN** ``candidate_eligibility`` — base legality, the acceptance of the
   chain's interval goals (a table, :class:`GoalChecks`), the pass goal's
-  delta and the verdict, a thread a candidate;
+  delta and the verdict, a thread a candidate, the broker planes the
+  table reads staged in each block's shared memory;
 - **KO** ``flow_priority`` / ``flow_match`` — an interval goal's flow
   candidates around the top-k: the [P, R] priorities with their noise
-  (one cluster), then the destination match (one block);
+  (a map over the card, ``_unit01``'s range read from the context's
+  table, which ``replica_weight_range`` builds once a context), then the
+  destination match (one block, from shared memory);
 - **KP** ``bulk_drain_fill`` — a replica drain round after its sort: the
   segmented shed, the first slot a partition, the capped budgets and the
   deficit-first fill (seven launches over the whole card).
@@ -140,7 +143,8 @@ LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
             "intra_broker_walk": 0, "population_select": 0,
             "fleet_scenario_failover": 0, "goal_loop": 0,
             "apply_group": 0, "candidate_eligibility": 0,
-            "flow_priority": 0, "flow_match": 0, "bulk_drain_fill": 0}
+            "replica_weight_range": 0, "flow_priority": 0, "flow_match": 0,
+            "bulk_drain_fill": 0}
 #: ``nvcc``/ptxas output of the build this process loaded (register and
 #: spill counts per kernel), empty when the library came from the cache
 BUILD_LOG: list[str] = []
@@ -298,10 +302,15 @@ def load_library():
             lib.cc_candidate_eligibility.argtypes = [p, p, p]
             lib.cc_eligibility_scratch.argtypes = [i64]
             lib.cc_eligibility_scratch.restype = i64
+            lib.cc_eligibility_staged.argtypes = [p, i64]
+            lib.cc_eligibility_staged.restype = ctypes.c_int
+            lib.cc_weight_range.argtypes = [p, p]
+            lib.cc_weight_range_scratch.argtypes = [i64]
+            lib.cc_weight_range_scratch.restype = i64
             lib.cc_flow_priority.argtypes = [p, _DrawPath, p]
             lib.cc_flow_match.argtypes = [p, _DrawPath, p]
-            lib.cc_flow_match_scratch.argtypes = [i64, i64]
-            lib.cc_flow_match_scratch.restype = i64
+            lib.cc_flow_match_workspace.argtypes = [i64, i64, i64]
+            lib.cc_flow_match_workspace.restype = i64
             lib.cc_drain_fill.argtypes = [p, p]
             lib.cc_drain_fill_scratch.argtypes = [i64, i64]
             lib.cc_drain_fill_scratch.restype = i64
@@ -323,7 +332,8 @@ def load_library():
                        lib.cc_population_select, lib.cc_empty_kernel,
                        lib.cc_dependent_add,
                        lib.cc_apply_group, lib.cc_candidate_eligibility,
-                       lib.cc_flow_priority, lib.cc_flow_match,
+                       lib.cc_weight_range, lib.cc_flow_priority,
+                       lib.cc_flow_match,
                        lib.cc_drain_fill):
                 fn.restype = ctypes.c_int
             _LIB = lib
@@ -344,6 +354,7 @@ def _pass_library():
         for fn, struct in (("cc_apply_args_size", _ApplyArgs),
                            ("cc_elig_args_size", _EligArgs),
                            ("cc_goal_table_size", _GoalTable),
+                           ("cc_range_args_size", _RangeArgs),
                            ("cc_priority_args_size", _PriorityArgs),
                            ("cc_match_args_size", _MatchArgs),
                            ("cc_drain_args_size", _DrainArgs)):
@@ -1608,6 +1619,12 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous), copied where its data is not 16-byte aligned
+    (the kernels read its rows as float4)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _fill(args, **tensors):
     """Set the pointer fields of ``args`` from ``tensors`` (None: null)."""
     for name, t in tensors.items():
@@ -1963,8 +1980,10 @@ def candidate_eligibility(state, ctx, c, checks: GoalChecks):
         cap=as_(ctx.broker_capacity, f32), p=as_(c.p, i64), r=as_(c.r, i64),
         p2=as_(c.p2, i64), r2=as_(c.r2, i64), src=as_(c.src, i64),
         dst=as_(c.dst, i64), kind=as_(c.kind, i64), valid=c.valid.contiguous(),
-        must=c.must.contiguous(), d_util_src=as_(c.d_util_src, f32),
-        d_util_dst=as_(c.d_util_dst, f32), d_cnt=as_(c.d_cnt, i32),
+        must=c.must.contiguous(),
+        d_util_src=_aligned16(as_(c.d_util_src, f32)),
+        d_util_dst=_aligned16(as_(c.d_util_dst, f32)),
+        d_cnt=as_(c.d_cnt, i32),
         d_lead=as_(c.d_lead, i32), d_pot=as_(c.d_pot, f32),
         d_lni=as_(c.d_lni, f32),
         extra_ok=None if extra_ok is None else extra_ok.contiguous(),
@@ -1979,28 +1998,98 @@ def candidate_eligibility(state, ctx, c, checks: GoalChecks):
 
 
 # ---------------------------------------------------------------------------
-# KO: flow candidates (priorities, then the destination match)
+# KO: flow candidates (the weights' range a context, the priorities, then
+# the destination match)
 # ---------------------------------------------------------------------------
 
+#: ``IntervalGoal._replica_weight``'s forms, by their row in the weight
+#: range (``csrc/flow_candidates.cu:Weight``): the four util columns,
+#: potential NW_OUT, the count goals' -disk
+WEIGHT_FORMS = (("util", 0), ("util", 1), ("util", 2), ("util", 3),
+                ("potential", None), ("count", None))
+
+_RangeArgs = _struct("_RangeArgs", "leader_load follower_load out scratch",
+                     [(f, _I64) for f in ("L", "P", "R")])
 _PriorityArgs = _struct(
     "_PriorityArgs",
     "rb movable off leader_load follower_load values lo up excess deficit "
-    "key prio scratch",
-    [("P", _I64), ("R", _I64), ("B1", _I64), ("weight", _I32),
-     ("leader_scoped", _I32), ("noise_scale", _F32)])
+    "range key prio",
+    [(f, _I64) for f in ("P", "R", "B1", "values_step", "lo_step", "up_step",
+                         "excess_step", "deficit_step")],
+    [("weight", _I32), ("leader_scoped", _I32), ("noise_scale", _F32)])
 _MatchArgs = _struct(
     "_MatchArgs", "values lo up deficit dest cap",
     [("thr", _F32), ("upper_only", _I32), ("load", _I32)], "key",
     [("noise_scale", _F32)],
     "idx vals rb off leader_load follower_load p_out r_out dst_out "
-    "valid_out scratch order", [(f, _I64) for f in ("P", "R", "B1", "K")])
-#: KO's cluster (``csrc/flow_candidates.cu:kCluster``)
-_FLOW_CLUSTER = 8
+    "valid_out work",
+    [(f, _I64) for f in ("P", "R", "B1", "K", "values_step", "lo_step",
+                         "up_step", "deficit_step", "cap_step")])
+
+
+def replica_weight_range_plain(leader_load, follower_load, R: int):
+    """Twin of KO's range launch: float32[*L, 6, 2], the (min, max) of the
+    finite ``goals.replica_weight`` of each of ``WEIGHT_FORMS`` from a
+    context's ``[*L, P, 4]`` loads and R slots, as ``goals._unit01``
+    computes them, -0.0 taken as +0.0 (which changes no priority)."""
+    from .analyzer.goals import replica_weight
+    rows = []
+    for metric in WEIGHT_FORMS:
+        w = replica_weight(metric, leader_load, follower_load, R)
+        w = torch.where(w == 0.0, 0.0, w).flatten(-2)
+        finite = torch.isfinite(w)
+        # one more column of the identity each: an empty plane's range is
+        # (+inf, -inf)
+        inf = torch.full((*w.shape[:-1], 1), math.inf, dtype=w.dtype,
+                         device=w.device)
+        rows.append(torch.stack([
+            torch.cat([torch.where(finite, w, math.inf), inf], -1).amin(-1),
+            torch.cat([torch.where(finite, w, -math.inf), -inf],
+                      -1).amax(-1)], -1))
+    return torch.stack(rows, -2)
+
+
+def replica_weight_range(leader_load, follower_load, R: int):
+    """float32[*L, 6, 2]: the (min, max) of the finite replica weights of
+    each of ``WEIGHT_FORMS`` — ``_unit01``'s range in KO's priorities,
+    built once a search context — see ``csrc/flow_candidates.cu`` (one
+    launch)."""
+    if _on_cpu(leader_load, follower_load):
+        return replica_weight_range_plain(leader_load, follower_load, R)
+    lead = _aligned16(leader_load.to(torch.float32).contiguous())
+    foll = _aligned16(follower_load.to(torch.float32).contiguous())
+    lead_shape = tuple(lead.shape[:-2])
+    L = math.prod(lead_shape)
+    P = lead.shape[-2]
+    dev = lead.device
+    out = torch.empty((*lead_shape, len(WEIGHT_FORMS), 2),
+                      dtype=torch.float32, device=dev)
+    if L == 0:
+        return out
+    lib = _pass_library()
+    scratch = torch.empty(lib.cc_weight_range_scratch(L), dtype=torch.int32,
+                          device=dev)
+    args = _fill(_RangeArgs(L=L, P=P, R=R), leader_load=lead,
+                 follower_load=foll, out=out, scratch=scratch)
+    rc = lib.cc_weight_range(ctypes.byref(args), _stream())
+    LAUNCHES["replica_weight_range"] += 1
+    _check(rc, "replica_weight_range")
+    return out
+
+
+def _weight_range_of(ctx):
+    """The context's weight range; raises for one built without it."""
+    if ctx.weight_range is None:
+        raise ValueError("this search context was built without its weight "
+                         "range (build_context(with_weight_range=False)): "
+                         "it scores, it cannot propose")
+    return ctx.weight_range
 
 
 def _weight_form(goal) -> int:
-    """``IntervalGoal._replica_weight`` as KO names it: a util column,
-    potential NW_OUT (4) or the small-disk preference (5)."""
+    """``IntervalGoal._replica_weight`` as KO names it: its row of
+    ``WEIGHT_FORMS``: a util column, potential NW_OUT (4) or the
+    small-disk preference (5)."""
     which, res = goal.metric
     if which == "util":
         return int(res)
@@ -2014,8 +2103,7 @@ def _cap_factor(goal, ctx):
     factor = goal._cap_factor(ctx)
     if factor is None:
         return None, 0.0
-    col, thr = factor
-    return col.to(torch.float32).contiguous(), thr
+    return factor
 
 
 def _planes(values, *planes):
@@ -2025,17 +2113,47 @@ def _planes(values, *planes):
             .contiguous() for t in planes]
 
 
+def _plane(t, n: int):
+    """(float32 tensor, element step) of a broker plane or scalar bound
+    over ``n`` brokers, read in place where it can be: a bound broadcast
+    to every broker as its one value (step 0), a column of a ``[B1, 4]``
+    table with its stride; anything else contiguous (step 1)."""
+    if t is None:
+        return None, 0
+    t = torch.broadcast_to(t, (n,))
+    if t.dtype != torch.float32:
+        t = t.to(torch.float32)
+    return (t, t.stride(0)) if t.stride(0) in (0, 1, 4) else \
+        (t.contiguous(), 1)
+
+
+def _fill_planes(args, n, **planes):
+    """Set the plane pointers of KO's ``args`` and their ``*_step``
+    fields; returns the tensors, to keep them alive over the launch."""
+    kept = {}
+    for name, t in planes.items():
+        kept[name], step = _plane(t, n)
+        setattr(args, name, _ptr(kept[name]))
+        setattr(args, f"{name}_step", step)
+    return kept
+
+
 def flow_priority_plain(goal, state, ctx, key, cfg, values, lo, up, excess,
                         deficit):
     """Twin of KO's first launch: ``goals.py:_flow_candidates``' source
     replicas' priority (offline > excess-broker > deficit-assist tiers,
-    with tie-break noise), in plain torch."""
+    with tie-break noise), in plain torch; ``_unit01``'s range read from
+    the context's ``weight_range``."""
     from .analyzer.goals import (_NEG, _TIER_ASSIST, _TIER_EXCESS,
-                                 _TIER_OFFLINE, _noise, _tier_plus_norm01,
-                                 _unit01)
+                                 _TIER_OFFLINE, _noise, _tier_plus_norm01)
     R = state.rb.shape[1]
     dev = state.rb.device
-    q, finite = _unit01(goal._replica_weight(state, ctx))       # [P, R]
+    _weight_range_of(ctx)
+    w = goal._replica_weight(state, ctx)                        # [P, R]
+    finite = torch.isfinite(w)
+    xmin, xmax = ctx.weight_range[..., _weight_form(goal), :].unbind(-1)
+    span = torch.clamp(xmax - xmin, min=1e-12)
+    q = (w - xmin[..., None, None]) / span[..., None, None]
     src_b = state.rb
     any_deficit = (deficit > 0.0).any()
     mid = torch.where(torch.isfinite(lo), (lo + up) * 0.5, up * 0.5)
@@ -2059,7 +2177,7 @@ def flow_priority(goal, state, ctx, key, cfg, values, lo, up, excess,
                   deficit):
     """float32[P, R] source-replica priorities of an interval goal's flow
     candidates, the noise drawn from ``key`` (a key or key path) — see
-    ``csrc/flow_candidates.cu`` (one launch)."""
+    ``csrc/flow_candidates.cu`` (one launch over the card)."""
     from . import _random
     if _on_cpu(state.rb, values):
         return flow_priority_plain(goal, state, ctx, key, cfg, values, lo,
@@ -2069,10 +2187,7 @@ def flow_priority(goal, state, ctx, key, cfg, values, lo, up, excess,
     kp = _random.path(key)
     path, keep = _draw_path(kp.words)
     dev = state.rb.device
-    vals, lo, up, excess, deficit = _planes(values, values, lo, up,
-                                               excess, deficit)
     prio = torch.empty((P, R), dtype=torch.float32, device=dev)
-    scratch = torch.empty(2 * _FLOW_CLUSTER, dtype=torch.float32, device=dev)
     args = _fill(
         _PriorityArgs(P=P, R=R, B1=B1, weight=_weight_form(goal),
                       leader_scoped=int(goal.metric[0] in (
@@ -2082,8 +2197,10 @@ def flow_priority(goal, state, ctx, key, cfg, values, lo, up, excess,
         movable=ctx.movable.contiguous(), off=state.offline.contiguous(),
         leader_load=ctx.leader_load.to(torch.float32).contiguous(),
         follower_load=ctx.follower_load.to(torch.float32).contiguous(),
-        values=vals, lo=lo, up=up, excess=excess, deficit=deficit,
-        key=kp.root.contiguous(), prio=prio, scratch=scratch)
+        range=_weight_range_of(ctx).to(torch.float32).contiguous(),
+        key=kp.root.contiguous(), prio=prio)
+    kept = _fill_planes(args, B1, values=values, lo=lo, up=up,
+                        excess=excess, deficit=deficit)
     rc = _pass_library().cc_flow_priority(ctypes.byref(args), path, _stream())
     LAUNCHES["flow_priority"] += 1
     _check(rc, "flow_priority")
@@ -2150,7 +2267,8 @@ def flow_match(goal, state, ctx, key, cfg, values, lo, up, deficit, vals,
     """(p, r, dst int64[K], valid bool[K]): the destinations of an
     interval goal's top-K source replicas (``idx`` int64[K] flat [P, R]
     indices, ``vals`` float32[K] their priorities), the noise drawn from
-    ``key`` — see ``csrc/flow_candidates.cu`` (one block)."""
+    ``key`` — see ``csrc/flow_candidates.cu`` (one block, its arrays in
+    shared memory or, past 227 KB, in a global workspace)."""
     from . import _random
     if _on_cpu(state.rb, values, idx):
         return flow_match_plain(goal, state, ctx, key, cfg, values, lo, up,
@@ -2161,12 +2279,11 @@ def flow_match(goal, state, ctx, key, cfg, values, lo, up, deficit, vals,
     kp = _random.path(key)
     path, keep = _draw_path(kp.words)
     dev = state.rb.device
-    values, lo, up, deficit = _planes(values, values, lo, up, deficit)
     cap, thr = _cap_factor(goal, ctx)
     lib = _pass_library()
-    scratch = torch.empty(lib.cc_flow_match_scratch(B1, K),
-                          dtype=torch.float32, device=dev)
-    order = torch.empty(B1, dtype=torch.int64, device=dev)
+    work_bytes = lib.cc_flow_match_workspace(B1, K, R)
+    work = (torch.empty(work_bytes, dtype=torch.uint8, device=dev)
+            if work_bytes else None)
     outs = dict(p_out=torch.empty(K, dtype=torch.int64, device=dev),
                 r_out=torch.empty(K, dtype=torch.int64, device=dev),
                 dst_out=torch.empty(K, dtype=torch.int64, device=dev),
@@ -2175,15 +2292,16 @@ def flow_match(goal, state, ctx, key, cfg, values, lo, up, deficit, vals,
         _MatchArgs(thr=thr, upper_only=int(goal.upper_only),
                    load=goal.metric_code(), noise_scale=cfg.noise_scale,
                    P=P, R=R, B1=B1, K=K),
-        values=values, lo=lo, up=up, deficit=deficit,
-        dest=ctx.dest_allowed.contiguous(), cap=cap,
+        dest=ctx.dest_allowed.contiguous(),
         key=kp.root.contiguous(), idx=idx.to(torch.int64).contiguous(),
         vals=vals.to(torch.float32).contiguous(),
         rb=state.rb.to(torch.int64).contiguous(),
         off=state.offline.contiguous(),
         leader_load=ctx.leader_load.to(torch.float32).contiguous(),
         follower_load=ctx.follower_load.to(torch.float32).contiguous(),
-        scratch=scratch, order=order, **outs)
+        work=work, **outs)
+    kept = _fill_planes(args, B1, values=values, lo=lo, up=up,
+                        deficit=deficit, cap=cap)
     rc = lib.cc_flow_match(ctypes.byref(args), path, _stream())
     LAUNCHES["flow_match"] += 1
     _check(rc, "flow_match")

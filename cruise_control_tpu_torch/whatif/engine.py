@@ -597,7 +597,7 @@ def _batch_scorer(goals, capacity_threshold, num_topics: int):
         state = init_state(
             m, with_topic_counts=num_topics if needs_topics else None,
             with_topic_leader_counts=needs_tlc)
-        ctx = build_context(m)
+        ctx = build_context(m, with_weight_range=False)
         viol = violation_stack(goals, state, ctx)
         vscale = torch.stack([g.violation_scale(state, ctx)
                               for g in goals], dim=-1)

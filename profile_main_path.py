@@ -70,15 +70,20 @@ HAND_WRITTEN = ("threefry_draw_kernel", "tile_group_kernel",
                 "failover_rows_kernel", "cell_net_flow_kernel",
                 "goal_loop_kernel", "apply_bucket_kernel",
                 "apply_group_kernel", "eligibility_kernel",
-                "flow_priority_kernel", "flow_match_kernel",
+                "weight_range_kernel", "flow_priority_kernel",
+                "flow_match_kernel",
                 "drain_gather_kernel", "drain_keys_kernel",
                 "drain_scans_kernel", "drain_take_kernel",
                 "drain_rank_kernel", "drain_budget_kernel",
                 "drain_scatter_kernel")
-#: kernel families summed on one line each: KM's and KP's launches, and
-#: every device-to-device copy (copy kernels and memcpy)
+#: kernel families summed on one line each: KM's, KP's, KN's and KO's
+#: launches, and every device-to-device copy (copy kernels and memcpy)
 FAMILIES = (("KM apply_group", ("apply_bucket_kernel", "apply_group_kernel")),
             ("KP bulk_drain_fill", ("drain_",)),
+            ("KN candidate_eligibility", ("eligibility_kernel",)),
+            ("KO flow_priority", ("flow_priority_kernel",)),
+            ("KO flow_match", ("flow_match_kernel",)),
+            ("KO replica_weight_range", ("weight_range_kernel",)),
             ("device copies", ("copy", "DtoD")))
 
 

@@ -22,15 +22,18 @@ Kafka cluster feeding a resident ``LoadMonitor``): a cold full upload,
 one more under ``torch.profiler`` naming the kernels and copies it ran on
 the card; the summary is the median span of each root.
 
-With ``--kernels`` each process instead times KM (``kernels.apply_group``)
-and KP (``kernels.bulk_drain_fill``) at the shapes of ``chip_smoke.py``
-phase 3: KM at ``chip_smoke.KM_SHAPES`` (``chip_smoke.km_cases``, this
-checkout's builders run against the root's package) out of place and,
-where the root's KM has the form, in place (``out=``, checked once against
-the call out of place), KP at the main path's drain (N 16,384) and the
-scale cell's (N 25,000), each a CUDA graph of up to 200 launches replayed
-between two events (``chip_smoke.time_ms``), and the dependent-add probe
-where the root has it; the summary is each shape's median per root. With
+With ``--kernels`` each process instead times KM (``kernels.apply_group``),
+KP (``kernels.bulk_drain_fill``), KO and KN at the shapes of
+``chip_smoke.py`` phase 3: KM at ``chip_smoke.KM_SHAPES``
+(``chip_smoke.km_cases``, this checkout's builders run against the root's
+package) out of place and, where the root's KM has the form, in place
+(``out=``, checked once against the call out of place), KP at the main
+path's drain (N 16,384) and the scale cell's (N 25,000), KO's range
+launch where the root has it, KO's two launches for a util goal and a
+count goal, KN at ``chip_smoke.KN_SHAPES``, each a CUDA graph of up to
+200 launches replayed between two events (``chip_smoke.time_ms``), and
+the dependent-add probe where the root has it; the summary is each
+shape's median per root. With
 ``--kernels --launches`` each shape's call also runs ten times under
 ``torch.profiler``, and the line gives the mean device time of each of
 its launches by kernel name (which phase of a multi-launch kernel costs
@@ -38,6 +41,9 @@ what):
 
     python3 scripts/ab_main_path.py --kernels --launches PARENT_ROOT . . \
         PARENT_ROOT
+
+With ``--kb-shapes`` (this checkout only) it lists KB's launches on the
+main path by shape, each timed (see ``kb_shapes``).
 """
 
 from __future__ import annotations
@@ -142,6 +148,46 @@ def launch_times(fn, calls=10) -> dict:
     return {k: round(v, 5) for k, v in out.items()}
 
 
+def _time_ko_kn(cs, kernels, timed, shape, m, md, state, ctx):
+    """KO (its range launch where the root has it, then the priorities and
+    the match of a util goal and a count goal) and KN (``chip_smoke.
+    KN_SHAPES``, the chains' last and first positions) at phase 3's
+    shapes."""
+    from cruise_control_tpu_torch import _random
+    from cruise_control_tpu_torch.analyzer import (SearchConfig,
+                                                   default_goals,
+                                                   goals_by_name)
+    from cruise_control_tpu_torch.utils.ordered import top_k
+    cfg = SearchConfig(**cs.MAIN_SEARCH)
+    goals = goals_by_name(cs.GOALS)
+    P, R = state.rb.shape
+    if hasattr(kernels, "replica_weight_range"):
+        timed(f"KO range {shape}", lambda: kernels.replica_weight_range(
+            ctx.leader_load, ctx.follower_load, R))
+    K = cfg.num_replica_candidates if shape == "main" else 1_024
+    for goal in (goals[1], goals[0]):
+        planes = goal.propose_planes(state, ctx)
+        krep, kdst = _random.subkeys(_random.PRNGKey(5, device=m.device))
+        timed(f"KO priority {shape} {goal.name}",
+              lambda: kernels.flow_priority(goal, state, ctx, krep, cfg,
+                                            *planes))
+        prio = kernels.flow_priority(goal, state, ctx, krep, cfg, *planes)
+        vals, idx = top_k(prio.reshape(-1), K)
+        args = (planes[0], planes[1], planes[2], planes[4], vals, idx)
+        timed(f"KO match {shape} {goal.name} K {K}",
+              lambda: kernels.flow_match(goal, state, ctx, kdst, cfg, *args))
+    default_chain = [g.bind(md) for g in default_goals()]
+    for n, chain in cs.KN_SHAPES[shape]:
+        c = cs.kn_case(state, ctx, n, seed=5)
+        chain_goals = goals if chain == "main" else default_chain
+        for i in (len(chain_goals) - 1, 0):
+            checks = kernels.GoalChecks(chain_goals[i], chain_goals[:i],
+                                        cfg.epsilon)
+            tag = f"KN {shape} N {n} {chain} position {i}"
+            timed(tag, lambda: kernels.candidate_eligibility(state, ctx, c,
+                                                             checks))
+
+
 def kernels_child(root: str, launches: bool) -> dict:
     sys.path.insert(0, root)
     import numpy as np
@@ -183,6 +229,7 @@ def kernels_child(root: str, launches: bool) -> dict:
                                                            device=m.device))
         timed(f"KP {shape}",
               lambda: kernels.bulk_drain_fill(goal, state, ctx, cfg, *args))
+        _time_ko_kn(cs, kernels, timed, shape, m, md, state, ctx)
     if hasattr(kernels, "dependent_add_launch"):
         times["dependent add, ns a step"] = cs.dependent_add_ns(
             np.random.default_rng(0))
@@ -192,7 +239,64 @@ def kernels_child(root: str, launches: bool) -> dict:
     return out
 
 
+def kb_shapes() -> dict:
+    """KB's launches on the main path by shape: phase 4's three optimizes
+    (seeds 0, 1, 1) driven by the host loop (``goal_loop="host"``: the
+    graphs' segments run eagerly, so every launch passes its wrapper), each
+    call of ``ordered_segment_sum`` / ``ordered_range_sum`` counted by its
+    shape, and each shape timed (``chip_smoke.time_ms``, a CUDA graph) on
+    its first call's own inputs; beside them, the launch count of the same
+    three optimizes through the goal-loop graphs, which must be the
+    same."""
+    sys.path.insert(0, HERE)
+    import torch
+    import chip_smoke as cs
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.model.spec import flatten_spec
+    model, md = flatten_spec(cs.build_spec(), device="cuda")
+
+    def three(opt):
+        kernels.reset_launch_counts()
+        for seed in (0, 1, 1):
+            opt.optimize(model, md, cs.main_path_options(seed))
+        return cs._launch_counts()["ordered_segment_sum"]
+    graphs = three(cs.main_path_optimizer())
+    counts: dict[tuple, int] = {}
+    first: dict[tuple, tuple] = {}
+
+    def recorded(name, fn):
+        def call(*args, **kw):
+            key = (name, *(tuple(a.shape) if isinstance(a, torch.Tensor)
+                           else a for a in args))
+            counts[key] = counts.get(key, 0) + 1
+            if key not in first:
+                first[key] = (fn, [a.clone() if isinstance(a, torch.Tensor)
+                                   else a for a in args], kw)
+            return fn(*args, **kw)
+        return call
+    originals = {n: getattr(kernels, n)
+                 for n in ("ordered_segment_sum", "ordered_range_sum")}
+    for mod in list(sys.modules.values()):
+        if getattr(mod, "__name__", "").startswith("cruise_control_tpu_torch"):
+            for n, fn in originals.items():
+                if getattr(mod, n, None) is fn:
+                    setattr(mod, n, recorded(n, fn))
+    host = three(cs.main_path_optimizer(goal_loop="host"))
+    shapes = []
+    for key, n in sorted(counts.items(), key=lambda kv: -kv[1]):
+        fn, args, kw = first[key]
+        ms = cs.time_ms(lambda: fn(*args, **kw), graph=True)
+        shapes.append(dict(call=key[0], shape=str(key[1:]), launches=n,
+                           ms=ms, launches_x_ms=n * ms))
+    return dict(card=torch.cuda.get_device_name(0), graph_launches=graphs,
+                host_launches=host, recorded=sum(counts.values()),
+                shapes=shapes)
+
+
 def main(argv) -> int:
+    if argv[:1] == ["--kb-shapes"]:
+        print(json.dumps(kb_shapes(), indent=1), flush=True)
+        return 0
     if argv[:1] == ["--child"]:
         print(json.dumps(child(argv[1], int(argv[2]))), flush=True)
         return 0

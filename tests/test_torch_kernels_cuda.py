@@ -7,6 +7,8 @@ machine without JAX it runs without the repository's conftest:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -1157,3 +1159,248 @@ def test_bulk_drain_fill_wide_brokers(cuda_device, wide_model, P):
                                          *(a.cpu() for a in args))
     for g, w, what in zip(got, want, ("p", "r", "dst", "ok")):
         assert torch.equal(g.cpu(), w), what
+
+
+# ---------------------------------------------------------------------------
+# KO's weight range, KO and KN redesigned: every shape and edge, including
+# B1 20,001, where flow_match and KN read global memory instead of shared
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def small_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import chip_smoke
+    return chip_smoke.build_flat_direct(8, 1_000, 2)
+
+
+def _ko_model(name, pass_models, small_model, wide_model):
+    return {"b9": small_model, "main": pass_models["main"],
+            "scale": pass_models["scale"], "b20001": wide_model}[name]
+
+
+def _same_bits(got, want, what):
+    got = got.cpu()
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    if want.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["b9", "main", "scale", "b20001"])
+@pytest.mark.parametrize("case", ["plain", "batched", "signed zeros",
+                                  "non-finite", "R1", "R3"])
+def test_weight_range_matches_twin(cuda_device, pass_models, small_model,
+                                   wide_model, shape, case):
+    """KO's range launch bit for bit against its twin, every weight form:
+    a context's loads; a stack of three contexts (the fleet's [C, ...]
+    form); loads whose minimum mixes -0.0 and +0.0 (the table keeps
+    +0.0); loads with inf, -inf and NaN (left out); one and three slots."""
+    model, _ = _ko_model(shape, pass_models, small_model, wide_model)
+    lead, foll = model.leader_load, model.follower_load
+    R = model.replica_broker.shape[1]
+    gen = torch.Generator().manual_seed(3)
+    if case == "batched":
+        lead = torch.stack([lead, lead * 2.0, lead.flip(0)])
+        foll = torch.stack([foll, foll * 0.5, foll.flip(0)])
+    elif case == "signed zeros":
+        lead, foll = lead.clone(), foll.clone()
+        rows = torch.randint(0, lead.shape[0], (64,), generator=gen)
+        lead[rows.to(lead.device)] = -0.0
+        foll[:] = torch.where(foll == 0.0, -0.0, foll)
+    elif case == "non-finite":
+        lead, foll = lead.clone(), foll.clone()
+        lead[0, 0], lead[1, 3], foll[2, 1] = float("inf"), float("nan"), \
+            -float("inf")
+    elif case in ("R1", "R3"):
+        R = int(case[1])
+    kernels.reset_launch_counts()
+    got = kernels.replica_weight_range(lead, foll, R)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["replica_weight_range"] == 1
+    want = kernels.replica_weight_range_plain(lead.cpu(), foll.cpu(), R)
+    _same_bits(got, want, f"{shape} {case}")
+    if case == "signed zeros":
+        assert not bool(torch.signbit(got.cpu()[..., :4, 0]).any())
+
+
+_ALL_FORMS = ["CpuUsageDistributionGoal", *_FLOW_GOALS]
+
+
+def _ko_both(goal, state, ctx, cfg, planes, K, dev, seed=5):
+    """KO's two launches on the card and the twins on the CPU from the same
+    inputs: (got, want) of (prio, p, r, dst, valid)."""
+    from cruise_control_tpu_torch.utils.ordered import top_k
+    keys = [_random.subkeys(_random.PRNGKey(seed, device=d))
+            for d in (dev, "cpu")]
+    cs, cc = _cpu(state), _cpu(ctx)
+    cplanes = [t.cpu() for t in planes]
+    kernels.reset_launch_counts()
+    prio = kernels.flow_priority(goal, state, ctx, keys[0][0], cfg, *planes)
+    want_prio = kernels.flow_priority_plain(goal, cs, cc, keys[1][0], cfg,
+                                            *cplanes)
+    _same_bits(prio, want_prio, "prio")
+    vals, idx = top_k(prio.reshape(-1), K)
+    values, lo, up, _excess, deficit = planes
+    got = kernels.flow_match(goal, state, ctx, keys[0][1], cfg, values, lo,
+                             up, deficit, vals, idx)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flow_priority"] == 1
+    assert kernels.LAUNCHES["flow_match"] == 1
+    want = kernels.flow_match_plain(goal, cs, cc, keys[1][1], cfg,
+                                    cplanes[0], cplanes[1], cplanes[2],
+                                    cplanes[4], vals.cpu(), idx.cpu())
+    for g, w, what in zip(got, want, ("p", "r", "dst", "valid")):
+        assert torch.equal(g.cpu(), w), what
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["b9", "scale", "b20001"])
+@pytest.mark.parametrize("K", [1, 512, 1_024])
+@pytest.mark.parametrize("name", _ALL_FORMS)
+def test_flow_candidates_every_shape(cuda_device, pass_models, small_model,
+                                     wide_model, shape, K, name):
+    """KO bit for bit against its twins for every weight form at B1 9,
+    1,001 and 20,001 (flow_match over its global workspace), K 1, 512 and
+    1,024."""
+    import chip_smoke
+    from cruise_control_tpu_torch.analyzer import SearchConfig
+    model, md = _ko_model(shape, pass_models, small_model, wide_model)
+    state, ctx = chip_smoke.pass_state(model, md, dead=(3,))
+    B1 = state.util.shape[0]
+    lib = kernels.load_library()
+    assert bool(lib.cc_flow_match_workspace(B1, K, 2)) == (shape == "b20001")
+    cfg = SearchConfig(**dict(chip_smoke.MAIN_SEARCH,
+                              num_replica_candidates=K))
+    goal = _goal(name)
+    _ko_both(goal, state, ctx, cfg, goal.propose_planes(state, ctx), K,
+             cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["b9", "main", "b20001"])
+@pytest.mark.parametrize("case", ["one destination", "no midpoint room",
+                                  "re-route"])
+@pytest.mark.parametrize("name", ["ReplicaDistributionGoal",
+                                  "DiskUsageDistributionGoal",
+                                  "LeaderReplicaDistributionGoal",
+                                  "DiskCapacityGoal"])
+def test_flow_candidates_edges(cuda_device, pass_models, small_model,
+                               wide_model, shape, case, name):
+    """KO bit for bit against its twins at K 512 where the match takes
+    its rare branches: every destination refused but one; no destination
+    below its midpoint (the headroom falls back to the ceiling); the
+    brokers' priorities led by the broker that hosts most of the top
+    candidates, with room for all of them (their re-route to the first
+    legal broker in priority order)."""
+    import chip_smoke
+    from cruise_control_tpu_torch.analyzer import SearchConfig
+    from cruise_control_tpu_torch.utils.ordered import top_k
+    model, md = _ko_model(shape, pass_models, small_model, wide_model)
+    state, ctx = chip_smoke.pass_state(model, md, dead=(3,))
+    B1 = state.util.shape[0]
+    K = 512
+    cfg = SearchConfig(**dict(chip_smoke.MAIN_SEARCH,
+                              num_replica_candidates=K))
+    goal = _goal(name)
+    values, lo, up, excess, deficit = goal.propose_planes(state, ctx)
+    if case == "one destination":
+        dest = torch.zeros_like(ctx.dest_allowed)
+        dest[B1 // 2] = True
+        ctx = ctx.replace(dest_allowed=dest)
+    elif case == "no midpoint room":
+        lo = torch.full_like(values, -float("inf"))
+        up = values * 1.5
+    else:
+        prio = kernels.flow_priority(
+            goal, state, ctx, _random.subkeys(_random.PRNGKey(
+                5, device=cuda_device))[0], cfg, values, lo, up, excess,
+            deficit)
+        _, idx = top_k(prio.reshape(-1), K)
+        counts = state.rb[idx // state.rb.shape[1]].reshape(-1).bincount(
+            minlength=B1)
+        hub = int(counts.masked_fill(~ctx.dest_allowed, -1).argmax())
+        deficit = deficit.clone()
+        deficit[hub] = 1.0
+        lo = torch.full_like(values, -float("inf"))
+        up = values.clone()
+        up[hub] = values[hub] + 1e9
+    planes = _planes_like(values, lo, up, excess, deficit)
+    p, r, dst, valid = _ko_both(goal, state, ctx, cfg, planes, K,
+                                cuda_device)
+    if case == "one destination":
+        assert bool((dst[valid] == B1 // 2).all())
+    if case == "re-route" and not goal.upper_only:
+        hosted = (state.rb[p] == hub).any(dim=1)
+        assert bool((hosted & (dst != hub)).any())
+        assert bool((~hosted & (dst == hub)).any())
+
+
+def _planes_like(values, *planes):
+    return [values, *(torch.broadcast_to(t, values.shape).contiguous()
+                      for t in planes)]
+
+
+def _goal_table_48(md):
+    """A pass goal and 47 earlier goals of the interval family (the
+    catalog's, repeated): a 48-row table, KN's most."""
+    from cruise_control_tpu_torch.analyzer import goals_by_name
+    names = ["ReplicaDistributionGoal", "DiskUsageDistributionGoal",
+             "NetworkInboundUsageDistributionGoal",
+             "NetworkOutboundUsageDistributionGoal",
+             "CpuUsageDistributionGoal", "LeaderReplicaDistributionGoal",
+             "PotentialNwOutGoal", "DiskCapacityGoal", "CpuCapacityGoal",
+             "NetworkInboundCapacityGoal", "NetworkOutboundCapacityGoal",
+             "ReplicaCapacityGoal", "LeaderBytesInDistributionGoal"]
+    goals = [g.bind(md) for g in goals_by_name(names,
+                                                _tight_constraint())]
+    chain = [goals[k % len(goals)] for k in range(48)]
+    return chain[-1], chain[:-1]
+
+
+def _tight_constraint():
+    from cruise_control_tpu_torch.analyzer import BalancingConstraint
+    return BalancingConstraint(**_TIGHT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n", [("main", 1), ("main", 512),
+                                     ("main", 16_384), ("b20001", 1_024)])
+@pytest.mark.parametrize("chain", ["main", "default", "table 48"])
+def test_candidate_eligibility_every_shape(cuda_device, pass_models,
+                                           wide_model, shape, n, chain):
+    """KN bit for bit against its twin at N 1, 512 and 16,384 and at B1
+    20,001 (its planes read from global memory): every position of the
+    main chain and of the default chain, and a 48-row table."""
+    import chip_smoke
+    from cruise_control_tpu_torch.analyzer import default_goals, goals_by_name
+    model, md = wide_model if shape == "b20001" else pass_models[shape]
+    state, ctx = chip_smoke.pass_state(model, md, dead=(3,))
+    c = chip_smoke.kn_case(state, ctx, n, seed=n)
+    if chain == "table 48":
+        goal, earlier = _goal_table_48(md)
+        positions = [(goal, earlier)]
+    else:
+        goals = [g.bind(md) for g in (default_goals() if chain == "default"
+                                      else goals_by_name(chip_smoke.GOALS))]
+        positions = [(g, goals[:i]) for i, g in enumerate(goals)]
+    cs, cc, ccand = _cpu(state), _cpu(ctx), _cpu(c)
+    lib = kernels.load_library()
+    staged = []
+    for goal, earlier in positions:
+        checks = kernels.GoalChecks(goal, earlier, 1e-6)
+        if chain == "table 48":
+            assert checks.table.n == kernels.MAX_GOAL_ROWS
+        staged.append(bool(lib.cc_eligibility_staged(
+            ctypes.byref(checks.table), state.util.shape[0])))
+        kernels.reset_launch_counts()
+        got = kernels.candidate_eligibility(state, ctx, c, checks)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["candidate_eligibility"] == 1
+        want = kernels.candidate_eligibility_plain(cs, cc, ccand, checks)
+        for g, w, what in zip(got, want, ("eligible", "delta")):
+            _same_bits(g, w, f"{goal.name} {what}")
+    # at B1 20,001 the longer tables' planes outgrow shared memory
+    assert all(staged) if shape != "b20001" else not staged[-1]
