@@ -782,6 +782,19 @@ def phase_kernels(model, md, main_arrays: dict, scale_model, scale_md,
         fail("ordered_range_sum differs from its twin on runs of 1-32 rows")
     log(f"KB ordered_range_sum {len(lengths)} runs of 1-32 rows: bit-exact "
         f"vs twin")
+    # the range form's shapes on the main path: a goal's violation row of
+    # 128 brokers into 4 windows, then the 4 window sums into 1
+    for n, w in ((128, 32), (4, 4)):
+        x = torch.from_numpy(rng.random(n).astype(np.float32) * 100).to(dev)
+        offsets = torch.arange(0, n + 1, w, device=dev)
+        ms = time_ms(lambda: kernels.ordered_range_sum(x, offsets),
+                     graph=True)
+        plain = time_ms(lambda: kernels.ordered_range_sum_plain(x, offsets),
+                        groups=3)
+        b_ms, b_by = bound(n * 4 + offsets.numel() * 8 + (n // w) * 4, n)
+        log(f"KB ordered_range_sum {n} rows into {n // w} windows: "
+            f"{ms:.5f} ms, twin {plain:.4f} ms, bound {b_ms:.7f} ms "
+            f"({b_by})")
 
     # --- KC: collective-guard flows at M = apply_per_iter.
     B1 = main_arrays["broker_capacity"].shape[0] + 1
@@ -1070,31 +1083,16 @@ def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms,
         # min/max folds of ~4 operations a partition row
         row("replica_weight_range", f"6 forms, [P={P}, 4] x 2, R={R}",
             _max_err([got], [want]), ms, plain, P * 32 + 48, P * 44)
-        # --- KN: the first and last positions of the main path's chain and
-        # of the default chain (first: the kernels line's row, N 1,024 at
-        # the main chain's last position)
-        for n, chain in KN_SHAPES[shape]:
-            c = kn_case(state, ctx, n, seed=5)
-            ccand = cpu(c)
-            chain_goals = goals if chain == "main" else default_chain
-            for i in (len(chain_goals) - 1, 0):
-                checks = kernels.GoalChecks(chain_goals[i], chain_goals[:i],
-                                            cfg.epsilon)
-                got = kernels.candidate_eligibility(state, ctx, c, checks)
-                want = kernels.candidate_eligibility_plain(cs, cc, ccand,
-                                                           checks)
-                ms = time_ms(lambda: kernels.candidate_eligibility(
-                    state, ctx, c, checks), graph=True)
-                plain = time_ms(lambda: kernels.candidate_eligibility_plain(
-                    state, ctx, c, checks), groups=3)
-                # each candidate's fields and gathered rows, the metric
-                # planes over B1 once, the verdicts and deltas written
-                nbytes = n * (106 + 64 + 5) + B1 * 40
-                row("candidate_eligibility",
-                    f"N={n}, {chain} chain position {i} ({i} earlier "
-                    f"goals, {checks.table.n} table rows), B1={B1}",
-                    _max_err(got, want), ms, plain, nbytes,
-                    n * (30 + 15 * (i + 1)) + B1 * (i + 1))
+        # --- KN at KN_SHAPES' chain positions (first: the kernels line's
+        # row, N 1,024 at the main chain's last position)
+        for n, chain, positions in KN_SHAPES[shape]:
+            if chain == "partb":
+                st, cx, chain_goals = partb_pass(state.rb.device)
+            else:
+                st, cx = state, ctx
+                chain_goals = goals if chain == "main" else default_chain
+            _kernel_eligibility(row, st, cx, chain, chain_goals, positions,
+                                n, cfg.epsilon)
         # --- KO: a util goal's and a count goal's priorities and
         # destination match (first: the kernels line's rows)
         K = cfg.num_replica_candidates if shape == "main" else 1_024
@@ -1156,14 +1154,103 @@ def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms,
             chain=kp_chain(args[5], n_slots, B1))
 
 
-#: KN's phase-3 shapes: (N candidates, chain) — a proposal's 1,024 (the
-#: kernels line's row), an apply round's 512 and a drain round's 16,384,
-#: each at the first and last positions of the main chain and of the
-#: default chain; the scale cell's proposal
-KN_SHAPES = {"main": ((1_024, "main"), (512, "main"), (16_384, "main"),
-                      (1_024, "default"), (512, "default"),
-                      (16_384, "default")),
-             "scale": ((1_024, "main"),)}
+#: KN's phase-3 shapes: (N candidates, chain, positions) — a proposal's
+#: 1,024 (the kernels line's row), an apply round's 512 and a drain
+#: round's 16,384, each at the first and last positions of the main chain
+#: and of the default chain; the default chain's rows outside the
+#: interval family (RackAware at 1, TopicReplica the pass goal at 13 and
+#: an earlier one at 15); every position of the part-B chain (broker
+#: sets, interested topics, rack spread, preferred leaders) on phase 13
+#: (d)'s cluster; the scale cell's proposal at the main chain's first and
+#: last positions and the default chain's last
+KN_SHAPES = {"main": ((1_024, "main", (3, 0)), (512, "main", (3, 0)),
+                      (16_384, "main", (3, 0)),
+                      (1_024, "default", (15, 13, 1, 0)),
+                      (512, "default", (15, 0)),
+                      (16_384, "default", (15, 0)),
+                      (1_024, "partb", (3, 2, 1, 0))),
+             "scale": ((1_024, "main", (3, 0)), (1_024, "default", (15,)))}
+
+
+def partb_pass(device):
+    """(state, ctx, goals) of phase 13 (d)'s cluster in PARTB_SETS broker
+    sets as a pass sees it, broker 3 dead, and the part-B chain bound to
+    it (``PARTB_CONSTRAINT``: the t1* topics interested)."""
+    from cruise_control_tpu_torch.analyzer import (BalancingConstraint,
+                                                   goals_by_name)
+    from cruise_control_tpu_torch.model.spec import flatten_spec
+    sets_model, sets_md = flatten_spec(build_spec(broker_sets=PARTB_SETS),
+                                       device=device)
+    state, ctx = pass_state(sets_model, sets_md, dead=(3,))
+    cst = BalancingConstraint(**PARTB_CONSTRAINT)
+    return state, ctx, [g.bind(sets_md)
+                        for g in goals_by_name(PARTB_CHAIN, cst)]
+
+
+def kn_bytes_ops(checks, n, B1, T, R):
+    """KN's bound inputs: bytes (each candidate's fields and gathered rows,
+    and its two partitions' topics where a row reads topics; the planes
+    over B1, racks and broker sets included, once; each topic table a row
+    reads, once: topic_counts whole, since the bounds sum it,
+    topic_leader_counts at most a candidate's four cells, the interested
+    mask and the topic sets) and operations (~15 a row a candidate, a
+    row's bounds over B1, the topic bounds' sums over [T, B1])."""
+    from cruise_control_tpu_torch import kernels
+    kinds = [kernels.ROW_KINDS[checks.rows[k].kind]
+             for k in range(checks.n)]
+    topic = any(k in ("topic_replica", "topic_leaders", "broker_set")
+                for k in kinds)
+    racks = sum(k in ("rack_aware", "rack_spread") for k in kinds)
+    nbytes = n * (106 + 64 + 5 + (8 if topic else 0)) + B1 * 48
+    if "topic_replica" in kinds:
+        nbytes += T * B1 * 4
+    if "topic_leaders" in kinds:
+        nbytes += min(n * 16, T * B1 * 4) + T
+    if "broker_set" in kinds:
+        nbytes += T * 4
+    ops = (n * (30 + 15 * checks.n + 4 * R * R * racks) + B1 * checks.n
+           + (T * B1 if "topic_replica" in kinds else 0))
+    return nbytes, ops
+
+
+def _kernel_eligibility(row, state, ctx, chain, chain_goals, positions, n,
+                        epsilon):
+    """KN bit for bit against its twin on the CPU at ``positions`` of
+    ``chain_goals`` for ``kn_case``'s n candidates, timed (a CUDA graph of
+    the wrapper: its launches) beside the twin on the card and its
+    bound."""
+    import torch
+    from cruise_control_tpu_torch import kernels
+    c = kn_case(state, ctx, n, seed=5)
+    cs, cc, ccand = (to_device(x, "cpu") for x in (state, ctx, c))
+    B1 = state.util.shape[0]
+    R = state.rb.shape[1]
+    T = 0 if state.topic_counts is None else state.topic_counts.shape[0]
+    for i in positions:
+        checks = kernels.GoalChecks(chain_goals[i], chain_goals[:i], epsilon)
+        if checks.outside:
+            fail(f"KN has no row for {[g.name for g in checks.outside]}")
+        got = kernels.candidate_eligibility(state, ctx, c, checks)
+        want = kernels.candidate_eligibility_plain(cs, cc, ccand, checks)
+        torch.cuda.synchronize()
+        err = _max_err(got, want)
+        if err == 0.0 and not torch.equal(got[1].cpu().view(torch.int32),
+                                          want[1].view(torch.int32)):
+            fail(f"candidate_eligibility's deltas differ from its twin's "
+                 f"in the sign of a zero ({chain} chain position {i}, "
+                 f"N={n})")
+        ms = time_ms(lambda: kernels.candidate_eligibility(
+            state, ctx, c, checks), graph=True)
+        plain = time_ms(lambda: kernels.candidate_eligibility_plain(
+            state, ctx, c, checks), groups=3)
+        kinds = sorted({kernels.ROW_KINDS[checks.rows[k].kind]
+                        for k in range(checks.n)} - {"interval", "hard_cap"})
+        row("candidate_eligibility",
+            f"N={n}, {chain} chain position {i} ({chain_goals[i].name}; "
+            f"{i} earlier goals, {checks.n} table rows"
+            f"{', ' + '/'.join(kinds) if kinds else ''}), B1={B1}",
+            err, ms, plain, *kn_bytes_ops(checks, n, B1, T, R))
+
 #: KM's phase-3 shapes: (model, tag, case) — an apply round's M 512 (the
 #: kernels line's row), km_case's N 16,384, the same with every source on
 #: broker 94 (a drain round's hot chain), a real drain round of the main
@@ -3469,6 +3556,7 @@ def phase_default_chain(model, md, scale_model, scale_md):
                if not launches[k]]
     if missing:
         fail(f"(a) kernels never launched by the default chain: {missing}")
+    _default_chain_kn(model, md, launches["candidate_eligibility"])
     rest = default_chain_rest(pkg, model, md)
     log(f"(c) N-1 sweep with the default goals: {rest['walls']['n1']:.3f}s")
     _check_summary("(c) N-1, default goals", rest["c"], REFERENCE_DEFAULT_N1)
@@ -3503,6 +3591,50 @@ def phase_default_chain(model, md, scale_model, scale_md):
         fail(f"(b) hard goals left violated {bad}; goals ended worse than "
              f"they started {worse}")
     return launches, first
+
+
+def _default_chain_kn(model, md, launches):
+    """Phase 13 (a)'s KN: its wrapper calls in the two runs, and at the
+    default chain's last position (N 1,024, broker 3 dead) the wrapper's
+    time (a CUDA graph of the call) and the device launches of one call,
+    which must be KN's and the topic rows' bounds' alone."""
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.analyzer import SearchConfig, default_goals
+    state, ctx = pass_state(model, md, dead=(3,))
+    goals = [g.bind(md) for g in default_goals()]
+    checks = kernels.GoalChecks(goals[-1], goals[:-1],
+                                SearchConfig(**MAIN_SEARCH).epsilon)
+    c = kn_case(state, ctx, 1_024, seed=5)
+
+    def call():
+        return kernels.candidate_eligibility(state, ctx, c, checks)
+    call()
+    # the profiler records fewer launches than a window makes (one call's
+    # window has read as none), so the launches are counted over a window
+    # of calls, beside what one call's window records and the wrapper's
+    # own count
+    _, one = _device_ops(call)
+    reps = 20
+    before = kernels.LAUNCHES["candidate_eligibility"]
+    _, ops = _device_ops(lambda: [call() for _ in range(reps)])
+    made = kernels.LAUNCHES["candidate_eligibility"] - before
+    counts = {o: ops.count(o) for o in sorted(set(ops))}
+    ms = time_ms(call, graph=True)
+    log(f"(a) KN on the default chain: {launches} wrapper calls in the two "
+        f"runs; at the last position (N 1,024, {checks.n} table rows) the "
+        f"wrapper {ms:.5f} ms; one call's window recorded {len(one)} device "
+        f"launches; {reps} calls ({made} by the wrapper's count) recorded "
+        f"{counts}")
+    if made != reps:
+        fail(f"(a) KN's wrapper counted {made} launches in {reps} calls")
+    kinds = {k for o in counts for k in ("eligibility_kernel",
+                                         "topic_bounds_kernel") if k in o}
+    if (len(counts) != 2 or kinds != {"eligibility_kernel",
+                                      "topic_bounds_kernel"}
+            or max(counts.values()) > reps):
+        fail(f"(a) KN's wrapper at the default chain's last position "
+             f"launched {counts} in {reps} calls: KN and the topic bounds "
+             f"once a call and nothing else expected")
 
 
 def _loop_outcome(res):

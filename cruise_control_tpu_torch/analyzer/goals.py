@@ -243,9 +243,10 @@ class GoalKernel:
         return torch.ones_like(ctx.broker_alive)
 
     def eligibility_row(self):
-        """This goal's row of KN's goal table (``kernels.GoalChecks``), or
-        None where its ``accepts`` and ``delta`` run in torch and reach KN
-        as a mask and an array."""
+        """This goal's row of KN's goal table (``kernels.GoalChecks``): a
+        dict of ``kernels._GoalRow``'s fields, ``kind`` one of
+        ``kernels.ROW_KINDS`` and ``aux`` a bound array the row reads;
+        None for a goal KN has no row kind for."""
         return None
 
     def collective_guard(self, state: SearchState, ctx: SearchContext,
@@ -363,10 +364,10 @@ class IntervalGoal(GoalKernel):
         (2 - t), avg * t]), 'capacity' (the capacity column times t) or
         'constant' (t); ``hard_cap``: CapacityGoal's acceptance."""
         column = self._cap_column()
-        return dict(metric=self.metric_code(),
+        return dict(kind="hard_cap" if hard_cap else "interval",
+                    metric=self.metric_code(),
                     form=("average", "capacity", "constant").index(form),
                     upper_only=self.upper_only, integer=integer,
-                    accepts=int(hard_cap),
                     cap_col=column[0] if form == "capacity" else 0,
                     t=t, lower=2.0 - t)
 
@@ -1061,6 +1062,9 @@ class RackAwareGoal(GoalKernel):
         return torch.where(is_move, a1 == 0,
                            torch.where(is_swap, (a1 == 0) & (a2 == 0), True))
 
+    def eligibility_row(self):
+        return dict(kind="rack_aware")
+
     def collective_guard(self, state, ctx, c, earlier):
         # Partition-local: the engine already serializes shared rows.
         return _ones(c)
@@ -1154,6 +1158,9 @@ class RackAwareDistributionGoal(GoalKernel):
         is_move, is_swap = _kinds(c)
         return torch.where(is_move, d1 <= 0,
                            torch.where(is_swap, (d1 <= 0) & (d2 <= 0), True))
+
+    def eligibility_row(self):
+        return dict(kind="rack_spread")
 
     def collective_guard(self, state, ctx, c, earlier):
         return _ones(c)                                  # partition-local
@@ -1371,6 +1378,16 @@ class TopicReplicaDistributionGoal(GoalKernel):
                | (src_t2_after <= tc[t2, c.dst] - m2))
         return ok1 & ok2
 
+    def eligibility_row(self):
+        """The gap constants as :meth:`_bounds` forms them: ``threshold -
+        1.0`` on the host, each rounded to float32 where it meets the
+        float32 average."""
+        cst = self.constraint
+        return dict(kind="topic_replica",
+                    t=cst.topic_replica_balance_threshold - 1.0,
+                    lower=float(cst.topic_replica_balance_min_gap),
+                    hi=float(cst.topic_replica_balance_max_gap))
+
     def collective_guard(self, state, ctx, c, earlier):
         # Net flow per (topic, broker) cell, cell id topic * B1 + broker:
         # candidates interact only where an earlier one moves a replica of
@@ -1527,6 +1544,12 @@ class MinTopicLeadersPerBrokerGoal(GoalKernel):
             return ~active | (d >= 0) | (tlc[t, b] + d >= self.min_count)
         return ok(t1, c.src, -d1) & ok(t2, c.dst, -d2)
 
+    def eligibility_row(self):
+        if self.interested_topics is None:
+            return dict(kind="nothing")
+        return dict(kind="topic_leaders", param=int(self.min_count),
+                    aux=self.interested_topics)
+
     def collective_guard(self, state, ctx, c, earlier):
         if self.interested_topics is None:
             return _ones(c)
@@ -1627,6 +1650,12 @@ class BrokerSetAwareGoal(GoalKernel):
         is_move, is_swap = _kinds(c)
         return torch.where(is_move, ok1, torch.where(is_swap, ok1 & ok2, True))
 
+    def eligibility_row(self):
+        if self.topic_set is None:
+            return dict(kind="nothing")
+        return dict(kind="broker_set", param=len(self.topic_set.host),
+                    aux=self.topic_set)
+
     def collective_guard(self, state, ctx, c, earlier):
         return _ones(c)                       # a per-replica property
 
@@ -1658,6 +1687,9 @@ class PreferredLeaderElectionGoal(GoalKernel):
 
     def accepts(self, state, ctx, c):
         return _ones(c)
+
+    def eligibility_row(self):
+        return dict(kind="preferred_leader")
 
     def collective_guard(self, state, ctx, c, earlier):
         return _ones(c)              # partition-local

@@ -72,10 +72,11 @@ plain torch took dozens):
   applied out of place or into the caller's buffers: the slot writes, the
   float aggregates in KB's order (the rows bucketed by broker, then a
   warp a broker), the integer counts and topic tables;
-- **KN** ``candidate_eligibility`` — base legality, the acceptance of the
-  chain's interval goals (a table, :class:`GoalChecks`), the pass goal's
-  delta and the verdict, a thread a candidate, the broker planes the
-  table reads staged in each block's shared memory;
+- **KN** ``candidate_eligibility`` — base legality, the acceptance of
+  every earlier goal of the chain (a table of rows, one kind a goal form,
+  :class:`GoalChecks`), the pass goal's delta and the verdict, a thread a
+  candidate, the broker planes the table reads staged in each block's
+  shared memory (the topic rows' bounds a launch of their own ahead);
 - **KO** ``flow_priority`` / ``flow_match`` — an interval goal's flow
   candidates around the top-k: the [P, R] priorities with their noise
   (a map over the card, ``_unit01``'s range read from the context's
@@ -299,10 +300,11 @@ def load_library():
             lib.cc_apply_group.argtypes = [p, p]
             lib.cc_apply_runs_size.argtypes = [i64, i64]
             lib.cc_apply_runs_size.restype = i64
-            lib.cc_candidate_eligibility.argtypes = [p, p, p]
+            lib.cc_candidate_eligibility.argtypes = [p, p, ctypes.c_int32,
+                                                     ctypes.c_float, p]
             lib.cc_eligibility_scratch.argtypes = [i64]
             lib.cc_eligibility_scratch.restype = i64
-            lib.cc_eligibility_staged.argtypes = [p, i64]
+            lib.cc_eligibility_staged.argtypes = [p, ctypes.c_int32, i64]
             lib.cc_eligibility_staged.restype = ctypes.c_int
             lib.cc_weight_range.argtypes = [p, p]
             lib.cc_weight_range_scratch.argtypes = [i64]
@@ -353,7 +355,7 @@ def _pass_library():
     if not getattr(lib, "_cc_structs_checked", False):
         for fn, struct in (("cc_apply_args_size", _ApplyArgs),
                            ("cc_elig_args_size", _EligArgs),
-                           ("cc_goal_table_size", _GoalTable),
+                           ("cc_goal_row_size", _GoalRow),
                            ("cc_range_args_size", _RangeArgs),
                            ("cc_priority_args_size", _PriorityArgs),
                            ("cc_match_args_size", _MatchArgs),
@@ -1883,52 +1885,90 @@ def apply_group(state, ctx, c, do, out=None):
 # KN: a goal pass's candidate eligibility
 # ---------------------------------------------------------------------------
 
-#: goal rows KN's table holds (``csrc/eligibility.cu:kMaxGoals``)
+#: goal rows one launch of KN holds (``csrc/eligibility.cu:kMaxGoals``); a
+#: longer chain position is read in chunks of this many rows
 MAX_GOAL_ROWS = 48
+#: topic rows of distinct gap constants one chain position may hold
+#: (``csrc/eligibility.cu:kMaxTopicSlots``)
+MAX_TOPIC_SLOTS = 8
+#: KN's row kinds, by their code (``csrc/eligibility.cu:Kind``): the
+#: interval family's two acceptance forms, then one a goal outside it
+ROW_KINDS = ("interval", "hard_cap", "rack_aware", "rack_spread",
+             "topic_replica", "topic_leaders", "broker_set",
+             "preferred_leader", "nothing")
+#: kinds that accept every candidate: no row as an earlier goal
+_ACCEPTS_ALL = ("preferred_leader", "nothing")
 
 _GoalRow = _struct("_GoalRow", [(f, _I32) for f in (
-    "metric", "form", "upper_only", "integer", "accepts", "cap_col")]
-    + [("t", _F32), ("lower", _F32)])
-_GoalTable = _struct("_GoalTable", [
-    ("rows", _GoalRow * MAX_GOAL_ROWS), ("n", _I32), ("has_pass", _I32),
-    ("neg_eps", _F32)])
+    "kind", "metric", "form", "upper_only", "integer", "cap_col", "param")]
+    + [("t", _F32), ("lower", _F32), ("hi", _F32)], "aux")
 _EligArgs = _struct(
     "_EligArgs",
     "rb off util cnt lead pot lni movable dest lead_dest lead_movable bvalid "
     "balive cap p r p2 r2 src dst kind valid must d_util_src d_util_dst "
-    "d_cnt d_lead d_pot d_lni extra_ok extra_delta elig delta",
-    [(f, _I64) for f in ("P", "R", "B1", "N")])
+    "d_cnt d_lead d_pot d_lni pos rack bset ptopic tc tlc tbounds elig delta",
+    [(f, _I64) for f in ("P", "R", "B1", "N", "T")])
 
 
 class GoalChecks:
     """What a chain position checks a candidate against: the pass goal
     (its delta) and the earlier goals (their acceptance), with
-    ``epsilon``. The goals with an ``eligibility_row`` (the IntervalGoal
-    family) form KN's table, built once here; the others' ``accepts`` and
-    ``delta`` run in torch and reach KN as a mask and an array."""
+    ``epsilon``. Every goal of the catalog has a row of KN's table
+    (``eligibility_row``), built once here: rows[0] the pass goal's, then
+    one an earlier goal's, but for earlier goals that accept every
+    candidate. ``outside`` lists the goals with no row (a goal kind KN does
+    not know), which KN refuses; the twin takes any goal."""
 
     def __init__(self, goal, prev_goals, epsilon: float):
         self.goal = goal
         self.prev_goals = list(prev_goals)
         self.epsilon = float(epsilon)
-        rows = []
-        pass_row = goal.eligibility_row()
-        if pass_row is not None:
-            rows.append(pass_row)
-        #: earlier goals whose acceptance runs in torch
+        #: goals with no row of KN's table
         self.outside = []
-        for g in self.prev_goals:
+        rows = []
+        for k, g in enumerate([goal, *self.prev_goals]):
             row = g.eligibility_row()
-            if row is None or len(rows) == MAX_GOAL_ROWS:
+            if row is None:
                 self.outside.append(g)
-            else:
+            elif k == 0 or row["kind"] not in _ACCEPTS_ALL:
                 rows.append(row)
-        self.has_pass = pass_row is not None
-        self.table = _GoalTable(n=len(rows), has_pass=int(self.has_pass),
-                                neg_eps=-self.epsilon)
+        #: the topic rows' distinct (threshold - 1, min gap, max gap): the
+        #: slots of the launch's topic bounds
+        self.topic_gaps = []
+        self.n = len(rows)
+        self.rows = (_GoalRow * max(self.n, 1))()
+        #: (row index, the goal's bound array) of the rows that read one
+        self._aux = []
         for k, row in enumerate(rows):
-            self.table.rows[k] = _GoalRow(**{f: row[f] for f, _ in
-                                             _GoalRow._fields_})
+            row = dict(row)
+            row["kind"] = ROW_KINDS.index(row["kind"])
+            if row["kind"] == ROW_KINDS.index("topic_replica"):
+                gaps = tuple(float(_F32(row[f]).value)
+                             for f in ("t", "lower", "hi"))
+                if gaps not in self.topic_gaps:
+                    self.topic_gaps.append(gaps)
+                row["param"] = self.topic_gaps.index(gaps)
+            aux = row.pop("aux", None)
+            if aux is not None:
+                self._aux.append((k, aux))
+            self.rows[k] = _GoalRow(**row)
+        self._on = {}
+
+    def rows_on(self, device):
+        """The rows with each bound array's pointer on ``device`` (a copy
+        of ``rows`` a device, the arrays uploaded once), and the arrays'
+        lengths by row."""
+        got = self._on.get(device)
+        if got is None:
+            rows = (_GoalRow * max(self.n, 1))()
+            ctypes.memmove(rows, self.rows, ctypes.sizeof(self.rows))
+            lengths = {}
+            for k, aux in self._aux:
+                t = aux.on(device)
+                rows[k].aux = t.data_ptr()
+                lengths[k] = t.shape[0]
+            got = self._on[device] = (rows, lengths)
+        return got
 
 
 def candidate_eligibility_plain(state, ctx, c, checks: GoalChecks):
@@ -1945,27 +1985,38 @@ def candidate_eligibility_plain(state, ctx, c, checks: GoalChecks):
 def candidate_eligibility(state, ctx, c, checks: GoalChecks):
     """(bool[N] eligible, float32[N] the pass goal's delta) of candidates
     ``c`` against ``state``, ``ctx`` and the chain position ``checks`` —
-    see ``csrc/eligibility.cu``."""
+    see ``csrc/eligibility.cu`` (one launch, a chunk of rows each past
+    ``MAX_GOAL_ROWS``, and the topic rows' bounds ahead where there is
+    one)."""
     N = c.p.shape[0]
     if _on_cpu(state.rb, c.p):
         return candidate_eligibility_plain(state, ctx, c, checks)
+    if checks.outside:
+        raise ValueError(f"KN has no row for "
+                         f"{[g.name for g in checks.outside]}")
+    if len(checks.topic_gaps) > MAX_TOPIC_SLOTS:
+        raise ValueError(f"KN takes at most {MAX_TOPIC_SLOTS} topic rows of "
+                         f"distinct gaps a chain position")
     P, R = state.rb.shape
     B1 = state.util.shape[0]
-    extra_ok = None
-    for g in checks.outside:
-        acc = g.accepts(state, ctx, c)
-        extra_ok = acc if extra_ok is None else extra_ok & acc
-    extra_delta = (None if checks.has_pass
-                   else checks.goal.delta(state, ctx, c).to(torch.float32)
-                   .contiguous())
+    tc, tlc = state.topic_counts, state.topic_leader_counts
+    T = tc.shape[0] if tc is not None else (
+        tlc.shape[0] if tlc is not None else 0)
+    dev = state.rb.device
+    rows, lengths = checks.rows_on(dev)
+    for k, n in lengths.items():
+        if rows[k].kind == ROW_KINDS.index("topic_leaders") and n != T:
+            raise ValueError(f"{checks.goal.name}'s chain: an interested "
+                             f"topic mask of {n} topics against T {T}")
     i64, i32, f32 = torch.int64, torch.int32, torch.float32
 
     def as_(t, dtype):
-        return t.to(dtype).contiguous()
+        return None if t is None else t.to(dtype).contiguous()
 
-    dev = state.rb.device
     elig = torch.empty(N, dtype=torch.bool, device=dev)
     delta = torch.empty(N, dtype=f32, device=dev)
+    tbounds = (torch.empty((len(checks.topic_gaps), 2, T), dtype=f32,
+                           device=dev) if checks.topic_gaps else None)
     ins = dict(
         rb=as_(state.rb, i64), off=state.offline.contiguous(),
         util=as_(state.util, f32), cnt=as_(state.replica_count, i32),
@@ -1985,13 +2036,14 @@ def candidate_eligibility(state, ctx, c, checks: GoalChecks):
         d_util_dst=_aligned16(as_(c.d_util_dst, f32)),
         d_cnt=as_(c.d_cnt, i32),
         d_lead=as_(c.d_lead, i32), d_pot=as_(c.d_pot, f32),
-        d_lni=as_(c.d_lni, f32),
-        extra_ok=None if extra_ok is None else extra_ok.contiguous(),
-        extra_delta=extra_delta)
-    args = _fill(_EligArgs(P=P, R=R, B1=B1, N=N), **ins, elig=elig,
+        d_lni=as_(c.d_lni, f32), pos=as_(state.pos, i64),
+        rack=as_(ctx.broker_rack, i32), bset=as_(ctx.broker_set, i32),
+        ptopic=as_(ctx.partition_topic, i32), tc=as_(tc, i32),
+        tlc=as_(tlc, i32), tbounds=tbounds)
+    args = _fill(_EligArgs(P=P, R=R, B1=B1, N=N, T=T), **ins, elig=elig,
                  delta=delta)
     rc = _pass_library().cc_candidate_eligibility(
-        ctypes.byref(args), ctypes.byref(checks.table), _stream())
+        ctypes.byref(args), rows, checks.n, -checks.epsilon, _stream())
     LAUNCHES["candidate_eligibility"] += 1
     _check(rc, "candidate_eligibility")
     return elig, delta

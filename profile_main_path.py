@@ -9,6 +9,17 @@ main-path optimizer, runs one warm-up optimize (seed 0), then profiles with
   and then driven by host loops (``goal_loop="host"``), each after a cold
   and three timed warm optimizes; then the default chain (``goals=None``)
   both ways;
+- the default chain's busy time by call site: one warm host-loop optimize
+  (seed 1) with a ``torch.profiler.record_function`` range around each
+  ``PassSegments`` segment, each goal's ``accepts``, ``delta``,
+  ``collective_guard``, ``propose``, ``bulk_drain`` and ``violation``, and
+  KN's wrapper (the ranges are put on in this script and taken off after;
+  a range inside a CUDA graph's capture does not come back at replay, so
+  the host loop, which launches the graphs' kernels but KL, is the one
+  traced); each device event goes to the innermost range around the host
+  call that launched it, and the table sums them by pass x site beside
+  the graph path's busy time (``--only default-chain`` runs just the
+  default chain's part);
 - one warm what-if N-1 sweep over the 100 brokers (``chip_smoke`` phase 7);
 - one schedule of the seed-1 proposals with the hard-goal boundary audit
   (``chip_smoke`` phase 8, the facade's defaults);
@@ -38,6 +49,7 @@ and prints for each:
 Run from the repository root:
 
     python3 profile_main_path.py [--trace main_path_trace.json]
+        [--only default-chain] [--sites sites.json]
 
 The Chrome trace (of the optimize) runs to several tens of MiB.
 """
@@ -45,6 +57,7 @@ The Chrome trace (of the optimize) runs to several tens of MiB.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -70,6 +83,7 @@ HAND_WRITTEN = ("threefry_draw_kernel", "tile_group_kernel",
                 "failover_rows_kernel", "cell_net_flow_kernel",
                 "goal_loop_kernel", "apply_bucket_kernel",
                 "apply_group_kernel", "eligibility_kernel",
+                "topic_bounds_kernel",
                 "weight_range_kernel", "flow_priority_kernel",
                 "flow_match_kernel",
                 "drain_gather_kernel", "drain_keys_kernel",
@@ -80,11 +94,136 @@ HAND_WRITTEN = ("threefry_draw_kernel", "tile_group_kernel",
 #: launches, and every device-to-device copy (copy kernels and memcpy)
 FAMILIES = (("KM apply_group", ("apply_bucket_kernel", "apply_group_kernel")),
             ("KP bulk_drain_fill", ("drain_",)),
-            ("KN candidate_eligibility", ("eligibility_kernel",)),
+            ("KN candidate_eligibility", ("eligibility_kernel",
+                                          "topic_bounds_kernel")),
             ("KO flow_priority", ("flow_priority_kernel",)),
             ("KO flow_match", ("flow_match_kernel",)),
             ("KO replica_weight_range", ("weight_range_kernel",)),
             ("device copies", ("copy", "DtoD")))
+
+
+#: the host calls the site table times: ``PassSegments``' segments, the
+#: goals' methods (on every class of the catalog that defines them) and
+#: KN's wrapper
+SEGMENTS = ("active", "drain", "propose", "eligibility", "round", "stack")
+GOAL_METHODS = ("accepts", "delta", "collective_guard", "propose",
+                "bulk_drain", "violation")
+
+
+@contextlib.contextmanager
+def site_ranges():
+    """Put a ``record_function`` range ``cc|<pass goal>|<segment>`` around
+    each ``PassSegments`` segment, ``cc||<goal>.<method>`` around each goal
+    method of ``GOAL_METHODS`` and ``cc||KN wrapper`` around
+    ``kernels.candidate_eligibility`` as the engine calls it; take them
+    off on exit."""
+    import functools
+    from torch.profiler import record_function
+    from cruise_control_tpu_torch.analyzer import engine, goals
+
+    patched = []
+
+    def wrap(owner, name, label_of):
+        fn = owner.__dict__[name]
+
+        @functools.wraps(fn)
+        def ranged(*args, **kwargs):
+            with record_function(label_of(*args)):
+                return fn(*args, **kwargs)
+        setattr(owner, name, ranged)
+        patched.append((owner, name, fn))
+
+    for seg in SEGMENTS:
+        wrap(engine.PassSegments, seg,
+             lambda self, *a, seg=seg: f"cc|{self.goal.name}|{seg}")
+    classes = [goals.GoalKernel]
+    for cls in classes:
+        classes.extend(cls.__subclasses__())
+    for cls in classes:
+        for m in GOAL_METHODS:
+            if m in cls.__dict__:
+                wrap(cls, m, lambda self, *a, m=m: f"cc||{self.name}.{m}")
+    wrap(engine, "candidate_eligibility",
+         lambda *a: "cc||KN wrapper")
+    try:
+        yield
+    finally:
+        for owner, name, fn in reversed(patched):
+            setattr(owner, name, fn)
+
+
+def site_table(prof):
+    """({(pass, site): [device us, device events]}, device events linked
+    to no launch): every device event's time on the innermost
+    ``site_ranges`` range open when the host launched it (its runtime
+    event: a ``cu*`` call of the same correlation id, whose start is the
+    launch), the pass from the outermost segment around that; events
+    outside every segment go to ("-", "outside the passes")."""
+    import torch
+    cpu_type = torch.autograd.DeviceType.CPU
+    ranges, runtime, device = [], {}, []
+    for e in prof.events():
+        if e.device_type != cpu_type:
+            device.append(e)
+        elif e.name.startswith("cc|"):
+            ranges.append((e.time_range.start, e.time_range.end,
+                           e.name.split("|")))
+        elif e.name.startswith("cu"):
+            runtime[e.id] = e.time_range.start
+    table: dict = {}
+    unlinked = 0
+    for d in device:
+        t = runtime.get(d.id)
+        if t is None:
+            unlinked += 1
+            continue
+        around = sorted((r[0], r[2]) for r in ranges if r[0] <= t < r[1])
+        segs = [parts for _, parts in around if parts[1]]
+        if not segs:
+            key = ("-", "outside the passes")
+        else:
+            inner = around[-1][1]
+            key = (segs[0][1],
+                   inner[2] if inner[1] == "" else f"segment {inner[2]}")
+        cell = table.setdefault(key, [0.0, 0])
+        cell[0] += d.time_range.end - d.time_range.start
+        cell[1] += 1
+    return table, unlinked
+
+
+def report_sites(table, unlinked, graph_busy_ms, path=None) -> None:
+    """Print the site table by pass x site, by site and by pass, and its
+    sum beside the graph path's busy time; with ``path`` also write it
+    as JSON."""
+    total = sum(v[0] for v in table.values())
+    events = sum(v[1] for v in table.values())
+    print(f"== default chain busy time by call site (host loop, seed 1): "
+          f"{total / 1e3:.3f} ms in {events} device events ({unlinked} "
+          f"linked to no launch), beside the graph path's busy "
+          f"{graph_busy_ms:.3f} ms")
+    print("by pass x site (ms, device events):")
+    for (pas, site), (us, n) in sorted(table.items(), key=lambda kv:
+                                       -kv[1][0]):
+        print(f"  {us / 1e3:9.3f} ms {n:7d}  {pas} | {site}")
+    for label, part in (("site", 1), ("pass", 0)):
+        sums: dict = {}
+        for key, (us, n) in table.items():
+            cell = sums.setdefault(key[part], [0.0, 0])
+            cell[0] += us
+            cell[1] += n
+        print(f"by {label} (ms, device events):")
+        for name, (us, n) in sorted(sums.items(), key=lambda kv: -kv[1][0]):
+            print(f"  {us / 1e3:9.3f} ms {n:7d}  {name}")
+    if path:
+        with open(path, "w") as f:
+            json.dump({"total_ms": total / 1e3, "events": events,
+                       "unlinked_events": unlinked,
+                       "graph_busy_ms": graph_busy_ms,
+                       "sites": [{"pass": p_, "site": s_, "ms": us / 1e3,
+                                  "events": n}
+                                 for (p_, s_), (us, n) in table.items()]},
+                      f, indent=1)
+        print(f"site table written to {path}")
 
 
 def profiled(fn):
@@ -102,9 +241,9 @@ def profiled(fn):
     return out, prof, wall_s
 
 
-def report(label, prof, wall_s, top, head) -> bool:
-    """Print one profiled run's breakdown; False when the profiler saw no
-    device time."""
+def report(label, prof, wall_s, top, head):
+    """Print one profiled run's breakdown; its device busy ms, or None when
+    the profiler saw no device time."""
     import torch
     from cruise_control_tpu_torch import kernels
     from cruise_control_tpu_torch.analyzer import graph_loop
@@ -124,7 +263,7 @@ def report(label, prof, wall_s, top, head) -> bool:
           f"hand-written launches {json.dumps(kernels.LAUNCHES)}")
     if not device_events:
         print("torch.profiler recorded no device time on this machine")
-        return False
+        return None
     idle = 1.0 - busy_us / (wall_s * 1e6)
     print(f"device busy {busy_us / 1e3:.3f} ms of {wall_s * 1e3:.1f} ms "
           f"wall: idle share {idle:.4f}; summed kernel time "
@@ -148,13 +287,17 @@ def report(label, prof, wall_s, top, head) -> bool:
         us = sum(sum(v) for v in hits)
         print(f"  family {family}: {us / 1e3:.3f} ms, "
               f"{sum(len(v) for v in hits)} launches")
-    return True
+    return busy_us / 1e3
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", help="write a Chrome trace to this path")
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--only", choices=("all", "default-chain"),
+                    default="all", help="default-chain: only the default "
+                    "chain's optimizes and its site table")
+    ap.add_argument("--sites", help="write the site table as JSON here")
     args = ap.parse_args(argv)
 
     import torch
@@ -174,7 +317,7 @@ def main(argv=None) -> int:
     model, md = flatten_spec(chip_smoke.build_spec(), device="cuda")
     print(f"card: {card}")
     res = None
-    for loop in ("auto", "host"):
+    for loop in ("auto", "host") if args.only == "all" else ():
         # the goal passes as CUDA graphs ("auto"), then their host-driven
         # twin, in the same process
         name = "CUDA graphs" if loop == "auto" else "host loop"
@@ -199,7 +342,7 @@ def main(argv=None) -> int:
         if not report(f"optimize (seed 1), {name}", prof, wall_s, args.top,
                       f"moves {out.num_moves}, proposals "
                       f"{len(out.proposals)}, host syncs "
-                      f"{engine.HOST_SYNCS - syncs0}, "):
+                      f"{engine.HOST_SYNCS - syncs0}, ") is None:
             return 1
         if args.trace and loop == "auto":
             prof.export_chrome_trace(args.trace)
@@ -226,9 +369,24 @@ def main(argv=None) -> int:
         syncs0 = engine.HOST_SYNCS
         out, prof, wall_s = profiled(
             lambda: dopt.optimize(model, md, OptimizationOptions(seed=1)))
-        report(f"default chain optimize (seed 1), {name}", prof, wall_s,
-               args.top, f"moves {out.num_moves}, host syncs "
-               f"{engine.HOST_SYNCS - syncs0}, ")
+        busy = report(f"default chain optimize (seed 1), {name}", prof,
+                      wall_s, args.top, f"moves {out.num_moves}, host "
+                      f"syncs {engine.HOST_SYNCS - syncs0}, ")
+        if busy is None:
+            return 1
+        if loop == "auto":
+            graph_busy_ms = busy
+            continue
+        # the same warm optimize with a range around every call site
+        with site_ranges():
+            out, prof, wall_s = profiled(
+                lambda: dopt.optimize(model, md,
+                                      OptimizationOptions(seed=1)))
+        print(f"default chain with site ranges, host loop: wall "
+              f"{wall_s:.4f} s, moves {out.num_moves}")
+        report_sites(*site_table(prof), graph_busy_ms, args.sites)
+    if args.only == "default-chain":
+        return 0
     opt = chip_smoke.main_path_optimizer()
     opt.optimize(model, md, chip_smoke.main_path_options(0))
 

@@ -151,7 +151,7 @@ def launch_times(fn, calls=10) -> dict:
 def _time_ko_kn(cs, kernels, timed, shape, m, md, state, ctx):
     """KO (its range launch where the root has it, then the priorities and
     the match of a util goal and a count goal) and KN (``chip_smoke.
-    KN_SHAPES``, the chains' last and first positions) at phase 3's
+    KN_SHAPES``, each chain at its positions there) at phase 3's
     shapes."""
     from cruise_control_tpu_torch import _random
     from cruise_control_tpu_torch.analyzer import (SearchConfig,
@@ -177,14 +177,18 @@ def _time_ko_kn(cs, kernels, timed, shape, m, md, state, ctx):
         timed(f"KO match {shape} {goal.name} K {K}",
               lambda: kernels.flow_match(goal, state, ctx, kdst, cfg, *args))
     default_chain = [g.bind(md) for g in default_goals()]
-    for n, chain in cs.KN_SHAPES[shape]:
-        c = cs.kn_case(state, ctx, n, seed=5)
-        chain_goals = goals if chain == "main" else default_chain
-        for i in (len(chain_goals) - 1, 0):
+    for n, chain, positions in cs.KN_SHAPES[shape]:
+        if chain == "partb":
+            st, cx, chain_goals = cs.partb_pass(m.device)
+        else:
+            st, cx = state, ctx
+            chain_goals = goals if chain == "main" else default_chain
+        c = cs.kn_case(st, cx, n, seed=5)
+        for i in positions:
             checks = kernels.GoalChecks(chain_goals[i], chain_goals[:i],
                                         cfg.epsilon)
             tag = f"KN {shape} N {n} {chain} position {i}"
-            timed(tag, lambda: kernels.candidate_eligibility(state, ctx, c,
+            timed(tag, lambda: kernels.candidate_eligibility(st, cx, c,
                                                              checks))
 
 

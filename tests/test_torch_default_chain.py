@@ -3,7 +3,8 @@ with ``goals=None`` (device="cpu", every kernel on its plain twin) against
 ``TpuGoalOptimizer`` with ``goals=None``, nothing waived — identical
 proposals, moves and per-goal iterations, violations and violation stacks
 bit for bit, the same audit verdicts (or the same OptimizationFailureError)
-— in the per-goal and the fused walks; the catalog's part-B chain and the
+— in the per-goal and the fused walks, and fused past 32 brokers and 32
+topics with a dead broker; the catalog's part-B chain and the
 kafka-assigner set on a cluster in broker sets with an active
 MinTopicLeadersPerBrokerGoal; and ``WhatIfEngine()``'s N-1 sweep under the
 default goals, raw scorer outputs bit for bit, at B1 <= 32 and > 32.
@@ -61,6 +62,34 @@ def topic_skew_both(dead=(), broker_sets=0):
         out.append(mod.flatten_spec(mod.ClusterSpec(brokers=brokers,
                                                     partitions=parts),
                                     pad_partitions_to=128, **kw))
+    return out[0], out[1]
+
+
+def wide_topic_both(dead=(5,)):
+    """33 brokers (B1 34) x 40 topics x 800 partitions, RF 2, broker
+    ``dead`` down: topic k's replicas on brokers 3k and 3k + 1 + k % 3
+    (mod 33), so every topic crowds two or three brokers and the topic
+    table has work past 32 on both of its axes."""
+    out = []
+    for mod, kw in ((jspec, {}), (tspec, {"device": "cpu"})):
+        rng = np.random.default_rng(12)
+        brokers = [mod.BrokerSpec(broker_id=i, rack=f"r{i % 5}",
+                                  alive=i not in dead) for i in range(33)]
+        parts = []
+        for p in range(800):
+            k = p % 40
+            home = (3 * k) % 33
+            pair = [home, (home + 1 + k % 3) % 33]
+            if p % 2:
+                pair.reverse()
+            load = (0.5 + float(rng.random()), 8.0 + float(rng.random()),
+                    12.0 + 4 * float(rng.random()), 100.0 + 50 * float(
+                        rng.random()))
+            parts.append(mod.PartitionSpec(topic=f"t{k}", partition=p,
+                                           replicas=pair, leader_load=load))
+        out.append(mod.flatten_spec(mod.ClusterSpec(brokers=brokers,
+                                                    partitions=parts),
+                                    broker_pad_multiple=1, **kw))
     return out[0], out[1]
 
 
@@ -123,6 +152,26 @@ def test_default_chain_parity(fused):
     # the last case's dead broker is drained
     rb = tout[0].final_model.replica_broker
     assert not (rb == tmd.broker_index[3]).any()
+
+
+def test_default_chain_parity_past_32_brokers_and_topics():
+    """``goals=None``, nothing waived, fused: 33 brokers (B1 34) x 40
+    topics x 800 partitions with broker 5 dead, so the topic table has
+    work past 32 on both axes and the dead broker is drained — moves,
+    proposals, per-goal iterations, violations and audit verdicts equal
+    to the reference's."""
+    (jm, jmd), (tm, tmd) = wide_topic_both()
+    assert tm.num_brokers_padded + 1 == 34 and len(tmd.topics) == 40
+    cfg = dict(SEARCH, fused_chain=True)
+    jopt = ja.TpuGoalOptimizer(config=ja.SearchConfig(**cfg))
+    topt = ta.TorchGoalOptimizer(config=ta.SearchConfig(**cfg), device="cpu")
+    jout = _outcome(jopt, ja, jm, jmd)
+    tout = _outcome(topt, ta, tm, tmd)
+    _assert_same_outcome(jout, tout, "33x40x800, broker 5 dead")
+    by_name = {g.name: g for g in tout[0].goal_results}
+    assert by_name["TopicReplicaDistributionGoal"].iterations > 0
+    rb = tout[0].final_model.replica_broker
+    assert not (rb == tmd.broker_index[5]).any()
 
 
 def test_part_b_and_kafka_assigner_chains():

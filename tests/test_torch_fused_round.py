@@ -238,16 +238,19 @@ def test_eligibility_every_chain_position(chain, brokers):
 
 
 def test_goal_checks_split_the_chain():
-    """The interval family forms KN's table; the other goals' acceptance
-    runs in torch."""
+    """Every goal of the chain has a row of KN's table: the pass goal's
+    first, then the earlier goals' but for MinTopicLeadersPerBroker,
+    which with no topics configured accepts every candidate."""
     goals = tg.default_goals(TConstraint())
     checks = kernels.GoalChecks(goals[9], goals[:9], 1e-6)
-    assert checks.has_pass
-    assert [g.name for g in checks.outside] == ["RackAwareGoal",
-                                                "MinTopicLeadersPerBrokerGoal"]
-    assert checks.table.n == 8
+    assert checks.outside == []
+    assert checks.n == 9
+    kinds = [kernels.ROW_KINDS[checks.rows[k].kind] for k in range(checks.n)]
+    assert kinds == ["interval", "rack_aware"] + ["hard_cap"] * 5 + [
+        "interval"] * 2
     topic = kernels.GoalChecks(goals[13], goals[:13], 1e-6)
-    assert not topic.has_pass and topic.table.n == 11
+    assert topic.outside == [] and topic.n == 13
+    assert kernels.ROW_KINDS[topic.rows[0].kind] == "topic_replica"
 
 
 # ---------------------------------------------------------------------------

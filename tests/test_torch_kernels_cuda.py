@@ -7,7 +7,6 @@ machine without JAX it runs without the repository's conftest:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
 
-import ctypes
 
 import pytest
 import torch
@@ -864,8 +863,8 @@ def test_apply_group_matches_twin(cuda_device, pass_models, shape, n):
 def test_candidate_eligibility_matches_twin(cuda_device, pass_models, shape,
                                             chain, n):
     """KN bit for bit against its twin at every chain position of the main
-    path's four goals and of the default chain (whose goals outside the
-    interval family hand in their acceptance and delta)."""
+    path's four goals and of the default chain (RackAware's and
+    TopicReplicaDistribution's rows among the interval family's)."""
     import chip_smoke
     from cruise_control_tpu_torch.analyzer import default_goals, goals_by_name
     model, md = pass_models[shape]
@@ -1392,9 +1391,9 @@ def test_candidate_eligibility_every_shape(cuda_device, pass_models,
     for goal, earlier in positions:
         checks = kernels.GoalChecks(goal, earlier, 1e-6)
         if chain == "table 48":
-            assert checks.table.n == kernels.MAX_GOAL_ROWS
+            assert checks.n == kernels.MAX_GOAL_ROWS
         staged.append(bool(lib.cc_eligibility_staged(
-            ctypes.byref(checks.table), state.util.shape[0])))
+            checks.rows, checks.n, state.util.shape[0])))
         kernels.reset_launch_counts()
         got = kernels.candidate_eligibility(state, ctx, c, checks)
         torch.cuda.synchronize()
