@@ -43,11 +43,13 @@ Phases (every failure raises; nothing is caught):
    util goal and a count goal) and KP (bulk_drain_fill), against their
    twins on the CPU at the main path's shapes (KO and KP also at the
    scale cell's), timed beside their twins, bounds and (KM, KP) chain
-   bounds;
+   bounds; KQ (round_guards: a real apply round's do, pending and flag at
+   ``KQ_SHAPES``) against its twin on the same CUDA state, which is the
+   goals' guards through KC and KK;
 4. main path — 100 brokers x 20K partitions at RF 2, the 4-goal chain
    with the off-chain hard-goal audit, seeds 0, 1, 1 (proposals of the two
-   seed-1 runs must be identical; KA, KB, KC, KL and KM-KP must have
-   launched;
+   seed-1 runs must be identical; KA, KB, KL and KM-KQ must have
+   launched, KQ once an apply round, KC and KK never;
    no optimize may read a loop test on the host, and the warm ones may
    capture no CUDA graph; KA's launches of each optimize and the last
    one's device launches, counted under ``torch.profiler``, are printed);
@@ -91,8 +93,8 @@ Phases (every failure raises; nothing is caught):
 13. default chain — the reference's own per-proposal contract
     (``goals=None``, nothing waived): (a) the main-path cluster, seeds 1
     and 1 (identical proposals, each run's outcome held to
-    ``REFERENCE_DEFAULT``; KA, KB, KC, KK, KL and KM-KP must have
-    launched); (b) bench
+    ``REFERENCE_DEFAULT``; KA, KB, KL and KM-KQ must have launched, KQ
+    once an apply round, KC and KK never); (b) bench
     scale scenario 3 (1K x 200K, the reference bench's search; no hard
     goal left violated, no goal worse than it started); (c)
     ``WhatIfEngine()``'s N-1 sweep with the default goals (topic counts
@@ -114,6 +116,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import subprocess
@@ -340,12 +343,17 @@ KERNEL_INFO = {
     "bulk_drain_fill": dict(
         source="cruise_control_tpu_torch/csrc/drain_fill.cu",
         replaces="cruise_control_tpu/analyzer/goals.py:486"),
+    "round_guards": dict(
+        source="cruise_control_tpu_torch/csrc/round_guards.cu",
+        replaces="cruise_control_tpu/analyzer/engine.py:154"),
 }
-#: KM-KP, the goal pass's own kernels, and KO's range table (once a
+#: KM-KQ, the goal pass's own kernels, and KO's range table (once a
 #: context): every optimize launches each
 PASS_KERNELS = ("apply_group", "candidate_eligibility",
                 "replica_weight_range", "flow_priority", "flow_match",
-                "bulk_drain_fill")
+                "bulk_drain_fill", "round_guards")
+#: the guards' kernels before KQ, which an apply round no longer launches
+GUARD_FLOWS = ("net_broker_flow", "cell_net_flow")
 
 
 _T0 = time.monotonic()
@@ -560,9 +568,14 @@ def time_ms(fn, groups=5, launches=200, group_ms=50.0, graph=False):
     n = int(max(1, min(launches, group_ms // max(one_ms, 1e-3))))
     if graph:
         captured = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(captured):
-            for _ in range(n):
-                fn()
+        # no cyclic collection inside the capture (it may free graphs)
+        gc.disable()
+        try:
+            with torch.cuda.graph(captured):
+                for _ in range(n):
+                    fn()
+        finally:
+            gc.enable()
         run = captured.replay
         run()                           # the first replay uploads the graph
         torch.cuda.synchronize()
@@ -1093,6 +1106,13 @@ def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms,
                 chain_goals = goals if chain == "main" else default_chain
             _kernel_eligibility(row, st, cx, chain, chain_goals, positions,
                                 n, cfg.epsilon)
+        # --- KQ: a real apply round's guards and masks at KQ_SHAPES'
+        # chain positions (first: the kernels line's row, the main chain's
+        # last position at M 512)
+        for chain, pos, search, q in KQ_SHAPES[shape]:
+            _kernel_round_guards(row, state, ctx, chain, (
+                goals if chain == "main" else default_chain), pos, search,
+                q)
         # --- KO: a util goal's and a count goal's priorities and
         # destination match (first: the kernels line's rows)
         K = cfg.num_replica_candidates if shape == "main" else 1_024
@@ -1250,6 +1270,96 @@ def _kernel_eligibility(row, state, ctx, chain, chain_goals, positions, n,
             f"{i} earlier goals, {checks.n} table rows"
             f"{', ' + '/'.join(kinds) if kinds else ''}), B1={B1}",
             err, ms, plain, *kn_bytes_ops(checks, n, B1, T, R))
+
+#: KQ's phase-3 shapes: (chain, position, search, the position whose
+#: proposal the round takes) — the main path's M 512 at the main chain's
+#: last position (4 rows; the kernels line's row) and at the default
+#: chain's last (16 goals, 14 rows, TopicReplicaDistribution's proposal:
+#: the last position's own has no eligible candidate at phase 3's state),
+#: the scale cell's M 1,024 at the main chain's last (phase 6's search)
+KQ_SHAPES = {"main": (("main", 3, MAIN_SEARCH, 3),
+                      ("default", 15, MAIN_SEARCH, 13)),
+             "scale": (("main", 3, dict(MAIN_SEARCH,
+                                        num_replica_candidates=1024,
+                                        apply_per_iter=1024), 3),)}
+
+
+def kq_round(state, ctx, chain_goals, pos, search, propose_pos=None):
+    """(segments, candidates, conflict_earlier, pending, KN's verdict, the
+    bounds KN left) of an apply round of ``chain_goals[pos]``'s pass on
+    ``state``: the fine loop's first proposal (``PassSegments.propose``;
+    of position ``propose_pos``'s pass where given) and the round's KN
+    launch, as ``PassSegments.round`` makes them."""
+    from cruise_control_tpu_torch import _random
+    from cruise_control_tpu_torch.analyzer import SearchConfig
+    from cruise_control_tpu_torch.analyzer.engine import PassSegments
+    cfg = SearchConfig(**search)
+    seg = PassSegments(chain_goals[pos], chain_goals[:pos], cfg,
+                       all_goals=chain_goals)
+    q = pos if propose_pos is None else propose_pos
+    proposer = seg if q == pos else PassSegments(
+        chain_goals[q], chain_goals[:q], cfg, all_goals=chain_goals)
+    c, ce, pending = proposer.propose(state, ctx, _random.PRNGKey(
+        0, device=state.rb.device), 0)
+    bounds = seg.checks.round_bounds(state)
+    elig = seg.eligibility(state, ctx, c, bounds)[0]
+    return seg, c, ce, pending, elig, bounds
+
+
+def kq_bytes_ops(guards, c, ce, elig, pending):
+    """KQ's bound inputs: bytes (the [M, M] conflict mask once; each
+    candidate's ids, masks and deltas of the table's metrics, its kind,
+    slots and two partitions' topics where a topic row reads them; its
+    row's values and cells; the outputs) and operations (the four broker
+    compares of every pair j < i, sixteen cell compares where a topic row
+    reads them, the six adds a slot of every matched pair)."""
+    M = ce.shape[0]
+    topics = guards.reads != 0
+    D = len(guards.metrics)
+    nbytes = (M * M + M * (16 + 3 + 8 * D + 8 * D + (48 + 24 if topics
+                                                         else 0))
+              + 2 * M + 1 + 48 * guards.n)
+    e = (np.tril(np.ones((M, M), bool), k=-1)
+         & (elig & pending).cpu().numpy()[None, :])
+    s, d = c.src.cpu().numpy(), c.dst.cpu().numpy()
+    matched = int((e & ((s[:, None] == s) | (s[:, None] == d)
+                        | (d[:, None] == s) | (d[:, None] == d))).sum())
+    pairs = M * (M - 1) // 2
+    return nbytes, pairs * (4 + (16 if topics else 0)) + 6 * D * matched
+
+
+def _kernel_round_guards(row, state, ctx, chain, chain_goals, pos, search,
+                         propose_pos):
+    """KQ bit for bit against its twin on the same CUDA state (today's
+    per-goal path on the card, KC and KK inside the goals' guards): do,
+    pending and the continuation flag of a real apply round, timed (a
+    CUDA graph of the wrapper) beside the twin and its bound."""
+    import torch
+    from cruise_control_tpu_torch import kernels
+    seg, c, ce, pending, elig, bounds = kq_round(state, ctx, chain_goals,
+                                                 pos, search, propose_pos)
+    guards = seg.guards
+    if guards.outside:
+        fail(f"KQ has no guard kind for {[g.name for g in guards.outside]}")
+    args = (state, ctx, c, ce, pending, elig, guards)
+    got = kernels.round_guards(*args, bounds)
+    want = kernels.round_guards_plain(*args)
+    torch.cuda.synchronize()
+    err = max(float((g.long() - w.long()).abs().max())
+              for g, w in zip(got, want))
+    M = ce.shape[0]
+    ms = time_ms(lambda: kernels.round_guards(*args, bounds), graph=True)
+    plain = time_ms(lambda: kernels.round_guards_plain(*args), groups=3)
+    n_do = int(got[0].sum())
+    n_elig = int((elig & pending).sum())
+    row("round_guards",
+        f"M={M}, {chain} chain position {pos} ({chain_goals[pos].name}; "
+        f"{guards.n} guard rows {'/'.join(sorted(set(guards.kinds)))}, "
+        f"{chain_goals[propose_pos].name}'s proposal, "
+        f"{len(guards.metrics)} metric slots), B1={state.util.shape[0]}: "
+        f"{n_elig} eligible, {n_do} applied",
+        err, ms, plain, *kq_bytes_ops(guards, c, ce, elig, pending))
+
 
 #: KM's phase-3 shapes: (model, tag, case) — an apply round's M 512 (the
 #: kernels line's row), km_case's N 16,384, the same with every source on
@@ -2249,15 +2359,32 @@ def _check_quality(res, tag):
         fail(f"{tag}: sanity_check {issues}")
 
 
+def _check_round_launches(tag, launches, rounds):
+    """KQ launched once an apply round, and the guards' kernels before it
+    (KC, KK) not at all."""
+    log(f"{tag}: {rounds} apply rounds, {launches['round_guards']} KQ "
+        f"launches, KC {launches['net_broker_flow']}, KK "
+        f"{launches['cell_net_flow']}")
+    if launches["round_guards"] != rounds:
+        fail(f"{tag}: KQ launched {launches['round_guards']} times in "
+             f"{rounds} apply rounds: once a round expected")
+    flows = {k: launches[k] for k in GUARD_FLOWS if launches[k]}
+    if flows:
+        fail(f"{tag}: an apply round launched the guards' old kernels "
+             f"{flows}")
+
+
 def phase_main_path(model, md, arrays):
     import torch
     from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.analyzer import engine
     from cruise_control_tpu_torch.model.flat import (broker_replica_counts,
                                                      broker_utilization)
     log("== phase 4: main path 100x20K RF2")
     opt = main_path_optimizer()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    rounds0 = engine.APPLY_ROUNDS
     results = []
     for tag, seed in (("cold seed 0", 0), ("warm seed 1", 1),
                       ("warm seed 1 again", 1)):
@@ -2285,10 +2412,12 @@ def phase_main_path(model, md, arrays):
     launches = _launch_counts()
     log(f"main-path launches: {json.dumps(launches)}")
     missing = [k for k in ("threefry2x32", "ordered_segment_sum",
-                           "net_broker_flow", "goal_loop", *PASS_KERNELS)
+                           "goal_loop", *PASS_KERNELS)
                if launches[k] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
+    _check_round_launches("main path", launches,
+                          engine.APPLY_ROUNDS - rounds0)
     if results[1].proposals != results[2].proposals:
         fail("the two seed-1 runs gave different proposals")
     log(f"seed-1 runs identical: {len(results[1].proposals)} proposals")
@@ -3209,7 +3338,7 @@ def phase_fleet(model, md, spec):
     _fleet_registry_ticks(spec)
     launches = _launch_counts()
     log(f"fleet launches: {json.dumps(launches)}")
-    for name in ("threefry2x32", "ordered_segment_sum", "net_broker_flow",
+    for name in ("threefry2x32", "ordered_segment_sum", "round_guards",
                  "fleet_scenario_failover"):
         if not launches[name]:
             fail(f"the fleet path did not launch {name}")
@@ -3532,6 +3661,7 @@ def phase_default_chain(model, md, scale_model, scale_md):
     pkg = port_default_package()
     kernels.reset_launch_counts()
     syncs0, caps0 = engine.HOST_SYNCS, _captures()
+    rounds0 = engine.APPLY_ROUNDS
     main = default_chain_main(pkg, model, md)
     syncs, caps = engine.HOST_SYNCS - syncs0, _captures() - caps0
     launches = _launch_counts()
@@ -3551,11 +3681,11 @@ def phase_default_chain(model, md, scale_model, scale_md):
     for i, (got, want) in enumerate(zip(main["a"], REFERENCE_DEFAULT)):
         _check_outcome(f"(a) run {i + 1}", got, want)
     missing = [k for k in ("threefry2x32", "ordered_segment_sum",
-                           "net_broker_flow", "cell_net_flow", "goal_loop",
-                           *PASS_KERNELS)
+                           "goal_loop", *PASS_KERNELS)
                if not launches[k]]
     if missing:
         fail(f"(a) kernels never launched by the default chain: {missing}")
+    _check_round_launches("(a)", launches, engine.APPLY_ROUNDS - rounds0)
     _default_chain_kn(model, md, launches["candidate_eligibility"])
     rest = default_chain_rest(pkg, model, md)
     log(f"(c) N-1 sweep with the default goals: {rest['walls']['n1']:.3f}s")

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from .. import _random
-from ..kernels import GoalChecks, apply_group, candidate_eligibility
+from ..kernels import (GoalChecks, GuardTable, apply_group,
+                       candidate_eligibility, round_guards)
 from ..utils.ordered import (fma, fma_loop_sum, top_k, tree_sum_last,
                              vector_loop_sum)
 from .constraint import SearchConfig
@@ -44,6 +45,10 @@ _MUST_FIRST = -1e30
 
 #: device -> host scalar reads made by the engine's loop tests
 HOST_SYNCS = 0
+#: apply rounds run: calls of :meth:`PassSegments.round`, and the rounds a
+#: goal pass's CUDA graph replayed once their counters are read (credited
+#: with the kernels' launches, ``graph_loop``)
+APPLY_ROUNDS = 0
 
 
 def _read(flag: torch.Tensor):
@@ -224,19 +229,22 @@ class PassSegments:
         self.prev_goals = list(prev_goals)
         self.cfg = cfg
         self.all_goals = list(all_goals or [goal])
-        self.guard_goals = [goal, *self.prev_goals]
         #: whether the pass opens with the bulk-drain rounds
         self.drains = goal.supports_bulk_drain and cfg.drain_rounds > 0
         #: a drain round applying fewer moves ends the drain
         self.min_applied = max(cfg.drain_batch // 64, 8)
         #: the goals a candidate is checked against (KN's goal table)
         self.checks = GoalChecks(goal, self.prev_goals, cfg.epsilon)
+        #: the goals whose collective bounds an apply round keeps (KQ's
+        #: guard table)
+        self.guards = GuardTable(self.checks)
 
-    def eligibility(self, state, ctx, cands):
+    def eligibility(self, state, ctx, cands, bounds=None):
         """(bool[N] eligible, f32[N] the goal's delta): base legality, every
         earlier goal's acceptance, and an improving delta or a mandatory
-        move (KN, ``kernels.candidate_eligibility``)."""
-        return candidate_eligibility(state, ctx, cands, self.checks)
+        move (KN, ``kernels.candidate_eligibility``; ``bounds`` as
+        there)."""
+        return candidate_eligibility(state, ctx, cands, self.checks, bounds)
 
     def steer_ctx(self, state: SearchState, ctx: SearchContext
                   ) -> SearchContext:
@@ -304,28 +312,19 @@ class PassSegments:
               conflict_earlier: torch.Tensor, pending: torch.Tensor,
               out: SearchState | None = None):
         """One apply round over the pending candidates, re-validated against
-        the state and guarded by every chain goal's collective bound.
-        Returns (state, pending, int64 scalar applied, bool scalar: still
-        pending and some applied); ``out`` as for :meth:`drain`."""
-        elig = pending & self.eligibility(state, ctx, c)[0]
-        blocked = (conflict_earlier & elig[None, :]).any(dim=1)
-        # Guards see exactly the earlier, eligible candidates.
-        gmask = _earlier(elig.shape[0], elig.device) & elig[None, :]
-        ok = torch.ones_like(elig)
-        for g in self.guard_goals:
-            gok = g.collective_guard(state, ctx, c, gmask)
-            if gok is None:
-                gok = ~(((c.src[:, None] == c.src[None, :])
-                         | (c.dst[:, None] == c.dst[None, :]))
-                        & gmask).any(dim=1)
-            if g is self.goal:
-                # The goal may not veto its own mandatory moves.
-                gok = gok | c.must
-            ok = ok & gok
-        do = elig & ~blocked & ok
+        the state (KN) and guarded by every chain goal's collective bound
+        (KQ, ``kernels.round_guards``, which reads the bounds KN leaves in
+        ``bounds``), then applied (KM). Returns (state, pending, int64
+        scalar applied, bool scalar: still pending and some applied);
+        ``out`` as for :meth:`drain`."""
+        global APPLY_ROUNDS
+        APPLY_ROUNDS += 1
+        bounds = self.checks.round_bounds(state)
+        elig = self.eligibility(state, ctx, c, bounds)[0]
+        do, pending, more = round_guards(state, ctx, c, conflict_earlier,
+                                         pending, elig, self.guards, bounds)
         state, applied = apply_group(state, ctx, c, do, out=out)
-        pending = pending & ~do
-        return state, pending, applied, pending.any() & do.any()
+        return state, pending, applied, more
 
     def stack(self, state: SearchState, ctx: SearchContext) -> torch.Tensor:
         return violation_stack(self.all_goals, state, ctx)

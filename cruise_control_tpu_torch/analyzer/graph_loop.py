@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import time
 import weakref
 import zlib
@@ -37,6 +38,7 @@ import torch
 
 from .. import _random, kernels
 from ..kernels import GOAL_LOOP_SLOTS
+from . import engine
 from .engine import _pack, _unpack
 
 SLOT = {name: i for i, name in enumerate(GOAL_LOOP_SLOTS)}
@@ -164,21 +166,31 @@ class ParentGraph:
 class Segment:
     """One captured segment: ``fn()`` recorded into a CUDA graph on a side
     stream, in the chain's memory pool. The launches its kernel wrappers
-    counted while it was captured are kept in ``launches`` (credited per
-    replay) and taken back out of ``kernels.LAUNCHES``."""
+    counted while it was captured are kept in ``launches``, and the apply
+    rounds it ran in ``rounds`` (both credited per replay, and taken back
+    out of ``kernels.LAUNCHES`` and ``engine.APPLY_ROUNDS``)."""
 
     def __init__(self, name: str, fn, pool, stream):
         self.name = name
         before = dict(kernels.LAUNCHES)
+        rounds = engine.APPLY_ROUNDS
         graph = torch.cuda.CUDAGraph(keep_graph=True)
+        # A cyclic collection inside the capture could free an earlier
+        # chain's graphs, whose destruction the capture does not allow.
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=pool, stream=stream):
                 fn()
         finally:
+            if collecting:
+                gc.enable()
             self.launches = {k: v - before[k]
                              for k, v in kernels.LAUNCHES.items()
                              if v != before[k]}
             kernels.LAUNCHES.update(before)
+            self.rounds = engine.APPLY_ROUNDS - rounds
+            engine.APPLY_ROUNDS = rounds
         self.graph = graph
         self.raw_graph = graph.raw_cuda_graph()
         msg = ctypes.create_string_buffer(256)
@@ -514,12 +526,14 @@ class GraphLoop:
     # ------------------------------------------------------ launch counts
     def _credit(self, execs) -> None:
         """Add to ``kernels.LAUNCHES`` the kernels replayed since the last
-        credit: each segment's captured launches times its executions."""
+        credit (and to ``engine.APPLY_ROUNDS`` the rounds): each segment's
+        captured launches times its executions."""
         add: dict[str, int] = {}
 
         def count(seg, times):
             for k, v in seg.launches.items():
                 add[k] = add.get(k, 0) + v * int(times)
+            engine.APPLY_ROUNDS += seg.rounds * int(times)
 
         for i, segs in enumerate(self.segs):
             ran = self._pending_pass[i] + self._pending_fused

@@ -53,6 +53,11 @@
 // of their own ahead of KN (topic_bounds_kernel, a warp a topic); a
 // candidate then reads its four cells and its topics' bounds, never the
 // whole table, so topic_counts is not staged at any T x B1.
+//
+// In an apply round the caller hands in ``bounds``: block 0 writes each
+// average row's (lower, upper) there, and the topic bounds stay in
+// ``tbounds``, for KQ (round_guards.cu), whose guards read the same bounds
+// at the same state.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -120,10 +125,12 @@ struct GoalRow {
 // A launch's chunk of a chain position's rows: with ``first`` rows[0] is
 // the pass goal (its delta) and base legality is checked; otherwise the
 // chunk before left the verdict so far in elig and the delta in delta.
-// ``last`` writes the verdict (delta < -eps) | must.
+// ``last`` writes the verdict (delta < -eps) | must. ``start``: the
+// chunk's first row among the chain position's rows.
 struct GoalTable {
   GoalRow rows[kMaxGoals];
   int32_t n;
+  int32_t start;
   int32_t first;
   int32_t last;
   float neg_eps;               // -epsilon as float32
@@ -168,6 +175,9 @@ struct EligArgs {
   float* tbounds;              // [slots, 2, T]: each topic row's (lower, upper)
   uint8_t* elig;               // [N]
   float* delta;                // [N]
+  // [rows, 2] or null: each average row's (lower, upper), for KQ
+  // (round_guards.cu), which reads them in the same round
+  float* bounds;
   int64_t P, R, B1, N, T;
 };
 
@@ -769,6 +779,14 @@ __global__ void __launch_bounds__(kMaxThreads) eligibility_kernel(
     if (lane == 0) s_racks = n < 1 ? 1 : n;
   }
   __syncthreads();
+  if (a.bounds != nullptr && blockIdx.x == 0) {
+    for (int g = threadIdx.x; g < t.n; g += blockDim.x) {
+      if (t.rows[g].kind <= kHardCap && t.rows[g].form == kAverage) {
+        a.bounds[2 * (t.start + g)] = s_lo[g];
+        a.bounds[2 * (t.start + g) + 1] = s_up[g];
+      }
+    }
+  }
 
   if (i >= a.N) return;
   const int64_t src = ordered::clamp_index(c.src, B1);
@@ -1006,6 +1024,7 @@ static GoalTable chunk(const GoalRow* rows, int32_t n, int32_t k,
   GoalTable t{};
   const int32_t start = k * kMaxGoals;
   t.n = n - start < kMaxGoals ? n - start : kMaxGoals;
+  t.start = start;
   for (int g = 0; g < t.n; ++g) t.rows[g] = rows[start + g];
   t.first = k == 0;
   t.last = start + t.n == n;

@@ -23,6 +23,10 @@ Four kernels carry the dry-run proposal path (sources in ``csrc/``):
   several cell slots in one launch, a warp a row (integer-valued terms,
   exact in any order).
 
+An apply round on the card computes its guards in KQ (below); KC and KK
+remain the goals' ``collective_guard`` sums where those are called, as in
+KQ's twin.
+
 Two more carry the what-if sweep and the move scheduler:
 
 - **KD** ``scenario_failover`` — each scenario's placement edit and
@@ -65,7 +69,7 @@ One more carries the goal loops:
   (``analyzer/graph_loop.py``); ``csrc/goal_loop.cu`` also holds the
   functions that build those graphs.
 
-Five more carry a goal pass's own rounds (each in a few launches where
+Six more carry a goal pass's own rounds (each in a few launches where
 plain torch took dozens):
 
 - **KM** ``apply_group`` — one partition-disjoint group of candidates
@@ -84,7 +88,14 @@ plain torch took dozens):
   destination match (one block, from shared memory);
 - **KP** ``bulk_drain_fill`` — a replica drain round after its sort: the
   segmented shed, the first slot a partition, the capped budgets and the
-  deficit-first fill (seven launches over the whole card).
+  deficit-first fill (seven launches over the whole card);
+- **KQ** ``round_guards`` — the body of an apply round between KN and KM:
+  the blocked and prefix masks, every chain goal's collective guard (a
+  table of rows, one kind a guard form, :class:`GuardTable`; the flows
+  summed once a distinct metric, the bounds the ones KN left at the same
+  state) and the round's ``do``, ``pending`` and continuation flag, a
+  warp a candidate (one launch after a memset). The goals' guards on the
+  CPU, its twin, still run through KC and KK.
 
 Each wrapper takes the plain twin for a tensor on the CPU, and for a CUDA
 tensor launches its kernel or raises: there is no fallback. Each launch
@@ -123,7 +134,8 @@ SOURCES = ("threefry.cu", "segment_sum.cu", "net_flow.cu", "cell_flow.cu",
            "failover.cu", "first_fit.cu", "delta_scatter.cu",
            "cluster_stats.cu", "intra_walk.cu", "population_select.cu",
            "launch_floor.cu", "goal_loop.cu", "apply_group.cu",
-           "eligibility.cu", "flow_candidates.cu", "drain_fill.cu")
+           "eligibility.cu", "flow_candidates.cu", "drain_fill.cu",
+           "round_guards.cu")
 #: headers the sources include (hashed with them)
 HEADERS = ("threefry.cuh", "ordered.cuh")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
@@ -134,7 +146,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: contract only where they write ``__fmaf_rn`` themselves
 SOURCE_FLAGS = {name: ("-fmad=false",) for name in (
     "apply_group.cu", "eligibility.cu", "flow_candidates.cu",
-    "drain_fill.cu")}
+    "drain_fill.cu", "round_guards.cu")}
 
 #: launches per kernel since the last ``reset_launch_counts()``
 LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
@@ -145,7 +157,7 @@ LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
             "fleet_scenario_failover": 0, "goal_loop": 0,
             "apply_group": 0, "candidate_eligibility": 0,
             "replica_weight_range": 0, "flow_priority": 0, "flow_match": 0,
-            "bulk_drain_fill": 0}
+            "bulk_drain_fill": 0, "round_guards": 0}
 #: ``nvcc``/ptxas output of the build this process loaded (register and
 #: spill counts per kernel), empty when the library came from the cache
 BUILD_LOG: list[str] = []
@@ -316,6 +328,7 @@ def load_library():
             lib.cc_drain_fill.argtypes = [p, p]
             lib.cc_drain_fill_scratch.argtypes = [i64, i64]
             lib.cc_drain_fill_scratch.restype = i64
+            lib.cc_round_guards.argtypes = [p, p]
             for fn in (lib.cc_goal_loop_step,
                        lib.cc_graph_create, lib.cc_graph_destroy,
                        lib.cc_graph_check_body, lib.cc_graph_add_child,
@@ -336,7 +349,7 @@ def load_library():
                        lib.cc_apply_group, lib.cc_candidate_eligibility,
                        lib.cc_weight_range, lib.cc_flow_priority,
                        lib.cc_flow_match,
-                       lib.cc_drain_fill):
+                       lib.cc_drain_fill, lib.cc_round_guards):
                 fn.restype = ctypes.c_int
             _LIB = lib
             default_collector().record_library(kind,
@@ -349,7 +362,7 @@ def _stream() -> int:
 
 
 def _pass_library():
-    """The kernel library, KM-KP's argument structs checked once against
+    """The kernel library, KM-KQ's argument structs checked once against
     the C structs they mirror (their sizes, from the library)."""
     lib = load_library()
     if not getattr(lib, "_cc_structs_checked", False):
@@ -359,7 +372,9 @@ def _pass_library():
                            ("cc_range_args_size", _RangeArgs),
                            ("cc_priority_args_size", _PriorityArgs),
                            ("cc_match_args_size", _MatchArgs),
-                           ("cc_drain_args_size", _DrainArgs)):
+                           ("cc_drain_args_size", _DrainArgs),
+                           ("cc_guard_args_size", _GuardArgs),
+                           ("cc_guard_row_size", _GuardRow)):
             size = getattr(lib, fn)
             size.argtypes, size.restype = [], ctypes.c_int64
             if size() != ctypes.sizeof(struct):
@@ -1906,7 +1921,8 @@ _EligArgs = _struct(
     "_EligArgs",
     "rb off util cnt lead pot lni movable dest lead_dest lead_movable bvalid "
     "balive cap p r p2 r2 src dst kind valid must d_util_src d_util_dst "
-    "d_cnt d_lead d_pot d_lni pos rack bset ptopic tc tlc tbounds elig delta",
+    "d_cnt d_lead d_pot d_lni pos rack bset ptopic tc tlc tbounds elig delta "
+    "bounds",
     [(f, _I64) for f in ("P", "R", "B1", "N", "T")])
 
 
@@ -1925,13 +1941,19 @@ class GoalChecks:
         self.epsilon = float(epsilon)
         #: goals with no row of KN's table
         self.outside = []
+        #: each goal's row in the table ([goal, *prev_goals] order; -1:
+        #: none)
+        self.row_index = []
         rows = []
         for k, g in enumerate([goal, *self.prev_goals]):
             row = g.eligibility_row()
             if row is None:
                 self.outside.append(g)
             elif k == 0 or row["kind"] not in _ACCEPTS_ALL:
+                self.row_index.append(len(rows))
                 rows.append(row)
+                continue
+            self.row_index.append(-1)
         #: the topic rows' distinct (threshold - 1, min gap, max gap): the
         #: slots of the launch's topic bounds
         self.topic_gaps = []
@@ -1970,6 +1992,30 @@ class GoalChecks:
             got = self._on[device] = (rows, lengths)
         return got
 
+    def round_bounds(self, state):
+        """Buffers for KN to leave its bounds in, on the card, for KQ
+        (:func:`round_guards`) to read in the same apply round: (f32[n, 2]
+        each average row's (lower, upper), f32[slots, 2, T] the topic
+        rows' bounds or None); None on the CPU, where the twins compute
+        their own."""
+        if state.rb.device.type != "cuda":
+            return None
+        dev = state.rb.device
+        rows = torch.empty((max(self.n, 1), 2), dtype=torch.float32,
+                           device=dev)
+        topics = None
+        if self.topic_gaps:
+            topics = torch.empty((len(self.topic_gaps), 2, _topic_rows(state)),
+                                 dtype=torch.float32, device=dev)
+        return rows, topics
+
+
+def _topic_rows(state) -> int:
+    """T: the rows of the state's topic tables (0 without them)."""
+    tc, tlc = state.topic_counts, state.topic_leader_counts
+    return tc.shape[0] if tc is not None else (
+        tlc.shape[0] if tlc is not None else 0)
+
 
 def candidate_eligibility_plain(state, ctx, c, checks: GoalChecks):
     """Twin of KN: ``engine.py``'s eligibility composed in torch — base
@@ -1982,12 +2028,13 @@ def candidate_eligibility_plain(state, ctx, c, checks: GoalChecks):
     return ok & ((delta < -checks.epsilon) | c.must), delta
 
 
-def candidate_eligibility(state, ctx, c, checks: GoalChecks):
+def candidate_eligibility(state, ctx, c, checks: GoalChecks, bounds=None):
     """(bool[N] eligible, float32[N] the pass goal's delta) of candidates
     ``c`` against ``state``, ``ctx`` and the chain position ``checks`` —
     see ``csrc/eligibility.cu`` (one launch, a chunk of rows each past
     ``MAX_GOAL_ROWS``, and the topic rows' bounds ahead where there is
-    one)."""
+    one). ``bounds`` (``checks.round_bounds(state)``): buffers the launch
+    leaves the rows' bounds in, for KQ; ignored on the CPU."""
     N = c.p.shape[0]
     if _on_cpu(state.rb, c.p):
         return candidate_eligibility_plain(state, ctx, c, checks)
@@ -2000,8 +2047,7 @@ def candidate_eligibility(state, ctx, c, checks: GoalChecks):
     P, R = state.rb.shape
     B1 = state.util.shape[0]
     tc, tlc = state.topic_counts, state.topic_leader_counts
-    T = tc.shape[0] if tc is not None else (
-        tlc.shape[0] if tlc is not None else 0)
+    T = _topic_rows(state)
     dev = state.rb.device
     rows, lengths = checks.rows_on(dev)
     for k, n in lengths.items():
@@ -2015,8 +2061,18 @@ def candidate_eligibility(state, ctx, c, checks: GoalChecks):
 
     elig = torch.empty(N, dtype=torch.bool, device=dev)
     delta = torch.empty(N, dtype=f32, device=dev)
-    tbounds = (torch.empty((len(checks.topic_gaps), 2, T), dtype=f32,
-                           device=dev) if checks.topic_gaps else None)
+    row_bounds = None
+    if bounds is not None:
+        row_bounds, tbounds = bounds
+        if (row_bounds.shape != (max(checks.n, 1), 2)
+                or (tbounds is None) != (not checks.topic_gaps)
+                or (tbounds is not None and tbounds.shape != (
+                    len(checks.topic_gaps), 2, T))):
+            raise ValueError("candidate_eligibility: bounds must be "
+                             "checks.round_bounds(state)")
+    else:
+        tbounds = (torch.empty((len(checks.topic_gaps), 2, T), dtype=f32,
+                               device=dev) if checks.topic_gaps else None)
     ins = dict(
         rb=as_(state.rb, i64), off=state.offline.contiguous(),
         util=as_(state.util, f32), cnt=as_(state.replica_count, i32),
@@ -2041,12 +2097,211 @@ def candidate_eligibility(state, ctx, c, checks: GoalChecks):
         ptopic=as_(ctx.partition_topic, i32), tc=as_(tc, i32),
         tlc=as_(tlc, i32), tbounds=tbounds)
     args = _fill(_EligArgs(P=P, R=R, B1=B1, N=N, T=T), **ins, elig=elig,
-                 delta=delta)
+                 delta=delta, bounds=row_bounds)
     rc = _pass_library().cc_candidate_eligibility(
         ctypes.byref(args), rows, checks.n, -checks.epsilon, _stream())
     LAUNCHES["candidate_eligibility"] += 1
     _check(rc, "candidate_eligibility")
     return elig, delta
+
+
+# ---------------------------------------------------------------------------
+# KQ: an apply round's guards and masks
+# ---------------------------------------------------------------------------
+
+#: KQ's guard kinds, by their code (``csrc/round_guards.cu:GuardKind``):
+#: the interval family's two guard forms, the topic goals' cell guards,
+#: and the engine's default for a goal without a guard of its own
+GUARD_KINDS = ("interval", "hard_cap", "topic_replica", "topic_leaders",
+               "serialize")
+#: distinct metrics one guard table holds (``csrc/round_guards.cu:
+#: kMaxSlots``): every metric code
+MAX_GUARD_SLOTS = 8
+
+_GuardRow = _struct("_GuardRow", [(f, _I32) for f in (
+    "kind", "slot", "form", "upper_only", "cap_col", "bound_row", "param",
+    "must")] + [("t", _F32)], "aux")
+_GuardArgs = _struct(
+    "_GuardArgs",
+    "p p2 r r2 src dst kind must d_util_src d_util_dst d_cnt d_lead d_pot "
+    "d_lni elig pending conflict util cnt lead pot lni cap balive ptopic tc "
+    "tlc bounds tbounds rows scratch do_out pending_out more_out",
+    [(f, _I64) for f in ("M", "P", "B1", "T")]
+    + [("n_rows", _I32), ("n_slots", _I32),
+       ("metric", _I32 * MAX_GUARD_SLOTS), ("reads", _I32)])
+
+
+class GuardTable:
+    """KQ's table of a chain position, built once beside its
+    :class:`GoalChecks` (whose bounds the rows read): one row a guard goal
+    — the pass goal's first, then the earlier goals' — with a kind of
+    ``GUARD_KINDS`` (``goal.guard_row()``). A partition-local goal has no
+    row; ``outside`` lists the goals with no kind, which KQ refuses (the
+    twin takes any goal). ``metrics`` holds the interval rows' distinct
+    metric codes, one a slot: their flows are summed once a slot."""
+
+    def __init__(self, checks: GoalChecks):
+        self.goal = checks.goal
+        self.guard_goals = [checks.goal, *checks.prev_goals]
+        #: goals KQ has no guard kind for
+        self.outside = []
+        self.metrics = []
+        #: the topic tables the rows read (``round_guards.cu:Reads``)
+        self.reads = 0
+        self.kinds = []
+        rows, self._aux = [], []
+        for k, g in enumerate(self.guard_goals):
+            row = g.guard_row()
+            if row is None:
+                self.outside.append(g)
+                continue
+            if row["kind"] == "local":
+                continue
+            out = dict(kind=GUARD_KINDS.index(row["kind"]),
+                       must=int(g is self.goal))
+            if row["kind"] in ("interval", "hard_cap"):
+                if row["metric"] not in self.metrics:
+                    self.metrics.append(row["metric"])
+                out.update(slot=self.metrics.index(row["metric"]),
+                           form=row["form"], upper_only=row["upper_only"],
+                           cap_col=row["cap_col"], t=row["t"],
+                           bound_row=checks.row_index[k])
+            elif row["kind"] == "topic_replica":
+                out["slot"] = checks.rows[checks.row_index[k]].param
+                self.reads |= 1
+            elif row["kind"] == "topic_leaders":
+                out["param"] = row["param"]
+                self._aux.append((len(rows), row["aux"]))
+                self.reads |= 2
+            self.kinds.append(row["kind"])
+            rows.append(_GuardRow(**out))
+        self.n = len(rows)
+        self.rows = (_GuardRow * max(self.n, 1))(*rows)
+        self._on = {}
+
+    def rows_on(self, device):
+        """The rows on ``device`` (uint8, uploaded once a device, each
+        bound array's pointer set) and the bound arrays' lengths; raises
+        for a goal KQ has no kind for."""
+        if self.outside:
+            raise ValueError(f"KQ has no guard kind for "
+                             f"{[g.name for g in self.outside]}")
+        got = self._on.get(device)
+        if got is None:
+            if (torch.device(device).type == "cuda"
+                    and torch.cuda.is_current_stream_capturing()):
+                raise RuntimeError("KQ's guard table must be uploaded before "
+                                   "a CUDA graph captures it")
+            rows = (_GuardRow * max(self.n, 1))()
+            ctypes.memmove(rows, self.rows, ctypes.sizeof(self.rows))
+            lengths = []
+            for k, aux in self._aux:
+                t = aux.on(device)
+                rows[k].aux = t.data_ptr()
+                lengths.append(t.shape[0])
+            table = torch.frombuffer(bytearray(rows), dtype=torch.uint8)
+            got = self._on[device] = (table.to(device), lengths)
+        return got
+
+
+def round_guards_plain(state, ctx, c, conflict_earlier, pending, elig,
+                       guards: GuardTable):
+    """Twin of KQ: the apply round's masks and every guard goal's
+    ``collective_guard`` (KC's and KK's wrappers inside them), composed as
+    ``cruise_control_tpu/analyzer/engine.py``'s round does."""
+    M = elig.shape[0]
+    elig = pending & elig
+    blocked = (conflict_earlier & elig[None, :]).any(dim=1)
+    # Guards see exactly the earlier, eligible candidates.
+    gmask = torch.tril(torch.ones((M, M), dtype=torch.bool,
+                                  device=elig.device), diagonal=-1)
+    gmask = gmask & elig[None, :]
+    ok = torch.ones_like(elig)
+    for g in guards.guard_goals:
+        gok = g.collective_guard(state, ctx, c, gmask)
+        if gok is None:
+            gok = ~(((c.src[:, None] == c.src[None, :])
+                     | (c.dst[:, None] == c.dst[None, :])) & gmask).any(dim=1)
+        if g is guards.goal:
+            # The goal may not veto its own mandatory moves.
+            gok = gok | c.must
+        ok = ok & gok
+    do = elig & ~blocked & ok
+    pending = pending & ~do
+    return do, pending, pending.any() & do.any()
+
+
+def round_guards(state, ctx, c, conflict_earlier, pending, elig,
+                 guards: GuardTable, bounds=None):
+    """(bool[M] do, bool[M] pending after the round, bool scalar: still
+    pending and some applied) of one apply round over the M candidates
+    ``c``: KN's verdict ``elig`` and ``pending`` masked, partition
+    conflicts with earlier eligible candidates (``conflict_earlier``
+    bool[M, M]) blocked, and every guard goal of ``guards`` holding its
+    bounds — see ``csrc/round_guards.cu`` (one launch after a memset).
+    ``bounds``: the buffers KN filled this round at this state
+    (``GoalChecks.round_bounds``); the twin needs none."""
+    M = pending.shape[0]
+    if (elig.shape != (M,) or conflict_earlier.shape != (M, M)
+            or c.p.shape != (M,) or c.d_util_src.shape != (M, 4)):
+        raise ValueError("round_guards takes M candidates, elig and pending "
+                         "[M] and conflict_earlier [M, M]")
+    if _on_cpu(state.rb, c.p, pending, elig, conflict_earlier):
+        return round_guards_plain(state, ctx, c, conflict_earlier, pending,
+                                  elig, guards)
+    if (pending.dtype != torch.bool or elig.dtype != torch.bool
+            or conflict_earlier.dtype != torch.bool):
+        raise TypeError("round_guards takes bool masks")
+    dev = state.rb.device
+    rows, lengths = guards.rows_on(dev)
+    if bounds is None:
+        raise ValueError("KQ reads the bounds KN wrote this round: pass "
+                         "checks.round_bounds(state) to both")
+    P = state.rb.shape[0]
+    B1 = state.util.shape[0]
+    T = _topic_rows(state)
+    if any(n != T for n in lengths):
+        raise ValueError(f"{guards.goal.name}'s chain: an interested topic "
+                         f"mask against T {T}")
+    do = torch.empty(M, dtype=torch.bool, device=dev)
+    pending_out = torch.empty(M, dtype=torch.bool, device=dev)
+    more = torch.empty((), dtype=torch.bool, device=dev)
+    if M == 0:
+        return do, pending_out, more.fill_(False)
+    i64, i32, f32 = torch.int64, torch.int32, torch.float32
+
+    def as_(t, dtype):
+        return None if t is None else t.to(dtype).contiguous()
+
+    ins = dict(
+        p=as_(c.p, i64), p2=as_(c.p2, i64), r=as_(c.r, i64),
+        r2=as_(c.r2, i64), src=as_(c.src, i64), dst=as_(c.dst, i64),
+        kind=as_(c.kind, i64), must=c.must.contiguous(),
+        d_util_src=_aligned16(as_(c.d_util_src, f32)),
+        d_util_dst=_aligned16(as_(c.d_util_dst, f32)),
+        d_cnt=as_(c.d_cnt, i32), d_lead=as_(c.d_lead, i32),
+        d_pot=as_(c.d_pot, f32), d_lni=as_(c.d_lni, f32),
+        elig=elig.contiguous(), pending=pending.contiguous(),
+        conflict=conflict_earlier.contiguous(), util=as_(state.util, f32),
+        cnt=as_(state.replica_count, i32), lead=as_(state.leader_count, i32),
+        pot=as_(state.potential_nw_out, f32),
+        lni=as_(state.leader_nw_in, f32),
+        cap=_aligned16(as_(ctx.broker_capacity, f32)),
+        balive=ctx.broker_alive.contiguous(),
+        ptopic=as_(ctx.partition_topic, i32),
+        tc=as_(state.topic_counts, i32),
+        tlc=as_(state.topic_leader_counts, i32),
+        bounds=bounds[0], tbounds=bounds[1], rows=rows)
+    metric = (_I32 * MAX_GUARD_SLOTS)(*guards.metrics)
+    scratch = torch.empty(3, dtype=i32, device=dev)
+    args = _fill(_GuardArgs(M=M, P=P, B1=B1, T=T, n_rows=guards.n,
+                            n_slots=len(guards.metrics), metric=metric,
+                            reads=guards.reads), **ins, scratch=scratch,
+                 do_out=do, pending_out=pending_out, more_out=more)
+    rc = _pass_library().cc_round_guards(ctypes.byref(args), _stream())
+    LAUNCHES["round_guards"] += 1
+    _check(rc, "round_guards")
+    return do, pending_out, more
 
 
 # ---------------------------------------------------------------------------

@@ -9,17 +9,18 @@ main-path optimizer, runs one warm-up optimize (seed 0), then profiles with
   and then driven by host loops (``goal_loop="host"``), each after a cold
   and three timed warm optimizes; then the default chain (``goals=None``)
   both ways;
-- the default chain's busy time by call site: one warm host-loop optimize
-  (seed 1) with a ``torch.profiler.record_function`` range around each
-  ``PassSegments`` segment, each goal's ``accepts``, ``delta``,
-  ``collective_guard``, ``propose``, ``bulk_drain`` and ``violation``, and
-  KN's wrapper (the ranges are put on in this script and taken off after;
-  a range inside a CUDA graph's capture does not come back at replay, so
+- the busy time by call site of the main path and of the default chain:
+  one warm host-loop optimize (seed 1) each with a
+  ``torch.profiler.record_function`` range around each ``PassSegments``
+  segment, each goal's ``accepts``, ``delta``, ``collective_guard``,
+  ``propose``, ``bulk_drain`` and ``violation``, and KN's and KQ's
+  wrappers (the ranges are put on in this script and taken off after; a
+  range inside a CUDA graph's capture does not come back at replay, so
   the host loop, which launches the graphs' kernels but KL, is the one
   traced); each device event goes to the innermost range around the host
   call that launched it, and the table sums them by pass x site beside
-  the graph path's busy time (``--only default-chain`` runs just the
-  default chain's part);
+  the graph path's busy time (``--only main`` or ``--only
+  default-chain`` runs just that chain's part);
 - one warm what-if N-1 sweep over the 100 brokers (``chip_smoke`` phase 7);
 - one schedule of the seed-1 proposals with the hard-goal boundary audit
   (``chip_smoke`` phase 8, the facade's defaults);
@@ -49,7 +50,7 @@ and prints for each:
 Run from the repository root:
 
     python3 profile_main_path.py [--trace main_path_trace.json]
-        [--only default-chain] [--sites sites.json]
+        [--only main|default-chain] [--sites sites.json]
 
 The Chrome trace (of the optimize) runs to several tens of MiB.
 """
@@ -89,9 +90,10 @@ HAND_WRITTEN = ("threefry_draw_kernel", "tile_group_kernel",
                 "drain_gather_kernel", "drain_keys_kernel",
                 "drain_scans_kernel", "drain_take_kernel",
                 "drain_rank_kernel", "drain_budget_kernel",
-                "drain_scatter_kernel")
-#: kernel families summed on one line each: KM's, KP's, KN's and KO's
-#: launches, and every device-to-device copy (copy kernels and memcpy)
+                "drain_scatter_kernel", "round_guards_kernel")
+#: kernel families summed on one line each: KM's, KP's, KN's, KO's and
+#: KQ's launches, and every device-to-device copy (copy kernels and
+#: memcpy)
 FAMILIES = (("KM apply_group", ("apply_bucket_kernel", "apply_group_kernel")),
             ("KP bulk_drain_fill", ("drain_",)),
             ("KN candidate_eligibility", ("eligibility_kernel",
@@ -99,12 +101,13 @@ FAMILIES = (("KM apply_group", ("apply_bucket_kernel", "apply_group_kernel")),
             ("KO flow_priority", ("flow_priority_kernel",)),
             ("KO flow_match", ("flow_match_kernel",)),
             ("KO replica_weight_range", ("weight_range_kernel",)),
+            ("KQ round_guards", ("round_guards_kernel",)),
             ("device copies", ("copy", "DtoD")))
 
 
 #: the host calls the site table times: ``PassSegments``' segments, the
 #: goals' methods (on every class of the catalog that defines them) and
-#: KN's wrapper
+#: KN's and KQ's wrappers
 SEGMENTS = ("active", "drain", "propose", "eligibility", "round", "stack")
 GOAL_METHODS = ("accepts", "delta", "collective_guard", "propose",
                 "bulk_drain", "violation")
@@ -114,9 +117,10 @@ GOAL_METHODS = ("accepts", "delta", "collective_guard", "propose",
 def site_ranges():
     """Put a ``record_function`` range ``cc|<pass goal>|<segment>`` around
     each ``PassSegments`` segment, ``cc||<goal>.<method>`` around each goal
-    method of ``GOAL_METHODS`` and ``cc||KN wrapper`` around
-    ``kernels.candidate_eligibility`` as the engine calls it; take them
-    off on exit."""
+    method of ``GOAL_METHODS``, ``cc||KN wrapper`` around
+    ``kernels.candidate_eligibility`` and ``cc||KQ wrapper`` around
+    ``kernels.round_guards`` as the engine calls them (a tree from before
+    KQ has no KQ to wrap); take them off on exit."""
     import functools
     from torch.profiler import record_function
     from cruise_control_tpu_torch.analyzer import engine, goals
@@ -145,6 +149,8 @@ def site_ranges():
                 wrap(cls, m, lambda self, *a, m=m: f"cc||{self.name}.{m}")
     wrap(engine, "candidate_eligibility",
          lambda *a: "cc||KN wrapper")
+    if "round_guards" in engine.__dict__:
+        wrap(engine, "round_guards", lambda *a: "cc||KQ wrapper")
     try:
         yield
     finally:
@@ -191,13 +197,13 @@ def site_table(prof):
     return table, unlinked
 
 
-def report_sites(table, unlinked, graph_busy_ms, path=None) -> None:
-    """Print the site table by pass x site, by site and by pass, and its
-    sum beside the graph path's busy time; with ``path`` also write it
-    as JSON."""
+def report_sites(label, table, unlinked, graph_busy_ms) -> dict:
+    """Print ``label``'s site table by pass x site, by site and by pass,
+    and its sum beside the graph path's busy time; returns it as a JSON
+    object."""
     total = sum(v[0] for v in table.values())
     events = sum(v[1] for v in table.values())
-    print(f"== default chain busy time by call site (host loop, seed 1): "
+    print(f"== {label} busy time by call site (host loop, seed 1): "
           f"{total / 1e3:.3f} ms in {events} device events ({unlinked} "
           f"linked to no launch), beside the graph path's busy "
           f"{graph_busy_ms:.3f} ms")
@@ -214,16 +220,10 @@ def report_sites(table, unlinked, graph_busy_ms, path=None) -> None:
         print(f"by {label} (ms, device events):")
         for name, (us, n) in sorted(sums.items(), key=lambda kv: -kv[1][0]):
             print(f"  {us / 1e3:9.3f} ms {n:7d}  {name}")
-    if path:
-        with open(path, "w") as f:
-            json.dump({"total_ms": total / 1e3, "events": events,
-                       "unlinked_events": unlinked,
-                       "graph_busy_ms": graph_busy_ms,
-                       "sites": [{"pass": p_, "site": s_, "ms": us / 1e3,
-                                  "events": n}
-                                 for (p_, s_), (us, n) in table.items()]},
-                      f, indent=1)
-        print(f"site table written to {path}")
+    return {"total_ms": total / 1e3, "events": events,
+            "unlinked_events": unlinked, "graph_busy_ms": graph_busy_ms,
+            "sites": [{"pass": p_, "site": s_, "ms": us / 1e3, "events": n}
+                      for (p_, s_), (us, n) in table.items()]}
 
 
 def profiled(fn):
@@ -294,10 +294,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", help="write a Chrome trace to this path")
     ap.add_argument("--top", type=int, default=15)
-    ap.add_argument("--only", choices=("all", "default-chain"),
-                    default="all", help="default-chain: only the default "
+    ap.add_argument("--only", choices=("all", "main", "default-chain"),
+                    default="all", help="main, default-chain: only that "
                     "chain's optimizes and its site table")
-    ap.add_argument("--sites", help="write the site table as JSON here")
+    ap.add_argument("--sites", help="write the site tables as JSON here")
     args = ap.parse_args(argv)
 
     import torch
@@ -317,7 +317,8 @@ def main(argv=None) -> int:
     model, md = flatten_spec(chip_smoke.build_spec(), device="cuda")
     print(f"card: {card}")
     res = None
-    for loop in ("auto", "host") if args.only == "all" else ():
+    tables = {}
+    for loop in ("auto", "host") if args.only != "default-chain" else ():
         # the goal passes as CUDA graphs ("auto"), then their host-driven
         # twin, in the same process
         name = "CUDA graphs" if loop == "auto" else "host loop"
@@ -339,19 +340,31 @@ def main(argv=None) -> int:
         out, prof, wall_s = profiled(
             lambda: opt.optimize(model, md, chip_smoke.main_path_options(1)))
         res = res or out
-        if not report(f"optimize (seed 1), {name}", prof, wall_s, args.top,
+        busy = report(f"optimize (seed 1), {name}", prof, wall_s, args.top,
                       f"moves {out.num_moves}, proposals "
                       f"{len(out.proposals)}, host syncs "
-                      f"{engine.HOST_SYNCS - syncs0}, ") is None:
+                      f"{engine.HOST_SYNCS - syncs0}, ")
+        if busy is None:
             return 1
         if args.trace and loop == "auto":
             prof.export_chrome_trace(args.trace)
             print(f"trace written to {args.trace}")
+        if loop == "auto":
+            main_busy_ms = busy
+            continue
+        with site_ranges():
+            out, prof, wall_s = profiled(
+                lambda: opt.optimize(model, md,
+                                     chip_smoke.main_path_options(1)))
+        print(f"main path with site ranges, host loop: wall {wall_s:.4f} s, "
+              f"moves {out.num_moves}")
+        tables["main path"] = report_sites("main path", *site_table(prof),
+                                           main_busy_ms)
 
     from cruise_control_tpu_torch.analyzer import (OptimizationOptions,
                                                    SearchConfig,
                                                    TorchGoalOptimizer)
-    for loop in ("auto", "host"):
+    for loop in ("auto", "host") if args.only != "main" else ():
         name = "CUDA graphs" if loop == "auto" else "host loop"
         dopt = TorchGoalOptimizer(
             config=SearchConfig(**chip_smoke.MAIN_SEARCH), device="cuda",
@@ -384,8 +397,13 @@ def main(argv=None) -> int:
                                       OptimizationOptions(seed=1)))
         print(f"default chain with site ranges, host loop: wall "
               f"{wall_s:.4f} s, moves {out.num_moves}")
-        report_sites(*site_table(prof), graph_busy_ms, args.sites)
-    if args.only == "default-chain":
+        tables["default chain"] = report_sites(
+            "default chain", *site_table(prof), graph_busy_ms)
+    if args.sites:
+        with open(args.sites, "w") as f:
+            json.dump(tables, f, indent=1)
+        print(f"site tables written to {args.sites}")
+    if args.only != "all":
         return 0
     opt = chip_smoke.main_path_optimizer()
     opt.optimize(model, md, chip_smoke.main_path_options(0))

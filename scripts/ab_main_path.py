@@ -30,7 +30,9 @@ package) out of place and, where the root's KM has the form, in place
 (``out=``, checked once against the call out of place), KP at the main
 path's drain (N 16,384) and the scale cell's (N 25,000), KO's range
 launch where the root has it, KO's two launches for a util goal and a
-count goal, KN at ``chip_smoke.KN_SHAPES``, each a CUDA graph of up to
+count goal, KN at ``chip_smoke.KN_SHAPES``, KQ at ``chip_smoke.KQ_SHAPES``
+where the root has it (``chip_smoke.kq_round``'s real apply rounds), each
+a CUDA graph of up to
 200 launches replayed between two events (``chip_smoke.time_ms``), and
 the dependent-add probe where the root has it; the summary is each
 shape's median per root. With
@@ -150,9 +152,9 @@ def launch_times(fn, calls=10) -> dict:
 
 def _time_ko_kn(cs, kernels, timed, shape, m, md, state, ctx):
     """KO (its range launch where the root has it, then the priorities and
-    the match of a util goal and a count goal) and KN (``chip_smoke.
-    KN_SHAPES``, each chain at its positions there) at phase 3's
-    shapes."""
+    the match of a util goal and a count goal), KN (``chip_smoke.
+    KN_SHAPES``, each chain at its positions there) and KQ where the root
+    has it (``chip_smoke.KQ_SHAPES``) at phase 3's shapes."""
     from cruise_control_tpu_torch import _random
     from cruise_control_tpu_torch.analyzer import (SearchConfig,
                                                    default_goals,
@@ -190,6 +192,15 @@ def _time_ko_kn(cs, kernels, timed, shape, m, md, state, ctx):
             tag = f"KN {shape} N {n} {chain} position {i}"
             timed(tag, lambda: kernels.candidate_eligibility(st, cx, c,
                                                              checks))
+    if not hasattr(kernels, "round_guards"):
+        return
+    for chain, pos, search, q in cs.KQ_SHAPES[shape]:
+        seg, c, ce, pending, elig, bounds = cs.kq_round(
+            state, ctx, goals if chain == "main" else default_chain, pos,
+            search, q)
+        timed(f"KQ {shape} M {ce.shape[0]} {chain} position {pos}",
+              lambda: kernels.round_guards(state, ctx, c, ce, pending, elig,
+                                           seg.guards, bounds))
 
 
 def kernels_child(root: str, launches: bool) -> dict:

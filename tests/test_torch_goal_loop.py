@@ -323,7 +323,7 @@ class _Graph:
 
 class _Segment:
     def __init__(self, name, fn):
-        self.name, self.fn, self.launches = name, fn, {}
+        self.name, self.fn, self.launches, self.rounds = name, fn, {}, 0
 
 
 class HostInterpreter:
