@@ -45,10 +45,15 @@ Phases (every failure raises; nothing is caught):
    scale cell's), timed beside their twins, bounds and (KM, KP) chain
    bounds; KQ (round_guards: a real apply round's do, pending and flag at
    ``KQ_SHAPES``) against its twin on the same CUDA state, which is the
-   goals' guards through KC and KK;
+   goals' guards through KC and KK; KR, KS and KT (the goals' candidate
+   generators: replica priorities, destinations, the assembled candidates)
+   over every call of each goal's propose of ``GENERATOR_CASES``' chains
+   (every row kind and form), bit for bit against their twins on the CPU,
+   each kernel and form timed once a shape (the short-list also against
+   ``torch.topk``);
 4. main path — 100 brokers x 20K partitions at RF 2, the 4-goal chain
    with the off-chain hard-goal audit, seeds 0, 1, 1 (proposals of the two
-   seed-1 runs must be identical; KA, KB, KL and KM-KQ must have
+   seed-1 runs must be identical; KA, KB, KL, KM-KR and KT must have
    launched, KQ once an apply round, KC and KK never;
    no optimize may read a loop test on the host, and the warm ones may
    capture no CUDA graph; KA's launches of each optimize and the last
@@ -93,8 +98,9 @@ Phases (every failure raises; nothing is caught):
 13. default chain — the reference's own per-proposal contract
     (``goals=None``, nothing waived): (a) the main-path cluster, seeds 1
     and 1 (identical proposals, each run's outcome held to
-    ``REFERENCE_DEFAULT``; KA, KB, KL and KM-KQ must have launched, KQ
-    once an apply round, KC and KK never); (b) bench
+    ``REFERENCE_DEFAULT``; KA, KB, KL and KM-KT must have launched, KQ
+    once an apply round, KC and KK never; each goal's generators over 20
+    calls launch only KR, KS, KT, KO and top_k's sort); (b) bench
     scale scenario 3 (1K x 200K, the reference bench's search; no hard
     goal left violated, no goal worse than it started); (c)
     ``WhatIfEngine()``'s N-1 sweep with the default goals (topic counts
@@ -119,6 +125,7 @@ from __future__ import annotations
 import gc
 import hashlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -346,12 +353,26 @@ KERNEL_INFO = {
     "round_guards": dict(
         source="cruise_control_tpu_torch/csrc/round_guards.cu",
         replaces="cruise_control_tpu/analyzer/engine.py:154"),
+    "replica_priority": dict(
+        source="cruise_control_tpu_torch/csrc/replica_priority.cu",
+        replaces="cruise_control_tpu/analyzer/goals.py:875"),
+    "dest_select": dict(
+        source="cruise_control_tpu_torch/csrc/dest_select.cu",
+        replaces="cruise_control_tpu/analyzer/goals.py:113"),
+    "assemble_candidates": dict(
+        source="cruise_control_tpu_torch/csrc/candidates.cu",
+        replaces="cruise_control_tpu/analyzer/state.py:277"),
 }
-#: KM-KQ, the goal pass's own kernels, and KO's range table (once a
-#: context): every optimize launches each
+#: KM-KR and KT, the goal pass's own kernels, and KO's range table (once
+#: a context): every optimize launches each (KS serves the goals outside
+#: the interval family: phase 13's default chain launches it)
 PASS_KERNELS = ("apply_group", "candidate_eligibility",
                 "replica_weight_range", "flow_priority", "flow_match",
-                "bulk_drain_fill", "round_guards")
+                "bulk_drain_fill", "round_guards", "replica_priority",
+                "assemble_candidates")
+#: KR, KS and KT: the goals' candidate generators (their wrappers, as
+#: ``analyzer/goals.py`` calls them)
+GENERATOR_KERNELS = ("replica_priority", "dest_select", "assemble_candidates")
 #: the guards' kernels before KQ, which an apply round no longer launches
 GUARD_FLOWS = ("net_broker_flow", "cell_net_flow")
 
@@ -1034,18 +1055,20 @@ def _state_fields(state):
 
 def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms,
                          add_ns):
-    """KM (apply_group), KN (candidate_eligibility), KO (flow_priority,
-    flow_match) and KP (bulk_drain_fill) against their twins on the CPU at
-    the main path's shapes (first: the kernels line's rows; a dead broker,
-    topic tables), timed as a CUDA graph of up to 200 launches beside their
-    twins on the card (eager) and their bounds; KM at ``KM_SHAPES`` in
-    both forms and KO / KP at the scale cell too; KM and KP with their
-    chain bounds (their longest in-order chain x ``add_ns``)."""
+    """KM (apply_group), KN (candidate_eligibility), KQ (round_guards),
+    KR-KT (the generators), KO (flow_priority, flow_match) and KP
+    (bulk_drain_fill) against their twins on the CPU at the main path's
+    shapes (first: the kernels line's rows; a dead broker, topic tables),
+    timed as a CUDA graph of up to 200 launches beside their twins on the
+    card (eager) and their bounds; KM at ``KM_SHAPES`` in both forms and
+    KO / KP / KR-KT at the scale cell too; KM and KP with their chain
+    bounds (their longest in-order chain x ``add_ns``)."""
     import torch
     from cruise_control_tpu_torch import _random, kernels
     from cruise_control_tpu_torch.analyzer import (SearchConfig,
                                                    default_goals,
                                                    goals_by_name)
+    from cruise_control_tpu_torch.analyzer.goals import KAFKA_ASSIGNER_GOALS
     from cruise_control_tpu_torch.utils.ordered import top_k
     cfg = SearchConfig(**MAIN_SEARCH)
     goals = goals_by_name(GOALS)
@@ -1067,6 +1090,7 @@ def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms,
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
 
+    timed = set()
     for shape, m, mdd in (("main", model, md), ("scale", scale_model,
                                                  scale_md)):
         state, ctx = pass_state(m, mdd, dead=(3,))
@@ -1113,6 +1137,19 @@ def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms,
             _kernel_round_guards(row, state, ctx, chain, (
                 goals if chain == "main" else default_chain), pos, search,
                 q)
+        # --- KR, KS and KT: every call of each goal's propose at
+        # GENERATOR_CASES' chain positions (first: the kernels line's rows)
+        for chain, search in GENERATOR_CASES[shape]:
+            st, cx = state, ctx
+            if chain == "partb":
+                st, cx, chain_goals = partb_pass(state.rb.device)
+            elif chain == "kafka_assigner":
+                chain_goals = [g.bind(mdd) for g in goals_by_name(
+                    KAFKA_ASSIGNER_GOALS)]
+            else:
+                chain_goals = goals if chain == "main" else default_chain
+            _kernel_generators(row, rows, shape, st, cx, chain_goals, search,
+                               timed)
         # --- KO: a util goal's and a count goal's priorities and
         # destination match (first: the kernels line's rows)
         K = cfg.num_replica_candidates if shape == "main" else 1_024
@@ -1359,6 +1396,217 @@ def _kernel_round_guards(row, state, ctx, chain, chain_goals, pos, search,
         f"{len(guards.metrics)} metric slots), B1={state.util.shape[0]}: "
         f"{n_elig} eligible, {n_do} applied",
         err, ms, plain, *kq_bytes_ops(guards, c, ce, elig, pending))
+
+
+def generator_calls(goal, state, ctx, cfg, key):
+    """(candidates, [(wrapper, args, kwargs, output)]): ``goal``'s propose
+    on (``state``, ``ctx``) with its KR, KS and KT calls recorded in call
+    order (the wrappers as ``analyzer/goals.py`` calls them)."""
+    from cruise_control_tpu_torch.analyzer import goals as g
+    real = {name: getattr(g, name) for name in GENERATOR_KERNELS}
+    calls = []
+
+    def recorder(name):
+        def call(*args, **kw):
+            out = real[name](*args, **kw)
+            calls.append((name, args, kw, out))
+            return out
+        return call
+    for name in real:
+        setattr(g, name, recorder(name))
+    try:
+        cands = goal.propose(state, ctx, key, cfg)
+    finally:
+        for name, fn in real.items():
+            setattr(g, name, fn)
+    return cands, calls
+
+
+def to_cpu(obj):
+    """A generator call's argument (tensors, key paths, parts, states,
+    contexts, candidates, sequences and dicts of them) with every tensor
+    on the CPU; anything else as it is."""
+    import dataclasses
+    import torch
+    from cruise_control_tpu_torch import _random, kernels
+    from cruise_control_tpu_torch.analyzer import state as st
+    if isinstance(obj, torch.Tensor):
+        return obj.cpu()
+    if isinstance(obj, _random.KeyPath):
+        return _random.KeyPath(obj.root.cpu(), tuple(to_cpu(w)
+                                                     for w in obj.words))
+    if isinstance(obj, kernels.Part):
+        return kernels.Part(obj.kind, **{
+            f: to_cpu(getattr(obj, f)) for f in obj.__slots__[1:]
+            if getattr(obj, f) is not None})
+    if isinstance(obj, (st.SearchState, st.SearchContext, st.Candidates)):
+        return to_device(obj, "cpu")
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_cpu(x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: to_cpu(v) for k, v in obj.items()}
+    assert not dataclasses.is_dataclass(obj) or not any(
+        isinstance(getattr(obj, f.name), torch.Tensor)
+        for f in dataclasses.fields(obj)), type(obj)
+    return obj
+
+
+def _generator_twins():
+    from cruise_control_tpu_torch import kernels
+    return {"replica_priority": kernels.replica_priority_plain,
+            "dest_select": kernels.dest_select_plain,
+            "assemble_candidates": kernels.assemble_candidates_plain}
+
+
+def generator_outputs(name, out):
+    """A generator wrapper's output as a list of tensors."""
+    from cruise_control_tpu_torch import kernels
+    if name == "assemble_candidates":
+        return [getattr(out, f) for f, _d, _w in kernels.CANDIDATE_FIELDS]
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def generator_form(name, args):
+    """The row kind, form or parts of a recorded generator call."""
+    if name == "assemble_candidates":
+        return "+".join(part.kind for part in args[2])
+    return args[0]
+
+
+def generator_bytes_ops(name, args, kw, out):
+    """A generator call's bound inputs. Bytes: each input read once and
+    each output written once — the [P, R] slots (placement 8, masks 2,
+    each plane written 4) and a kind's own tables for KR; the short-list's
+    [B1] plane and the noise's counters, or a topic destination's [T, B1]
+    counts once, each candidate's index, topic and row, for KS; each
+    row's indices, loads (32 bytes a partition row read) and its 106
+    bytes written for KT. Operations: ~115 a threefry draw (the noise's
+    hash and conversion) and ~20 a slot or a scored cell besides."""
+    from cruise_control_tpu_torch import kernels
+    if name == "assemble_candidates":
+        state, _ctx, parts = args
+        n = sum(part.rows for part in parts)
+        swaps = sum(part.rows for part in parts
+                    if part.kind in ("swap", "topic_swap"))
+        return n * (106 + 24 + 32 + 9) + swaps * 48, n * 20 + swaps * 230
+    kind, goal, state, ctx = args[:4]
+    P, R = state.rb.shape
+    B1 = ctx.broker_alive.shape[0]
+    n = P * R
+    T = (state.topic_counts.shape[0] if state.topic_counts is not None
+         else 0)
+    if name == "replica_priority":
+        planes = len(args[4])
+        nbytes = n * (10 + 4 * planes)
+        extra = {"rack_aware": B1 * 4, "rack_spread": B1 * 5,
+                 "broker_set": P * 4 + B1 * 4 + T * 4,
+                 "topic_leaders_move": P * 4 + T * B1 * 4,
+                 "topic_leaders": P * 5 + T * B1 * 4 + T + B1,
+                 "interval_leadership": P + B1 * 8, "no_leadership": P,
+                 "preferred_leader": P + n * 8,
+                 "interval_swap": P * 32 + B1 * 21 + 48,
+                 "topic": P * 4 + T * B1 * 4 + B1 * 3 + T * 8}[kind]
+        return nbytes + extra, n * (115 * planes + 20) + (
+            T * B1 if kind == "topic" else 0)
+    form = args[0]
+    if form == "shortlist":
+        D = kw["n"]
+        topic = kw.get("plane") == "topic_leaders"
+        return (B1 * 5 + D * 12 + (T * B1 * 4 + T if topic else 0),
+                B1 * 135 + (T * B1 if topic else 0))
+    K = kw["idx"].shape[0]
+    rows = K * (8 + 4 + 8 * R + 9) + T * B1 * 4 + B1 * 6 + T * 8
+    if form == "topic_move_dest":
+        return rows, K * B1 * 135
+    return rows + n * 14 + P * 4, n * 135 + K * B1 * 135
+
+
+def check_generators(state, ctx, chain_goals, search, what, seed=7):
+    """Each goal of ``chain_goals`` proposing on the card at its position
+    (the context its pass steers, key ``fold(PRNGKey(seed), position)``),
+    every KR, KS and KT call held to its twin on the CPU on copies of the
+    same inputs: a call whose outputs differ fails the phase. Yields
+    (goal, wrapper, form, args, kwargs, output, max |err|) a call."""
+    import torch
+    from cruise_control_tpu_torch import _random, kernels
+    from cruise_control_tpu_torch.analyzer import SearchConfig
+    from cruise_control_tpu_torch.analyzer.engine import PassSegments
+    cfg = SearchConfig(**search)
+    for pos, goal in enumerate(chain_goals):
+        sctx = PassSegments(goal, chain_goals[:pos], cfg).steer_ctx(state,
+                                                                    ctx)
+        key = _random.fold(_random.PRNGKey(seed, device=state.rb.device),
+                           pos)
+        before = dict(kernels.LAUNCHES)
+        _cands, calls = generator_calls(goal, state, sctx, cfg, key)
+        if state.rb.is_cuda:
+            torch.cuda.synchronize()
+        made = {k: kernels.LAUNCHES[k] - before[k]
+                for k in GENERATOR_KERNELS}
+        counted = {k: sum(c[0] == k for c in calls)
+                   for k in GENERATOR_KERNELS}
+        if state.rb.is_cuda and made != counted:
+            fail(f"{what}: {goal.name}'s wrappers counted {made}, the "
+                 f"propose called {counted}")
+        if not counted["assemble_candidates"]:
+            fail(f"{what}: {goal.name}'s propose assembled no candidates")
+        for name, args, kw, out in calls:
+            form = generator_form(name, args)
+            got = generator_outputs(name, out)
+            want = generator_outputs(name, _generator_twins()[name](
+                *to_cpu(args), **to_cpu(kw)))
+            err = _max_err(got, want)
+            if not all(g.shape == w.shape and torch.equal(g.cpu(), w)
+                       for g, w in zip(got, want)):
+                fail(f"{name} differs from its twin: {what}, "
+                     f"{goal.name}[{pos}] {form}, max |err| {err}")
+            yield goal, name, form, args, kw, out, err
+
+
+def _kernel_generators(row, rows, shape, state, ctx, chain_goals, search,
+                       timed):
+    """KR, KS and KT bit for bit against their twins on the CPU over every
+    call of each chain goal's propose at its position (``GENERATOR_CASES``,
+    :func:`check_generators`). The first call of each kernel and form in
+    ``timed`` (a set it adds to) is timed — a CUDA graph of the wrapper
+    against the twin on the card — beside its bound; the short-list also
+    against ``torch.topk`` over its masked, noised [B1] (the library
+    column of the line's KS row, the first short-list's)."""
+    import torch
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.analyzer import SearchConfig
+    cfg = SearchConfig(**search)
+    P = state.rb.shape[0]
+    B1 = ctx.broker_alive.shape[0]
+    for goal, name, form, args, kw, out, err in check_generators(
+            state, ctx, chain_goals, search, shape):
+        if (name, form, shape) in timed:
+            continue
+        timed.add((name, form, shape))
+        wrapper, twin = getattr(kernels, name), _generator_twins()[name]
+        ms = time_ms(lambda: wrapper(*args, **kw), graph=True)
+        plain = time_ms(lambda: twin(*args, **kw), groups=3)
+        row(name, f"{goal.name} {form} ({shape}, P={P}, B1={B1}) [1 wrapper "
+            f"call]", err, ms, plain,
+            *generator_bytes_ops(name, args, kw, out))
+        if name == "dest_select" and form == "shortlist":
+            dp = kernels.shortlist_source_plain(
+                args[3], _shortlist_plane(goal, state, args[3], kw),
+                args[4][0], cfg)
+            lib = time_ms(lambda: torch.topk(dp, kw["n"]), graph=True)
+            log(f"  torch.topk over the masked, noised [B1]: {lib:.5f} ms")
+            if rows["dest_select"]["library_ms"] is None:
+                rows["dest_select"]["library_ms"] = lib
+
+
+def _shortlist_plane(goal, state, ctx, kw):
+    """The short-list's [B1] plane before its mask and noise."""
+    import torch
+    from cruise_control_tpu_torch.analyzer.goals import (
+        _count_replicas_norm, _norm01)
+    if kw.get("plane", "count") == "count":
+        return _count_replicas_norm(state)
+    return _norm01(goal._deficit(state, ctx).sum(dim=0).to(torch.float32))
 
 
 #: KM's phase-3 shapes: (model, tag, case) — an apply round's M 512 (the
@@ -3463,6 +3711,18 @@ PARTB_CONSTRAINT = dict(topics_with_min_leaders_per_broker="t1*",
 PARTB_CHAIN = ["BrokerSetAwareGoal", "MinTopicLeadersPerBrokerGoal",
                "RackAwareDistributionGoal", "PreferredLeaderElectionGoal"]
 PARTB_SEED = 1
+#: KR, KS and KT's phase-3 cases by model: (chain, search) — every goal
+#: of the chain proposing as its pass sees the state (the steered context
+#: of its position), broker 3 dead. The main path's model first: its own
+#: chain (the kernels line's KR and KT rows: DiskUsageDistribution's swap
+#: planes, ReplicaDistribution's flow assembly), the default chain (its
+#: RackAware short-list the line's KS row), the part-B chain and the
+#: kafka-assigner pair; the scale cell's default chain with phase 13 (b)'s
+#: search (K 1,024, 512 swaps).
+GENERATOR_CASES = {"main": (("main", MAIN_SEARCH), ("default", MAIN_SEARCH),
+                            ("partb", MAIN_SEARCH),
+                            ("kafka_assigner", MAIN_SEARCH)),
+                   "scale": (("default", SCALE3_SEARCH),)}
 #: phase 13 as the reference computes it (the JAX package on the CPU from
 #: the same inputs: ``scripts/default_chain_reference.py``): (a) each
 #: optimize's moves, proposals, digest, per-goal (name, iterations,
@@ -3681,12 +3941,13 @@ def phase_default_chain(model, md, scale_model, scale_md):
     for i, (got, want) in enumerate(zip(main["a"], REFERENCE_DEFAULT)):
         _check_outcome(f"(a) run {i + 1}", got, want)
     missing = [k for k in ("threefry2x32", "ordered_segment_sum",
-                           "goal_loop", *PASS_KERNELS)
+                           "goal_loop", *PASS_KERNELS, "dest_select")
                if not launches[k]]
     if missing:
         fail(f"(a) kernels never launched by the default chain: {missing}")
     _check_round_launches("(a)", launches, engine.APPLY_ROUNDS - rounds0)
     _default_chain_kn(model, md, launches["candidate_eligibility"])
+    _default_chain_generators(model, md)
     rest = default_chain_rest(pkg, model, md)
     log(f"(c) N-1 sweep with the default goals: {rest['walls']['n1']:.3f}s")
     _check_summary("(c) N-1, default goals", rest["c"], REFERENCE_DEFAULT_N1)
@@ -3765,6 +4026,93 @@ def _default_chain_kn(model, md, launches):
         fail(f"(a) KN's wrapper at the default chain's last position "
              f"launched {counts} in {reps} calls: KN and the topic bounds "
              f"once a call and nothing else expected")
+
+
+#: KR's, KS's, KT's and KO's device kernels (``torch.profiler`` names
+#: contain these) and the memsets ahead of KR's topic kind and KS's swap
+#: destinations: what a goal's generators launch besides ``top_k``'s sort
+GENERATOR_OPS = ("replica_priority_kernel", "topic_limits_kernel",
+                 "topic_range_kernel", "shortlist_kernel",
+                 "move_rows_kernel", "move_dest_kernel", "light_kernel",
+                 "swap_dest_kernel", "assemble_kernel",
+                 "flow_priority_kernel", "flow_match_kernel", "Memset")
+
+
+def _default_chain_generators(model, md):
+    """Phase 13 (a)'s generators: each default-chain goal's propose at its
+    position (phase 3's state, broker 3 dead; an interval goal's planes —
+    its bounds, outside the generators — formed ahead) over a window of 20
+    calls, counted as KN's check counts. Its device operations must be
+    KR's, KS's, KT's and KO's kernels and memsets, and the ones ``top_k``'s
+    sort launches, each no more often than the window's top-k calls times
+    what one top-k over the same [P * R] launches (read in a window of its
+    own, rounded up: the profiler drops a few events of a window, never
+    adds one), memsets also three a call besides (KR's topic kind makes
+    one, KS's swap destinations two); each window must record KT, and each
+    wrapper must count its calls."""
+    import torch
+    from cruise_control_tpu_torch import _random, kernels
+    from cruise_control_tpu_torch.analyzer import SearchConfig, default_goals
+    from cruise_control_tpu_torch.analyzer import goals as g
+    from cruise_control_tpu_torch.analyzer.engine import PassSegments
+    from cruise_control_tpu_torch.utils.ordered import top_k
+    state, ctx = pass_state(model, md, dead=(3,))
+    goals = [goal.bind(md) for goal in default_goals()]
+    cfg = SearchConfig(**MAIN_SEARCH)
+    reps = 20
+    P, R = state.rb.shape
+    x = torch.rand(P * R, device=state.rb.device)
+    _, ops = _device_ops(lambda: [top_k(x, cfg.num_replica_candidates)
+                                  for _ in range(reps)])
+    per_top_k = {o: math.ceil(ops.count(o) / reps) for o in set(ops)}
+    log(f"(a) top_k over {P * R} floats, {reps} calls: "
+        f"{ {o: ops.count(o) for o in sorted(set(ops))} }")
+    if not ops:
+        fail("(a) the profiler recorded no operation of top_k's window")
+    real_top_k = g.top_k
+    for pos, goal in enumerate(goals):
+        sctx = PassSegments(goal, goals[:pos], cfg).steer_ctx(state, ctx)
+        key = _random.PRNGKey(3, device=state.rb.device)
+        if isinstance(goal, g.IntervalGoal):
+            planes = goal.propose_planes(state, sctx)
+
+            def call(goal=goal, sctx=sctx, key=key, planes=planes):
+                return goal.generate(state, sctx, key, cfg, *planes)
+        else:
+            def call(goal=goal, sctx=sctx, key=key):
+                return goal.propose(state, sctx, key, cfg)
+        call()
+        torch.cuda.synchronize()
+        calls = []
+
+        def counting_top_k(*args, **kw):
+            calls.append(1)
+            return real_top_k(*args, **kw)
+        before = dict(kernels.LAUNCHES)
+        g.top_k = counting_top_k
+        try:
+            _, ops = _device_ops(lambda: [call() for _ in range(reps)])
+        finally:
+            g.top_k = real_top_k
+        made = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES
+                if kernels.LAUNCHES[k] != before[k]}
+        counts = {o: ops.count(o) for o in sorted(set(ops))}
+        log(f"(a) {goal.name}'s generators, {reps} calls ({len(calls)} "
+            f"top-k; wrapper counts {made}): {counts}")
+        other = [o for o in counts if o not in per_top_k
+                 and not any(k in o for k in GENERATOR_OPS)]
+        over = [o for o in counts if o in per_top_k and counts[o] > (
+            per_top_k[o] * len(calls) + (3 * reps if "Memset" in o else 0))]
+        if other or over:
+            fail(f"(a) {goal.name}'s propose launched {other} besides KR, KS, "
+                 f"KT, KO and top_k's sort, and {over} more often than its "
+                 f"top-k's sorts")
+        if not any("assemble_kernel" in o for o in counts):
+            fail(f"(a) {goal.name}'s window recorded no KT launch")
+        if made.get("assemble_candidates") != reps or any(
+                k not in GENERATOR_KERNELS + ("flow_priority", "flow_match")
+                for k in made):
+            fail(f"(a) {goal.name}'s wrappers counted {made} in {reps} calls")
 
 
 def _loop_outcome(res):
@@ -3947,7 +4295,8 @@ def main() -> int:
                     intra_broker_walk=intra_launches["intra_broker_walk"],
                     fleet_scenario_failover=fleet_launches[
                         "fleet_scenario_failover"],
-                    cell_net_flow=default_launches["cell_net_flow"])
+                    cell_net_flow=default_launches["cell_net_flow"],
+                    dest_select=default_launches["dest_select"])
     kernels_line = [dict(name=name, route="cuda", source=info["source"],
                          replaces=info["replaces"], launches=launches[name],
                          **rows[name])

@@ -20,6 +20,14 @@ top-k are stable, float sums and prefix sums run in the reference's order
 twin the interval goals' collective guards sum their flows through KC
 (``kernels.net_broker_flow``) and the topic-cell guards through KK
 (``kernels.cell_net_flow``).
+
+A ``propose`` is its generators around ``top_k``: the source priorities
+(KO's for an interval goal's flow moves, else KR's,
+``kernels.replica_priority``, a row kind a form), the destinations (KO's
+match, or KS's, ``kernels.dest_select``) and one KT launch
+(``kernels.assemble_candidates``) that builds every candidate of the
+proposal's parts; each goal's ``priority_base`` is the twin of its KR
+base.
 """
 
 from __future__ import annotations
@@ -32,17 +40,18 @@ import torch
 from .. import _random
 from ..config.brokersets import topic_set_array
 from ..core.resources import Resource
-from ..kernels import (bulk_drain_fill, cell_net_flow, flow_match,
-                       flow_priority, net_broker_flow, ordered_segment_sum)
+from ..kernels import (Part, assemble_candidates, bulk_drain_fill,
+                       cell_net_flow, dest_select, flow_match, flow_priority,
+                       grid_source_plain, net_broker_flow,
+                       ordered_segment_sum, replica_priority,
+                       shortlist_source_plain)
 from ..model.flat import MOVE_INTER_BROKER, MOVE_LEADERSHIP, MOVE_SWAP
 from ..utils.ordered import (fma, lexsort, scan_sum, top_k,
                               topic_cell_sum, tree_sum, tree_sum_last,
                               violation_row_sum)
 from .constraint import BalancingConstraint, SearchConfig
-from .state import (Candidates, SearchContext, SearchState, concat_candidates,
-                    make_leadership_candidates, make_move_candidates,
-                    make_swap_candidates, metric_deltas, metric_values,
-                    METRIC_LEADER_COUNT, METRIC_LEADER_NW_IN,
+from .state import (Candidates, SearchContext, SearchState, metric_deltas,
+                    metric_values, METRIC_LEADER_COUNT, METRIC_LEADER_NW_IN,
                     METRIC_POTENTIAL_NW_OUT, METRIC_REPLICA_COUNT)
 
 # Candidate priorities are composed as TIER + weight-in-[0,1) + noise.
@@ -161,49 +170,45 @@ def _legal_dest_argmax(state: SearchState, ctx: SearchContext,
 def _top_replica_dest_grid(state: SearchState, ctx: SearchContext, key,
                            cfg: SearchConfig, replica_priority: torch.Tensor,
                            dest_priority: torch.Tensor) -> Candidates:
-    """Shared candidate generator: top-K replicas x top-D destinations."""
+    """The shared top-K replicas x top-D destinations generator over
+    explicit base priorities ([P, R] and [B1]), in the twins' transforms;
+    the goals reach it through KR and KS (:func:`_grid_part`)."""
     P, R = replica_priority.shape
     K = min(cfg.num_replica_candidates, P * R)
     D = min(cfg.num_dest_candidates, dest_priority.shape[0])
     krep, kdst = _random.subkeys(key)
-
-    rp = torch.where(ctx.movable, replica_priority, _NEG)
-    rp = torch.where(state.offline,
-                     _TIER_OFFLINE + torch.clamp(
-                         torch.where(torch.isfinite(rp), rp, 0.0), 0.0, 1.0),
-                     rp)
-    rp = rp + torch.where(torch.isfinite(rp),
-                          _noise(krep, rp.shape, cfg.noise_scale), 0.0)
+    rp = grid_source_plain(state, ctx, replica_priority, krep, cfg)
     rvals, ridx = top_k(rp.reshape(-1), K)
-    p, r = ridx // R, ridx % R
-
-    dp = torch.where(ctx.dest_allowed, dest_priority, _NEG)
-    dp = dp + torch.where(torch.isfinite(dp),
-                          _noise(kdst, dp.shape, cfg.noise_scale), 0.0)
-    dvals, didx = top_k(dp, D)
-
-    pg = torch.repeat_interleave(p, D)
-    rg = torch.repeat_interleave(r, D)
-    dg = didx.repeat(K)
-    valid = (torch.repeat_interleave(torch.isfinite(rvals), D)
-             & torch.isfinite(dvals).repeat(K))
-    return make_move_candidates(state, ctx, pg, rg, dg, valid)
+    dvals, didx = top_k(shortlist_source_plain(ctx, dest_priority, kdst,
+                                               cfg), D)
+    return assemble_candidates(state, ctx, [Part(
+        "grid", idx=ridx, vals=rvals, didx=didx, dvals=dvals)])
 
 
-def _top_leadership(state: SearchState, ctx: SearchContext, key,
-                    cfg: SearchConfig, priority: torch.Tensor) -> Candidates:
-    """Top-K leadership-transfer candidates from a [P, R] priority grid
-    (slot r>0 becoming leader)."""
-    P, R = priority.shape
+def _grid_part(goal, state: SearchState, ctx: SearchContext, key,
+               cfg: SearchConfig, kind: str, plane: str = "count") -> Part:
+    """The grid of top-K replicas (KR's ``kind``, then the top-k) x top-D
+    destinations (KS's short-list of ``plane``)."""
+    P, R = state.rb.shape
     K = min(cfg.num_replica_candidates, P * R)
-    slot_ok = ((torch.arange(R, device=priority.device)[None, :] > 0)
-               & ctx.leadership_movable[:, None])
-    pr = torch.where(slot_ok, priority, _NEG)
-    pr = pr + torch.where(torch.isfinite(pr),
-                          _noise(key, pr.shape, cfg.noise_scale), 0.0)
+    D = min(cfg.num_dest_candidates, ctx.broker_alive.shape[0])
+    krep, kdst = _random.subkeys(key)
+    rp = replica_priority(kind, goal, state, ctx, (krep,), cfg)[0]
+    rvals, ridx = top_k(rp.reshape(-1), K)
+    dvals, didx = dest_select("shortlist", goal, state, ctx, (kdst,), cfg,
+                              plane=plane, n=D)
+    return Part("grid", idx=ridx, vals=rvals, didx=didx, dvals=dvals)
+
+
+def _leadership_part(goal, state: SearchState, ctx: SearchContext, key,
+                     cfg: SearchConfig, kind: str, **planes) -> Part:
+    """Top-K leadership transfers (slot r > 0 becoming leader) by KR's
+    priority ``kind``."""
+    P, R = state.rb.shape
+    K = min(cfg.num_replica_candidates, P * R)
+    pr = replica_priority(kind, goal, state, ctx, (key,), cfg, **planes)[0]
     vals, idx = top_k(pr.reshape(-1), K)
-    p, r = idx // R, idx % R
-    return make_leadership_candidates(state, ctx, p, r, torch.isfinite(vals))
+    return Part("leadership", idx=idx, vals=vals)
 
 
 class GoalKernel:
@@ -553,7 +558,8 @@ class IntervalGoal(GoalKernel):
         KP, ``kernels.bulk_drain_fill``, after the sort)."""
         p, r, dst, ok = bulk_drain_fill(self, state, ctx, cfg,
                                         *self.drain_sort(state, ctx, key))
-        return make_move_candidates(state, ctx, p, r, dst, ok)
+        return assemble_candidates(state, ctx, [Part("move", p=p, r=r,
+                                                     dst=dst, ok=ok)])
 
     def drain_sort(self, state: SearchState, ctx: SearchContext, key):
         """The replica drain up to its fill: (values, up, deficit, quota,
@@ -648,10 +654,9 @@ class IntervalGoal(GoalKernel):
         def scatter(vals, dtype):
             out = torch.zeros(N + 1, dtype=dtype, device=dev)
             return out.scatter_(0, slot, vals.to(dtype))[:N]
-        return make_leadership_candidates(state, ctx,
-                                          scatter(o2, torch.int64),
-                                          scatter(r_sel[o2], torch.int64),
-                                          scatter(ok, torch.bool))
+        return assemble_candidates(state, ctx, [Part(
+            "leadership", p=scatter(o2, torch.int64),
+            r=scatter(r_sel[o2], torch.int64), ok=scatter(ok, torch.bool))])
 
     # -- candidate generation -------------------------------------------
     def propose_planes(self, state, ctx):
@@ -670,29 +675,29 @@ class IntervalGoal(GoalKernel):
         return values, lo, up, excess, deficit
 
     def propose(self, state, ctx, key, cfg):
-        values, lo, up, excess, deficit = self.propose_planes(state, ctx)
+        return self.generate(state, ctx, key, cfg,
+                             *self.propose_planes(state, ctx))
+
+    def generate(self, state, ctx, key, cfg, values, lo, up, excess,
+                 deficit):
+        """The proposal from its planes (:meth:`propose_planes`): the flow
+        moves (KO), the swaps (KR) and the leadership transfers (KR), each
+        around its top-k, assembled in that order by one KT launch."""
+        planes = dict(values=values, lo=lo, up=up, excess=excess,
+                      deficit=deficit)
         parts = []
         if self.actions in ("replica", "both"):
             kg, key = _random.subkeys(key)
-            parts.append(self._flow_candidates(state, ctx, kg, cfg, values,
-                                               lo, up, excess, deficit))
+            parts.append(self._flow_part(state, ctx, kg, cfg, **planes))
             if cfg.num_swap_candidates > 0 and self.metric[0] != "count":
                 ks, key = _random.subkeys(key)
-                parts.append(self._swap_candidates(state, ctx, ks, cfg,
-                                                   values, lo, up, excess,
-                                                   deficit))
+                parts.append(self._swap_part(state, ctx, ks, cfg, **planes))
         if self.actions in ("leadership", "both"):
-            src_b = state.rb[:, 0:1]                                # [P, 1]
-            dst_b = state.rb                                        # [P, R]
-            gain = _norm01(excess)[src_b] + _norm01(deficit)[dst_b]
-            prio = torch.where((excess[src_b] > 0.0) | (deficit[dst_b] > 0.0),
-                               gain, _NEG)
             kl, key = _random.subkeys(key)
-            parts.append(_top_leadership(state, ctx, kl, cfg, prio))
-        out = parts[0]
-        for extra in parts[1:]:
-            out = concat_candidates(out, extra)
-        return out
+            parts.append(_leadership_part(self, state, ctx, kl, cfg,
+                                          "interval_leadership",
+                                          excess=excess, deficit=deficit))
+        return assemble_candidates(state, ctx, parts)
 
     def _replica_metric_load(self, ctx: SearchContext, p: torch.Tensor,
                              r: torch.Tensor) -> torch.Tensor:
@@ -711,8 +716,8 @@ class IntervalGoal(GoalKernel):
             return ctx.leader_load[p, Resource.NW_OUT]
         return torch.where(is_leader, ctx.leader_load[p, Resource.NW_IN], 0.0)
 
-    def _flow_candidates(self, state, ctx, key, cfg, values, lo, up,
-                         excess, deficit):
+    def _flow_part(self, state, ctx, key, cfg, values, lo, up, excess,
+                   deficit) -> Part:
         """Flow-matched move candidates: top-K source replicas, each assigned
         its own destination by matching cumulative outgoing load against
         cumulative destination headroom (a greedy transportation plan) —
@@ -726,56 +731,31 @@ class IntervalGoal(GoalKernel):
         vals, idx = top_k(prio.reshape(-1), K)
         p, r, dst, valid = flow_match(self, state, ctx, kdst, cfg, values,
                                       lo, up, deficit, vals, idx)
-        return make_move_candidates(state, ctx, p, r, dst, valid)
+        return Part("move", p=p, r=r, dst=dst, ok=valid)
 
-    def _swap_candidates(self, state, ctx, key, cfg, values, lo, up, excess,
-                         deficit):
+    def _flow_candidates(self, state, ctx, key, cfg, values, lo, up,
+                         excess, deficit) -> Candidates:
+        """The flow moves alone, as candidates."""
+        return assemble_candidates(state, ctx, [self._flow_part(
+            state, ctx, key, cfg, values, lo, up, excess, deficit)])
+
+    def _swap_part(self, state, ctx, key, cfg, values, lo, up, excess,
+                   deficit) -> Part:
         """Heavy-for-light replica swaps between over-upper and below-average
         brokers (ref ResourceDistributionGoal.java:689,779): the k-th
         heaviest eligible replica pairs with the k-th lightest, the pairing
-        rotated by a random shift each iteration."""
+        rotated by a random shift each iteration (KR's two planes, their
+        top-k; KT draws the shift and rolls)."""
         P, R = state.rb.shape
-        dev = state.rb.device
         K = min(cfg.num_swap_candidates, P * R)
         kh, kl, kshift = _random.subkeys(key, 3)
-        q, finite = _unit01(self._replica_weight(state, ctx))       # [P, R]
-        src_b = state.rb
-        swappable = (ctx.movable & ~state.offline
-                     & ctx.raw_dest_allowed[src_b])
-        leader_scoped = self.metric[0] in ("leaders", "leader_nw_in")
-        is_slot0 = (torch.arange(R, device=dev) == 0)[None, :]
-        mid = torch.where(torch.isfinite(lo), (lo + up) * 0.5, up * 0.5)
-
-        any_deficit = (deficit > 0.0).any()
-        hmask = swappable & ((excess[src_b] > 0.0)
-                             | (any_deficit & (values[src_b] > mid[src_b])))
-        lmask = swappable & (values[src_b] < mid[src_b])
-        if leader_scoped:
-            hmask = hmask & is_slot0
-            lmask = lmask & ~is_slot0
-        hprio = torch.where(hmask, _tier_plus_norm01(_TIER_EXCESS, q, finite),
-                            _NEG)
-        hprio = hprio + torch.where(torch.isfinite(hprio),
-                                    _noise(kh, hprio.shape, cfg.noise_scale),
-                                    0.0)
-        # 0.99 - w contracts too: 0.99 - q * 0.99 rounds once.
-        light = torch.where(finite, fma(-q, 0.99, 0.99), 0.99 - 0.0)
-        lprio = torch.where(lmask,
-                            torch.where(deficit[src_b] > 0.0, _TIER_EXCESS,
-                                        0.0) + light, _NEG)
-        lprio = lprio + torch.where(torch.isfinite(lprio),
-                                    _noise(kl, lprio.shape, cfg.noise_scale),
-                                    0.0)
-        hv, hidx = top_k(hprio.reshape(-1), K)
-        lv, lidx = top_k(lprio.reshape(-1), K)
-        shift = _random.randint(kshift, (), 0, K)
-        rolled = (torch.arange(K, device=dev) - shift) % K         # jnp.roll
-        lidx = lidx[rolled]
-        lv = lv[rolled]
-        p1, r1 = hidx // R, hidx % R
-        p2, r2 = lidx // R, lidx % R
-        valid = torch.isfinite(hv) & torch.isfinite(lv)
-        return make_swap_candidates(state, ctx, p1, r1, p2, r2, valid)
+        prio = replica_priority("interval_swap", self, state, ctx, (kh, kl),
+                                cfg, values=values, lo=lo, up=up,
+                                excess=excess, deficit=deficit)
+        hv, hidx = top_k(prio[0].reshape(-1), K)
+        lv, lidx = top_k(prio[1].reshape(-1), K)
+        return Part("swap", idx=hidx, vals=hv, idx2=lidx, vals2=lv,
+                    shift=kshift)
 
     def _replica_weight(self, state: SearchState, ctx: SearchContext):
         """[P, R] preference among movable replicas on source brokers."""
@@ -1044,9 +1024,13 @@ class RackAwareGoal(GoalKernel):
         return self._dup_mask(state, ctx).sum(dim=(-2, -1)).to(torch.float32)
 
     def propose(self, state, ctx, key, cfg):
-        prio = torch.where(self._dup_mask(state, ctx), 1.0, _NEG)
-        return _top_replica_dest_grid(state, ctx, key, cfg, prio,
-                                      _count_replicas_norm(state))
+        return assemble_candidates(state, ctx, [_grid_part(
+            self, state, ctx, key, cfg, "rack_aware")])
+
+    def priority_base(self, kind, state, ctx):
+        """KR's base of a replica sharing a rack with a lower slot's (its
+        twin)."""
+        return torch.where(self._dup_mask(state, ctx), 1.0, _NEG)
 
     def _dup_change(self, state, ctx, p, r, new_broker):
         """(before, after) count of same-rack pairs involving replica (p, r)
@@ -1141,15 +1125,19 @@ class RackAwareDistributionGoal(GoalKernel):
         return pen.sum(dim=-1).to(torch.float32)
 
     def propose(self, state, ctx, key, cfg):
+        return assemble_candidates(state, ctx, [_grid_part(
+            self, state, ctx, key, cfg, "rack_spread")])
+
+    def priority_base(self, kind, state, ctx):
+        """KR's base of a replica whose rack holds more of its partition's
+        replicas than the limit (its twin)."""
         racks = ctx.broker_rack[state.rb]
         valid = state.rb < ctx.num_brokers_padded
         limit = self._limit(state, ctx)
         same = ((racks[:, :, None] == racks[:, None, :])
                 & valid[:, :, None] & valid[:, None, :])
         n = same.sum(dim=-1)
-        prio = torch.where(valid & (n > limit[:, None]), 1.0, _NEG)
-        return _top_replica_dest_grid(state, ctx, key, cfg, prio,
-                                      _count_replicas_norm(state))
+        return torch.where(valid & (n > limit[:, None]), 1.0, _NEG)
 
     def _side_delta(self, state, ctx, limit, p, r, new_broker):
         """Partition p's penalty change when slot r relocates to
@@ -1260,105 +1248,33 @@ class TopicReplicaDistributionGoal(GoalKernel):
         return topic_cell_sum(pen)
 
     def propose(self, state, ctx, key, cfg):
-        lower, upper = self._bounds(state, ctx)
-        tc = state.topic_counts.to(torch.float32)               # [T, B1]
-        T, B1 = tc.shape
-        alive = ctx.broker_alive[None, :]
-        excess = torch.where(alive, torch.clamp(tc - upper[:, None], min=0.0),
-                             tc)
-        t_of_p = _jax_index(ctx.partition_topic, T)               # [P]
-        src_excess = excess[t_of_p[:, None], state.rb]            # [P, R]
-        q, finite = _unit01(src_excess)
-        prio = torch.where(src_excess > 0.0,
-                           _tier_plus_norm01(_TIER_EXCESS, q, finite), _NEG)
-        prio = torch.where(ctx.movable, prio, _NEG)
-        prio = torch.where(state.offline, _TIER_OFFLINE, prio)
-        deficit = torch.where(alive, torch.clamp(lower[:, None] - tc, min=0.0),
-                              0.0)
-
-        # Per-candidate topic-aware destination: each short-listed replica
-        # scores every broker by its own topic's deficit (+ general
-        # headroom), masked against brokers already hosting the partition.
+        """The top-K replicas on cells above their topic's upper bound (KR),
+        each scoring every broker by its own topic's deficit and the
+        general headroom against the brokers already hosting the partition
+        (KS); then, with swaps, heavy-for-light topic swaps with
+        topic-matched pairing: each heavy replica picks the broker where its
+        topic is scarcest and trades against that broker's light replica
+        (KS: one a broker, the highest slot among the ties of a segment max
+        of a uniform draw). One KT launch assembles both."""
         P, R = state.rb.shape
         K = min(cfg.num_replica_candidates, P * R)
         krep, kdst, kswap = _random.subkeys(key, 3)
-        prio = prio + torch.where(torch.isfinite(prio),
-                                  _noise(krep, prio.shape, cfg.noise_scale),
-                                  0.0)
-        vals, idx = top_k(prio.reshape(-1), K)
-        p, r = idx // R, idx % R
-        sel = torch.isfinite(vals)
-        base = (2.0 * _norm01(deficit[t_of_p[p]])
-                + _count_replicas_norm(state)[None, :])
-        score = _plus_noise(base, kdst, cfg.noise_scale)
-        dst, ok = _legal_dest_argmax(state, ctx, p, score)
-        out = make_move_candidates(state, ctx, p, r, dst, sel & ok)
-        if cfg.num_swap_candidates > 0:
-            out = concat_candidates(
-                out, self._swap_candidates(state, ctx, kswap, cfg, upper))
-        return out
-
-    def _swap_candidates(self, state, ctx, key, cfg, upper):
-        """Heavy-for-light topic swaps with topic-matched pairing: each
-        heavy replica (cell above upper) picks the broker where its topic
-        is scarcest and trades against that broker's light replica (one a
-        broker: the highest slot among the ties of a segment max of a
-        uniform draw)."""
-        tc = state.topic_counts.to(torch.float32)               # [T, B1]
-        T, B1 = tc.shape
-        dev = tc.device
-        t_of_p = _jax_index(ctx.partition_topic, T)
-        P, R = state.rb.shape
-        K = min(cfg.num_swap_candidates, P * R)
-        src_b = state.rb
-        swappable = (ctx.movable & ~state.offline
-                     & ctx.raw_dest_allowed[src_b])
-        src_over = torch.clamp(tc - upper[:, None], min=0.0)[t_of_p[:, None],
-                                                             src_b]
-        kh, kl, kd = _random.subkeys(key, 3)
-        q, finite = _unit01(src_over)
-        hprio = torch.where(swappable & (src_over > 0.0),
-                            _tier_plus_norm01(_TIER_EXCESS, q, finite), _NEG)
-        hprio = hprio + torch.where(torch.isfinite(hprio),
-                                    _noise(kh, hprio.shape, cfg.noise_scale),
-                                    0.0)
-        hv, hidx = top_k(hprio.reshape(-1), K)
-        p1, r1 = hidx // R, hidx % R
-        t1 = t_of_p[p1]                                           # [K]
-
-        # One light partner per broker: a segment max of a uniform draw
-        # over in-bounds replicas, then the highest slot holding it. An
-        # empty segment keeps the max's identity (-inf, INT32_MIN).
-        light = (swappable & (src_over <= 0.0)).reshape(-1)
-        lraw = torch.where(light, _random.uniform(kl, (P * R,)), _NEG)
-        broker_of = src_b.reshape(-1)
-        best_val = torch.full((B1,), _NEG, device=dev).scatter_reduce(
-            0, broker_of, lraw, "amax")
-        slots = torch.arange(P * R, device=dev)
-        tied = torch.isfinite(lraw) & (lraw == best_val[broker_of])
-        best_slot = torch.full((B1,), -2**31, dtype=torch.int64,
-                               device=dev).scatter_reduce(
-            0, broker_of, torch.where(tied, slots, -1), "amax")
-        has_light = best_slot >= 0
-
-        # Destination: the broker where the heavy candidate's topic is
-        # scarcest and that offers a partner, masked against the raw
-        # destination filter and the brokers hosting the partition.
-        hosting = torch.zeros((K, B1), dtype=torch.bool, device=dev)
-        hosting.scatter_(1, state.rb[p1], True)  # sentinel column B is in range
-        scarcity = _norm01(-tc)[t1]                               # [K, B1]
-        score = torch.where(
-            has_light[None, :] & ctx.raw_dest_allowed[None, :] & ~hosting,
-            _plus_noise(scarcity, kd, cfg.noise_scale), _NEG)
-        dst = torch.argmax(score, dim=1)
-        ok = torch.isfinite(score.amax(dim=1))
-        partner = best_slot[dst]
-        p2, r2 = partner // R, partner % R
-        valid = torch.isfinite(hv) & ok & (partner >= 0)
-        # An invalid pairing's partner may be negative: its row is the one
-        # the reference's gathers read.
-        return make_swap_candidates(state, ctx, p1, r1, _jax_index(p2, P),
-                                    r2, valid)
+        swaps = cfg.num_swap_candidates > 0
+        kh, kl, kd = _random.subkeys(kswap, 3)
+        prio, bounds = replica_priority("topic", self, state, ctx,
+                                        (krep, kh) if swaps else (krep,), cfg)
+        vals, idx = top_k(prio[0].reshape(-1), K)
+        dst, ok = dest_select("topic_move_dest", self, state, ctx, (kdst,),
+                              cfg, idx=idx, bounds=bounds)
+        parts = [Part("move", idx=idx, vals=vals, dst=dst, ok=ok)]
+        if swaps:
+            hv, hidx = top_k(prio[1].reshape(-1),
+                             min(cfg.num_swap_candidates, P * R))
+            ok2, partner = dest_select("topic_swap_dest", self, state, ctx,
+                                       (kl, kd), cfg, idx=hidx, bounds=bounds)
+            parts.append(Part("topic_swap", idx=hidx, vals=hv, ok=ok2,
+                              partner=partner))
+        return assemble_candidates(state, ctx, parts)
 
     def _cell_deltas(self, ctx, c, T):
         """Per-candidate topic-count deltas on the four (topic, broker)
@@ -1507,26 +1423,30 @@ class MinTopicLeadersPerBrokerGoal(GoalKernel):
     def propose(self, state, ctx, key, cfg):
         if self.interested_topics is None:
             # An all-invalid batch keeps the engine's shapes uniform.
-            return _top_leadership(state, ctx, key, cfg,
-                                   torch.full(state.rb.shape, _NEG,
-                                              device=state.rb.device))
-        deficit = self._deficit(state, ctx)                        # [T, B1]
+            return assemble_candidates(state, ctx, [_leadership_part(
+                self, state, ctx, key, cfg, "no_leadership")])
+        # Leadership transfers, then the fallback: leader replicas
+        # relocated onto the brokers missing leaders.
+        return assemble_candidates(state, ctx, [
+            _leadership_part(self, state, ctx, key, cfg, "topic_leaders"),
+            _grid_part(self, state, ctx, key, cfg, "topic_leaders_move",
+                       plane="topic_leaders")])
+
+    def priority_base(self, kind, state, ctx):
+        """KR's bases (its twin): "topic_leaders" a slot r > 0 whose broker
+        needs a leader of its topic, under a leader whose broker has
+        surplus; "topic_leaders_move" that leader replica itself."""
         tlc = state.topic_leader_counts
         t_of_p = _jax_index(ctx.partition_topic, tlc.shape[0])
-        # Leadership transfers: slot r>0 whose broker needs a leader of
-        # this topic, from a leader whose broker has surplus.
         surplus_src = (tlc[t_of_p, state.rb[:, 0]]
                        > self.min_count)[:, None]                  # [P, 1]
-        gain = deficit[t_of_p[:, None], state.rb] > 0              # [P, R]
-        prio = torch.where(gain & surplus_src, 1.0, _NEG)
-        lead = _top_leadership(state, ctx, key, cfg, prio)
-        # Fallback: relocate leader replicas onto deficit brokers.
+        if kind == "topic_leaders":
+            deficit = self._deficit(state, ctx)                    # [T, B1]
+            gain = deficit[t_of_p[:, None], state.rb] > 0          # [P, R]
+            return torch.where(gain & surplus_src, 1.0, _NEG)
         slot0 = (torch.arange(state.rb.shape[1], device=tlc.device)
                  == 0)[None, :]
-        rprio = torch.where(slot0 & surplus_src, 1.0, _NEG)
-        dest_prio = _norm01(deficit.sum(dim=0).to(torch.float32))
-        moves = _top_replica_dest_grid(state, ctx, key, cfg, rprio, dest_prio)
-        return concat_candidates(lead, moves)
+        return torch.where(slot0 & surplus_src, 1.0, _NEG)
 
     @staticmethod
     def _cell_delta(c):
@@ -1653,9 +1573,13 @@ class BrokerSetAwareGoal(GoalKernel):
         return self._mismatch(state, ctx).sum(dim=(-2, -1)).to(torch.float32)
 
     def propose(self, state, ctx, key, cfg):
-        prio = torch.where(self._mismatch(state, ctx), 1.0, _NEG)
-        return _top_replica_dest_grid(state, ctx, key, cfg, prio,
-                                      _count_replicas_norm(state))
+        return assemble_candidates(state, ctx, [_grid_part(
+            self, state, ctx, key, cfg, "broker_set")])
+
+    def priority_base(self, kind, state, ctx):
+        """KR's base of a replica outside its topic's broker set (its
+        twin)."""
+        return torch.where(self._mismatch(state, ctx), 1.0, _NEG)
 
     def _lands_outside(self, ctx, p, broker):
         """bool[N] — partition row p's replica would sit outside its set on
@@ -1710,10 +1634,14 @@ class PreferredLeaderElectionGoal(GoalKernel):
         return wrong.sum(dim=-1).to(torch.float32)
 
     def propose(self, state, ctx, key, cfg):
-        # The slot holding the preferred replica, where the leader is not it.
-        prio = torch.where((state.pos == 0) & (state.pos[:, 0:1] != 0),
+        return assemble_candidates(state, ctx, [_leadership_part(
+            self, state, ctx, key, cfg, "preferred_leader")])
+
+    def priority_base(self, kind, state, ctx):
+        """KR's base (its twin): the slot holding the preferred replica,
+        where the leader is not it."""
+        return torch.where((state.pos == 0) & (state.pos[:, 0:1] != 0),
                            1.0, _NEG)
-        return _top_leadership(state, ctx, key, cfg, prio)
 
     def delta(self, state, ctx, c):
         is_lead = c.kind == MOVE_LEADERSHIP

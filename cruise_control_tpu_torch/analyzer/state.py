@@ -345,6 +345,10 @@ def _full(like: torch.Tensor, value, dtype) -> torch.Tensor:
     return torch.full(like.shape, value, dtype=dtype, device=like.device)
 
 
+# The constructors below are the twin's parts of KT
+# (``kernels.assemble_candidates``), which the goals' proposals and drains
+# call on the card.
+
 def make_move_candidates(state: SearchState, ctx: SearchContext,
                          p: torch.Tensor, r: torch.Tensor, dst: torch.Tensor,
                          valid: torch.Tensor) -> Candidates:

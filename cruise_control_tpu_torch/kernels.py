@@ -69,8 +69,8 @@ One more carries the goal loops:
   (``analyzer/graph_loop.py``); ``csrc/goal_loop.cu`` also holds the
   functions that build those graphs.
 
-Six more carry a goal pass's own rounds (each in a few launches where
-plain torch took dozens):
+Nine more carry a goal pass's own rounds and proposals (each in a few
+launches where plain torch took dozens):
 
 - **KM** ``apply_group`` — one partition-disjoint group of candidates
   applied out of place or into the caller's buffers: the slot writes, the
@@ -95,7 +95,18 @@ plain torch took dozens):
   summed once a distinct metric, the bounds the ones KN left at the same
   state) and the round's ``do``, ``pending`` and continuation flag, a
   warp a candidate (one launch after a memset). The goals' guards on the
-  CPU, its twin, still run through KC and KK.
+  CPU, its twin, still run through KC and KK;
+- **KR** ``replica_priority`` — a candidate generator's noised [P, R]
+  source priorities, one row kind a goal's form (:data:`PRIORITY_KINDS`):
+  the grid's and the leadership transfers' transforms over each goal's
+  base, an interval goal's two swap planes, the topic goal's planes (a map
+  over the card; the topic kind's bounds and ranges two launches ahead);
+- **KS** ``dest_select`` — the generators' destinations: the grid's
+  short-list (one block), TopicReplicaDistribution's per-candidate
+  destination and its swap's light partner (a warp a candidate);
+- **KT** ``assemble_candidates`` — a proposal's candidates from its parts
+  (:class:`Part`: flow moves, the grid's cross, swaps with their random
+  roll, leadership transfers), every field of every part in one launch.
 
 Each wrapper takes the plain twin for a tensor on the CPU, and for a CUDA
 tensor launches its kernel or raises: there is no fallback. Each launch
@@ -135,7 +146,8 @@ SOURCES = ("threefry.cu", "segment_sum.cu", "net_flow.cu", "cell_flow.cu",
            "cluster_stats.cu", "intra_walk.cu", "population_select.cu",
            "launch_floor.cu", "goal_loop.cu", "apply_group.cu",
            "eligibility.cu", "flow_candidates.cu", "drain_fill.cu",
-           "round_guards.cu")
+           "round_guards.cu", "replica_priority.cu", "dest_select.cu",
+           "candidates.cu")
 #: headers the sources include (hashed with them)
 HEADERS = ("threefry.cuh", "ordered.cuh")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
@@ -146,7 +158,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: contract only where they write ``__fmaf_rn`` themselves
 SOURCE_FLAGS = {name: ("-fmad=false",) for name in (
     "apply_group.cu", "eligibility.cu", "flow_candidates.cu",
-    "drain_fill.cu", "round_guards.cu")}
+    "drain_fill.cu", "round_guards.cu", "replica_priority.cu",
+    "dest_select.cu", "candidates.cu")}
 
 #: launches per kernel since the last ``reset_launch_counts()``
 LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
@@ -157,7 +170,9 @@ LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
             "fleet_scenario_failover": 0, "goal_loop": 0,
             "apply_group": 0, "candidate_eligibility": 0,
             "replica_weight_range": 0, "flow_priority": 0, "flow_match": 0,
-            "bulk_drain_fill": 0, "round_guards": 0}
+            "bulk_drain_fill": 0, "round_guards": 0,
+            "replica_priority": 0, "dest_select": 0,
+            "assemble_candidates": 0}
 #: ``nvcc``/ptxas output of the build this process loaded (register and
 #: spill counts per kernel), empty when the library came from the cache
 BUILD_LOG: list[str] = []
@@ -329,6 +344,9 @@ def load_library():
             lib.cc_drain_fill_scratch.argtypes = [i64, i64]
             lib.cc_drain_fill_scratch.restype = i64
             lib.cc_round_guards.argtypes = [p, p]
+            lib.cc_replica_priority.argtypes = [p, p]
+            lib.cc_dest_select.argtypes = [p, p]
+            lib.cc_assemble_candidates.argtypes = [p, p]
             for fn in (lib.cc_goal_loop_step,
                        lib.cc_graph_create, lib.cc_graph_destroy,
                        lib.cc_graph_check_body, lib.cc_graph_add_child,
@@ -349,7 +367,9 @@ def load_library():
                        lib.cc_apply_group, lib.cc_candidate_eligibility,
                        lib.cc_weight_range, lib.cc_flow_priority,
                        lib.cc_flow_match,
-                       lib.cc_drain_fill, lib.cc_round_guards):
+                       lib.cc_drain_fill, lib.cc_round_guards,
+                       lib.cc_replica_priority, lib.cc_dest_select,
+                       lib.cc_assemble_candidates):
                 fn.restype = ctypes.c_int
             _LIB = lib
             default_collector().record_library(kind,
@@ -362,7 +382,7 @@ def _stream() -> int:
 
 
 def _pass_library():
-    """The kernel library, KM-KQ's argument structs checked once against
+    """The kernel library, KM-KT's argument structs checked once against
     the C structs they mirror (their sizes, from the library)."""
     lib = load_library()
     if not getattr(lib, "_cc_structs_checked", False):
@@ -374,7 +394,10 @@ def _pass_library():
                            ("cc_match_args_size", _MatchArgs),
                            ("cc_drain_args_size", _DrainArgs),
                            ("cc_guard_args_size", _GuardArgs),
-                           ("cc_guard_row_size", _GuardRow)):
+                           ("cc_guard_row_size", _GuardRow),
+                           ("cc_prio_args_size", _PrioArgs),
+                           ("cc_dest_args_size", _DestArgs),
+                           ("cc_cand_args_size", _CandArgs)):
             size = getattr(lib, fn)
             size.argtypes, size.restype = [], ctypes.c_int64
             if size() != ctypes.sizeof(struct):
@@ -2777,3 +2800,644 @@ def bulk_drain_fill(goal, state, ctx, cfg, values, up, deficit, quota, order,
     LAUNCHES["bulk_drain_fill"] += 1
     _check(rc, "bulk_drain_fill")
     return outs["p_out"], outs["r_out"], outs["dst_out"], outs["ok_out"]
+
+
+# ---------------------------------------------------------------------------
+# KR: the candidate generators' replica priorities
+# ---------------------------------------------------------------------------
+
+#: KR's row kinds, by their code (``csrc/replica_priority.cu:Kind``): four
+#: bases of the grid's source transform (RackAware's duplicate racks, the
+#: rack spread over its limit, a replica outside its broker set,
+#: MinTopicLeaders' leader relocation), four of the leadership transform
+#: (an interval goal's gain, MinTopicLeaders, its inactive all -inf form,
+#: the preferred leader), an interval goal's two swap planes (heavy,
+#: light) and TopicReplicaDistribution's move plane with, given a second
+#: key, its swap's heavy plane
+PRIORITY_KINDS = ("rack_aware", "rack_spread", "broker_set",
+                  "topic_leaders_move", "interval_leadership",
+                  "topic_leaders", "no_leadership", "preferred_leader",
+                  "interval_swap", "topic")
+#: the kinds whose planes are the grid's source transform
+_GRID_KINDS = PRIORITY_KINDS[:4]
+#: the kinds whose planes are the leadership transform
+_LEADERSHIP_KINDS = PRIORITY_KINDS[4:8]
+
+_PrioArgs = _struct(
+    "_PrioArgs",
+    "rb pos movable off lead_movable topic rack bset alive bvalid raw_dest "
+    "cells interested topic_set leader_load follower_load range values lo "
+    "up excess deficit key prio bounds scratch",
+    [(f, _I64) for f in ("P", "R", "B1", "T", "n_sets", "values_step",
+                         "lo_step", "up_step", "excess_step",
+                         "deficit_step")],
+    [(f, _I32) for f in ("kind", "weight", "leader_scoped", "min_count",
+                         "planes")],
+    [(f, _F32) for f in ("noise_scale", "gap_c", "gap_lo", "gap_hi")],
+    [("path", _DrawPath * 2)])
+
+
+def _fill_paths(args, keys):
+    """Set ``args.path`` to the draw paths of ``keys`` (keys or key paths
+    of one root); returns (the root, the word tensors the paths point at,
+    which must stay alive over the launch)."""
+    from . import _random
+    paths = [_random.path(k) for k in keys]
+    keep = []
+    for j, kp in enumerate(paths):
+        if kp.root is not paths[0].root:
+            raise ValueError("the keys of one launch share one root")
+        args.path[j], held = _draw_path(kp.words)
+        keep += held
+    return paths[0].root.contiguous(), keep
+
+
+def grid_source_plain(state, ctx, base, key, cfg):
+    """``goals.py:_top_replica_dest_grid``'s source transform of a [P, R]
+    base priority: movable replicas only, an offline replica at 8 plus its
+    finite base clamped into [0, 1], and the tie-break noise of ``key``
+    added where finite."""
+    from .analyzer.goals import _NEG, _TIER_OFFLINE, _noise
+    rp = torch.where(ctx.movable, base, _NEG)
+    rp = torch.where(state.offline,
+                     _TIER_OFFLINE + torch.clamp(
+                         torch.where(torch.isfinite(rp), rp, 0.0), 0.0, 1.0),
+                     rp)
+    return rp + torch.where(torch.isfinite(rp),
+                            _noise(key, rp.shape, cfg.noise_scale), 0.0)
+
+
+def leadership_source_plain(state, ctx, base, key, cfg):
+    """``goals.py:_top_leadership``'s transform of a [P, R] base priority:
+    a slot above 0 of a partition whose leadership may move, and the
+    tie-break noise of ``key`` added where finite."""
+    from .analyzer.goals import _NEG, _noise
+    R = base.shape[-1]
+    slot_ok = ((torch.arange(R, device=base.device)[None, :] > 0)
+               & ctx.leadership_movable[:, None])
+    pr = torch.where(slot_ok, base, _NEG)
+    return pr + torch.where(torch.isfinite(pr),
+                            _noise(key, pr.shape, cfg.noise_scale), 0.0)
+
+
+def _interval_swap_plain(goal, state, ctx, keys, cfg, values, lo, up, excess,
+                         deficit):
+    """``IntervalGoal._swap_candidates``' heavy and light planes, q read
+    from the context's weight range (the same q as ``_unit01``'s, but for
+    the sign of a zero, which no priority shows)."""
+    from .analyzer.goals import _NEG, _TIER_EXCESS, _noise, _tier_plus_norm01
+    from .utils.ordered import fma
+    R = state.rb.shape[1]
+    dev = state.rb.device
+    _weight_range_of(ctx)
+    w = goal._replica_weight(state, ctx)                         # [P, R]
+    finite = torch.isfinite(w)
+    xmin, xmax = ctx.weight_range[_weight_form(goal), :].unbind(-1)
+    q = (w - xmin) / torch.clamp(xmax - xmin, min=1e-12)
+    src_b = state.rb
+    swappable = (ctx.movable & ~state.offline
+                 & ctx.raw_dest_allowed[src_b])
+    is_slot0 = (torch.arange(R, device=dev) == 0)[None, :]
+    mid = torch.where(torch.isfinite(lo), (lo + up) * 0.5, up * 0.5)
+    any_deficit = (deficit > 0.0).any()
+    hmask = swappable & ((excess[src_b] > 0.0)
+                         | (any_deficit & (values[src_b] > mid[src_b])))
+    lmask = swappable & (values[src_b] < mid[src_b])
+    if goal.metric[0] in ("leaders", "leader_nw_in"):
+        hmask = hmask & is_slot0
+        lmask = lmask & ~is_slot0
+    hprio = torch.where(hmask, _tier_plus_norm01(_TIER_EXCESS, q, finite),
+                        _NEG)
+    hprio = hprio + torch.where(torch.isfinite(hprio),
+                                _noise(keys[0], hprio.shape,
+                                       cfg.noise_scale), 0.0)
+    # 0.99 - w contracts too: 0.99 - q * 0.99 rounds once.
+    light = torch.where(finite, fma(-q, 0.99, 0.99), 0.99 - 0.0)
+    lprio = torch.where(lmask,
+                        torch.where(deficit[src_b] > 0.0, _TIER_EXCESS,
+                                    0.0) + light, _NEG)
+    lprio = lprio + torch.where(torch.isfinite(lprio),
+                                _noise(keys[1], lprio.shape,
+                                       cfg.noise_scale), 0.0)
+    return [hprio, lprio]
+
+
+def _topic_plain(goal, state, ctx, keys, cfg):
+    """TopicReplicaDistributionGoal's move priority (``propose``) and,
+    given a second key, its swap's heavy priority (``_swap_candidates``),
+    and the topics' (lower, upper)."""
+    from .analyzer.goals import (_NEG, _TIER_EXCESS, _TIER_OFFLINE,
+                                 _jax_index, _noise, _tier_plus_norm01,
+                                 _unit01)
+    lower, upper = goal._bounds(state, ctx)
+    tc = state.topic_counts.to(torch.float32)                   # [T, B1]
+    T = tc.shape[0]
+    alive = ctx.broker_alive[None, :]
+    excess = torch.where(alive, torch.clamp(tc - upper[:, None], min=0.0),
+                         tc)
+    t_of_p = _jax_index(ctx.partition_topic, T)                  # [P]
+    src_excess = excess[t_of_p[:, None], state.rb]              # [P, R]
+    q, finite = _unit01(src_excess)
+    prio = torch.where(src_excess > 0.0,
+                       _tier_plus_norm01(_TIER_EXCESS, q, finite), _NEG)
+    prio = torch.where(ctx.movable, prio, _NEG)
+    prio = torch.where(state.offline, _TIER_OFFLINE, prio)
+    prio = prio + torch.where(torch.isfinite(prio),
+                              _noise(keys[0], prio.shape, cfg.noise_scale),
+                              0.0)
+    planes = [prio]
+    if len(keys) > 1:
+        src_b = state.rb
+        swappable = (ctx.movable & ~state.offline
+                     & ctx.raw_dest_allowed[src_b])
+        src_over = torch.clamp(tc - upper[:, None], min=0.0)[t_of_p[:, None],
+                                                             src_b]
+        q, finite = _unit01(src_over)
+        hprio = torch.where(swappable & (src_over > 0.0),
+                            _tier_plus_norm01(_TIER_EXCESS, q, finite), _NEG)
+        planes.append(hprio + torch.where(
+            torch.isfinite(hprio), _noise(keys[1], hprio.shape,
+                                          cfg.noise_scale), 0.0))
+    return planes, torch.stack([lower, upper])
+
+
+def replica_priority_plain(kind, goal, state, ctx, keys, cfg, **planes):
+    """Twin of KR: the goal's base priority of ``kind`` composed in torch
+    from the goal's own methods, then its transform — the grid's source
+    (:func:`grid_source_plain`), the leadership one
+    (:func:`leadership_source_plain`), an interval goal's swap planes or
+    TopicReplicaDistribution's planes."""
+    from .analyzer.goals import _NEG, _norm01
+    if kind == "topic":
+        prios, bounds = _topic_plain(goal, state, ctx, keys, cfg)
+        return torch.stack(prios), bounds
+    if kind == "interval_swap":
+        return torch.stack(_interval_swap_plain(goal, state, ctx, keys, cfg,
+                                                **planes))
+    if kind == "interval_leadership":
+        excess, deficit = planes["excess"], planes["deficit"]
+        src_b = state.rb[:, 0:1]                                 # [P, 1]
+        dst_b = state.rb                                         # [P, R]
+        gain = _norm01(excess)[src_b] + _norm01(deficit)[dst_b]
+        base = torch.where((excess[src_b] > 0.0) | (deficit[dst_b] > 0.0),
+                           gain, _NEG)
+    elif kind == "no_leadership":
+        base = torch.full(state.rb.shape, _NEG, device=state.rb.device)
+    else:
+        base = goal.priority_base(kind, state, ctx)
+    transform = (grid_source_plain if kind in _GRID_KINDS
+                 else leadership_source_plain)
+    return transform(state, ctx, base, keys[0], cfg)[None]
+
+
+def replica_priority(kind, goal, state, ctx, keys, cfg, **planes):
+    """float32[len(keys), P, R]: a candidate generator's noised source
+    priorities of ``kind`` (:data:`PRIORITY_KINDS`), one plane a key (a key
+    or key path each); for "topic" also float32[2, T], the topics'
+    (lower, upper). ``planes``: an interval goal's broker planes (values,
+    lo, up, excess, deficit; "interval_leadership" reads excess and
+    deficit) — see ``csrc/replica_priority.cu`` (one map over the card;
+    "topic" a bounds and a range launch ahead of it)."""
+    if kind not in PRIORITY_KINDS:
+        raise ValueError(f"unknown priority kind {kind!r}")
+    if _on_cpu(state.rb, *planes.values()):
+        return replica_priority_plain(kind, goal, state, ctx, keys, cfg,
+                                      **planes)
+    P, R = state.rb.shape
+    B1 = ctx.broker_alive.shape[0]
+    dev = state.rb.device
+    n_planes = len(keys)
+    if n_planes not in {"interval_swap": (2,), "topic": (1, 2)}.get(kind,
+                                                                    (1,)):
+        raise ValueError(f"replica_priority: {n_planes} keys for {kind!r}")
+    i64, i32, f32 = torch.int64, torch.int32, torch.float32
+    prio = torch.empty((n_planes, P, R), dtype=f32, device=dev)
+    args = _PrioArgs(P=P, R=R, B1=B1, kind=PRIORITY_KINDS.index(kind),
+                     planes=n_planes, noise_scale=cfg.noise_scale)
+    root, keep = _fill_paths(args, keys)
+    ins = dict(rb=state.rb.to(i64).contiguous(), key=root,
+               movable=ctx.movable.contiguous(),
+               off=state.offline.contiguous(), prio=prio)
+    bounds = None
+    if kind in _LEADERSHIP_KINDS:
+        ins["lead_movable"] = ctx.leadership_movable.contiguous()
+    if kind == "preferred_leader":
+        ins["pos"] = state.pos.to(i64).contiguous()
+    if kind in ("rack_aware", "rack_spread"):
+        ins["rack"] = ctx.broker_rack.to(i32).contiguous()
+        ins["alive"] = ctx.broker_alive.contiguous()
+    if kind == "broker_set" and goal.topic_set is not None:
+        sets = goal.topic_set.on(dev)
+        ins.update(bset=ctx.broker_set.to(i32).contiguous(),
+                   topic=ctx.partition_topic.to(i32).contiguous(),
+                   topic_set=sets)
+        args.n_sets = sets.shape[0]
+    if kind in ("topic_leaders_move", "topic_leaders"):
+        tlc = state.topic_leader_counts
+        ins.update(cells=tlc.to(i32).contiguous(),
+                   topic=ctx.partition_topic.to(i32).contiguous(),
+                   alive=ctx.broker_alive.contiguous(),
+                   interested=goal.interested_topics.on(dev))
+        args.T = tlc.shape[0]
+        args.min_count = int(goal.min_count)
+    if kind == "topic":
+        tc = state.topic_counts
+        T = tc.shape[0]
+        cst = goal.constraint
+        args.T = T
+        args.gap_c = cst.topic_replica_balance_threshold - 1.0
+        args.gap_lo = float(cst.topic_replica_balance_min_gap)
+        args.gap_hi = float(cst.topic_replica_balance_max_gap)
+        bounds = torch.empty((2, T), dtype=f32, device=dev)
+        ins.update(cells=tc.to(i32).contiguous(),
+                   topic=ctx.partition_topic.to(i32).contiguous(),
+                   alive=ctx.broker_alive.contiguous(),
+                   bvalid=ctx.broker_valid.contiguous(),
+                   raw_dest=ctx.raw_dest_allowed.contiguous(), bounds=bounds,
+                   scratch=torch.empty(4 * n_planes, dtype=i32, device=dev))
+    if kind == "interval_swap":
+        ins.update(leader_load=_aligned16(ctx.leader_load.to(f32)
+                                          .contiguous()),
+                   follower_load=_aligned16(ctx.follower_load.to(f32)
+                                            .contiguous()),
+                   range=_weight_range_of(ctx).to(f32).contiguous(),
+                   raw_dest=ctx.raw_dest_allowed.contiguous())
+        args.weight = _weight_form(goal)
+        args.leader_scoped = int(goal.metric[0] in ("leaders",
+                                                    "leader_nw_in"))
+    _fill(args, **ins)
+    kept = _fill_planes(args, B1, **{k: planes.get(k) for k in (
+        "values", "lo", "up", "excess", "deficit")})
+    rc = _pass_library().cc_replica_priority(ctypes.byref(args), _stream())
+    LAUNCHES["replica_priority"] += 1
+    _check(rc, "replica_priority")
+    return prio if bounds is None else (prio, bounds)
+
+
+# ---------------------------------------------------------------------------
+# KS: the destinations of the generators' candidates
+# ---------------------------------------------------------------------------
+
+#: KS's forms (``csrc/dest_select.cu:Form``): the grid's destination
+#: short-list, TopicReplicaDistribution's per-candidate destination and
+#: its swap's light partner
+DEST_FORMS = ("shortlist", "topic_move_dest", "topic_swap_dest")
+#: the short-list's priority planes (``csrc/dest_select.cu:Plane``): the
+#: emptier brokers first (``goals._count_replicas_norm``), or
+#: MinTopicLeaders' missing leaders a broker
+SHORTLIST_PLANES = ("count", "topic_leaders")
+
+_DestArgs = _struct(
+    "_DestArgs",
+    "dest cnt cells interested alive topic rb movable off bounds idx key "
+    "vals_out idx_out dst_out ok_out partner_out rowrange best scratch",
+    [(f, _I64) for f in ("P", "R", "B1", "T", "K", "D")],
+    [(f, _I32) for f in ("form", "plane", "min_count")],
+    [("noise_scale", _F32)], [("path", _DrawPath * 2)])
+
+
+def shortlist_source_plain(ctx, dest_priority, key, cfg):
+    """``goals.py:_top_replica_dest_grid``'s destination priority: barred
+    brokers at -inf, the tie-break noise of ``key`` added where finite."""
+    from .analyzer.goals import _NEG, _noise
+    dp = torch.where(ctx.dest_allowed, dest_priority, _NEG)
+    return dp + torch.where(torch.isfinite(dp),
+                            _noise(key, dp.shape, cfg.noise_scale), 0.0)
+
+
+def dest_select_plain(form, goal, state, ctx, keys, cfg, *, plane="count",
+                      n=0, idx=None, bounds=None):
+    """Twin of KS in torch: "shortlist" (values, indices) of the ``n``
+    best destinations; "topic_move_dest" (dst, ok) of the candidates
+    ``idx``; "topic_swap_dest" (ok, partner) of the heavy replicas
+    ``idx``."""
+    from .analyzer.goals import (_NEG, _count_replicas_norm, _jax_index,
+                                 _legal_dest_argmax, _norm01, _plus_noise)
+    from .utils.ordered import top_k
+    if form == "shortlist":
+        if plane == "count":
+            dprio = _count_replicas_norm(state)
+        else:
+            dprio = _norm01(goal._deficit(state, ctx).sum(dim=0)
+                            .to(torch.float32))
+        return top_k(shortlist_source_plain(ctx, dprio, keys[0], cfg), n)
+    R = state.rb.shape[1]
+    tc = state.topic_counts.to(torch.float32)                    # [T, B1]
+    T, B1 = tc.shape
+    t_of_p = _jax_index(ctx.partition_topic, T)
+    p = idx // R
+    if form == "topic_move_dest":
+        deficit = torch.where(ctx.broker_alive[None, :],
+                              torch.clamp(bounds[0][:, None] - tc, min=0.0),
+                              0.0)
+        base = (2.0 * _norm01(deficit[t_of_p[p]])
+                + _count_replicas_norm(state)[None, :])
+        score = _plus_noise(base, keys[0], cfg.noise_scale)
+        return _legal_dest_argmax(state, ctx, p, score)
+    # One light partner per broker: a segment max of a uniform draw over
+    # in-bounds replicas, then the highest slot holding it. An empty
+    # segment keeps the max's identity (-inf, INT32_MIN).
+    from . import _random
+    dev = tc.device
+    P = state.rb.shape[0]
+    K = idx.shape[0]
+    src_b = state.rb
+    swappable = (ctx.movable & ~state.offline
+                 & ctx.raw_dest_allowed[src_b])
+    src_over = torch.clamp(tc - bounds[1][:, None], min=0.0)[t_of_p[:, None],
+                                                             src_b]
+    light = (swappable & (src_over <= 0.0)).reshape(-1)
+    lraw = torch.where(light, _random.uniform(keys[0], (P * R,)), _NEG)
+    broker_of = src_b.reshape(-1)
+    best_val = torch.full((B1,), _NEG, device=dev).scatter_reduce(
+        0, broker_of, lraw, "amax")
+    slots = torch.arange(P * R, device=dev)
+    tied = torch.isfinite(lraw) & (lraw == best_val[broker_of])
+    best_slot = torch.full((B1,), -2**31, dtype=torch.int64,
+                           device=dev).scatter_reduce(
+        0, broker_of, torch.where(tied, slots, -1), "amax")
+    has_light = best_slot >= 0
+    # Destination: the broker where the heavy candidate's topic is
+    # scarcest and that offers a partner, masked against the raw
+    # destination filter and the brokers hosting the partition.
+    hosting = torch.zeros((K, B1), dtype=torch.bool, device=dev)
+    hosting.scatter_(1, state.rb[p], True)  # sentinel column B is in range
+    scarcity = _norm01(-tc)[t_of_p[p]]                          # [K, B1]
+    score = torch.where(
+        has_light[None, :] & ctx.raw_dest_allowed[None, :] & ~hosting,
+        _plus_noise(scarcity, keys[1], cfg.noise_scale), _NEG)
+    dst = torch.argmax(score, dim=1)
+    return torch.isfinite(score.amax(dim=1)), best_slot[dst]
+
+
+def dest_select(form, goal, state, ctx, keys, cfg, *, plane="count", n=0,
+                idx=None, bounds=None):
+    """The destination side of a candidate generator, in the form ``form``
+    (:data:`DEST_FORMS`), the noise drawn from ``keys`` (a key or key path
+    each):
+
+    - "shortlist": (float32[n], int64[n]) the ``n`` best destinations by
+      the ``plane`` (:data:`SHORTLIST_PLANES`) with noise, descending, the
+      lower index first among ties (one block);
+    - "topic_move_dest": (int64[K] dst, bool[K] ok) of
+      TopicReplicaDistribution's top-K replicas ``idx`` (flat [P, R]),
+      ``bounds`` its topics' (lower, upper) from KR (two launches);
+    - "topic_swap_dest": (bool[K] ok, int64[K] partner slot) of its swap's
+      heavy replicas ``idx`` (keys: the light draw's, the score's; after
+      a memset, two launches).
+
+    See ``csrc/dest_select.cu``."""
+    if form not in DEST_FORMS:
+        raise ValueError(f"unknown destination form {form!r}")
+    if _on_cpu(state.rb, idx, bounds):
+        return dest_select_plain(form, goal, state, ctx, keys, cfg,
+                                 plane=plane, n=n, idx=idx, bounds=bounds)
+    P, R = state.rb.shape
+    B1 = ctx.broker_alive.shape[0]
+    dev = state.rb.device
+    i64, i32, f32 = torch.int64, torch.int32, torch.float32
+    if len(keys) != (2 if form == "topic_swap_dest" else 1):
+        raise ValueError(f"dest_select: {len(keys)} keys for {form!r}")
+    args = _DestArgs(P=P, R=R, B1=B1, form=DEST_FORMS.index(form),
+                     noise_scale=cfg.noise_scale)
+    root, keep = _fill_paths(args, keys)
+    ins = dict(key=root, dest=ctx.dest_allowed.contiguous(),
+               cnt=state.replica_count.to(i32).contiguous())
+    if form == "shortlist":
+        if not 0 < n <= B1:
+            raise ValueError(f"dest_select: a short-list of {n} of {B1}")
+        args.D = n
+        args.plane = SHORTLIST_PLANES.index(plane)
+        outs = (torch.empty(n, dtype=f32, device=dev),
+                torch.empty(n, dtype=i64, device=dev))
+        ins.update(vals_out=outs[0], idx_out=outs[1],
+                   best=torch.empty(B1, dtype=i64, device=dev))
+        if plane == "topic_leaders":
+            tlc = state.topic_leader_counts
+            ins.update(cells=tlc.to(i32).contiguous(),
+                       alive=ctx.broker_alive.contiguous(),
+                       interested=goal.interested_topics.on(dev))
+            args.T = tlc.shape[0]
+            args.min_count = int(goal.min_count)
+    else:
+        tc = state.topic_counts
+        K = idx.shape[0]
+        args.T, args.K = tc.shape[0], K
+        ins.update(cells=tc.to(i32).contiguous(),
+                   alive=ctx.broker_alive.contiguous(),
+                   topic=ctx.partition_topic.to(i32).contiguous(),
+                   rb=state.rb.to(i64).contiguous(),
+                   bounds=bounds.to(f32).contiguous(),
+                   idx=idx.to(i64).contiguous())
+        if form == "topic_move_dest":
+            outs = (torch.empty(K, dtype=i64, device=dev),
+                    torch.empty(K, dtype=torch.bool, device=dev))
+            ins.update(dst_out=outs[0], ok_out=outs[1],
+                       rowrange=torch.empty((max(K, 1), 2), dtype=f32,
+                                            device=dev))
+        else:
+            outs = (torch.empty(K, dtype=torch.bool, device=dev),
+                    torch.empty(K, dtype=i64, device=dev))
+            ins.update(ok_out=outs[0], partner_out=outs[1],
+                       dest=ctx.raw_dest_allowed.contiguous(),
+                       movable=ctx.movable.contiguous(),
+                       off=state.offline.contiguous(),
+                       best=torch.empty(B1, dtype=i64, device=dev),
+                       scratch=torch.empty(2, dtype=i32, device=dev))
+    _fill(args, **ins)
+    rc = _pass_library().cc_dest_select(ctypes.byref(args), _stream())
+    LAUNCHES["dest_select"] += 1
+    _check(rc, "dest_select")
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# KT: a proposal's candidates assembled from its parts
+# ---------------------------------------------------------------------------
+
+#: KT's part kinds (``csrc/candidates.cu:PartKind``): moves of given
+#: destinations, the grid's top-K x top-D cross, leadership transfers, an
+#: interval goal's heavy-for-light swaps (the light list rolled by a random
+#: shift) and TopicReplicaDistribution's swaps with a light partner
+PART_KINDS = ("move", "grid", "leadership", "swap", "topic_swap")
+#: parts one assembly takes (``csrc/candidates.cu:kMaxParts``)
+MAX_PARTS = 4
+
+
+class Part:
+    """One part of a proposal: ``kind`` of :data:`PART_KINDS` and its
+    index and value lists, as ``top_k``, KO's match and KS leave them.
+    The first replica is ``idx`` (flat [P, R] indices) or (``p``, ``r``);
+    a row is valid where ``vals`` is finite (if given) and ``ok`` is set
+    (if given). ``dst``: a move's destinations; ``didx``/``dvals``: the
+    grid's short-listed destinations; ``idx2``/``vals2``: an interval
+    swap's light list, rolled by ``randint(shift, (), 0, K)``;
+    ``partner``: a topic swap's partner slot (negative: none)."""
+
+    __slots__ = ("kind", "p", "r", "idx", "vals", "ok", "dst", "didx",
+                 "dvals", "idx2", "vals2", "shift", "partner")
+
+    def __init__(self, kind, **fields):
+        if kind not in PART_KINDS:
+            raise ValueError(f"unknown part kind {kind!r}")
+        self.kind = kind
+        for name in self.__slots__[1:]:
+            setattr(self, name, fields.pop(name, None))
+        if fields:
+            raise TypeError(f"Part has no fields {sorted(fields)}")
+
+    @property
+    def rows(self) -> int:
+        first = self.idx if self.idx is not None else self.p
+        n = first.shape[0]
+        return n * self.didx.shape[0] if self.kind == "grid" else n
+
+    def tensors(self):
+        return [getattr(self, f) for f in self.__slots__[1:]
+                if isinstance(getattr(self, f), torch.Tensor)]
+
+
+#: the Candidates fields in KT's output order, with their dtypes and the
+#: number of values a row (``csrc/candidates.cu:Out``)
+CANDIDATE_FIELDS = (("p", torch.int64, 1), ("r", torch.int64, 1),
+                    ("p2", torch.int64, 1), ("r2", torch.int64, 1),
+                    ("src", torch.int64, 1), ("dst", torch.int64, 1),
+                    ("kind", torch.int64, 1), ("valid", torch.bool, 1),
+                    ("must", torch.bool, 1), ("d_util_src", torch.float32, 4),
+                    ("d_util_dst", torch.float32, 4),
+                    ("d_cnt", torch.int32, 1), ("d_lead", torch.int32, 1),
+                    ("d_pot", torch.float32, 1), ("d_lni", torch.float32, 1))
+
+_PartDesc = _struct(
+    "_PartDesc", [("kind", _I32)],
+    [(f, _I64) for f in ("n", "offset", "K", "D")],
+    "p r idx vals ok dst didx dvals idx2 vals2 partner",
+    [("shift", _DrawPath)])
+_CandArgs = _struct(
+    "_CandArgs", "rb off leader_load follower_load key",
+    " ".join(f for f, _d, _w in CANDIDATE_FIELDS),
+    [(f, _I64) for f in ("P", "R", "N")], [("n_parts", _I32)],
+    [("parts", _PartDesc * MAX_PARTS)])
+
+
+def _part_split(part, R):
+    if part.idx is not None:
+        return part.idx // R, part.idx % R
+    return part.p, part.r
+
+
+def _part_valid(vals, ok):
+    valid = torch.isfinite(vals) if vals is not None else None
+    if ok is None:
+        return valid
+    return ok if valid is None else valid & ok
+
+
+def assemble_candidates_plain(state, ctx, parts):
+    """Twin of KT: each part's candidates by ``state.py``'s
+    ``make_*_candidates``, concatenated in the parts' order."""
+    from . import _random
+    from .analyzer.goals import _jax_index
+    from .analyzer.state import (concat_candidates,
+                                 make_leadership_candidates,
+                                 make_move_candidates, make_swap_candidates)
+    P, R = state.rb.shape
+    out = None
+    for part in parts:
+        p, r = _part_split(part, R)
+        valid = _part_valid(part.vals, part.ok)
+        if part.kind == "move":
+            c = make_move_candidates(state, ctx, p, r, part.dst, valid)
+        elif part.kind == "grid":
+            K, D = p.shape[0], part.didx.shape[0]
+            c = make_move_candidates(
+                state, ctx, torch.repeat_interleave(p, D),
+                torch.repeat_interleave(r, D), part.didx.repeat(K),
+                torch.repeat_interleave(valid, D)
+                & torch.isfinite(part.dvals).repeat(K))
+        elif part.kind == "leadership":
+            c = make_leadership_candidates(state, ctx, p, r, valid)
+        elif part.kind == "swap":
+            K = p.shape[0]
+            shift = _random.randint(part.shift, (), 0, K)
+            rolled = (torch.arange(K, device=p.device) - shift) % K  # roll
+            lidx = part.idx2[rolled]
+            c = make_swap_candidates(
+                state, ctx, p, r, lidx // R, lidx % R,
+                valid & torch.isfinite(part.vals2[rolled]))
+        else:
+            partner = part.partner
+            c = make_swap_candidates(state, ctx, p, r,
+                                     _jax_index(partner // R, P),
+                                     partner % R,
+                                     valid & (partner >= 0))
+        out = c if out is None else concat_candidates(out, c)
+    return out
+
+
+def assemble_candidates(state, ctx, parts):
+    """The ``Candidates`` of a proposal's ``parts`` (:class:`Part`, at most
+    :data:`MAX_PARTS`), each part's rows at its offset in the parts'
+    order — see ``csrc/candidates.cu`` (one launch writing every field,
+    each a view of one buffer)."""
+    from . import _random
+    from .analyzer.state import Candidates
+    if not 0 < len(parts) <= MAX_PARTS:
+        raise ValueError(f"assemble_candidates takes 1-{MAX_PARTS} parts")
+    if _on_cpu(state.rb, *[t for part in parts for t in part.tensors()]):
+        return assemble_candidates_plain(state, ctx, parts)
+    P, R = state.rb.shape
+    dev = state.rb.device
+    N = sum(part.rows for part in parts)
+    # one buffer, each field's view 256-byte aligned
+    offsets, at = [], 0
+    for _name, dtype, width in CANDIDATE_FIELDS:
+        offsets.append(at)
+        size = N * width * torch.empty((), dtype=dtype).element_size()
+        at += -(-size // 256) * 256
+    buf = torch.empty(max(at, 1), dtype=torch.uint8, device=dev)
+    fields = {}
+    for (name, dtype, width), off in zip(CANDIDATE_FIELDS, offsets):
+        size = N * width * torch.empty((), dtype=dtype).element_size()
+        view = buf[off:off + size].view(dtype)
+        fields[name] = view.reshape(N, 4) if width == 4 else view
+    i64, f32 = torch.int64, torch.float32
+    args = _CandArgs(P=P, R=R, N=N, n_parts=len(parts))
+    keep, roots, offset = [], [], 0
+    for j, part in enumerate(parts):
+        desc = _PartDesc(kind=PART_KINDS.index(part.kind), n=part.rows,
+                         offset=offset)
+        first = part.idx if part.idx is not None else part.p
+        desc.K = first.shape[0]
+        if part.kind == "grid":
+            desc.D = part.didx.shape[0]
+        if part.kind == "swap":
+            kp = _random.path(part.shift)
+            path, held = _draw_path(kp.words)
+            desc.shift = path
+            keep += held
+            roots.append(kp.root)
+        tensors = {}
+        for name in ("p", "r", "idx", "dst", "didx", "idx2", "partner"):
+            t = getattr(part, name)
+            tensors[name] = None if t is None else t.to(i64).contiguous()
+        for name in ("vals", "dvals", "vals2"):
+            t = getattr(part, name)
+            tensors[name] = None if t is None else t.to(f32).contiguous()
+        tensors["ok"] = None if part.ok is None else part.ok.contiguous()
+        keep += [t for t in tensors.values() if t is not None]
+        _fill(desc, **tensors)
+        args.parts[j] = desc
+        offset += part.rows
+    if len({id(r) for r in roots}) > 1:
+        raise ValueError("assemble_candidates: one swap part a call")
+    _fill(args, rb=state.rb.to(i64).contiguous(),
+          off=state.offline.contiguous(),
+          leader_load=_aligned16(ctx.leader_load.to(f32).contiguous()),
+          follower_load=_aligned16(ctx.follower_load.to(f32).contiguous()),
+          key=roots[0] if roots else None, **fields)
+    rc = _pass_library().cc_assemble_candidates(ctypes.byref(args),
+                                                _stream())
+    LAUNCHES["assemble_candidates"] += 1
+    _check(rc, "assemble_candidates")
+    return Candidates(**fields)

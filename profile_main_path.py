@@ -13,8 +13,8 @@ main-path optimizer, runs one warm-up optimize (seed 0), then profiles with
   one warm host-loop optimize (seed 1) each with a
   ``torch.profiler.record_function`` range around each ``PassSegments``
   segment, each goal's ``accepts``, ``delta``, ``collective_guard``,
-  ``propose``, ``bulk_drain`` and ``violation``, and KN's and KQ's
-  wrappers (the ranges are put on in this script and taken off after; a
+  ``propose``, ``bulk_drain`` and ``violation``, and KN's, KQ's, KR's,
+  KS's and KT's wrappers (the ranges are put on in this script and taken off after; a
   range inside a CUDA graph's capture does not come back at replay, so
   the host loop, which launches the graphs' kernels but KL, is the one
   traced); each device event goes to the innermost range around the host
@@ -90,10 +90,14 @@ HAND_WRITTEN = ("threefry_draw_kernel", "tile_group_kernel",
                 "drain_gather_kernel", "drain_keys_kernel",
                 "drain_scans_kernel", "drain_take_kernel",
                 "drain_rank_kernel", "drain_budget_kernel",
-                "drain_scatter_kernel", "round_guards_kernel")
-#: kernel families summed on one line each: KM's, KP's, KN's, KO's and
-#: KQ's launches, and every device-to-device copy (copy kernels and
-#: memcpy)
+                "drain_scatter_kernel", "round_guards_kernel",
+                "replica_priority_kernel", "topic_limits_kernel",
+                "topic_range_kernel", "shortlist_kernel", "move_rows_kernel",
+                "move_dest_kernel", "light_kernel", "swap_dest_kernel",
+                "assemble_kernel")
+#: kernel families summed on one line each: KM's, KP's, KN's, KO's, KQ's,
+#: KR's, KS's and KT's launches, and every device-to-device copy (copy
+#: kernels and memcpy)
 FAMILIES = (("KM apply_group", ("apply_bucket_kernel", "apply_group_kernel")),
             ("KP bulk_drain_fill", ("drain_",)),
             ("KN candidate_eligibility", ("eligibility_kernel",
@@ -102,12 +106,19 @@ FAMILIES = (("KM apply_group", ("apply_bucket_kernel", "apply_group_kernel")),
             ("KO flow_match", ("flow_match_kernel",)),
             ("KO replica_weight_range", ("weight_range_kernel",)),
             ("KQ round_guards", ("round_guards_kernel",)),
+            ("KR replica_priority", ("replica_priority_kernel",
+                                     "topic_limits_kernel",
+                                     "topic_range_kernel")),
+            ("KS dest_select", ("shortlist_kernel", "move_rows_kernel",
+                                "move_dest_kernel", "light_kernel",
+                                "swap_dest_kernel")),
+            ("KT assemble_candidates", ("assemble_kernel",)),
             ("device copies", ("copy", "DtoD")))
 
 
 #: the host calls the site table times: ``PassSegments``' segments, the
 #: goals' methods (on every class of the catalog that defines them) and
-#: KN's and KQ's wrappers
+#: KN's, KQ's, KR's, KS's and KT's wrappers
 SEGMENTS = ("active", "drain", "propose", "eligibility", "round", "stack")
 GOAL_METHODS = ("accepts", "delta", "collective_guard", "propose",
                 "bulk_drain", "violation")
@@ -119,8 +130,11 @@ def site_ranges():
     each ``PassSegments`` segment, ``cc||<goal>.<method>`` around each goal
     method of ``GOAL_METHODS``, ``cc||KN wrapper`` around
     ``kernels.candidate_eligibility`` and ``cc||KQ wrapper`` around
-    ``kernels.round_guards`` as the engine calls them (a tree from before
-    KQ has no KQ to wrap); take them off on exit."""
+    ``kernels.round_guards`` as the engine calls them, and ``cc||KR
+    wrapper``, ``cc||KS wrapper`` and ``cc||KT wrapper`` around
+    ``kernels.replica_priority``, ``dest_select`` and
+    ``assemble_candidates`` as the goals call them (a tree from before a
+    kernel has no wrapper of it to wrap); take them off on exit."""
     import functools
     from torch.profiler import record_function
     from cruise_control_tpu_torch.analyzer import engine, goals
@@ -151,6 +165,10 @@ def site_ranges():
          lambda *a: "cc||KN wrapper")
     if "round_guards" in engine.__dict__:
         wrap(engine, "round_guards", lambda *a: "cc||KQ wrapper")
+    for name, label in (("replica_priority", "KR"), ("dest_select", "KS"),
+                        ("assemble_candidates", "KT")):
+        if name in goals.__dict__:
+            wrap(goals, name, lambda *a, label=label: f"cc||{label} wrapper")
     try:
         yield
     finally:
@@ -158,9 +176,27 @@ def site_ranges():
             setattr(owner, name, fn)
 
 
+def _op_name(name: str) -> str:
+    """A device event's kernel name without its namespaces, template and
+    parameters (a copy or memset keeps its own; an elementwise kernel
+    keeps its functor or implementation's name)."""
+    import re
+    name = name.replace("(anonymous namespace)::", "")
+    base = name.split("(")[0].split("<")[0].split("::")[-1].strip()
+    base = base.removeprefix("void ") or name
+    if "elementwise" in base or "reduce_kernel" in base:
+        what = [w for w in re.findall(
+            r"(\w+(?:Functor|_impl|_kernel_cuda|Ops)\w*)", name)
+            if not w.startswith("gpu_kernel")]
+        if what:
+            base += f" ({what[0]})"
+    return base
+
+
 def site_table(prof):
     """({(pass, site): [device us, device events]}, device events linked
-    to no launch): every device event's time on the innermost
+    to no launch, {kernel: [device us, device events]} of the goals'
+    ``propose`` sites): every device event's time on the innermost
     ``site_ranges`` range open when the host launched it (its runtime
     event: a ``cu*`` call of the same correlation id, whose start is the
     launch), the pass from the outermost segment around that; events
@@ -177,6 +213,7 @@ def site_table(prof):
         elif e.name.startswith("cu"):
             runtime[e.id] = e.time_range.start
     table: dict = {}
+    ops: dict = {}
     unlinked = 0
     for d in device:
         t = runtime.get(d.id)
@@ -191,16 +228,18 @@ def site_table(prof):
             inner = around[-1][1]
             key = (segs[0][1],
                    inner[2] if inner[1] == "" else f"segment {inner[2]}")
-        cell = table.setdefault(key, [0.0, 0])
-        cell[0] += d.time_range.end - d.time_range.start
-        cell[1] += 1
-    return table, unlinked
+        for cell in (table.setdefault(key, [0.0, 0]),
+                     ops.setdefault(_op_name(d.name), [0.0, 0])
+                     if key[1].endswith(".propose") else [0.0, 0]):
+            cell[0] += d.time_range.end - d.time_range.start
+            cell[1] += 1
+    return table, unlinked, ops
 
 
-def report_sites(label, table, unlinked, graph_busy_ms) -> dict:
+def report_sites(label, table, unlinked, ops, graph_busy_ms) -> dict:
     """Print ``label``'s site table by pass x site, by site and by pass,
-    and its sum beside the graph path's busy time; returns it as a JSON
-    object."""
+    its sum beside the graph path's busy time, and the device ops of the
+    goals' ``propose`` sites by kernel; returns it as a JSON object."""
     total = sum(v[0] for v in table.values())
     events = sum(v[1] for v in table.values())
     print(f"== {label} busy time by call site (host loop, seed 1): "
@@ -220,10 +259,15 @@ def report_sites(label, table, unlinked, graph_busy_ms) -> dict:
         print(f"by {label} (ms, device events):")
         for name, (us, n) in sorted(sums.items(), key=lambda kv: -kv[1][0]):
             print(f"  {us / 1e3:9.3f} ms {n:7d}  {name}")
+    print("the goals' propose sites by device op (ms, device events):")
+    for name, (us, n) in sorted(ops.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {us / 1e3:9.3f} ms {n:7d}  {name}")
     return {"total_ms": total / 1e3, "events": events,
             "unlinked_events": unlinked, "graph_busy_ms": graph_busy_ms,
             "sites": [{"pass": p_, "site": s_, "ms": us / 1e3, "events": n}
-                      for (p_, s_), (us, n) in table.items()]}
+                      for (p_, s_), (us, n) in table.items()],
+            "propose_ops": [{"op": k, "ms": us / 1e3, "events": n}
+                            for k, (us, n) in ops.items()]}
 
 
 def profiled(fn):
