@@ -47,13 +47,18 @@ Phases (every failure raises; nothing is caught):
    ``KQ_SHAPES``) against its twin on the same CUDA state, which is the
    goals' guards through KC and KK; KR, KS and KT (the goals' candidate
    generators: replica priorities, destinations, the assembled candidates)
-   over every call of each goal's propose of ``GENERATOR_CASES``' chains
-   (every row kind and form), bit for bit against their twins on the CPU,
-   each kernel and form timed once a shape (the short-list also against
-   ``torch.topk``);
+   and KU (``lax.top_k``) over every call of each goal's propose of
+   ``GENERATOR_CASES``' chains (every row kind and form), bit for bit
+   against their twins on the CPU, each kernel and form timed once a shape
+   (the short-list and KU also against ``torch.topk``), and KU on crafted
+   rows (signed zeros, NaNs, -inf masks, ties; one block a row and the
+   chunked form past 65,536); KV (a pass's steered destinations) and KW
+   (a proposal's selection: the score, top M, winners, conflicts,
+   pending) at ``SELECT_SHAPES``' chain positions, bit for bit against
+   their twins on the CPU, timed beside them;
 4. main path — 100 brokers x 20K partitions at RF 2, the 4-goal chain
    with the off-chain hard-goal audit, seeds 0, 1, 1 (proposals of the two
-   seed-1 runs must be identical; KA, KB, KL, KM-KR and KT must have
+   seed-1 runs must be identical; KA, KB, KL, KM-KR and KT-KW must have
    launched, KQ once an apply round, KC and KK never;
    no optimize may read a loop test on the host, and the warm ones may
    capture no CUDA graph; KA's launches of each optimize and the last
@@ -98,9 +103,10 @@ Phases (every failure raises; nothing is caught):
 13. default chain — the reference's own per-proposal contract
     (``goals=None``, nothing waived): (a) the main-path cluster, seeds 1
     and 1 (identical proposals, each run's outcome held to
-    ``REFERENCE_DEFAULT``; KA, KB, KL and KM-KT must have launched, KQ
+    ``REFERENCE_DEFAULT``; KA, KB, KL and KM-KW must have launched, KQ
     once an apply round, KC and KK never; each goal's generators over 20
-    calls launch only KR, KS, KT, KO and top_k's sort); (b) bench
+    calls launch only KR, KS, KT, KO, KU and memsets, each pass's
+    ``propose`` segment KV, KW and KN besides, and neither a sort); (b) bench
     scale scenario 3 (1K x 200K, the reference bench's search; no hard
     goal left violated, no goal worse than it started); (c)
     ``WhatIfEngine()``'s N-1 sweep with the default goals (topic counts
@@ -362,17 +368,28 @@ KERNEL_INFO = {
     "assemble_candidates": dict(
         source="cruise_control_tpu_torch/csrc/candidates.cu",
         replaces="cruise_control_tpu/analyzer/state.py:277"),
+    "top_k": dict(
+        source="cruise_control_tpu_torch/csrc/top_k.cu",
+        replaces="cruise_control_tpu/analyzer/goals.py:823"),
+    "steer_dest": dict(
+        source="cruise_control_tpu_torch/csrc/steer.cu",
+        replaces="cruise_control_tpu/analyzer/engine.py:192"),
+    "proposal_select": dict(
+        source="cruise_control_tpu_torch/csrc/proposal_select.cu",
+        replaces="cruise_control_tpu/analyzer/engine.py:130"),
 }
-#: KM-KR and KT, the goal pass's own kernels, and KO's range table (once
-#: a context): every optimize launches each (KS serves the goals outside
-#: the interval family: phase 13's default chain launches it)
+#: KM-KR and KT-KW, the goal pass's own kernels, and KO's range table
+#: (once a context): every optimize launches each (KS serves the goals
+#: outside the interval family: phase 13's default chain launches it)
 PASS_KERNELS = ("apply_group", "candidate_eligibility",
                 "replica_weight_range", "flow_priority", "flow_match",
                 "bulk_drain_fill", "round_guards", "replica_priority",
-                "assemble_candidates")
-#: KR, KS and KT: the goals' candidate generators (their wrappers, as
+                "assemble_candidates", "top_k", "steer_dest",
+                "proposal_select")
+#: KR, KS, KT and KU: the goals' candidate generators (their wrappers, as
 #: ``analyzer/goals.py`` calls them)
-GENERATOR_KERNELS = ("replica_priority", "dest_select", "assemble_candidates")
+GENERATOR_KERNELS = ("replica_priority", "dest_select", "assemble_candidates",
+                     "top_k")
 #: the guards' kernels before KQ, which an apply round no longer launches
 GUARD_FLOWS = ("net_broker_flow", "cell_net_flow")
 
@@ -1150,6 +1167,16 @@ def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms,
                 chain_goals = goals if chain == "main" else default_chain
             _kernel_generators(row, rows, shape, st, cx, chain_goals, search,
                                timed)
+        # --- KU on crafted rows: ties, signed zeros, NaNs, -inf masks,
+        # one block a row and the chunked form
+        if shape == "main":
+            _kernel_top_k_edges(rows)
+        # --- KV and KW: a pass's steered destinations and its first
+        # proposal's selection at SELECT_SHAPES' chain positions (first:
+        # the kernels line's rows)
+        for chain, pos, search in SELECT_SHAPES[shape]:
+            _kernel_selection(row, state, ctx, chain, (
+                goals if chain == "main" else default_chain), pos, search)
         # --- KO: a util goal's and a count goal's priorities and
         # destination match (first: the kernels line's rows)
         K = cfg.num_replica_candidates if shape == "main" else 1_024
@@ -1455,7 +1482,8 @@ def _generator_twins():
     from cruise_control_tpu_torch import kernels
     return {"replica_priority": kernels.replica_priority_plain,
             "dest_select": kernels.dest_select_plain,
-            "assemble_candidates": kernels.assemble_candidates_plain}
+            "assemble_candidates": kernels.assemble_candidates_plain,
+            "top_k": kernels.top_k_plain}
 
 
 def generator_outputs(name, out):
@@ -1468,6 +1496,8 @@ def generator_outputs(name, out):
 
 def generator_form(name, args):
     """The row kind, form or parts of a recorded generator call."""
+    if name == "top_k":
+        return f"[{' x '.join(map(str, args[0].shape))}] k {args[1]}"
     if name == "assemble_candidates":
         return "+".join(part.kind for part in args[2])
     return args[0]
@@ -1481,8 +1511,14 @@ def generator_bytes_ops(name, args, kw, out):
     counts once, each candidate's index, topic and row, for KS; each
     row's indices, loads (32 bytes a partition row read) and its 106
     bytes written for KT. Operations: ~115 a threefry draw (the noise's
-    hash and conversion) and ~20 a slot or a scored cell besides."""
+    hash and conversion) and ~20 a slot or a scored cell besides. KU: the
+    rows read once and the k (value, index) pairs written; one compare
+    an element."""
     from cruise_control_tpu_torch import kernels
+    if name == "top_k":
+        x, k = args[0], args[1]
+        rows = x.shape[0] if x.dim() == 2 else 1
+        return x.numel() * 4 + rows * k * 12, x.numel()
     if name == "assemble_candidates":
         state, _ctx, parts = args
         n = sum(part.rows for part in parts)
@@ -1571,7 +1607,8 @@ def _kernel_generators(row, rows, shape, state, ctx, chain_goals, search,
     ``timed`` (a set it adds to) is timed — a CUDA graph of the wrapper
     against the twin on the card — beside its bound; the short-list also
     against ``torch.topk`` over its masked, noised [B1] (the library
-    column of the line's KS row, the first short-list's)."""
+    column of the line's KS row, the first short-list's), KU against
+    ``torch.topk`` over the same row (the line's KU row, the first)."""
     import torch
     from cruise_control_tpu_torch import kernels
     from cruise_control_tpu_torch.analyzer import SearchConfig
@@ -1589,6 +1626,12 @@ def _kernel_generators(row, rows, shape, state, ctx, chain_goals, search,
         row(name, f"{goal.name} {form} ({shape}, P={P}, B1={B1}) [1 wrapper "
             f"call]", err, ms, plain,
             *generator_bytes_ops(name, args, kw, out))
+        if name == "top_k":
+            lib = time_ms(lambda: torch.topk(args[0], args[1]), graph=True)
+            log(f"  torch.topk over the same keys (its ties' order "
+                f"differs): {lib:.5f} ms")
+            if rows["top_k"]["library_ms"] is None:
+                rows["top_k"]["library_ms"] = lib
         if name == "dest_select" and form == "shortlist":
             dp = kernels.shortlist_source_plain(
                 args[3], _shortlist_plane(goal, state, args[3], kw),
@@ -1597,6 +1640,129 @@ def _kernel_generators(row, rows, shape, state, ctx, chain_goals, search,
             log(f"  torch.topk over the masked, noised [B1]: {lib:.5f} ms")
             if rows["dest_select"]["library_ms"] is None:
                 rows["dest_select"]["library_ms"] = lib
+
+
+#: KU's crafted rows (phase 3): (tag, S rows, N, k, form)
+TOP_K_EDGES = (("ties", 2, 40_192, 512, "quantized"),
+               ("signed zeros and NaNs", 1, 40_192, 512, "zeros"),
+               ("-inf masks", 2, 40_192, 128, "masked"),
+               ("one block's largest row", 1, 65_536, 1_024, "quantized"),
+               ("two chunks", 1, 65_537, 1_024, "noise"),
+               ("the scale cell's rows", 2, 400_128, 1_024, "quantized"),
+               ("k = N", 3, 700, 700, "zeros"), ("N = 1", 1, 1, 1, "noise"),
+               ("k 4,096", 1, 100_000, 4_096, "masked"))
+
+
+def top_k_row(form, n, rng):
+    """A crafted float32 row: uniform noise, a few quantized levels (long
+    runs of ties), a mostly -inf mask, or signed zeros with NaNs of both
+    signs and -inf."""
+    if form == "noise":
+        return rng.random(n).astype(np.float32)
+    if form == "quantized":
+        return rng.integers(-4, 5, n).astype(np.float32) * 0.25
+    if form == "masked":
+        x = np.full(n, -np.inf, np.float32)
+        live = rng.random(n) < 0.02
+        x[live] = rng.random(int(live.sum())).astype(np.float32)
+        return x
+    x = np.where(rng.random(n) < 0.5, -0.0, 0.0).astype(np.float32)
+    for v in (np.nan, -np.nan, -np.inf):
+        x[rng.random(n) < 0.05] = v
+    return x
+
+
+def _kernel_top_k_edges(rows):
+    """KU bit for bit (values' bits and indices) against its twin on the
+    CPU on ``TOP_K_EDGES``' crafted rows."""
+    import torch
+    from cruise_control_tpu_torch import kernels
+    rng = np.random.default_rng(19)
+    for tag, S, n, k, form in TOP_K_EDGES:
+        x = np.stack([top_k_row(form, n, rng) for _ in range(S)])
+        xd = torch.from_numpy(x).cuda()
+        got = kernels.top_k(xd if S > 1 else xd[0], k)
+        want = kernels.top_k_plain(torch.from_numpy(x if S > 1 else x[0]), k)
+        same = (torch.equal(got[1].cpu(), want[1]) and torch.equal(
+            got[0].cpu().view(torch.int32), want[0].view(torch.int32)))
+        if not same:
+            fail(f"top_k differs from its twin on {tag} ({S} x {n}, k {k})")
+        _keep_first_shape(rows, "top_k", 0.0, {})
+        log(f"top_k {tag}: {S} x {n}, k {k}: bit-exact vs twin (values' "
+            f"bits and indices)")
+
+
+#: KV's and KW's phase-3 shapes: (chain, position, search) — the main
+#: chain's last position (its steering rows and DiskUsage's proposal: the
+#: kernels line's rows), the default chain's TopicReplicaDistribution (13)
+#: and last (15) positions, the scale cell's main chain at M 1,024
+SELECT_SHAPES = {"main": (("main", 3, MAIN_SEARCH),
+                          ("default", 13, MAIN_SEARCH),
+                          ("default", 15, MAIN_SEARCH)),
+                 "scale": (("main", 3, KQ_SHAPES["scale"][0][2]),)}
+
+
+def steer_bytes_ops(table, B1):
+    """KV's bound inputs: the broker masks read and the mask written, each
+    row's metric plane (and a capacity row's column) read once; three
+    operations a row a broker and an add a broker an average row."""
+    avg = sum(table.rows[k].form == 0 for k in range(table.n))
+    cap = sum(table.rows[k].form == 1 for k in range(table.n))
+    return B1 * 4 + B1 * 4 * (table.n + cap), B1 * (3 * table.n + avg)
+
+
+def select_bytes_ops(N, M):
+    """KW's bound inputs: each candidate's verdict, must flag and delta
+    read once, the M winners' 106 bytes of fields read and written, the
+    [M, M] conflict mask and M pending flags written; a compare an element
+    and the four compares of each pair j < i."""
+    return N * 6 + M * 106 * 2 + M * M + M + 8, N + 2 * M * (M - 1)
+
+
+def _kernel_selection(row, state, ctx, chain, chain_goals, pos, search):
+    """KV and KW bit for bit against their twins on the CPU at a chain
+    position: the pass's steered destinations, then its first proposal's
+    selection (the goal's candidates on the steered context, KN's verdict
+    at the round's state), each timed (a CUDA graph of the wrapper)
+    beside its twin and bound."""
+    import torch
+    from cruise_control_tpu_torch import _random, kernels
+    from cruise_control_tpu_torch.analyzer import SearchConfig
+    from cruise_control_tpu_torch.analyzer.engine import PassSegments
+    cfg = SearchConfig(**search)
+    goal = chain_goals[pos]
+    seg = PassSegments(goal, chain_goals[:pos], cfg, all_goals=chain_goals)
+    table = seg.steer
+    B1 = state.util.shape[0]
+    mask = kernels.steer_dest(state, ctx, table)
+    want = kernels.steer_dest_plain(to_cpu(state), to_cpu(ctx),
+                                    table.prev_goals)
+    ms = time_ms(lambda: kernels.steer_dest(state, ctx, table), graph=True)
+    plain = time_ms(lambda: kernels.steer_dest_plain(
+        state, ctx, table.prev_goals), groups=3)
+    row("steer_dest", f"{chain} chain position {pos} ({goal.name}; "
+        f"{table.n} rows), B1={B1}: {int(mask.sum())} of "
+        f"{int(ctx.dest_allowed.sum())} destinations kept",
+        _max_err([mask], [want]), ms, plain, *steer_bytes_ops(table, B1))
+    cands = goal.propose(state, ctx.replace(dest_allowed=mask),
+                         _random.PRNGKey(0, device=state.rb.device), cfg)
+    elig, delta = seg.eligibility(state, ctx, cands)
+    N = cands.p.shape[0]
+    M = min(cfg.apply_per_iter, N)
+    got = kernels.proposal_select(cands, elig, delta, M)
+    want = kernels.proposal_select_plain(to_cpu(cands), elig.cpu(),
+                                         delta.cpu(), M)
+    fields = [f for f, _d, _w in kernels.CANDIDATE_FIELDS]
+    err = _max_err([getattr(got[0], f) for f in fields] + list(got[1:]),
+                   [getattr(want[0], f) for f in fields] + list(want[1:]))
+    ms = time_ms(lambda: kernels.proposal_select(cands, elig, delta, M),
+                 graph=True)
+    plain = time_ms(lambda: kernels.proposal_select_plain(
+        cands, elig, delta, M), groups=3)
+    row("proposal_select", f"{chain} chain position {pos} ({goal.name}'s "
+        f"proposal), N={N}, M={M}: {int(elig.sum())} eligible, "
+        f"{int(got[2].sum())} pending", err, ms, plain,
+        *select_bytes_ops(N, M))
 
 
 def _shortlist_plane(goal, state, ctx, kw):
@@ -3948,6 +4114,7 @@ def phase_default_chain(model, md, scale_model, scale_md):
     _check_round_launches("(a)", launches, engine.APPLY_ROUNDS - rounds0)
     _default_chain_kn(model, md, launches["candidate_eligibility"])
     _default_chain_generators(model, md)
+    _default_chain_propose_segments(model, md)
     rest = default_chain_rest(pkg, model, md)
     log(f"(c) N-1 sweep with the default goals: {rest['walls']['n1']:.3f}s")
     _check_summary("(c) N-1, default goals", rest["c"], REFERENCE_DEFAULT_N1)
@@ -4028,14 +4195,27 @@ def _default_chain_kn(model, md, launches):
              f"once a call and nothing else expected")
 
 
-#: KR's, KS's, KT's and KO's device kernels (``torch.profiler`` names
-#: contain these) and the memsets ahead of KR's topic kind and KS's swap
-#: destinations: what a goal's generators launch besides ``top_k``'s sort
+#: KR's, KS's, KT's, KO's and KU's device kernels (``torch.profiler``
+#: names contain these) and the memsets ahead of KR's topic kind and KS's
+#: swap destinations: all that a goal's generators may launch
 GENERATOR_OPS = ("replica_priority_kernel", "topic_limits_kernel",
                  "topic_range_kernel", "shortlist_kernel",
                  "move_rows_kernel", "move_dest_kernel", "light_kernel",
                  "swap_dest_kernel", "assemble_kernel",
-                 "flow_priority_kernel", "flow_match_kernel", "Memset")
+                 "flow_priority_kernel", "flow_match_kernel",
+                 "top_k_kernel", "Memset")
+#: KV's, KW's and KN's kernels: what a pass's ``propose`` segment launches
+#: besides its goal's generators and the interval goals' planes
+PROPOSE_OPS = ("steer_kernel", "proposal_select_kernel",
+               "proposal_gather_kernel", "eligibility_kernel",
+               "topic_bounds_kernel")
+
+
+def is_sort(op: str) -> bool:
+    """Whether a device operation is a sort's or a library top-k's (cub's
+    radix sorts, torch.sort's and torch.topk's kernels)."""
+    low = op.lower()
+    return any(m in low for m in ("sort", "radix", "topk"))
 
 
 def _default_chain_generators(model, md):
@@ -4043,32 +4223,18 @@ def _default_chain_generators(model, md):
     position (phase 3's state, broker 3 dead; an interval goal's planes —
     its bounds, outside the generators — formed ahead) over a window of 20
     calls, counted as KN's check counts. Its device operations must be
-    KR's, KS's, KT's and KO's kernels and memsets, and the ones ``top_k``'s
-    sort launches, each no more often than the window's top-k calls times
-    what one top-k over the same [P * R] launches (read in a window of its
-    own, rounded up: the profiler drops a few events of a window, never
-    adds one), memsets also three a call besides (KR's topic kind makes
-    one, KS's swap destinations two); each window must record KT, and each
-    wrapper must count its calls."""
+    KR's, KS's, KT's, KO's and KU's kernels and memsets, never a sort;
+    each window must record KT, and KU where the goal took a top-k; each
+    wrapper must count its calls, KU one launch a top-k call."""
     import torch
     from cruise_control_tpu_torch import _random, kernels
     from cruise_control_tpu_torch.analyzer import SearchConfig, default_goals
     from cruise_control_tpu_torch.analyzer import goals as g
     from cruise_control_tpu_torch.analyzer.engine import PassSegments
-    from cruise_control_tpu_torch.utils.ordered import top_k
     state, ctx = pass_state(model, md, dead=(3,))
     goals = [goal.bind(md) for goal in default_goals()]
     cfg = SearchConfig(**MAIN_SEARCH)
     reps = 20
-    P, R = state.rb.shape
-    x = torch.rand(P * R, device=state.rb.device)
-    _, ops = _device_ops(lambda: [top_k(x, cfg.num_replica_candidates)
-                                  for _ in range(reps)])
-    per_top_k = {o: math.ceil(ops.count(o) / reps) for o in set(ops)}
-    log(f"(a) top_k over {P * R} floats, {reps} calls: "
-        f"{ {o: ops.count(o) for o in sorted(set(ops))} }")
-    if not ops:
-        fail("(a) the profiler recorded no operation of top_k's window")
     real_top_k = g.top_k
     for pos, goal in enumerate(goals):
         sctx = PassSegments(goal, goals[:pos], cfg).steer_ctx(state, ctx)
@@ -4099,20 +4265,79 @@ def _default_chain_generators(model, md):
         counts = {o: ops.count(o) for o in sorted(set(ops))}
         log(f"(a) {goal.name}'s generators, {reps} calls ({len(calls)} "
             f"top-k; wrapper counts {made}): {counts}")
-        other = [o for o in counts if o not in per_top_k
-                 and not any(k in o for k in GENERATOR_OPS)]
-        over = [o for o in counts if o in per_top_k and counts[o] > (
-            per_top_k[o] * len(calls) + (3 * reps if "Memset" in o else 0))]
-        if other or over:
+        other = [o for o in counts if not any(k in o for k in GENERATOR_OPS)]
+        sorts = [o for o in counts if is_sort(o)]
+        if other or sorts:
             fail(f"(a) {goal.name}'s propose launched {other} besides KR, KS, "
-                 f"KT, KO and top_k's sort, and {over} more often than its "
-                 f"top-k's sorts")
+                 f"KT, KO, KU and memsets, and the sorts {sorts}")
         if not any("assemble_kernel" in o for o in counts):
             fail(f"(a) {goal.name}'s window recorded no KT launch")
-        if made.get("assemble_candidates") != reps or any(
+        if calls and not any("top_k_kernel" in o for o in counts):
+            fail(f"(a) {goal.name}'s window recorded no KU launch")
+        if made.get("assemble_candidates") != reps or made.get(
+                "top_k", 0) != len(calls) or any(
                 k not in GENERATOR_KERNELS + ("flow_priority", "flow_match")
                 for k in made):
-            fail(f"(a) {goal.name}'s wrappers counted {made} in {reps} calls")
+            fail(f"(a) {goal.name}'s wrappers counted {made} in {reps} calls "
+                 f"({len(calls)} top-k)")
+
+
+def _default_chain_propose_segments(model, md):
+    """Phase 13 (a)'s ``propose`` segments: each default-chain pass's
+    ``PassSegments.propose`` at phase 3's state (broker 3 dead) over a
+    window of 10 calls (again, up to three times, where the profiler
+    recorded nothing: it drops a short window's events now and then).
+    Besides its goal's generators (``GENERATOR_OPS``) a segment may
+    launch KV, KW and KN and the interval goals' planes (eager torch and
+    KB's range form, listed), never a sort; by the wrappers' counts KW
+    launches once a call and KV once a call where an earlier goal steers,
+    and the windows together must record KU's, KV's and KW's kernels.
+    Returns the operations outside KR-KW, KO, KN and memsets, summed over
+    the chain."""
+    import torch
+    from cruise_control_tpu_torch import _random, kernels
+    from cruise_control_tpu_torch.analyzer import SearchConfig, default_goals
+    from cruise_control_tpu_torch.analyzer.engine import PassSegments
+    state, ctx = pass_state(model, md, dead=(3,))
+    goals = [goal.bind(md) for goal in default_goals()]
+    cfg = SearchConfig(**MAIN_SEARCH)
+    reps = 10
+    rest: dict = {}
+    seen = set()
+    for pos, goal in enumerate(goals):
+        seg = PassSegments(goal, goals[:pos], cfg, all_goals=goals)
+        key = _random.PRNGKey(3, device=state.rb.device)
+        seg.propose(state, ctx, key, 0)
+        torch.cuda.synchronize()
+        for _attempt in range(3):
+            before = dict(kernels.LAUNCHES)
+            _, ops = _device_ops(lambda: [seg.propose(state, ctx, key, it)
+                                          for it in range(reps)])
+            made = {k: kernels.LAUNCHES[k] - before[k]
+                    for k in kernels.LAUNCHES
+                    if kernels.LAUNCHES[k] != before[k]}
+            if ops:
+                break
+        counts = {o: ops.count(o) for o in sorted(set(ops))}
+        sorts = [o for o in counts if is_sort(o)]
+        if sorts:
+            fail(f"(a) {goal.name}'s propose segment ran the sorts {sorts}")
+        for o, n in counts.items():
+            seen |= {k for k in ("top_k_kernel", "steer_kernel",
+                                 "proposal_select_kernel") if k in o}
+            if not any(k in o for k in GENERATOR_OPS + PROPOSE_OPS):
+                rest[o] = rest.get(o, 0) + n
+        steers = seg.steer.n > 0
+        if made.get("proposal_select") != reps or made.get(
+                "steer_dest", 0) != (reps if steers else 0):
+            fail(f"(a) {goal.name}'s propose segment counted {made} in "
+                 f"{reps} calls")
+    if len(seen) != 3:
+        fail(f"(a) the propose segments' windows recorded only {seen} of "
+             f"KU's, KV's and KW's kernels")
+    log(f"(a) the default chain's propose segments, {reps} calls a pass: "
+        f"no sort; besides KR-KW, KO, KN and memsets: {rest}")
+    return rest
 
 
 def _loop_outcome(res):

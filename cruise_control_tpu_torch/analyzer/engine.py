@@ -31,17 +31,14 @@ import numpy as np
 import torch
 
 from .. import _random
-from ..kernels import (GoalChecks, GuardTable, apply_group,
-                       candidate_eligibility, round_guards)
-from ..utils.ordered import (fma, fma_loop_sum, top_k, tree_sum_last,
+from ..kernels import (GoalChecks, GuardTable, SteerTable, apply_group,
+                       candidate_eligibility, proposal_select, round_guards,
+                       steer_dest)
+from ..utils.ordered import (fma, fma_loop_sum, tree_sum_last,
                              vector_loop_sum)
 from .constraint import SearchConfig
 from .goals import GoalKernel
 from .state import Candidates, SearchContext, SearchState
-
-# Ordering sentinel only (never added to a metric value): mandatory moves
-# sort ahead of every improving move.
-_MUST_FIRST = -1e30
 
 #: device -> host scalar reads made by the engine's loop tests
 HOST_SYNCS = 0
@@ -238,6 +235,10 @@ class PassSegments:
         #: the goals whose collective bounds an apply round keeps (KQ's
         #: guard table)
         self.guards = GuardTable(self.checks)
+        #: the earlier goals' receptive tests (KV's table)
+        self.steer = SteerTable(self.prev_goals)
+        #: KV's output a (device, B1): a fixed address for the graphs
+        self._steered: dict = {}
 
     def eligibility(self, state, ctx, cands, bounds=None):
         """(bool[N] eligible, f32[N] the goal's delta): base legality, every
@@ -249,15 +250,23 @@ class PassSegments:
     def steer_ctx(self, state: SearchState, ctx: SearchContext
                   ) -> SearchContext:
         """Steer candidate generation toward destinations every earlier goal
-        can accept; keep the original set if the intersection is empty."""
+        can accept; keep the original set if the intersection is empty
+        (KV, ``kernels.steer_dest``, into a buffer this pass keeps)."""
         if not self.prev_goals:
             return ctx
-        recv = torch.ones_like(ctx.broker_alive)
-        for g in self.prev_goals:
-            recv = recv & g.receptive_dest(state, ctx)
-        dest = recv & ctx.dest_allowed
-        return ctx.replace(
-            dest_allowed=torch.where(dest.any(), dest, ctx.dest_allowed))
+        out = None
+        if state.rb.device.type == "cuda":
+            if not self.steer.n and not self.steer.outside:
+                # every earlier goal receives everywhere: the mask is
+                # dest_allowed itself
+                return ctx
+            where = (state.rb.device, ctx.dest_allowed.shape[0])
+            out = self._steered.get(where)
+            if out is None:
+                out = self._steered[where] = torch.empty(
+                    where[1], dtype=torch.bool, device=where[0])
+        return ctx.replace(dest_allowed=steer_dest(state, ctx, self.steer,
+                                                   out=out))
 
     def active(self, state: SearchState, ctx: SearchContext) -> torch.Tensor:
         """bool scalar: the goal is violated or a replica is offline (a
@@ -278,35 +287,21 @@ class PassSegments:
         elig, _ = self.eligibility(state, ctx, c)
         return apply_group(state, ctx, c, elig, out=out)
 
-    def propose(self, state: SearchState, ctx: SearchContext, key, it):
+    def propose(self, state: SearchState, ctx: SearchContext, key, it,
+                out=None, flag=None):
         """The fine loop's iteration ``it`` (an int or an int64 scalar
-        tensor) up to the apply rounds. Returns (the best M candidates in
-        score order, bool[M, M] conflicts with earlier ones, bool[M]
-        pending)."""
-        goal = self.goal
-        cands = goal.propose(state, self.steer_ctx(state, ctx),
-                             _random.fold(key, it), self.cfg)
+        tensor) up to the apply rounds: the goal's candidates, KN's verdict
+        and KW's selection (``kernels.proposal_select``: mandatory moves
+        first, then the most negative deltas). Returns (the best M
+        candidates in score order, bool[M, M] conflicts with earlier ones,
+        bool[M] pending); with ``out`` (buffers the caller owns: the
+        rounds' carry) they are written there, and ``flag`` (an int64
+        scalar) is set to whether any is pending."""
+        cands = self.goal.propose(state, self.steer_ctx(state, ctx),
+                                  _random.fold(key, it), self.cfg)
         elig, delta = self.eligibility(state, ctx, cands)
-        # Mandatory (offline) moves outrank everything; otherwise the most
-        # negative deltas apply first.
-        score = torch.where(
-            elig,
-            torch.where(cands.must, _MUST_FIRST,
-                        torch.clamp(delta, -1e29, 1e29)),
-            float("inf"))
-        M = min(self.cfg.apply_per_iter, score.shape[0])
-        neg_best, order = top_k(-score, M)
-        c = cands.take(order)
-
-        def same(a, b):
-            return a[:, None] == b[None, :]
-
-        # Structural conflicts: shared partition rows only (primary or swap
-        # counterpart); broker sharing is left to the collective guards.
-        conflict = (same(c.p, c.p) | same(c.p, c.p2)
-                    | same(c.p2, c.p) | same(c.p2, c.p2))
-        return c, conflict & _earlier(M, score.device), torch.isfinite(
-            neg_best)
+        M = min(self.cfg.apply_per_iter, cands.p.shape[0])
+        return proposal_select(cands, elig, delta, M, out=out, flag=flag)
 
     def round(self, state: SearchState, ctx: SearchContext, c: Candidates,
               conflict_earlier: torch.Tensor, pending: torch.Tensor,
@@ -328,12 +323,6 @@ class PassSegments:
 
     def stack(self, state: SearchState, ctx: SearchContext) -> torch.Tensor:
         return violation_stack(self.all_goals, state, ctx)
-
-
-def _earlier(m: int, device) -> torch.Tensor:
-    """bool[m, m]: j < i (candidate j is earlier than candidate i)."""
-    return torch.tril(torch.ones((m, m), dtype=torch.bool, device=device),
-                      diagonal=-1)
 
 
 class HostLoop:

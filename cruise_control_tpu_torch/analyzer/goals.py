@@ -21,7 +21,8 @@ twin the interval goals' collective guards sum their flows through KC
 (``kernels.net_broker_flow``) and the topic-cell guards through KK
 (``kernels.cell_net_flow``).
 
-A ``propose`` is its generators around ``top_k``: the source priorities
+A ``propose`` is its generators around KU's ``top_k``
+(``kernels.top_k``, ``lax.top_k``'s order): the source priorities
 (KO's for an interval goal's flow moves, else KR's,
 ``kernels.replica_priority``, a row kind a form), the destinations (KO's
 match, or KS's, ``kernels.dest_select``) and one KT launch
@@ -44,11 +45,10 @@ from ..kernels import (Part, assemble_candidates, bulk_drain_fill,
                        cell_net_flow, dest_select, flow_match, flow_priority,
                        grid_source_plain, net_broker_flow,
                        ordered_segment_sum, replica_priority,
-                       shortlist_source_plain)
+                       shortlist_source_plain, top_k, top_k_plain)
 from ..model.flat import MOVE_INTER_BROKER, MOVE_LEADERSHIP, MOVE_SWAP
-from ..utils.ordered import (fma, lexsort, scan_sum, top_k,
-                              topic_cell_sum, tree_sum, tree_sum_last,
-                              violation_row_sum)
+from ..utils.ordered import (fma, lexsort, scan_sum, topic_cell_sum,
+                              tree_sum, tree_sum_last, violation_row_sum)
 from .constraint import BalancingConstraint, SearchConfig
 from .state import (Candidates, SearchContext, SearchState, metric_deltas,
                     metric_values, METRIC_LEADER_COUNT, METRIC_LEADER_NW_IN,
@@ -178,9 +178,9 @@ def _top_replica_dest_grid(state: SearchState, ctx: SearchContext, key,
     D = min(cfg.num_dest_candidates, dest_priority.shape[0])
     krep, kdst = _random.subkeys(key)
     rp = grid_source_plain(state, ctx, replica_priority, krep, cfg)
-    rvals, ridx = top_k(rp.reshape(-1), K)
-    dvals, didx = top_k(shortlist_source_plain(ctx, dest_priority, kdst,
-                                               cfg), D)
+    rvals, ridx = top_k_plain(rp.reshape(-1), K)
+    dvals, didx = top_k_plain(shortlist_source_plain(ctx, dest_priority,
+                                                     kdst, cfg), D)
     return assemble_candidates(state, ctx, [Part(
         "grid", idx=ridx, vals=rvals, didx=didx, dvals=dvals)])
 
@@ -248,6 +248,15 @@ class GoalKernel:
         """bool[B1] — brokers that can receive a replica without this
         (previously-optimized) goal likely rejecting the action."""
         return torch.ones_like(ctx.broker_alive)
+
+    def steer_row(self):
+        """This goal's row of KV's table (``kernels.SteerTable``), the
+        twin of :meth:`receptive_dest`: ``{"kind": "everywhere"}`` where
+        it is every broker, None where KV has no form for it. A class that
+        overrides ``receptive_dest`` overrides this too."""
+        if type(self).receptive_dest is GoalKernel.receptive_dest:
+            return dict(kind="everywhere")
+        return None
 
     def eligibility_row(self):
         """This goal's row of KN's goal table (``kernels.GoalChecks``): a
@@ -489,6 +498,13 @@ class IntervalGoal(GoalKernel):
         if self.metric[0] in ("count", "leaders"):
             return values + 1.0 <= up
         return values < up
+
+    def steer_row(self):
+        """The metric and upper bound of this goal's row of KN's table:
+        :meth:`receptive_dest` tests the metric against that bound."""
+        if type(self).receptive_dest is not IntervalGoal.receptive_dest:
+            return None
+        return self.eligibility_row()
 
     # -- bulk drain ------------------------------------------------------
     @property
@@ -752,8 +768,8 @@ class IntervalGoal(GoalKernel):
         prio = replica_priority("interval_swap", self, state, ctx, (kh, kl),
                                 cfg, values=values, lo=lo, up=up,
                                 excess=excess, deficit=deficit)
-        hv, hidx = top_k(prio[0].reshape(-1), K)
-        lv, lidx = top_k(prio[1].reshape(-1), K)
+        # both planes' top-k in one launch
+        (hv, lv), (hidx, lidx) = top_k(prio.reshape(2, -1), K)
         return Part("swap", idx=hidx, vals=hv, idx2=lidx, vals2=lv,
                     shift=kshift)
 

@@ -375,12 +375,9 @@ class GraphLoop:
         def drain():
             flag.copy_(seg.drain(S, C, key, rnd, out=S)[1])
 
+        # KW writes the proposal and the flag into the carry itself
         def propose():
-            c2, ce2, pend2 = seg.propose(S, C, key, it)
-            _store(cand[0], c2)
-            cand[1].copy_(ce2)
-            cand[2].copy_(pend2)
-            flag.copy_(pend2.any())
+            seg.propose(S, C, key, it, out=cand, flag=flag)
 
         def round_():
             _st, pend2, n, more = seg.round(S, C, *cand, out=S)

@@ -23,9 +23,11 @@
 //
 // Forms (kernels.DEST_FORMS):
 // - shortlist: one block. Each broker's (priority, index) is one 64-bit
-//   key (the priority's order-preserving bits, then the index inverted),
-//   so D rounds of a block maximum take the D best in lax.top_k's order;
-//   the keys live in a global buffer (one block reads it from L1).
+//   key (select.cuh:total_key: the priority's bits in IEEE total order,
+//   +0.0 above -0.0, then the index inverted), so D rounds of a block
+//   maximum take the D best in lax.top_k's order; the keys live in a
+//   global buffer (one block reads it from L1). The candidates' argmaxes
+//   below take -0.0 equal to +0.0, as jnp.argmax does (order_bits).
 // - topic_move_dest: two launches -- a warp a candidate writes its topic
 //   row's deficit range, then each block folds those K ranges and the
 //   count plane's, and a warp a candidate scores its [B1] row with the
@@ -46,6 +48,7 @@
 #include <cuda_runtime.h>
 
 #include "ordered.cuh"
+#include "select.cuh"
 #include "threefry.cuh"
 
 namespace {
@@ -96,7 +99,8 @@ namespace {
 
 __device__ __forceinline__ bool finite(float x) { return isfinite(x); }
 
-// The order-preserving unsigned image of a float (-0.0 taken as +0.0).
+// The order-preserving unsigned image of a float (-0.0 taken as +0.0, as
+// jnp.argmax compares).
 __device__ __forceinline__ uint32_t order_bits(float x) {
   uint32_t b = __float_as_uint(x);
   if (x == 0.0f) b = 0u;
@@ -232,7 +236,7 @@ shortlist_kernel(const DestArgs a) {
                                         threefry::bits_at(k0, k1, b),
                                         a.noise_scale, 0.0f)
                                   : 0.0f);
-    a.best[b] = rank_key(dp, b);
+    a.best[b] = kselect::total_key(dp, b);
   }
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;

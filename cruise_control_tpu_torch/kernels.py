@@ -69,7 +69,7 @@ One more carries the goal loops:
   (``analyzer/graph_loop.py``); ``csrc/goal_loop.cu`` also holds the
   functions that build those graphs.
 
-Nine more carry a goal pass's own rounds and proposals (each in a few
+Twelve more carry a goal pass's own rounds and proposals (each in a few
 launches where plain torch took dozens):
 
 - **KM** ``apply_group`` — one partition-disjoint group of candidates
@@ -106,7 +106,17 @@ launches where plain torch took dozens):
   destination and its swap's light partner (a warp a candidate);
 - **KT** ``assemble_candidates`` — a proposal's candidates from its parts
   (:class:`Part`: flow moves, the grid's cross, swaps with their random
-  roll, leadership transfers), every field of every part in one launch.
+  roll, leadership transfers), every field of every part in one launch;
+- **KU** ``top_k`` — ``lax.top_k`` over the generators' priority planes
+  (several rows a launch): a radix select of unique 64-bit keys in each
+  block's shared memory over a chunk of a row, the row's last block
+  selecting from the chunks' keys and sorting the K kept;
+- **KV** ``steer_dest`` — a pass's steered destinations: every earlier
+  goal's receptive test (a table of rows, :class:`SteerTable`) and the
+  fallback, one block;
+- **KW** ``proposal_select`` — a proposal's score, its top M (KU's
+  select), the winners' fields, ``pending``, the loop flag and the
+  [M, M] partition conflicts, into the goal loop's carry (two launches).
 
 Each wrapper takes the plain twin for a tensor on the CPU, and for a CUDA
 tensor launches its kernel or raises: there is no fallback. Each launch
@@ -147,9 +157,9 @@ SOURCES = ("threefry.cu", "segment_sum.cu", "net_flow.cu", "cell_flow.cu",
            "launch_floor.cu", "goal_loop.cu", "apply_group.cu",
            "eligibility.cu", "flow_candidates.cu", "drain_fill.cu",
            "round_guards.cu", "replica_priority.cu", "dest_select.cu",
-           "candidates.cu")
+           "candidates.cu", "top_k.cu", "steer.cu", "proposal_select.cu")
 #: headers the sources include (hashed with them)
-HEADERS = ("threefry.cuh", "ordered.cuh")
+HEADERS = ("threefry.cuh", "ordered.cuh", "select.cuh")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -159,7 +169,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCE_FLAGS = {name: ("-fmad=false",) for name in (
     "apply_group.cu", "eligibility.cu", "flow_candidates.cu",
     "drain_fill.cu", "round_guards.cu", "replica_priority.cu",
-    "dest_select.cu", "candidates.cu")}
+    "dest_select.cu", "candidates.cu", "top_k.cu", "steer.cu",
+    "proposal_select.cu")}
 
 #: launches per kernel since the last ``reset_launch_counts()``
 LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
@@ -172,7 +183,8 @@ LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
             "replica_weight_range": 0, "flow_priority": 0, "flow_match": 0,
             "bulk_drain_fill": 0, "round_guards": 0,
             "replica_priority": 0, "dest_select": 0,
-            "assemble_candidates": 0}
+            "assemble_candidates": 0, "top_k": 0, "steer_dest": 0,
+            "proposal_select": 0}
 #: ``nvcc``/ptxas output of the build this process loaded (register and
 #: spill counts per kernel), empty when the library came from the cache
 BUILD_LOG: list[str] = []
@@ -347,6 +359,13 @@ def load_library():
             lib.cc_replica_priority.argtypes = [p, p]
             lib.cc_dest_select.argtypes = [p, p]
             lib.cc_assemble_candidates.argtypes = [p, p]
+            lib.cc_top_k.argtypes = [p, p]
+            lib.cc_top_k_chunk.argtypes = [i64, i64]
+            lib.cc_top_k_chunk.restype = i64
+            lib.cc_steer_dest.argtypes = [p, p]
+            lib.cc_steer_scratch.argtypes = [i64, i64]
+            lib.cc_steer_scratch.restype = i64
+            lib.cc_proposal_select.argtypes = [p, p]
             for fn in (lib.cc_goal_loop_step,
                        lib.cc_graph_create, lib.cc_graph_destroy,
                        lib.cc_graph_check_body, lib.cc_graph_add_child,
@@ -369,7 +388,8 @@ def load_library():
                        lib.cc_flow_match,
                        lib.cc_drain_fill, lib.cc_round_guards,
                        lib.cc_replica_priority, lib.cc_dest_select,
-                       lib.cc_assemble_candidates):
+                       lib.cc_assemble_candidates, lib.cc_top_k,
+                       lib.cc_steer_dest, lib.cc_proposal_select):
                 fn.restype = ctypes.c_int
             _LIB = lib
             default_collector().record_library(kind,
@@ -382,7 +402,7 @@ def _stream() -> int:
 
 
 def _pass_library():
-    """The kernel library, KM-KT's argument structs checked once against
+    """The kernel library, KM-KW's argument structs checked once against
     the C structs they mirror (their sizes, from the library)."""
     lib = load_library()
     if not getattr(lib, "_cc_structs_checked", False):
@@ -397,7 +417,11 @@ def _pass_library():
                            ("cc_guard_row_size", _GuardRow),
                            ("cc_prio_args_size", _PrioArgs),
                            ("cc_dest_args_size", _DestArgs),
-                           ("cc_cand_args_size", _CandArgs)):
+                           ("cc_cand_args_size", _CandArgs),
+                           ("cc_top_k_args_size", _TopKArgs),
+                           ("cc_steer_args_size", _SteerArgs),
+                           ("cc_steer_row_size", _SteerRow),
+                           ("cc_select_args_size", _SelectArgs)):
             size = getattr(lib, fn)
             size.argtypes, size.restype = [], ctypes.c_int64
             if size() != ctypes.sizeof(struct):
@@ -3441,3 +3465,278 @@ def assemble_candidates(state, ctx, parts):
     LAUNCHES["assemble_candidates"] += 1
     _check(rc, "assemble_candidates")
     return Candidates(**fields)
+
+
+# ---------------------------------------------------------------------------
+# KU: lax.top_k
+# ---------------------------------------------------------------------------
+
+#: the largest k KU takes (``csrc/top_k.cu:kMaxK``)
+TOP_K_MAX = 4096
+
+_TopKArgs = _struct("_TopKArgs", "x vals idx cand",
+                    [(f, _I64) for f in ("S", "N", "K", "ld", "chunk")])
+
+
+def top_k_plain(x, k: int):
+    """Twin of KU: ``utils/ordered.py:top_k`` (a stable sort of the
+    values' total-order images)."""
+    from .utils.ordered import top_k as sorted_top_k
+    return sorted_top_k(x, k)
+
+
+def top_k(x, k: int):
+    """(float32[..., k] values, int64[..., k] indices) of the ``k`` largest
+    of float32 ``x`` ([N], or [S, N]: S rows in one launch) in
+    ``lax.top_k``'s order: IEEE total order, descending, the lower index
+    first among equal bits — see ``csrc/top_k.cu`` (one launch: a block a
+    chunk of a row, the row's last block selecting from the chunks'
+    keys)."""
+    if _on_cpu(x):
+        return top_k_plain(x, k)
+    if x.dtype != torch.float32 or x.dim() not in (1, 2):
+        raise TypeError("top_k takes float32 [N] or [S, N]")
+    N = x.shape[-1]
+    if not 0 <= k <= min(N, TOP_K_MAX):
+        raise ValueError(f"top_k: k {k} of N {N} (at most {TOP_K_MAX})")
+    rows = x if x.dim() == 2 else x[None]
+    if rows.stride(-1) != 1:
+        rows = rows.contiguous()
+    S = rows.shape[0]
+    dev = x.device
+    vals = torch.empty((S, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((S, k), dtype=torch.int64, device=dev)
+    if k and S:
+        lib = _pass_library()
+        chunk = lib.cc_top_k_chunk(N, k)
+        chunks = -(-N // chunk)
+        cand = (torch.empty((S, chunks, k), dtype=torch.int64, device=dev)
+                if chunks > 1 else None)
+        args = _fill(_TopKArgs(S=S, N=N, K=k, ld=rows.stride(0),
+                               chunk=chunk), x=rows, vals=vals, idx=idx,
+                     cand=cand)
+        rc = lib.cc_top_k(ctypes.byref(args), _stream())
+        LAUNCHES["top_k"] += 1
+        _check(rc, "top_k")
+    return (vals, idx) if x.dim() == 2 else (vals[0], idx[0])
+
+
+# ---------------------------------------------------------------------------
+# KV: a pass's steered destinations
+# ---------------------------------------------------------------------------
+
+_SteerRow = _struct("_SteerRow", [(f, _I32) for f in (
+    "metric", "form", "integer", "cap_col")] + [("t", _F32)])
+_SteerArgs = _struct(
+    "_SteerArgs",
+    "util cnt lead pot lni cap bvalid balive dest rows scratch out",
+    [("B1", _I64), ("n_rows", _I32)])
+
+
+class SteerTable:
+    """KV's table of a chain position: one row an earlier goal whose
+    ``receptive_dest`` is an interval goal's (``goal.steer_row()``: its
+    metric and upper bound, the fields of its row of KN's table); a goal
+    that receives everywhere has none. ``outside`` lists the goals KV has
+    no form for, which it refuses (the twin takes any goal)."""
+
+    def __init__(self, prev_goals):
+        self.prev_goals = list(prev_goals)
+        #: goals with no row form
+        self.outside = []
+        rows = []
+        for g in self.prev_goals:
+            row = g.steer_row()
+            if row is None:
+                self.outside.append(g)
+            elif row["kind"] != "everywhere":
+                rows.append(_SteerRow(
+                    metric=row["metric"], form=row["form"],
+                    integer=int(row["integer"]), cap_col=row["cap_col"],
+                    t=row["t"]))
+        self.n = len(rows)
+        self.rows = (_SteerRow * max(self.n, 1))(*rows)
+        self._on = {}
+
+    def rows_on(self, device):
+        """The rows on ``device`` (uint8, uploaded once a device); raises
+        for a goal KV has no form for."""
+        if self.outside:
+            raise ValueError(f"KV has no row for "
+                             f"{[g.name for g in self.outside]}")
+        got = self._on.get(device)
+        if got is None:
+            if (torch.device(device).type == "cuda"
+                    and torch.cuda.is_current_stream_capturing()):
+                raise RuntimeError("KV's table must be uploaded before a "
+                                   "CUDA graph captures it")
+            got = self._on[device] = torch.frombuffer(
+                bytearray(self.rows), dtype=torch.uint8).to(device)
+        return got
+
+
+def steer_dest_plain(state, ctx, prev_goals):
+    """Twin of KV: ``engine.py:steer_ctx``'s mask composed in torch — the
+    AND of every earlier goal's ``receptive_dest`` with ``dest_allowed``,
+    or ``dest_allowed`` where that leaves no broker."""
+    recv = torch.ones_like(ctx.broker_alive)
+    for g in prev_goals:
+        recv = recv & g.receptive_dest(state, ctx)
+    dest = recv & ctx.dest_allowed
+    return torch.where(dest.any(), dest, ctx.dest_allowed)
+
+
+def steer_dest(state, ctx, table: SteerTable, out=None):
+    """bool[B1]: the destinations every earlier goal of ``table`` can
+    receive a replica on, within ``ctx.dest_allowed`` (all of it where
+    none is left) — see ``csrc/steer.cu`` (one block). ``out``: a bool[B1]
+    buffer to write (the goal loop's fixed address); the twin copies into
+    it."""
+    if _on_cpu(state.rb, out):
+        mask = steer_dest_plain(state, ctx, table.prev_goals)
+        return mask if out is None else out.copy_(mask)
+    rows = table.rows_on(state.rb.device)
+    if not table.n:
+        raise ValueError("steer_dest: no earlier goal steers (the mask is "
+                         "ctx.dest_allowed)")
+    B1 = state.util.shape[0]
+    dev = state.rb.device
+    if out is None:
+        out = torch.empty(B1, dtype=torch.bool, device=dev)
+    elif out.shape != (B1,) or out.dtype != torch.bool or not (
+            out.is_contiguous()):
+        raise ValueError("steer_dest: out must be a contiguous bool[B1]")
+    i32, f32 = torch.int32, torch.float32
+    lib = _pass_library()
+    need = lib.cc_steer_scratch(B1, table.n)
+    scratch = (torch.empty(need, dtype=f32, device=dev) if need else None)
+    args = _fill(_SteerArgs(B1=B1, n_rows=table.n),
+                 util=state.util.to(f32).contiguous(),
+                 cnt=state.replica_count.to(i32).contiguous(),
+                 lead=state.leader_count.to(i32).contiguous(),
+                 pot=state.potential_nw_out.to(f32).contiguous(),
+                 lni=state.leader_nw_in.to(f32).contiguous(),
+                 cap=ctx.broker_capacity.to(f32).contiguous(),
+                 bvalid=ctx.broker_valid.contiguous(),
+                 balive=ctx.broker_alive.contiguous(),
+                 dest=ctx.dest_allowed.contiguous(), rows=rows,
+                 scratch=scratch, out=out)
+    rc = lib.cc_steer_dest(ctypes.byref(args), _stream())
+    LAUNCHES["steer_dest"] += 1
+    _check(rc, "steer_dest")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# KW: a proposal's selection
+# ---------------------------------------------------------------------------
+
+#: the most candidates KW selects (``csrc/proposal_select.cu:kMaxM``)
+PROPOSAL_MAX = 4096
+#: ordering sentinel only (never added to a metric value): mandatory moves
+#: sort ahead of every improving move
+_MUST_FIRST = -1e30
+
+_SelectArgs = _struct(
+    "_SelectArgs",
+    " ".join(f for f, _d, _w in CANDIDATE_FIELDS), "elig delta",
+    " ".join(f + "_out" for f, _d, _w in CANDIDATE_FIELDS),
+    "conflict pending flag order", [("N", _I64), ("M", _I64)])
+
+
+def _earlier(m: int, device) -> torch.Tensor:
+    """bool[m, m]: j < i (candidate j is earlier than candidate i)."""
+    return torch.tril(torch.ones((m, m), dtype=torch.bool, device=device),
+                      diagonal=-1)
+
+
+def proposal_select_plain(cands, elig, delta, M: int, out=None, flag=None):
+    """Twin of KW: ``engine.py``'s proposal selection in torch — the
+    score, the top ``M`` of -score (``top_k_plain``), the winners taken,
+    their partition conflicts with earlier winners and ``pending``; with
+    ``out`` copied into its buffers, ``flag`` set to ``pending.any()``."""
+    # Mandatory (offline) moves outrank everything; otherwise the most
+    # negative deltas apply first.
+    score = torch.where(
+        elig,
+        torch.where(cands.must, _MUST_FIRST,
+                    torch.clamp(delta, -1e29, 1e29)),
+        float("inf"))
+    neg_best, order = top_k_plain(-score, M)
+    c = cands.take(order)
+
+    def same(a, b):
+        return a[:, None] == b[None, :]
+
+    # Structural conflicts: shared partition rows only (primary or swap
+    # counterpart); broker sharing is left to the collective guards.
+    conflict = (same(c.p, c.p) | same(c.p, c.p2)
+                | same(c.p2, c.p) | same(c.p2, c.p2))
+    conflict = conflict & _earlier(M, score.device)
+    pending = torch.isfinite(neg_best)
+    if out is not None:
+        for f, _d, _w in CANDIDATE_FIELDS:
+            getattr(out[0], f).copy_(getattr(c, f))
+        out[1].copy_(conflict)
+        out[2].copy_(pending)
+        c, conflict, pending = out
+    if flag is not None:
+        flag.copy_(pending.any())
+    return c, conflict, pending
+
+
+def proposal_select(cands, elig, delta, M: int, out=None, flag=None):
+    """(the best ``M`` candidates in score order, bool[M, M] partition
+    conflicts with earlier ones, bool[M] pending) of a proposal's
+    candidates and KN's (``elig``, ``delta``): mandatory moves first, then
+    the most negative deltas, ineligible ones last and not pending — see
+    ``csrc/proposal_select.cu`` (a one-block select, then the gather and
+    the conflicts over the card). ``out``: (Candidates, conflicts,
+    pending) buffers to write (the goal loop's carry); ``flag``: an int64
+    scalar set to ``pending.any()``."""
+    from .analyzer.state import Candidates
+    if _on_cpu(cands.p, elig, delta):
+        return proposal_select_plain(cands, elig, delta, M, out, flag)
+    N = cands.p.shape[0]
+    if elig.shape != (N,) or delta.shape != (N,):
+        raise ValueError("proposal_select takes elig and delta [N]")
+    if not 0 <= M <= min(N, PROPOSAL_MAX):
+        raise ValueError(f"proposal_select: M {M} of N {N} (at most "
+                         f"{PROPOSAL_MAX})")
+    if flag is not None and (flag.dtype != torch.int64 or flag.dim()):
+        raise ValueError("proposal_select: flag must be an int64 scalar")
+    dev = cands.p.device
+    if out is None:
+        out = (Candidates(**{f: torch.empty((M, w) if w > 1 else (M,),
+                                            dtype=d, device=dev)
+                             for f, d, w in CANDIDATE_FIELDS}),
+               torch.empty((M, M), dtype=torch.bool, device=dev),
+               torch.empty(M, dtype=torch.bool, device=dev))
+    c_out, conflict, pending = out
+    outs = {f + "_out": getattr(c_out, f) for f, _d, _w in CANDIDATE_FIELDS}
+    for (name, t), (_f, d, w) in zip(outs.items(), CANDIDATE_FIELDS):
+        if (t.dtype != d or t.shape != ((M, w) if w > 1 else (M,))
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"proposal_select: out's {name[:-4]} must be a "
+                             f"contiguous, 16-byte aligned {d} of {M} rows")
+    if (conflict.shape != (M, M) or conflict.dtype != torch.bool
+            or not conflict.is_contiguous() or pending.shape != (M,)
+            or pending.dtype != torch.bool):
+        raise ValueError("proposal_select: out's conflicts must be bool "
+                         "[M, M] and pending bool [M], contiguous")
+    if M == 0:
+        if flag is not None:
+            flag.zero_()
+        return out
+    ins = {}
+    for f, d, _w in CANDIDATE_FIELDS:
+        ins[f] = _aligned16(getattr(cands, f).to(d).contiguous())
+    args = _fill(_SelectArgs(N=N, M=M), **ins, **outs,
+                 elig=elig.contiguous(),
+                 delta=delta.to(torch.float32).contiguous(),
+                 conflict=conflict, pending=pending, flag=flag,
+                 order=torch.empty(M, dtype=torch.int64, device=dev))
+    rc = _pass_library().cc_proposal_select(ctypes.byref(args), _stream())
+    LAUNCHES["proposal_select"] += 1
+    _check(rc, "proposal_select")
+    return out

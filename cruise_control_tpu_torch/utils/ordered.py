@@ -18,7 +18,8 @@ both and from run to run:
 - :func:`fma` — one rounding for ``a * b + c``, where the reference's
   compiled program contracts the two operations;
 - :func:`top_k`, :func:`argsort`, :func:`lexsort` — stable orders (the
-  lower index first among ties, as ``lax.top_k``/``jnp.argsort`` give).
+  lower index first among ties, as ``lax.top_k``/``jnp.argsort`` give;
+  ``top_k`` compares floats in IEEE total order, as ``lax.top_k`` does).
 
 **A goal's violation row** (``IntervalGoal.violation``: the penalty of B1 =
 padded brokers + 1 elements, summed in the fusion that computes it). XLA's
@@ -436,10 +437,29 @@ def fma(a, b, c) -> torch.Tensor:
     return (f64(a) * f64(b) + f64(c)).to(torch.float32)
 
 
+def total_order_key(x: torch.Tensor) -> torch.Tensor:
+    """The signed integer image of float ``x`` whose order is IEEE total
+    order (-NaN < -inf < ... < -0.0 < +0.0 < ... < +inf < +NaN): the sign
+    bit's flip of the magnitude bits of a negative float. Integer inputs
+    are their own key."""
+    if not x.is_floating_point():
+        return x
+    itype = {torch.float32: torch.int32, torch.float64: torch.int64,
+             torch.float16: torch.int16, torch.bfloat16: torch.int16}[x.dtype]
+    bits = x.contiguous().view(itype)
+    magnitude = torch.iinfo(itype).max
+    return bits ^ ((bits >> (bits.element_size() * 8 - 1)) & magnitude)
+
+
 def top_k(x: torch.Tensor, k: int):
-    """(values, indices) of the k largest, lower index first among ties."""
-    vals, idx = torch.sort(x, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    """(values, indices) of the k largest along the last axis in
+    ``lax.top_k``'s order: IEEE total order, descending (+0.0 above -0.0,
+    NaN above +inf and -NaN below -inf), the lower index first among equal
+    bits."""
+    _, idx = torch.sort(total_order_key(x), dim=-1, descending=True,
+                        stable=True)
+    idx = idx[..., :k]
+    return torch.gather(x, -1, idx), idx
 
 
 def argsort(x: torch.Tensor, descending: bool = False) -> torch.Tensor:

@@ -13,8 +13,8 @@ main-path optimizer, runs one warm-up optimize (seed 0), then profiles with
   one warm host-loop optimize (seed 1) each with a
   ``torch.profiler.record_function`` range around each ``PassSegments``
   segment, each goal's ``accepts``, ``delta``, ``collective_guard``,
-  ``propose``, ``bulk_drain`` and ``violation``, and KN's, KQ's, KR's,
-  KS's and KT's wrappers (the ranges are put on in this script and taken off after; a
+  ``propose``, ``bulk_drain`` and ``violation``, and KN's, KQ's and KR's
+  to KW's wrappers (the ranges are put on in this script and taken off after; a
   range inside a CUDA graph's capture does not come back at replay, so
   the host loop, which launches the graphs' kernels but KL, is the one
   traced); each device event goes to the innermost range around the host
@@ -94,10 +94,11 @@ HAND_WRITTEN = ("threefry_draw_kernel", "tile_group_kernel",
                 "replica_priority_kernel", "topic_limits_kernel",
                 "topic_range_kernel", "shortlist_kernel", "move_rows_kernel",
                 "move_dest_kernel", "light_kernel", "swap_dest_kernel",
-                "assemble_kernel")
+                "assemble_kernel", "top_k_kernel", "steer_kernel",
+                "proposal_select_kernel", "proposal_gather_kernel")
 #: kernel families summed on one line each: KM's, KP's, KN's, KO's, KQ's,
-#: KR's, KS's and KT's launches, and every device-to-device copy (copy
-#: kernels and memcpy)
+#: KR's to KW's launches, and every device-to-device copy (copy kernels
+#: and memcpy)
 FAMILIES = (("KM apply_group", ("apply_bucket_kernel", "apply_group_kernel")),
             ("KP bulk_drain_fill", ("drain_",)),
             ("KN candidate_eligibility", ("eligibility_kernel",
@@ -113,12 +114,16 @@ FAMILIES = (("KM apply_group", ("apply_bucket_kernel", "apply_group_kernel")),
                                 "move_dest_kernel", "light_kernel",
                                 "swap_dest_kernel")),
             ("KT assemble_candidates", ("assemble_kernel",)),
+            ("KU top_k", ("top_k_kernel",)),
+            ("KV steer_dest", ("steer_kernel",)),
+            ("KW proposal_select", ("proposal_select_kernel",
+                                    "proposal_gather_kernel")),
             ("device copies", ("copy", "DtoD")))
 
 
 #: the host calls the site table times: ``PassSegments``' segments, the
 #: goals' methods (on every class of the catalog that defines them) and
-#: KN's, KQ's, KR's, KS's and KT's wrappers
+#: KN's, KQ's, KR's to KW's wrappers
 SEGMENTS = ("active", "drain", "propose", "eligibility", "round", "stack")
 GOAL_METHODS = ("accepts", "delta", "collective_guard", "propose",
                 "bulk_drain", "violation")
@@ -130,11 +135,15 @@ def site_ranges():
     each ``PassSegments`` segment, ``cc||<goal>.<method>`` around each goal
     method of ``GOAL_METHODS``, ``cc||KN wrapper`` around
     ``kernels.candidate_eligibility`` and ``cc||KQ wrapper`` around
-    ``kernels.round_guards`` as the engine calls them, and ``cc||KR
-    wrapper``, ``cc||KS wrapper`` and ``cc||KT wrapper`` around
-    ``kernels.replica_priority``, ``dest_select`` and
-    ``assemble_candidates`` as the goals call them (a tree from before a
-    kernel has no wrapper of it to wrap); take them off on exit."""
+    ``kernels.round_guards``, ``cc||KV wrapper`` around
+    ``kernels.steer_dest`` and ``cc||KW wrapper`` around
+    ``kernels.proposal_select`` as the engine calls them (the ``propose``
+    segment's rest is its own), and ``cc||KR wrapper``, ``cc||KS
+    wrapper``, ``cc||KT wrapper`` and ``cc||KU wrapper`` around
+    ``kernels.replica_priority``, ``dest_select``,
+    ``assemble_candidates`` and ``top_k`` as the goals call them (a tree
+    from before a kernel has no wrapper of it to wrap); take them off on
+    exit."""
     import functools
     from torch.profiler import record_function
     from cruise_control_tpu_torch.analyzer import engine, goals
@@ -163,10 +172,12 @@ def site_ranges():
                 wrap(cls, m, lambda self, *a, m=m: f"cc||{self.name}.{m}")
     wrap(engine, "candidate_eligibility",
          lambda *a: "cc||KN wrapper")
-    if "round_guards" in engine.__dict__:
-        wrap(engine, "round_guards", lambda *a: "cc||KQ wrapper")
+    for name, label in (("round_guards", "KQ"), ("steer_dest", "KV"),
+                        ("proposal_select", "KW")):
+        if name in engine.__dict__:
+            wrap(engine, name, lambda *a, label=label: f"cc||{label} wrapper")
     for name, label in (("replica_priority", "KR"), ("dest_select", "KS"),
-                        ("assemble_candidates", "KT")):
+                        ("assemble_candidates", "KT"), ("top_k", "KU")):
         if name in goals.__dict__:
             wrap(goals, name, lambda *a, label=label: f"cc||{label} wrapper")
     try:
