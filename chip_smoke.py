@@ -377,6 +377,12 @@ KERNEL_INFO = {
     "proposal_select": dict(
         source="cruise_control_tpu_torch/csrc/proposal_select.cu",
         replaces="cruise_control_tpu/analyzer/engine.py:130"),
+    "violation_rows": dict(
+        source="cruise_control_tpu_torch/csrc/violation.cu",
+        replaces="cruise_control_tpu/analyzer/goals.py:325"),
+    "interval_planes": dict(
+        source="cruise_control_tpu_torch/csrc/violation.cu",
+        replaces="cruise_control_tpu/analyzer/goals.py:510"),
 }
 #: KM-KR and KT-KW, the goal pass's own kernels, and KO's range table
 #: (once a context): every optimize launches each (KS serves the goals
@@ -385,7 +391,7 @@ PASS_KERNELS = ("apply_group", "candidate_eligibility",
                 "replica_weight_range", "flow_priority", "flow_match",
                 "bulk_drain_fill", "round_guards", "replica_priority",
                 "assemble_candidates", "top_k", "steer_dest",
-                "proposal_select")
+                "proposal_select", "violation_rows", "interval_planes")
 #: KR, KS, KT and KU: the goals' candidate generators (their wrappers, as
 #: ``analyzer/goals.py`` calls them)
 GENERATOR_KERNELS = ("replica_priority", "dest_select", "assemble_candidates",
@@ -1019,7 +1025,294 @@ def phase_kernels(model, md, main_arrays: dict, scale_model, scale_md,
     _kernel_goal_loop(rows, rng)
     _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms,
                          add_ns)
+    _kernel_violation_rows(rows, model, md, scale_model, scale_md)
     return rows
+
+
+#: KX's row-kind cases: (B1, scenarios of the batched form, topics, dead
+#: brokers) of ``violation_case``'s tiny clusters -- every ROW_LOOPS
+#: width and the tree on either side of it, a topic table within 32 x 32
+#: (its rows and lanes loops) and past it (its matrix order)
+KX_WIDTHS = ((5, 4, 8, ()), (9, 8, 8, (2,)), (22, 21, 1, ()),
+             (23, 22, 8, (3,)), (24, 23, 4, ()), (25, 24, 8, (1,)),
+             (28, 27, 16, ()), (30, 29, 8, (0,)), (31, 30, 40, ()),
+             (32, 31, 33, (5,)), (33, 32, 8, ()), (64, 63, 200, (3,)))
+#: bounds that leave most brokers out of band, so each row's order shows
+KX_CONSTRAINT = dict(capacity_threshold=(0.002, 0.005, 0.001, 0.005),
+                     max_replicas_per_broker=40,
+                     resource_balance_threshold=(1.01,) * 4,
+                     replica_balance_threshold=1.01)
+
+
+def violation_goals(md, constraint=None):
+    """Every goal of the catalog bound to ``md``, then an active
+    MinTopicLeadersPerBroker (every other topic interested, two leaders a
+    broker) and a BrokerSetAware (topics in sets -1, 0, 1 by turns): every
+    row kind of KX's table."""
+    from cruise_control_tpu_torch.analyzer import (BalancingConstraint,
+                                                   goals_by_name)
+    from cruise_control_tpu_torch.analyzer import goals as g
+    cst = BalancingConstraint(**(constraint or KX_CONSTRAINT))
+    out = [goal.bind(md) for goal in goals_by_name(sorted(g.GOAL_REGISTRY),
+                                                   cst)]
+    T = md.num_topics
+    out.append(g.MinTopicLeadersPerBrokerGoal(
+        cst, interested_topics=np.arange(T) % 2 == 0, min_count=2))
+    out.append(g.BrokerSetAwareGoal(cst, topic_set=(np.arange(T) % 3) - 1))
+    return out
+
+
+def violation_case(B1, topics, dead=(), seed=0, device="cuda"):
+    """(model, metadata) of a tiny skewed cluster of B1 - 1 brokers (pad
+    multiple 1, racks r0-r3, two of them in broker sets), 12 partitions a
+    broker at RF 1-3 over ``topics`` topics, loads spread over four
+    decades; brokers ``dead`` not alive."""
+    from cruise_control_tpu_torch.model.spec import (BrokerSpec, ClusterSpec,
+                                                     PartitionSpec,
+                                                     flatten_spec)
+    rng = np.random.default_rng(seed + B1)
+    nb = B1 - 1
+    brokers = [BrokerSpec(broker_id=i, rack=f"r{i % 4}",
+                          capacity=(100.0, 1e5, 1e5, 1e6), alive=i not in dead,
+                          broker_set=(f"s{i % 2}" if i % 3 else None))
+               for i in range(nb)]
+    parts = []
+    hot = max(nb // 5, 2)
+    for p in range(12 * nb):
+        pool = hot if p % 2 == 0 else nb
+        rf = min(1 + p % 3, pool)
+        reps = rng.choice(pool, size=rf, replace=False).tolist()
+        load = (float(0.02 + 2 * rng.random()), float(5 + 1e3 * rng.random()),
+                float(8 + 1e3 * rng.random()), float(50 + 1e4 * rng.random()))
+        parts.append(PartitionSpec(topic=f"t{p % topics}", partition=p,
+                                   replicas=[int(b) for b in reps],
+                                   leader_load=load))
+    return flatten_spec(ClusterSpec(brokers=brokers, partitions=parts),
+                        broker_pad_multiple=1, device=device)
+
+
+def scenario_stack(model, md, S):
+    """(state, ctx) of an N-1 stack of ``model``: scenario s kills broker
+    s mod B, every partition's load scaled by 1.25 and the CPU capacities
+    by 1.5 (the what-if scorer's form: expanded fields read in place)."""
+    import torch
+    from cruise_control_tpu_torch.analyzer.state import (build_context,
+                                                         init_state)
+    from cruise_control_tpu_torch.whatif.engine import scenario_transform
+    dev = model.replica_broker.device
+    B = model.num_brokers_padded
+    nb = int(model.broker_valid.sum())
+    P = model.replica_broker.shape[0]
+    dead = torch.zeros((S, B), dtype=torch.bool, device=dev)
+    dead[torch.arange(S, device=dev), torch.arange(S, device=dev) % nb] = True
+    cap = torch.ones((S, B, 4), dtype=torch.float32, device=dev)
+    cap[:, :, 0] = 1.5
+    batched, _ = scenario_transform(
+        model, dead, torch.zeros_like(dead), cap,
+        torch.full((S, P), 1.25, dtype=torch.float32, device=dev),
+        model.partition_valid.expand(S, P))
+    return (init_state(batched, with_topic_counts=md.num_topics,
+                       with_topic_leader_counts=True),
+            build_context(batched, with_weight_range=False))
+
+
+def viol_bytes_ops(table, state):
+    """KX's bound inputs: each plane a row of the table reads, read once
+    (the broker planes and masks, the slot and partition planes of the
+    count rows, the topic tables), the outputs written; about ten
+    operations a broker an interval row (two for its tree sums), four a
+    slot pair a rack row, three a cell a topic row."""
+    from cruise_control_tpu_torch import kernels
+    lead = tuple(state.util.shape[:-2])
+    S = math.prod(lead)
+    P, R = state.rb.shape[-2:]
+    B1 = state.util.shape[-2]
+    T = kernels._topics(state)
+    kinds = {spec["kind"] for spec in table.specs if spec is not None}
+    metrics = {spec["metric"] for spec in table.specs
+               if spec is not None and "metric" in spec}
+    nbytes = B1 * 2 + table.n * 8
+    nbytes += B1 * 4 * len(metrics | ({4} if kinds & {"rack_aware"} else
+                                      set())) + (B1 * 16 if any(
+        spec is not None and spec.get("form") == 1
+        for spec in table.specs) else 0)
+    ops = 0
+    for spec in table.specs:
+        kind = spec["kind"] if spec is not None else "nothing"
+        if kind in ("interval", "hard_cap"):
+            ops += 12 * B1
+        elif kind in ("rack_aware", "rack_spread", "broker_set"):
+            ops += 4 * P * R * R
+        elif kind in ("topic_replica", "topic_leaders"):
+            ops += 3 * T * B1
+        elif kind == "preferred_leader":
+            ops += 2 * P
+    if kinds & {"rack_aware", "rack_spread", "broker_set"}:
+        nbytes += P * R * 8 + B1 * 8 + P * 4
+    if "preferred_leader" in kinds:
+        nbytes += P * 9
+    if "topic_replica" in kinds:
+        nbytes += T * B1 * 4
+    if "topic_leaders" in kinds:
+        nbytes += T * B1 * 4 + T
+    return S * nbytes, S * ops
+
+
+def _viol_same(got, want):
+    """Whether two float32 stacks agree bit for bit (int32 images)."""
+    import torch
+    got = [g.cpu().contiguous().view(torch.int32) for g in got]
+    return all(torch.equal(g, w.contiguous().view(torch.int32))
+               for g, w in zip(got, want))
+
+
+def check_violation_rows(state, ctx, table, tag):
+    """KX (violations and scales) against its twin on CPU copies, bit for
+    bit; raises with the rows that differ."""
+    from cruise_control_tpu_torch import kernels
+    got = kernels.violation_rows(table, state, ctx, True)
+    want = kernels.violation_rows_plain(table, to_cpu(state), to_cpu(ctx),
+                                        True)
+    if not _viol_same(got, want):
+        import torch
+        bad = sorted({int(k) for w, g in zip(want, got) for k in torch.nonzero(
+            g.cpu().contiguous().view(torch.int32)
+            != w.contiguous().view(torch.int32))[:, -1]})
+        fail(f"violation_rows differs from its twin ({tag}) at rows "
+             f"{[table.goals[k].name for k in bad]}")
+    return got, want
+
+
+def check_interval_planes(state, ctx, goal, tag):
+    """KY's five planes against its twin on CPU copies, bit for bit."""
+    from cruise_control_tpu_torch import kernels
+    got = kernels.interval_planes(goal.planes_rows, state, ctx)
+    want = kernels.interval_planes_plain(goal.planes_rows, to_cpu(state),
+                                         to_cpu(ctx))
+    if not _viol_same(got, [w.to(got[0].dtype) for w in want]):
+        fail(f"interval_planes differs from its twin ({tag}, {goal.name})")
+    return got
+
+
+def _kernel_violation_rows(rows, model, md, scale_model, scale_md):
+    """KX and KY bit for bit against their twins on the CPU: every row
+    kind at every width of ``KX_WIDTHS`` (unbatched, and as an N-1 stack);
+    the default chain, the main chain and the hard-goal audit set on the
+    main path's cluster and the scale cell (TopicReplica at T 200 x B1 105
+    and T 400 x B1 1,001, its matrix order), the default chain's what-if
+    stack at S 100; KY for every interval goal of the catalog there; each
+    timed (a CUDA graph of the wrapper) beside its twin on the card and
+    its bound."""
+    import torch
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.analyzer import default_goals, goals_by_name
+    from cruise_control_tpu_torch.analyzer import goals as g
+
+    def row(name, tag, ms, plain, nbytes, ops):
+        b_ms, b_by = bound(nbytes, ops)
+        log(f"{name} {tag}: bit-exact vs twin; {ms:.5f} ms, twin "
+            f"{plain:.4f} ms, bound {b_ms:.7f} ms ({b_by})")
+        _keep_first_shape(rows, name, 0.0, dict(
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
+
+    # --- every row kind at every width, unbatched and as a stack
+    n_rows = 0
+    for B1, S, topics, dead in KX_WIDTHS:
+        m, mdd = violation_case(B1, topics, dead)
+        goals = violation_goals(mdd)
+        if B1 < 9 and topics <= 32:
+            # XLA's loop of a [T, B1] table this narrow was not read: the
+            # row raises, on the card as in the twin
+            topic = [x for x in goals
+                     if isinstance(x, g.TopicReplicaDistributionGoal)]
+            state, ctx = pass_state(m, mdd)
+            try:
+                kernels.violation_rows(kernels.ViolationTable(topic), state,
+                                       ctx)
+            except ValueError:
+                pass
+            else:
+                fail(f"violation_rows took a [{topics}, {B1}] topic row")
+            goals = [x for x in goals if x not in topic]
+        table = kernels.ViolationTable(goals)
+        state, ctx = pass_state(m, mdd)
+        check_violation_rows(state, ctx, table, f"B1 {B1}, T {topics}")
+        bstate, bctx = scenario_stack(m, mdd, S)
+        check_violation_rows(bstate, bctx, table, f"B1 {B1}, T {topics}, "
+                             f"stack of {S}")
+        for goal in goals:
+            if isinstance(goal, g.IntervalGoal):
+                check_interval_planes(state, ctx, goal, f"B1 {B1}")
+        n_rows += 2 * len(goals)
+    log(f"violation_rows: every row kind ({n_rows} rows) at B1 "
+        f"{[w[0] for w in KX_WIDTHS]}, unbatched and stacked: bit-exact "
+        f"vs twin (violations and scales); interval_planes for every "
+        f"interval goal there")
+
+    # --- the main path's shapes (first: the kernels line's rows, the
+    # default chain's boundary stack at 100 x 20K)
+    for shape, m, mdd in (("main", model, md), ("scale", scale_model,
+                                                 scale_md)):
+        state, ctx = pass_state(m, mdd, dead=(3,))
+        B1 = state.util.shape[0]
+        T = kernels._topics(state)
+        chains = {"default chain": [x.bind(mdd) for x in default_goals()],
+                  "main chain": goals_by_name(GOALS),
+                  "audit": [x.bind(mdd) for x in goals_by_name(
+                      [n for n, hard in g.DEFAULT_GOALS if hard])],
+                  "catalog": violation_goals(mdd)}
+        for name, goals in chains.items():
+            table = kernels.ViolationTable(goals)
+            check_violation_rows(state, ctx, table, f"{shape} {name}")
+            out = torch.empty(table.n, device="cuda")
+            scales = torch.empty(table.n, device="cuda")
+            ms = time_ms(lambda: kernels.violation_rows(
+                table, state, ctx, True, out=out, scale_out=scales),
+                graph=True)
+            plain = time_ms(lambda: kernels.violation_rows_plain(
+                table, state, ctx, True), groups=3)
+            row("violation_rows", f"{shape} {name} ({table.n} rows), "
+                f"B1={B1}, T={T}, [P={state.rb.shape[0]}, "
+                f"R={state.rb.shape[1]}]", ms, plain,
+                *viol_bytes_ops(table, state))
+        # every interval goal of the chains, the timed ones among them
+        for name in ("default chain", "main chain", "catalog"):
+            for goal in chains[name]:
+                if isinstance(goal, g.IntervalGoal):
+                    check_interval_planes(state, ctx, goal,
+                                          f"{shape} {name}")
+        goal = chains["default chain"][7]          # ReplicaDistribution
+        ms = time_ms(lambda: kernels.interval_planes(goal.planes_rows, state,
+                                                     ctx), graph=True)
+        plain = time_ms(lambda: kernels.interval_planes_plain(
+            goal.planes_rows, state, ctx), groups=3)
+        # the metric, valid and alive planes read once, five planes
+        # written; a tree sum and ~8 operations a broker
+        row("interval_planes", f"{shape} {goal.name}, B1={B1}", ms, plain,
+            B1 * 4 + B1 * 2 + 5 * B1 * 4, 10 * B1)
+        # the average row of a float metric and a capacity row too
+        for goal in (chains["default chain"][10], chains["default chain"][3]):
+            ms = time_ms(lambda: kernels.interval_planes(goal.planes_rows,
+                                                         state, ctx),
+                         graph=True)
+            log(f"interval_planes {shape} {goal.name}, B1={B1}: bit-exact "
+                f"vs twin; {ms:.5f} ms")
+        del state, ctx
+    # --- the default chain's what-if stack: the N-1 sweep's S 100
+    state, ctx = scenario_stack(model, md, 100)
+    goals = [x.bind(md) for x in default_goals()]
+    table = kernels.ViolationTable(goals)
+    check_violation_rows(state, ctx, table, "what-if stack of 100")
+    ms = time_ms(lambda: kernels.violation_rows(table, state, ctx, True),
+                 graph=True)
+    plain = time_ms(lambda: kernels.violation_rows_plain(table, state, ctx,
+                                                         True), groups=3)
+    row("violation_rows", f"default chain, what-if stack S=100, "
+        f"B1={state.util.shape[-2]}", ms, plain,
+        *viol_bytes_ops(table, state))
+    del state, ctx
+    torch.cuda.empty_cache()
 
 
 #: the dependent-add probe's chain length (launch_floor.cu)
@@ -4073,6 +4366,37 @@ def _check_outcome(tag, got, want):
         fail(f"{tag}: the outcome differs from the reference's {want}")
 
 
+class goal_method_calls:
+    """Counts, while open, the calls of every catalog goal's own
+    ``violation``, ``violation_scale`` and ``plain_planes`` (the eager
+    forms KX and KY replace), by name."""
+
+    NAMES = ("violation", "violation_scale", "plain_planes")
+
+    def __enter__(self):
+        from cruise_control_tpu_torch.analyzer import goals as g
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self.saved = []
+        for cls in vars(g).values():
+            if not (isinstance(cls, type) and issubclass(cls, g.GoalKernel)):
+                continue
+            for name in self.NAMES:
+                if name in vars(cls):
+                    orig = vars(cls)[name]
+
+                    def counted(goal, *a, _orig=orig, _name=name, **kw):
+                        self.calls[_name] += 1
+                        return _orig(goal, *a, **kw)
+                    self.saved.append((cls, name, orig))
+                    setattr(cls, name, counted)
+        return self.calls
+
+    def __exit__(self, *exc):
+        for cls, name, orig in self.saved:
+            setattr(cls, name, orig)
+        return False
+
+
 def phase_default_chain(model, md, scale_model, scale_md):
     """Phase 13: the reference's default chain on the card. Returns the
     kernel launches of (a), the main path of the default chain."""
@@ -4088,9 +4412,14 @@ def phase_default_chain(model, md, scale_model, scale_md):
     kernels.reset_launch_counts()
     syncs0, caps0 = engine.HOST_SYNCS, _captures()
     rounds0 = engine.APPLY_ROUNDS
-    main = default_chain_main(pkg, model, md)
+    with goal_method_calls() as eager:
+        main = default_chain_main(pkg, model, md)
     syncs, caps = engine.HOST_SYNCS - syncs0, _captures() - caps0
     launches = _launch_counts()
+    log(f"(a) the goals' own violation, violation_scale and planes called "
+        f"by both runs (the cold one captures every segment): {eager}")
+    if any(eager.values()):
+        fail(f"(a) a routed site ran a goal's eager method: {eager}")
     log(f"(a) default chain 100x20K, seeds {DEFAULT_SEEDS}: walls "
         f"{main['walls'][0]:.3f}s (plain), {main['walls'][1]:.3f}s (under "
         f"torch.profiler: {pkg.launches[1]} device launches, kernels and "
@@ -4208,7 +4537,7 @@ GENERATOR_OPS = ("replica_priority_kernel", "topic_limits_kernel",
 #: besides its goal's generators and the interval goals' planes
 PROPOSE_OPS = ("steer_kernel", "proposal_select_kernel",
                "proposal_gather_kernel", "eligibility_kernel",
-               "topic_bounds_kernel")
+               "topic_bounds_kernel", "interval_planes_kernel")
 
 
 def is_sort(op: str) -> bool:

@@ -31,9 +31,9 @@ import numpy as np
 import torch
 
 from .. import _random
-from ..kernels import (GoalChecks, GuardTable, SteerTable, apply_group,
-                       candidate_eligibility, proposal_select, round_guards,
-                       steer_dest)
+from ..kernels import (GoalChecks, GuardTable, SteerTable, ViolationTable,
+                       apply_group, candidate_eligibility, proposal_select,
+                       round_guards, steer_dest, violation_rows)
 from ..utils.ordered import (fma, fma_loop_sum, tree_sum_last,
                              vector_loop_sum)
 from .constraint import SearchConfig
@@ -53,12 +53,6 @@ def _read(flag: torch.Tensor):
     global HOST_SYNCS
     HOST_SYNCS += 1
     return flag.item()
-
-
-def violation_stack(goals: Sequence[GoalKernel], state, ctx) -> torch.Tensor:
-    """f32[num_goals] residual per goal; ``[S, num_goals]`` for a state
-    with a leading scenario axis."""
-    return torch.stack([g.violation(state, ctx) for g in goals], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +231,10 @@ class PassSegments:
         self.guards = GuardTable(self.checks)
         #: the earlier goals' receptive tests (KV's table)
         self.steer = SteerTable(self.prev_goals)
+        #: the pass goal's and the boundary stack's violation rows (KX's
+        #: tables)
+        self.active_rows = ViolationTable([goal])
+        self.stack_rows = ViolationTable(self.all_goals)
         #: KV's output a (device, B1): a fixed address for the graphs
         self._steered: dict = {}
 
@@ -268,12 +266,18 @@ class PassSegments:
         return ctx.replace(dest_allowed=steer_dest(state, ctx, self.steer,
                                                    out=out))
 
-    def active(self, state: SearchState, ctx: SearchContext) -> torch.Tensor:
-        """bool scalar: the goal is violated or a replica is offline (a
-        converged pass skips its loops: one violation read instead of
-        stall_patience zero-apply iterations)."""
-        return ((self.goal.violation(state, ctx) > self.cfg.epsilon)
-                | state.offline.any())
+    def active(self, state: SearchState, ctx: SearchContext,
+               flag: torch.Tensor | None = None) -> torch.Tensor:
+        """int64 scalar, 1 where the goal is violated or a replica is
+        offline (a converged pass skips its loops: one violation read
+        instead of stall_patience zero-apply iterations), written by KX's
+        one-row launch into ``flag`` (the loop's counter word) or a new
+        scalar."""
+        if flag is None:
+            flag = torch.empty((), dtype=torch.int64, device=state.rb.device)
+        violation_rows(self.active_rows, state, ctx, flag=flag,
+                       eps=self.cfg.epsilon)
+        return flag
 
     def drain(self, state: SearchState, ctx: SearchContext, key, r,
               out: SearchState | None = None):
@@ -321,8 +325,10 @@ class PassSegments:
         state, applied = apply_group(state, ctx, c, do, out=out)
         return state, pending, applied, more
 
-    def stack(self, state: SearchState, ctx: SearchContext) -> torch.Tensor:
-        return violation_stack(self.all_goals, state, ctx)
+    def stack(self, state: SearchState, ctx: SearchContext,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+        """f32[len(all_goals)] the boundary stack (KX), into ``out``."""
+        return violation_rows(self.stack_rows, state, ctx, out=out)
 
 
 class HostLoop:
@@ -482,6 +488,8 @@ class CompiledGoalChain(_PassRunner):
                  loop: str = "auto"):
         self.goals = list(goals)
         self.cfg = cfg
+        #: the chain's violation rows (KX's table)
+        self.rows = ViolationTable(self.goals)
         super().__init__([PassSegments(g, self.goals[:i], cfg,
                                        all_goals=self.goals)
                           for i, g in enumerate(self.goals)], loop,
@@ -490,15 +498,21 @@ class CompiledGoalChain(_PassRunner):
     def warmup(self, state, ctx, key) -> None:
         return None
 
-    def aux(self, state, ctx):
-        """(offline.any(), f32[G] violation scales, f32[G] violations)."""
-        return (state.offline.any(),
-                torch.stack([g.violation_scale(state, ctx)
-                             for g in self.goals]),
-                violation_stack(self.goals, state, ctx))
+    def aux(self, state, ctx, out=None):
+        """(offline.any(), f32[G] violation scales, f32[G] violations), the
+        last two from one KX launch; ``out``: the three buffers to write
+        (the fused graph's)."""
+        off = state.offline.any()
+        if out is None:
+            viol, scales = violation_rows(self.rows, state, ctx, True)
+            return off, scales, viol
+        out[0].copy_(off)
+        violation_rows(self.rows, state, ctx, True, out=out[2],
+                       scale_out=out[1])
+        return out
 
     def violations(self, state, ctx) -> torch.Tensor:
-        return violation_stack(self.goals, state, ctx)
+        return violation_rows(self.rows, state, ctx)
 
     def fused(self, state, ctx, key):
         """The whole chain back to back with fold_in(key, i) per goal, like

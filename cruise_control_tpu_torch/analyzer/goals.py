@@ -41,11 +41,12 @@ import torch
 from .. import _random
 from ..config.brokersets import topic_set_array
 from ..core.resources import Resource
-from ..kernels import (Part, assemble_candidates, bulk_drain_fill,
-                       cell_net_flow, dest_select, flow_match, flow_priority,
-                       grid_source_plain, net_broker_flow,
-                       ordered_segment_sum, replica_priority,
-                       shortlist_source_plain, top_k, top_k_plain)
+from ..kernels import (Part, ViolationTable, assemble_candidates,
+                       bulk_drain_fill, cell_net_flow, dest_select,
+                       flow_match, flow_priority, grid_source_plain,
+                       interval_planes, net_broker_flow, ordered_segment_sum,
+                       replica_priority, shortlist_source_plain, top_k,
+                       top_k_plain)
 from ..model.flat import MOVE_INTER_BROKER, MOVE_LEADERSHIP, MOVE_SWAP
 from ..utils.ordered import (fma, lexsort, scan_sum, topic_cell_sum,
                               tree_sum, tree_sum_last, violation_row_sum)
@@ -265,6 +266,13 @@ class GoalKernel:
         None for a goal KN has no row kind for."""
         return None
 
+    def violation_row(self):
+        """This goal's row of KX's table (``kernels.ViolationTable``): the
+        twin of :meth:`violation` and :meth:`violation_scale`, the fields
+        of :meth:`eligibility_row` (an interval goal's with the program
+        its fused row reads); None where KX has no row for it."""
+        return self.eligibility_row()
+
     def collective_guard(self, state: SearchState, ctx: SearchContext,
                          c: Candidates, earlier: torch.Tensor
                          ) -> torch.Tensor | None:
@@ -423,9 +431,14 @@ class IntervalGoal(GoalKernel):
         potential, leaders' NW_IN) or a column of ``util``, against scalar
         bounds, a scalar upper bound only, or a per-broker capacity
         bound."""
+        return self._program(self._cap_factor(ctx) is not None)
+
+    def _program(self, capacity: bool) -> str:
+        """:meth:`_row_program` of a goal whose upper bound is (or is not)
+        a capacity column times a threshold."""
         which, res = self.metric
         plane = which != "util"
-        if self._cap_factor(ctx) is not None:
+        if capacity:
             if plane:
                 return "plane-capacity"
             return ("cpu-capacity" if int(res) == int(Resource.CPU)
@@ -436,6 +449,14 @@ class IntervalGoal(GoalKernel):
             return ("counts-upper" if which in ("count", "leaders")
                     else "plane-upper")
         return "plane" if plane else "column"
+
+    def violation_row(self):
+        """The fields of :meth:`eligibility_row` and the program its fused
+        violation row reads (:meth:`_row_program`)."""
+        row = self.eligibility_row()
+        if row is None:
+            return None
+        return dict(row, program=self._program(row["form"] == 1))
 
     def violation_scale(self, state, ctx):
         which, _res = self.metric
@@ -678,7 +699,23 @@ class IntervalGoal(GoalKernel):
     def propose_planes(self, state, ctx):
         """(values, lo, up, excess, deficit) [B1] of a proposal: the metric,
         its bounds, the excess over the upper bound and the deficit under
-        the lower one."""
+        the lower one — one KY launch (``kernels.interval_planes``) from
+        this goal's row; :meth:`plain_planes` is the goal's own form."""
+        return interval_planes(self.planes_rows, state, ctx)
+
+    @property
+    def planes_rows(self) -> ViolationTable:
+        """KY's one-row table of this goal, built at first use and kept by
+        the goal: a proposal's captured graph reads its rows at every
+        replay (a copy of the goal builds its own)."""
+        rows = self.__dict__.get("_planes_rows")
+        if rows is None or rows.goals[0] is not self:
+            rows = self._planes_rows = ViolationTable([self])
+        return rows
+
+    def plain_planes(self, state, ctx):
+        """:meth:`propose_planes` composed in torch from the goal's
+        bounds."""
         values, lo, up = self._bounds_b1(state, ctx)
         alive = ctx.broker_alive
         # Load still parked on dead/invalid brokers also counts as excess.

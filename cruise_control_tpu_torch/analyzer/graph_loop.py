@@ -368,8 +368,9 @@ class GraphLoop:
         seg.round(S, C, *cand)
         seg.stack(S, C)
 
+        # KX writes the converged test into the carry itself
         def active():
-            flag.copy_(seg.active(S, C))
+            seg.active(S, C, flag=flag)
 
         # KM writes the drain and apply rounds into the carry itself
         def drain():
@@ -386,7 +387,7 @@ class GraphLoop:
             flag.copy_(more)
 
         def out():
-            self.bounds[i].copy_(seg.stack(S, C))
+            seg.stack(S, C, out=self.bounds[i])
             self.moves[i].copy_(S.moves_applied)
             self.iters[i].copy_(it)
 
@@ -413,8 +414,7 @@ class GraphLoop:
                                   dtype=torch.uint8, device=off.device)
 
         def aux():
-            for buf, t in zip(self.aux, self.aux_fn(S, C)):
-                buf.copy_(t)
+            self.aux_fn(S, C, out=self.aux)
 
         def fold(i):
             def f():

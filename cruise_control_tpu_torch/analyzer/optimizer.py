@@ -28,12 +28,13 @@ import numpy as np
 import torch
 
 from .. import _random
+from ..kernels import ViolationTable, violation_rows
 from ..model.flat import FlatClusterModel, broker_utilization
 from ..model.proposals import ExecutionProposal, diff_proposals, proposal_summary
 from ..model.spec import ClusterMetadata
 from ..utils.device import resolve_device
 from .constraint import BalancingConstraint, PopulationConfig, SearchConfig
-from .engine import CompiledGoalChain, read_host, violation_stack
+from .engine import CompiledGoalChain, read_host
 from .goals import (DEFAULT_GOALS, HARD_GOAL_ALTERNATIVES, GoalKernel,
                     default_goals, goals_by_name)
 from .options import OptimizationOptions
@@ -278,7 +279,8 @@ class TorchGoalOptimizer:
             model,
             with_topic_counts=metadata.num_topics if needs_topics else None,
             with_topic_leader_counts=needs_tlc)
-        return cfg, goals, chain, ctx, state, audit
+        return (cfg, goals, chain, ctx, state,
+                ViolationTable(audit) if audit else None)
 
     def _audit_goals_for(self, chain_goals, metadata,
                          options: OptimizationOptions):
@@ -298,10 +300,10 @@ class TorchGoalOptimizer:
         return [g.bind(metadata) for g in goals_by_name(keep, self.constraint)]
 
     @staticmethod
-    def _audit(audit, state, ctx):
-        """(f32[A] violations, f32[A] scales) over the audit goals."""
-        return (violation_stack(audit, state, ctx),
-                torch.stack([g.violation_scale(state, ctx) for g in audit]))
+    def _audit(audit: ViolationTable, state, ctx):
+        """(f32[A] violations, f32[A] scales) over the audit goals: one KX
+        launch over their table (built once an optimize)."""
+        return violation_rows(audit, state, ctx, True)
 
     def warmup(self, model: FlatClusterModel, metadata: ClusterMetadata,
                options: OptimizationOptions | None = None) -> None:
@@ -447,7 +449,7 @@ class TorchGoalOptimizer:
 
     def _optimize_population(self, model, metadata, options, cfg, goals,
                              chain, ctx, state, key, t0, on_goal_start,
-                             audit=(), audit_before=None):
+                             audit=None, audit_before=None):
         """Population search (:mod:`..parallel.population`): K plans walk
         the chain under their own streams, each polish generation starts
         with joint scoring and truncation selection (KI), and the served
@@ -545,7 +547,7 @@ class TorchGoalOptimizer:
                             extra_telemetry={"population": pop_stats})
 
     def _optimize_branched(self, model, metadata, options, cfg, goals, chain,
-                           ctx, state, key, t0, on_goal_start, audit=(),
+                           ctx, state, key, t0, on_goal_start, audit=None,
                            audit_before=None):
         """Best-of-N independent branches (:mod:`..parallel.branches`):
         each runs the full chain under its own stream and the
@@ -584,7 +586,7 @@ class TorchGoalOptimizer:
                             t0, ctx, audit, audit_before)
 
     def _finish(self, model, metadata, options, state, goal_results, t0,
-                ctx=None, audit=(), audit_before=None, trajectory=None,
+                ctx=None, audit=None, audit_before=None, trajectory=None,
                 extra_telemetry=None):
         audit_results: list[GoalResult] = []
         if audit:
@@ -592,14 +594,14 @@ class TorchGoalOptimizer:
             v_after, scales = (_host(a) for a in self._audit(audit, state,
                                                              ctx))
             v_before = _host(audit_before[0])
-            audit_s = (time.monotonic() - t_a) / max(len(audit), 1)
+            audit_s = (time.monotonic() - t_a) / max(audit.n, 1)
             audit_results = [
                 GoalResult(name=g.name, hard=True,
                            violation_before=float(v_before[i]),
                            violation_after=float(v_after[i]),
                            duration_s=audit_s, iterations=0,
                            scale=float(scales[i]))
-                for i, g in enumerate(audit)]
+                for i, g in enumerate(audit.goals)]
         final = to_model(state, model)
         proposals = diff_proposals(model, final, metadata)
         num_moves = int(state.moves_applied.item())

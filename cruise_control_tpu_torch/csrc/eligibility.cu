@@ -62,6 +62,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bounds.cuh"
 #include "ordered.cuh"
 
 namespace {
@@ -701,8 +702,8 @@ __global__ void __launch_bounds__(kMaxThreads) eligibility_kernel(
       }
       for (int k = 0; k < lay.n_cap; ++k) {
         const int g = lay.cap_row[k];
-        planes[lay.cap_slot[g] * B1 + b] = __fmul_rn(cv[t.rows[g].cap_col],
-                                                     t.rows[g].t);
+        planes[lay.cap_slot[g] * B1 + b] =
+            bounds::capacity(cv[t.rows[g].cap_col], t.rows[g].t);
       }
       if (lay.rack_plane >= 0) iplanes[lay.rack_plane * B1 + b] = rk;
       if (lay.set_plane >= 0) iplanes[lay.set_plane * B1 + b] = st;
@@ -724,8 +725,8 @@ __global__ void __launch_bounds__(kMaxThreads) eligibility_kernel(
   };
   auto cap_t = [&](int g, int64_t b) -> float {
     return kShared ? planes[lay.cap_slot[g] * B1 + b]
-                   : __fmul_rn(a.cap[b * 4 + t.rows[g].cap_col],
-                               t.rows[g].t);
+                   : bounds::capacity(a.cap[b * 4 + t.rows[g].cap_col],
+                                      t.rows[g].t);
   };
 
   // the second round of loads, in flight during the average rows' sums
@@ -759,15 +760,8 @@ __global__ void __launch_bounds__(kMaxThreads) eligibility_kernel(
           static_cast<int>(B1), scratch);
     }
     if (lane == 0) {
-      const float avg = __fdiv_rn(total, n_alive);
-      float up = __fmul_rn(avg, row.t);
-      float lo = row.upper_only ? -INFINITY : __fmul_rn(avg, row.lower);
-      if (row.integer) {
-        up = fmaxf(up, ceilf(avg));
-        if (!row.upper_only) lo = fminf(lo, floorf(avg));
-      }
-      s_lo[g] = lo;
-      s_up[g] = up;
+      bounds::average(total, n_alive, row.t, row.lower, row.upper_only != 0,
+                      row.integer != 0, s_lo[g], s_up[g]);
     }
     __syncwarp();
   }
@@ -911,11 +905,8 @@ __global__ void __launch_bounds__(kMaxThreads) topic_bounds_kernel(
       total += __shfl_xor_sync(0xffffffffu, total, d);
     }
     if (lane < gaps.n) {
-      const float avg = __fdiv_rn(static_cast<float>(total), n);
-      float gap = __fmul_rn(avg, gaps.c[lane]);
-      gap = fminf(fmaxf(gap, gaps.lo[lane]), gaps.hi[lane]);
-      out[(2 * lane) * T + tp] = ordered::clamp0(__fsub_rn(avg, gap));
-      out[(2 * lane + 1) * T + tp] = __fadd_rn(avg, gap);
+      bounds::topic(total, n, gaps.c[lane], gaps.lo[lane], gaps.hi[lane],
+                    out[(2 * lane) * T + tp], out[(2 * lane + 1) * T + tp]);
     }
   }
 }

@@ -41,6 +41,7 @@ from ..analyzer.optimizer import (GoalResult, OptimizationFailureError,
 from ..analyzer.engine import read_host
 from ..analyzer.options import OptimizationOptions
 from ..analyzer.state import build_context, init_state, to_model
+from ..kernels import ViolationTable
 from ..model.fleet import FleetModel
 from ..model.flat import broker_utilization
 from ..model.proposals import diff_replica_arrays
@@ -242,6 +243,8 @@ class FleetOptimizer:
         cfg = preps[0]["cfg"]
         goals = preps[0]["goals"]
         audit = preps[0]["audit"]
+        # the audit's violation rows (KX's table), one a group
+        audit_rows = ViolationTable(audit) if audit else None
         G = len(goals)
         Cg = len(idxs)
         self._layout(Cg)
@@ -256,7 +259,7 @@ class FleetOptimizer:
         keys_main = _random.subkeys(seed_key, G)
 
         t_disp = time.monotonic()
-        audit_before = ([self.optimizer._audit(audit, s, c)
+        audit_before = ([self.optimizer._audit(audit_rows, s, c)
                          for s, c in zip(states, ctxs)] if audit else None)
         aux = [tuple(_host(a) for a in chain.aux(s, c))
                for s, c in zip(states, ctxs)]
@@ -341,7 +344,7 @@ class FleetOptimizer:
             audit_before = [tuple(_host(a) for a in ab)
                             for ab in audit_before]
             audit_after = [tuple(_host(a) for a in
-                                 self.optimizer._audit(audit, s, c))
+                                 self.optimizer._audit(audit_rows, s, c))
                            for s, c in zip(states, ctxs)]
 
         walk_share = dispatch_s / max(Cg, 1)

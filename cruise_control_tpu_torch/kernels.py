@@ -157,9 +157,10 @@ SOURCES = ("threefry.cu", "segment_sum.cu", "net_flow.cu", "cell_flow.cu",
            "launch_floor.cu", "goal_loop.cu", "apply_group.cu",
            "eligibility.cu", "flow_candidates.cu", "drain_fill.cu",
            "round_guards.cu", "replica_priority.cu", "dest_select.cu",
-           "candidates.cu", "top_k.cu", "steer.cu", "proposal_select.cu")
+           "candidates.cu", "top_k.cu", "steer.cu", "proposal_select.cu",
+           "violation.cu")
 #: headers the sources include (hashed with them)
-HEADERS = ("threefry.cuh", "ordered.cuh", "select.cuh")
+HEADERS = ("threefry.cuh", "ordered.cuh", "select.cuh", "bounds.cuh")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -170,7 +171,7 @@ SOURCE_FLAGS = {name: ("-fmad=false",) for name in (
     "apply_group.cu", "eligibility.cu", "flow_candidates.cu",
     "drain_fill.cu", "round_guards.cu", "replica_priority.cu",
     "dest_select.cu", "candidates.cu", "top_k.cu", "steer.cu",
-    "proposal_select.cu")}
+    "proposal_select.cu", "violation.cu")}
 
 #: launches per kernel since the last ``reset_launch_counts()``
 LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
@@ -184,7 +185,8 @@ LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
             "bulk_drain_fill": 0, "round_guards": 0,
             "replica_priority": 0, "dest_select": 0,
             "assemble_candidates": 0, "top_k": 0, "steer_dest": 0,
-            "proposal_select": 0}
+            "proposal_select": 0, "violation_rows": 0,
+            "interval_planes": 0}
 #: ``nvcc``/ptxas output of the build this process loaded (register and
 #: spill counts per kernel), empty when the library came from the cache
 BUILD_LOG: list[str] = []
@@ -366,6 +368,8 @@ def load_library():
             lib.cc_steer_scratch.argtypes = [i64, i64]
             lib.cc_steer_scratch.restype = i64
             lib.cc_proposal_select.argtypes = [p, p]
+            lib.cc_violation_rows.argtypes = [p, p]
+            lib.cc_interval_planes.argtypes = [p, p]
             for fn in (lib.cc_goal_loop_step,
                        lib.cc_graph_create, lib.cc_graph_destroy,
                        lib.cc_graph_check_body, lib.cc_graph_add_child,
@@ -389,7 +393,8 @@ def load_library():
                        lib.cc_drain_fill, lib.cc_round_guards,
                        lib.cc_replica_priority, lib.cc_dest_select,
                        lib.cc_assemble_candidates, lib.cc_top_k,
-                       lib.cc_steer_dest, lib.cc_proposal_select):
+                       lib.cc_steer_dest, lib.cc_proposal_select,
+                       lib.cc_violation_rows, lib.cc_interval_planes):
                 fn.restype = ctypes.c_int
             _LIB = lib
             default_collector().record_library(kind,
@@ -421,7 +426,10 @@ def _pass_library():
                            ("cc_top_k_args_size", _TopKArgs),
                            ("cc_steer_args_size", _SteerArgs),
                            ("cc_steer_row_size", _SteerRow),
-                           ("cc_select_args_size", _SelectArgs)):
+                           ("cc_select_args_size", _SelectArgs),
+                           ("cc_viol_args_size", _ViolArgs),
+                           ("cc_viol_row_size", _ViolRow),
+                           ("cc_planes_args_size", _PlanesArgs)):
             size = getattr(lib, fn)
             size.argtypes, size.restype = [], ctypes.c_int64
             if size() != ctypes.sizeof(struct):
@@ -3740,3 +3748,456 @@ def proposal_select(cands, elig, delta, M: int, out=None, flag=None):
     LAUNCHES["proposal_select"] += 1
     _check(rc, "proposal_select")
     return out
+
+
+# ---------------------------------------------------------------------------
+# KX: every goal's violation (and scale) of a goal list; KY: an interval
+# goal's proposal planes
+# ---------------------------------------------------------------------------
+
+#: the sum forms of a topic row (``csrc/violation.cu:TopicSum``): XLA's
+#: eager matrix order past 32 on either axis, else the fused loop's rows
+#: or lanes (``utils/ordered.py:topic_sum_form``)
+TOPIC_SUM_FORMS = ("matrix", "rows", "lanes")
+
+_ViolRow = _struct("_ViolRow", [(f, _I32) for f in (
+    "kind", "metric", "form", "upper_only", "integer", "cap_col", "param",
+    "vf", "ic", "epi", "tail", "sum")]
+    + [("t", _F32), ("lower", _F32), ("hi", _F32)], "aux")
+#: a field KX reads and its step between scenarios, in elements (0: one
+#: copy for every scenario)
+_Plane = _struct("_Plane", "p", [("s", _I64)])
+_VIOL_PLANES = ("rb", "pos", "off", "util", "cnt", "lead", "pot", "lni",
+                "cap", "bvalid", "balive", "rack", "bset", "pvalid",
+                "ptopic", "tc", "tlc")
+_ViolArgs = _struct(
+    "_ViolArgs", [(f, _Plane) for f in _VIOL_PLANES],
+    "rows viol scale flag",
+    [(f, _I64) for f in ("S", "P", "R", "B1", "T")]
+    + [("n_rows", _I32), ("eps", _F32), ("windows", _I32),
+       ("staged", _I32)])
+_PlanesArgs = _struct(
+    "_PlanesArgs", "util cnt lead pot lni cap bvalid balive rows out",
+    [("B1", _I64)])
+
+#: a row's fields as the table carries them (``_ViolRow``), from the goal's
+#: ``violation_row()``
+_ROW_FIELDS = ("metric", "form", "upper_only", "integer", "cap_col",
+               "param", "t", "lower", "hi")
+#: metrics whose violation scale is 0 (exact counts)
+_COUNT_METRICS = (4, 5)
+
+
+class ViolationTable:
+    """KX's table of a goal list: one row a goal (``goal.violation_row()``:
+    a kind of ``ROW_KINDS`` and its fields — an interval goal's metric,
+    bounds form and the program its fused row reads, a topic goal's gap
+    constants, the bound arrays), built once by the caller that reads it
+    and kept there, since a CUDA graph that captured a launch reads its
+    rows at every replay (``PassSegments``, ``CompiledGoalChain`` and
+    ``IntervalGoal`` hold theirs); its loop shapes resolved and uploaded
+    once a (device, B1, T, batched), as XLA's CPU backend sums the row at
+    that width (``utils/ordered.py:row_loop`` and ``topic_sum_form``,
+    which raise where the loop was not read).
+    ``outside`` lists the goals with no row, which KX refuses; the twin
+    takes their own ``violation``."""
+
+    def __init__(self, goals):
+        self.goals = list(goals)
+        self.outside = []
+        #: each goal's row fields (None: outside)
+        self.specs = []
+        for g in self.goals:
+            row = g.violation_row()
+            if row is None:
+                self.outside.append(g)
+            self.specs.append(row)
+        self.n = len(self.goals)
+        self._on = {}
+
+    def resolve(self, B1: int, T: int, batched: bool):
+        """The ctypes rows at this width: each interval row's vector loop
+        (vf 0: XLA's tree), each topic row's sum form."""
+        from .utils.ordered import row_loop, topic_sum_form
+        rows = (_ViolRow * max(self.n, 1))()
+        for k, spec in enumerate(self.specs):
+            if spec is None:
+                continue
+            fields = {f: spec[f] for f in _ROW_FIELDS if f in spec}
+            kind = spec["kind"]
+            row = _ViolRow(kind=ROW_KINDS.index(kind), **fields)
+            if kind in ("interval", "hard_cap"):
+                loop = row_loop(spec["program"], batched, B1)
+                if loop is not None:
+                    row.vf, row.ic, row.epi, row.tail = loop
+            elif kind == "topic_replica":
+                form, shape = topic_sum_form(T, B1, batched)
+                row.sum = TOPIC_SUM_FORMS.index(form)
+                if form == "rows":
+                    row.vf, row.ic, row.epi, row.tail = shape
+                elif form == "lanes":
+                    row.vf = shape
+            rows[k] = row
+        return rows
+
+    def rows_on(self, device, B1: int, T: int, batched: bool):
+        """(the rows on ``device`` as uint8, each bound array's pointer
+        set: uploaded once a shape; the rows as resolved). Raises for a
+        goal KX has no row for, and inside a CUDA graph capture for a
+        shape not uploaded before it."""
+        if self.outside:
+            raise ValueError(f"KX has no row for "
+                             f"{[g.name for g in self.outside]}")
+        key = (torch.device(device), B1, T, batched)
+        got = self._on.get(key)
+        if got is None:
+            if (key[0].type == "cuda"
+                    and torch.cuda.is_current_stream_capturing()):
+                raise RuntimeError("KX's table must be uploaded before a "
+                                   "CUDA graph captures it")
+            rows = self.resolve(B1, T, batched)
+            for k, spec in enumerate(self.specs):
+                aux = spec.get("aux")
+                if aux is not None:
+                    t = aux.on(key[0])
+                    if spec["kind"] == "topic_leaders" and t.shape[0] != T:
+                        raise ValueError(
+                            f"{self.goals[k].name}: an interested topic "
+                            f"mask of {t.shape[0]} topics against T {T}")
+                    rows[k].aux = t.data_ptr()
+            table = torch.frombuffer(bytearray(rows), dtype=torch.uint8)
+            got = self._on[key] = (table.to(key[0]), rows)
+        return got
+
+
+def _metric_plane(state, m: int) -> torch.Tensor:
+    """float32 ``[*L, B1]`` metric ``m`` (``state.metric_values``)."""
+    if m < 4:
+        return state.util[..., m]
+    plane = (state.replica_count, state.leader_count, state.potential_nw_out,
+             state.leader_nw_in)[m - 4]
+    return plane.to(torch.float32)
+
+
+def _interval_bounds_plain(row, values, ctx):
+    """(lower, upper) of an interval row: ``[*L, 1]`` (0-dim unbatched)
+    for an average row, else the capacity column times t or t a broker."""
+    from .utils.ordered import tree_sum_last
+    inf = float("inf")
+    if row.form == 0:
+        total = tree_sum_last(torch.where(ctx.broker_valid, values, 0.0))
+        n = torch.clamp(ctx.broker_alive.sum(-1), min=1)
+        avg = total / n
+        if avg.dim():
+            avg = avg[..., None]
+        upper = avg * row.t
+        lower = (torch.full_like(avg, -inf) if row.upper_only
+                 else avg * row.lower)
+        if row.integer:
+            upper = torch.maximum(upper, torch.ceil(avg))
+            if not row.upper_only:
+                lower = torch.minimum(lower, torch.floor(avg))
+        return lower, upper
+    if row.form == 1:
+        upper = ctx.broker_capacity[..., row.cap_col] * row.t
+    else:
+        upper = torch.full(ctx.broker_capacity.shape[:-1], row.t,
+                           dtype=torch.float32,
+                           device=ctx.broker_capacity.device)
+    return torch.full_like(upper, -inf), upper
+
+
+def _minus_upper_plain(row, values, upper, ctx):
+    """``values - upper``, one FMA where the bound is capacity x t."""
+    from .utils.ordered import fma
+    if row.form == 1:
+        return fma(-ctx.broker_capacity[..., row.cap_col], row.t, values)
+    return values - upper
+
+
+def _violation_row_plain(row, aux, state, ctx):
+    """(violation, scale) ``[*L]`` of one resolved row (``aux``: its bound
+    array on the state's device, or None), step by step as KX."""
+    from .analyzer.goals import _count_distinct, _jax_index, _per_broker
+    from .utils.ordered import (topic_cell_sum, tree_sum_last,
+                                vector_loop_sum)
+    kind = ROW_KINDS[row.kind]
+    zeros = torch.zeros(ctx.broker_alive.shape[:-1], dtype=torch.float32,
+                        device=ctx.broker_alive.device)
+    B = ctx.broker_capacity.shape[-2] - 1
+    if kind in ("interval", "hard_cap"):
+        values = _metric_plane(state, row.metric)
+        lower, upper = _interval_bounds_plain(row, values, ctx)
+        over = torch.clamp(_minus_upper_plain(row, values, upper, ctx),
+                           min=0.0)
+        under = 0.0 if row.upper_only else torch.clamp(lower - values,
+                                                       min=0.0)
+        pen = torch.where(ctx.broker_alive, over + under, 0.0)
+        viol = (vector_loop_sum(pen, row.vf, row.ic, row.epi, row.tail)
+                if row.vf else tree_sum_last(pen))
+        if row.metric in _COUNT_METRICS:
+            return viol, zeros
+        return viol, tree_sum_last(torch.where(ctx.broker_valid,
+                                               values.abs(), 0.0))
+    rb = state.rb
+    valid = rb < B
+    R = rb.shape[-1]
+    earlier = torch.tril(torch.ones((R, R), dtype=torch.bool,
+                                    device=rb.device), diagonal=-1)
+    if kind == "rack_aware":
+        racks = _per_broker(ctx.broker_rack, rb)
+        same = ((racks[..., :, None] == racks[..., None, :])
+                & valid[..., :, None] & valid[..., None, :])
+        dup = (same & earlier).any(dim=-1)
+        return dup.sum(dim=(-2, -1)).to(torch.float32), zeros
+    if kind == "rack_spread":
+        racks = _per_broker(ctx.broker_rack, rb)
+        alive_racks = torch.where(ctx.broker_alive, ctx.broker_rack.long(),
+                                  -1)
+        num_racks = torch.clamp(_count_distinct(alive_racks, B + 1), min=1)
+        rf = valid.sum(dim=-1).to(torch.float32)
+        limit = torch.ceil(rf / num_racks.to(torch.float32)[..., None]
+                           ).to(torch.int64)
+        same = ((racks[..., :, None] == racks[..., None, :])
+                & valid[..., :, None] & valid[..., None, :])
+        n = same.sum(dim=-1)
+        first = valid & ~(same & earlier).any(dim=-1)
+        excess = torch.clamp(n - limit[..., None], min=0)
+        pen = torch.where(first, excess, 0).sum(dim=-1)
+        return pen.sum(dim=-1).to(torch.float32), zeros
+    if kind == "topic_replica":
+        tc = state.topic_counts
+        total = torch.where(ctx.broker_valid[..., None, :], tc, 0).sum(-1)
+        n = torch.clamp(ctx.broker_alive.sum(-1), min=1)
+        avg = total.to(torch.float32) / n.to(torch.float32)[..., None]
+        gap = torch.clamp(avg * row.t, row.lower, row.hi)
+        lower = torch.clamp(avg - gap, min=0.0)[..., None]
+        upper = (avg + gap)[..., None]
+        c = tc.to(torch.float32)
+        pen = torch.clamp(c - upper, min=0.0) + torch.clamp(lower - c,
+                                                            min=0.0)
+        pen = torch.where(ctx.broker_alive[..., None, :], pen, 0.0)
+        form = TOPIC_SUM_FORMS[row.sum]
+        shape = ((row.vf, row.ic, row.epi, row.tail) if form == "rows"
+                 else row.vf)
+        return topic_cell_sum(pen, (form, shape)), zeros
+    if kind == "topic_leaders":
+        tlc = state.topic_leader_counts
+        d = torch.clamp(row.param - tlc, min=0)
+        d = torch.where(ctx.broker_alive[..., None, :], d, 0)
+        d = torch.where(aux[:, None], d, 0)
+        return d.sum(dim=(-2, -1)).to(torch.float32), zeros
+    if kind == "broker_set":
+        sets = aux
+        want = sets[_jax_index(ctx.partition_topic, sets.shape[0])][..., None]
+        have = _per_broker(ctx.broker_set, rb)
+        mism = valid & (want >= 0) & (have >= 0) & (have != want)
+        return mism.sum(dim=(-2, -1)).to(torch.float32), zeros
+    if kind == "preferred_leader":
+        wrong = ctx.partition_valid & (state.pos[..., 0] != 0)
+        return wrong.sum(dim=-1).to(torch.float32), zeros
+    return zeros, zeros
+
+
+def _leading(state) -> tuple:
+    """The state's scenario axes (() unbatched)."""
+    return tuple(state.util.shape[:-2])
+
+
+def _topics(state) -> int:
+    """T of the state's topic tables, batched or not (0 without them)."""
+    tc, tlc = state.topic_counts, state.topic_leader_counts
+    t = tc if tc is not None else tlc
+    return 0 if t is None else t.shape[-2]
+
+
+def violation_rows_plain(table: ViolationTable, state, ctx, scales=False):
+    """Twin of KX: each row's violation (and scale) composed in torch from
+    the table's fields, step by step as the kernel computes it — never
+    the goal's own methods, but for a goal with no row (``outside``),
+    whose ``violation`` and ``violation_scale`` it calls."""
+    B1 = state.util.shape[-2]
+    T = _topics(state)
+    batched = bool(_leading(state))
+    rows = table.resolve(B1, T, batched)
+    viol, scale = [], []
+    dev = state.rb.device
+    for k, (g, spec) in enumerate(zip(table.goals, table.specs)):
+        if spec is None:
+            v = g.violation(state, ctx)
+            s = g.violation_scale(state, ctx) if scales else None
+        else:
+            aux = spec.get("aux")
+            v, s = _violation_row_plain(
+                rows[k], None if aux is None else aux.on(dev), state, ctx)
+        viol.append(v)
+        scale.append(s)
+    if not viol:
+        v = torch.zeros(_leading(state) + (0,), dtype=torch.float32,
+                        device=dev)
+        return (v, v.clone()) if scales else v
+    v = torch.stack(viol, dim=-1)
+    return (v, torch.stack(scale, dim=-1)) if scales else v
+
+
+def _scenario_plane(t, inner: int, S: int):
+    """(tensor, scenario step in elements) of a field with ``inner``
+    trailing axes, read in place: a field without scenario axes (step 0),
+    or one whose trailing axes are contiguous (an expanded field's step
+    is 0); anything else is made contiguous."""
+    if t is None:
+        return None, 0
+    if t.dim() == inner:
+        return t.contiguous(), 0
+    lead = t.dim() - inner
+    if lead > 1:
+        t = t.reshape((S,) + tuple(t.shape[lead:]))
+    tail = t[0] if t.shape[0] else t
+    if not tail.is_contiguous():
+        t = t.contiguous()
+    return t, t.stride(0)
+
+
+#: the dtype of each field KX reads
+_VIOL_DTYPES = dict(rb=torch.int64, pos=torch.int64, off=torch.bool,
+                    util=torch.float32, cnt=torch.int32, lead=torch.int32,
+                    pot=torch.float32, lni=torch.float32,
+                    cap=torch.float32, bvalid=torch.bool,
+                    balive=torch.bool, rack=torch.int32, bset=torch.int32,
+                    pvalid=torch.bool, ptopic=torch.int32, tc=torch.int32,
+                    tlc=torch.int32)
+
+
+def violation_rows(table: ViolationTable, state, ctx, scales=False,
+                   out=None, scale_out=None, flag=None, eps=0.0):
+    """f32 ``[*L, G]`` every goal's violation of ``table`` (and with
+    ``scales`` its violation scale, a second ``[*L, G]``) at ``state`` —
+    see ``csrc/violation.cu`` (one launch, a block a row a scenario).
+    ``out`` / ``scale_out``: contiguous ``[*L, G]`` buffers the caller
+    keeps (a CUDA graph's fixed addresses); ``flag``: an int64 scalar set
+    to whether the first row's violation exceeds ``eps`` (float32) or a
+    replica is offline (a one-row table, unbatched), the goal pass's
+    converged test."""
+    lead = _leading(state)
+    G = table.n
+    if _on_cpu(state.rb, out, scale_out, flag):
+        got = violation_rows_plain(table, state, ctx, scales)
+        v, s = got if scales else (got, None)
+        if flag is not None:
+            flag.copy_((v[..., 0] > eps) | state.offline.any())
+        if out is not None:
+            v = out.copy_(v)
+        if scale_out is not None:
+            s = scale_out.copy_(s)
+        return (v, s) if scales else v
+    if flag is not None and (lead or G != 1 or flag.dtype != torch.int64
+                             or flag.dim()):
+        raise ValueError("violation_rows: flag is an int64 scalar of a "
+                         "one-row table, unbatched")
+    S = math.prod(lead)
+    P, R = state.rb.shape[-2:]
+    B1 = state.util.shape[-2]
+    T = _topics(state)
+    dev = state.rb.device
+    need = {"topic_replica": state.topic_counts,
+            "topic_leaders": state.topic_leader_counts}
+    for k, spec in enumerate(table.specs):
+        if spec is not None and spec["kind"] in need and need[
+                spec["kind"]] is None:
+            raise ValueError(f"violation_rows: {table.goals[k].name} reads "
+                             f"a topic table the state does not hold")
+    rows, resolved = table.rows_on(dev, B1, T, bool(lead))
+    for name, buf in (("out", out), ("scale_out", scale_out)):
+        if buf is not None and (buf.shape != lead + (G,)
+                                or buf.dtype != torch.float32
+                                or not buf.is_contiguous()):
+            raise ValueError(f"violation_rows: {name} must be a contiguous "
+                             f"float32 {list(lead + (G,))}")
+    if out is None and flag is None:
+        out = torch.empty(lead + (G,), dtype=torch.float32, device=dev)
+    if scales and scale_out is None:
+        scale_out = torch.empty(lead + (G,), dtype=torch.float32,
+                                device=dev)
+    fields = dict(
+        rb=(state.rb, 2), pos=(state.pos, 2), off=(state.offline, 2),
+        util=(state.util, 2), cnt=(state.replica_count, 1),
+        lead=(state.leader_count, 1), pot=(state.potential_nw_out, 1),
+        lni=(state.leader_nw_in, 1), cap=(ctx.broker_capacity, 2),
+        bvalid=(ctx.broker_valid, 1), balive=(ctx.broker_alive, 1),
+        rack=(ctx.broker_rack, 1), bset=(ctx.broker_set, 1),
+        pvalid=(ctx.partition_valid, 1), ptopic=(ctx.partition_topic, 1),
+        tc=(state.topic_counts, 2), tlc=(state.topic_leader_counts, 2))
+    topic = ROW_KINDS.index("topic_replica")
+    args = _ViolArgs(S=S, P=P, R=R, B1=B1, T=T, n_rows=G, eps=float(eps),
+                     windows=int(any(resolved[k].kind == topic
+                                     for k in range(G))))
+    kept = []                      # the fields' tensors, alive over the launch
+    for name, (t, inner) in fields.items():
+        if t is not None and t.dtype != _VIOL_DTYPES[name]:
+            raise TypeError(f"violation_rows: {name} must be "
+                            f"{_VIOL_DTYPES[name]}, got {t.dtype}")
+        t, step = _scenario_plane(t, inner, S)
+        kept.append(t)
+        setattr(args, name, _Plane(p=_ptr(t), s=step))
+    _fill(args, rows=rows, viol=out, scale=scale_out if scales else None,
+          flag=flag)
+    if G:
+        rc = _pass_library().cc_violation_rows(ctypes.byref(args),
+                                               _stream())
+        LAUNCHES["violation_rows"] += 1
+        _check(rc, "violation_rows")
+    return (out, scale_out) if scales else out
+
+
+def interval_planes_plain(table: ViolationTable, state, ctx):
+    """Twin of KY: (values, lo, up, excess, deficit) [B1] of the table's
+    one interval row, from its fields (``IntervalGoal.plain_planes`` for
+    a goal with no row)."""
+    goal, spec = table.goals[0], table.specs[0]
+    if spec is None:
+        return goal.plain_planes(state, ctx)
+    row = table.resolve(state.util.shape[-2], _topics(state), False)[0]
+    values = _metric_plane(state, row.metric)
+    lower, upper = _interval_bounds_plain(row, values, ctx)
+    lo = torch.broadcast_to(lower, values.shape)
+    up = torch.broadcast_to(upper, values.shape)
+    alive = ctx.broker_alive
+    excess = torch.where(alive, torch.clamp(
+        _minus_upper_plain(row, values, up, ctx), min=0.0), values)
+    deficit = (torch.zeros_like(values) if row.upper_only else
+               torch.where(alive & torch.isfinite(lo),
+                           torch.clamp(lo - values, min=0.0), 0.0))
+    return values, lo, up, excess, deficit
+
+
+def interval_planes(table: ViolationTable, state, ctx):
+    """(values, lo, up, excess, deficit) f32[B1] of the one interval goal
+    of ``table`` (the goal's own, ``IntervalGoal.planes_rows``: a graph
+    that captures this launch reads its rows) — see ``csrc/violation.cu``
+    (one launch, one block): views of one new ``[5, W]`` buffer (W = B1
+    rounded up to 4: each row 16-byte aligned)."""
+    if _on_cpu(state.rb):
+        return interval_planes_plain(table, state, ctx)
+    if _leading(state):
+        raise ValueError("interval_planes takes an unbatched state")
+    if table.n != 1 or table.specs[0] is None or table.specs[0][
+            "kind"] not in ("interval", "hard_cap"):
+        raise ValueError(f"KY has no interval row for "
+                         f"{[g.name for g in table.goals]}")
+    B1 = state.util.shape[0]
+    dev = state.rb.device
+    rows, _ = table.rows_on(dev, B1, _topics(state), False)
+    out = torch.empty((5, -(-B1 // 4) * 4), dtype=torch.float32, device=dev)
+    ins = dict(util=state.util, cnt=state.replica_count,
+               lead=state.leader_count, pot=state.potential_nw_out,
+               lni=state.leader_nw_in, cap=ctx.broker_capacity,
+               bvalid=ctx.broker_valid, balive=ctx.broker_alive)
+    for name, t in ins.items():
+        if t.dtype != _VIOL_DTYPES[name] or not t.is_contiguous():
+            raise TypeError(f"interval_planes: {name} must be a contiguous "
+                            f"{_VIOL_DTYPES[name]}")
+    args = _fill(_PlanesArgs(B1=B1), **ins, rows=rows, out=out)
+    rc = _pass_library().cc_interval_planes(ctypes.byref(args), _stream())
+    LAUNCHES["interval_planes"] += 1
+    _check(rc, "interval_planes")
+    return tuple(out[k, :B1] for k in range(5))

@@ -35,9 +35,8 @@ import torch
 from .. import _random
 from ..analyzer import engine
 from ..analyzer.constraint import PopulationConfig, SearchConfig
-from ..analyzer.engine import violation_stack
 from ..analyzer.goals import GoalKernel
-from ..kernels import population_select
+from ..kernels import ViolationTable, population_select, violation_rows
 from .batching import pow2_bucket
 from .branches import audit_violation_count, checked_violations
 
@@ -116,6 +115,8 @@ def make_population_search(passes: Sequence, goals: Sequence[GoalKernel],
     goals = list(goals)
     passes = list(passes)
     G = len(goals)
+    #: the chain's violation rows (KX's table)
+    viol_rows = ViolationTable(goals)
     K = pow2_bucket(max(int(pop_cfg.size), 1))
     R = cfg.polish_passes + 1 if cfg.polish_passes else 0
     polish_eps = min(cfg.epsilon, 1e-6)
@@ -161,10 +162,8 @@ def make_population_search(passes: Sequence, goals: Sequence[GoalKernel],
 
     def run(state, ctx, key):
         dev = state.rb.device
-        aux = (state.offline.any(),
-               torch.stack([g.violation_scale(state, ctx) for g in goals]),
-               violation_stack(goals, state, ctx))
-        scales = aux[1]
+        viol, scales = violation_rows(viol_rows, state, ctx, True)
+        aux = (state.offline.any(), scales, viol)
         hard_mask = torch.tensor(hard, dtype=torch.bool, device=dev)
         states, iters, wb, mv_walk = [], [], [], []
         for m in range(K):

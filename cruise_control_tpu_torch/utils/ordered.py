@@ -228,23 +228,34 @@ ROW_LOOPS = {
 }
 
 
-def violation_row_sum(x: torch.Tensor, program: str) -> torch.Tensor:
-    """float32 ``[...]`` sums of a goal's penalty rows ``x[..., B1]`` in the
-    order XLA's CPU backend gives ``program``'s fused row reduction —
-    vmapped when ``x`` has a leading scenario axis. Rows wider than 32
-    reduce as :func:`tree_sum_last`."""
-    n = x.shape[-1]
+def row_loop(program: str, batched: bool, n: int):
+    """(vf, ic, epi, tail) of the vector loop XLA's CPU backend gives
+    ``program``'s fused violation row of ``n`` elements (vmapped where
+    ``batched``), None where the row reduces as :func:`tree_sum_last`
+    (wider than 32, narrower than 9, or a width :data:`ROW_LOOPS` does not
+    list); raises for a program whose loops were not read."""
     if n > _WINDOW or n < 9:
-        return tree_sum_last(x)
-    key = (program, x.dim() > 1)
+        return None
+    key = (program, batched)
     if key not in ROW_LOOPS:
-        raise ValueError(f"XLA's order for the {'vmapped ' if key[1] else ''}"
+        raise ValueError(f"XLA's order for the {'vmapped ' if batched else ''}"
                          f"{program!r} violation row of {n} elements is not "
                          f"identified (scripts/probe_violation_order.py)")
     for first, last, shape in ROW_LOOPS[key]:
         if first <= n <= last:
-            return vector_loop_sum(x, *shape)
-    return tree_sum_last(x)
+            return shape
+    return None
+
+
+def violation_row_sum(x: torch.Tensor, program: str) -> torch.Tensor:
+    """float32 ``[...]`` sums of a goal's penalty rows ``x[..., B1]`` in the
+    order XLA's CPU backend gives ``program``'s fused row reduction —
+    vmapped when ``x`` has a leading scenario axis (:func:`row_loop`).
+    Rows wider than 32 reduce as :func:`tree_sum_last`."""
+    shape = row_loop(program, x.dim() > 1, x.shape[-1])
+    if shape is None:
+        return tree_sum_last(x)
+    return vector_loop_sum(x, *shape)
 
 
 def _lanes(b: int, d: int) -> int:
@@ -367,21 +378,32 @@ def _topic_loop(T: int, B1: int, batched: bool):
     return "lanes", 1
 
 
-def topic_cell_sum(x: torch.Tensor) -> torch.Tensor:
+def topic_sum_form(T: int, B1: int, batched: bool):
+    """How :func:`topic_cell_sum` reduces a ``[T, B1]`` table: ("matrix",
+    None) past 32 on either axis (:func:`matrix_sum`), else
+    :func:`_topic_loop`'s ("rows", (vf, ic, epi, tail)) or ("lanes",
+    vf); raises where that loop was not read."""
+    if T > _WINDOW or B1 > _WINDOW:
+        return "matrix", None
+    return _topic_loop(T, B1, batched)
+
+
+def topic_cell_sum(x: torch.Tensor, form=None) -> torch.Tensor:
     """float32 ``[...]`` sums of ``x[..., T, B1]`` (a topic goal's penalty
     cells) in the order XLA's CPU backend gives the reference's
     ``pen.sum()``, unbatched or under ``vmap`` (a leading axis). Past 32
     on either axis XLA's tree rewrite leaves an eager reduction
     (:func:`matrix_sum`, probed at 8 x 33 to 400 x 1,009, vmapped and
-    nested); otherwise the fused loop of :func:`_topic_loop`."""
+    nested); otherwise the fused loop of :func:`_topic_loop`. ``form``:
+    :func:`topic_sum_form`'s answer, where the caller resolved it."""
     x = x.to(torch.float32)
     lead = x.shape[:-2]
     T, B1 = x.shape[-2:]
-    if T > _WINDOW or B1 > _WINDOW:
+    form, shape = form or topic_sum_form(T, B1, len(lead) > 0)
+    if form == "matrix":
         return matrix_sum(x)
     n = math.prod(lead)
     xs = x.reshape(n, T, B1)
-    form, shape = _topic_loop(T, B1, len(lead) > 0)
     if form == "rows":
         total = xs.new_zeros(n)
         for r in range(T):

@@ -8,7 +8,7 @@ scale, partition enable mask), and the whole batch is scored at once:
     transform (kill/add/resize/scale/enable + leadership failover, KD)
       -> init_state / build_context over the [S, ...] batch
          (one ordered segment sum per float aggregate for all S, KB)
-      -> violation_stack over the goal chain ([S, G])
+      -> KX's violation rows over the goal chain ([S, G])
       -> headroom / pressure / availability reductions
 
 with no Python loop over scenarios: the kernel launches of a sweep do not
@@ -40,10 +40,10 @@ import numpy as np
 import torch
 
 from ..analyzer.constraint import BalancingConstraint
-from ..analyzer.engine import violation_stack
 from ..analyzer.state import build_context, init_state
 from ..core.resources import NUM_RESOURCES
-from ..kernels import fleet_scenario_failover, scenario_failover
+from ..kernels import (ViolationTable, fleet_scenario_failover,
+                       scenario_failover, violation_rows)
 from ..model.flat import FlatClusterModel
 from ..parallel.batching import pad_model_to, round_up
 from ..utils.device import resolve_device
@@ -590,6 +590,7 @@ def _batch_scorer(goals, capacity_threshold, num_topics: int):
     stack and the headroom reductions over a transformed ``[N, ...]``
     scenario batch."""
     goals = tuple(goals)
+    viol_rows = ViolationTable(goals)
     needs_tlc = any(g.uses_topic_leader_counts for g in goals)
     needs_topics = needs_tlc or any(g.uses_topic_counts for g in goals)
 
@@ -598,9 +599,7 @@ def _batch_scorer(goals, capacity_threshold, num_topics: int):
             m, with_topic_counts=num_topics if needs_topics else None,
             with_topic_leader_counts=needs_tlc)
         ctx = build_context(m, with_weight_range=False)
-        viol = violation_stack(goals, state, ctx)
-        vscale = torch.stack([g.violation_scale(state, ctx)
-                              for g in goals], dim=-1)
+        viol, vscale = violation_rows(viol_rows, state, ctx, True)
         B = m.num_brokers_padded
         util = state.util[:, :B]
         cap_thr = torch.tensor(capacity_threshold, dtype=torch.float32,

@@ -14,13 +14,16 @@ main-path optimizer, runs one warm-up optimize (seed 0), then profiles with
   ``torch.profiler.record_function`` range around each ``PassSegments``
   segment, each goal's ``accepts``, ``delta``, ``collective_guard``,
   ``propose``, ``bulk_drain`` and ``violation``, and KN's, KQ's and KR's
-  to KW's wrappers (the ranges are put on in this script and taken off after; a
+  to KY's wrappers (the ranges are put on in this script and taken off after; a
   range inside a CUDA graph's capture does not come back at replay, so
   the host loop, which launches the graphs' kernels but KL, is the one
   traced); each device event goes to the innermost range around the host
   call that launched it, and the table sums them by pass x site beside
   the graph path's busy time (``--only main`` or ``--only
-  default-chain`` runs just that chain's part);
+  default-chain`` runs just that chain's part; ``--only
+  scale-default-chain`` the same two for the default chain on the
+  1K x 200K scale cell under bench scale scenario 3's search, seed 0,
+  and nothing else);
 - one warm what-if N-1 sweep over the 100 brokers (``chip_smoke`` phase 7);
 - one schedule of the seed-1 proposals with the hard-goal boundary audit
   (``chip_smoke`` phase 8, the facade's defaults);
@@ -50,7 +53,8 @@ and prints for each:
 Run from the repository root:
 
     python3 profile_main_path.py [--trace main_path_trace.json]
-        [--only main|default-chain] [--sites sites.json]
+        [--only main|default-chain|scale-default-chain]
+        [--sites sites.json]
 
 The Chrome trace (of the optimize) runs to several tens of MiB.
 """
@@ -95,10 +99,11 @@ HAND_WRITTEN = ("threefry_draw_kernel", "tile_group_kernel",
                 "topic_range_kernel", "shortlist_kernel", "move_rows_kernel",
                 "move_dest_kernel", "light_kernel", "swap_dest_kernel",
                 "assemble_kernel", "top_k_kernel", "steer_kernel",
-                "proposal_select_kernel", "proposal_gather_kernel")
+                "proposal_select_kernel", "proposal_gather_kernel",
+                "violation_kernel", "interval_planes_kernel")
 #: kernel families summed on one line each: KM's, KP's, KN's, KO's, KQ's,
-#: KR's to KW's launches, and every device-to-device copy (copy kernels
-#: and memcpy)
+#: KR's to KY's launches, KB's range form, and every device-to-device copy
+#: (copy kernels and memcpy)
 FAMILIES = (("KM apply_group", ("apply_bucket_kernel", "apply_group_kernel")),
             ("KP bulk_drain_fill", ("drain_",)),
             ("KN candidate_eligibility", ("eligibility_kernel",
@@ -118,12 +123,15 @@ FAMILIES = (("KM apply_group", ("apply_bucket_kernel", "apply_group_kernel")),
             ("KV steer_dest", ("steer_kernel",)),
             ("KW proposal_select", ("proposal_select_kernel",
                                     "proposal_gather_kernel")),
+            ("KX violation_rows", ("violation_kernel",)),
+            ("KY interval_planes", ("interval_planes_kernel",)),
+            ("KB range form", ("ordered_range_sum_kernel",)),
             ("device copies", ("copy", "DtoD")))
 
 
 #: the host calls the site table times: ``PassSegments``' segments, the
 #: goals' methods (on every class of the catalog that defines them) and
-#: KN's, KQ's, KR's to KW's wrappers
+#: KN's, KQ's, KR's to KY's wrappers
 SEGMENTS = ("active", "drain", "propose", "eligibility", "round", "stack")
 GOAL_METHODS = ("accepts", "delta", "collective_guard", "propose",
                 "bulk_drain", "violation")
@@ -136,14 +144,15 @@ def site_ranges():
     method of ``GOAL_METHODS``, ``cc||KN wrapper`` around
     ``kernels.candidate_eligibility`` and ``cc||KQ wrapper`` around
     ``kernels.round_guards``, ``cc||KV wrapper`` around
-    ``kernels.steer_dest`` and ``cc||KW wrapper`` around
-    ``kernels.proposal_select`` as the engine calls them (the ``propose``
+    ``kernels.steer_dest``, ``cc||KW wrapper`` around
+    ``kernels.proposal_select`` and ``cc||KX wrapper`` around
+    ``kernels.violation_rows`` as the engine calls them (the ``propose``
     segment's rest is its own), and ``cc||KR wrapper``, ``cc||KS
-    wrapper``, ``cc||KT wrapper`` and ``cc||KU wrapper`` around
-    ``kernels.replica_priority``, ``dest_select``,
-    ``assemble_candidates`` and ``top_k`` as the goals call them (a tree
-    from before a kernel has no wrapper of it to wrap); take them off on
-    exit."""
+    wrapper``, ``cc||KT wrapper``, ``cc||KU wrapper`` and ``cc||KY
+    wrapper`` around ``kernels.replica_priority``, ``dest_select``,
+    ``assemble_candidates``, ``top_k`` and ``interval_planes`` as the
+    goals call them (a tree from before a kernel has no wrapper of it to
+    wrap); take them off on exit."""
     import functools
     from torch.profiler import record_function
     from cruise_control_tpu_torch.analyzer import engine, goals
@@ -173,11 +182,13 @@ def site_ranges():
     wrap(engine, "candidate_eligibility",
          lambda *a: "cc||KN wrapper")
     for name, label in (("round_guards", "KQ"), ("steer_dest", "KV"),
-                        ("proposal_select", "KW")):
+                        ("proposal_select", "KW"),
+                        ("violation_rows", "KX")):
         if name in engine.__dict__:
             wrap(engine, name, lambda *a, label=label: f"cc||{label} wrapper")
     for name, label in (("replica_priority", "KR"), ("dest_select", "KS"),
-                        ("assemble_candidates", "KT"), ("top_k", "KU")):
+                        ("assemble_candidates", "KT"), ("top_k", "KU"),
+                        ("interval_planes", "KY")):
         if name in goals.__dict__:
             wrap(goals, name, lambda *a, label=label: f"cc||{label} wrapper")
     try:
@@ -345,13 +356,63 @@ def report(label, prof, wall_s, top, head):
     return busy_us / 1e3
 
 
+def profile_default_chain(label, model, md, search, seed, top):
+    """The default chain (``goals=None``) on ``model`` under ``search``:
+    warm walls and one profiled optimize (seed ``seed``) with its goal
+    passes as CUDA graphs, then the same driven by host loops with a
+    range around every call site; returns the site table (None when the
+    profiler saw no device time)."""
+    import torch
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.analyzer import (OptimizationOptions,
+                                                   SearchConfig,
+                                                   TorchGoalOptimizer, engine)
+    graph_busy_ms = None
+    for loop in ("auto", "host"):
+        name = "CUDA graphs" if loop == "auto" else "host loop"
+        dopt = TorchGoalOptimizer(config=SearchConfig(**search),
+                                  device="cuda", goal_loop=loop)
+        dopt.optimize(model, md, OptimizationOptions(seed=seed))
+        walls = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            dopt.optimize(model, md, OptimizationOptions(seed=seed))
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+        print(f"{label}, {name}: warm walls "
+              f"{[round(w, 4) for w in walls]} s")
+        kernels.reset_launch_counts()
+        syncs0 = engine.HOST_SYNCS
+        out, prof, wall_s = profiled(
+            lambda: dopt.optimize(model, md, OptimizationOptions(seed=seed)))
+        busy = report(f"{label} optimize (seed {seed}), {name}", prof,
+                      wall_s, top, f"moves {out.num_moves}, host "
+                      f"syncs {engine.HOST_SYNCS - syncs0}, ")
+        if busy is None:
+            return None
+        if loop == "auto":
+            graph_busy_ms = busy
+            continue
+        # the same warm optimize with a range around every call site
+        with site_ranges():
+            out, prof, wall_s = profiled(
+                lambda: dopt.optimize(model, md,
+                                      OptimizationOptions(seed=seed)))
+        print(f"{label} with site ranges, host loop: wall {wall_s:.4f} s, "
+              f"moves {out.num_moves}")
+        return report_sites(label, *site_table(prof), graph_busy_ms)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", help="write a Chrome trace to this path")
     ap.add_argument("--top", type=int, default=15)
-    ap.add_argument("--only", choices=("all", "main", "default-chain"),
-                    default="all", help="main, default-chain: only that "
-                    "chain's optimizes and its site table")
+    ap.add_argument("--only", choices=("all", "main", "default-chain",
+                                       "scale-default-chain"),
+                    default="all", help="main, default-chain, "
+                    "scale-default-chain (1K x 200K under bench scale "
+                    "scenario 3's search, seed 0; only with this choice): "
+                    "only that chain's optimizes and its site table")
     ap.add_argument("--sites", help="write the site tables as JSON here")
     args = ap.parse_args(argv)
 
@@ -373,7 +434,7 @@ def main(argv=None) -> int:
     print(f"card: {card}")
     res = None
     tables = {}
-    for loop in ("auto", "host") if args.only != "default-chain" else ():
+    for loop in ("auto", "host") if args.only in ("all", "main") else ():
         # the goal passes as CUDA graphs ("auto"), then their host-driven
         # twin, in the same process
         name = "CUDA graphs" if loop == "auto" else "host loop"
@@ -416,44 +477,17 @@ def main(argv=None) -> int:
         tables["main path"] = report_sites("main path", *site_table(prof),
                                            main_busy_ms)
 
-    from cruise_control_tpu_torch.analyzer import (OptimizationOptions,
-                                                   SearchConfig,
-                                                   TorchGoalOptimizer)
-    for loop in ("auto", "host") if args.only != "main" else ():
-        name = "CUDA graphs" if loop == "auto" else "host loop"
-        dopt = TorchGoalOptimizer(
-            config=SearchConfig(**chip_smoke.MAIN_SEARCH), device="cuda",
-            goal_loop=loop)
-        dopt.optimize(model, md, OptimizationOptions(seed=1))
-        walls = []
-        for _ in range(3):
-            t0 = time.monotonic()
-            dopt.optimize(model, md, OptimizationOptions(seed=1))
-            torch.cuda.synchronize()
-            walls.append(time.monotonic() - t0)
-        print(f"default chain, {name}: warm walls "
-              f"{[round(w, 4) for w in walls]} s")
-        kernels.reset_launch_counts()
-        syncs0 = engine.HOST_SYNCS
-        out, prof, wall_s = profiled(
-            lambda: dopt.optimize(model, md, OptimizationOptions(seed=1)))
-        busy = report(f"default chain optimize (seed 1), {name}", prof,
-                      wall_s, args.top, f"moves {out.num_moves}, host "
-                      f"syncs {engine.HOST_SYNCS - syncs0}, ")
-        if busy is None:
-            return 1
-        if loop == "auto":
-            graph_busy_ms = busy
-            continue
-        # the same warm optimize with a range around every call site
-        with site_ranges():
-            out, prof, wall_s = profiled(
-                lambda: dopt.optimize(model, md,
-                                      OptimizationOptions(seed=1)))
-        print(f"default chain with site ranges, host loop: wall "
-              f"{wall_s:.4f} s, moves {out.num_moves}")
-        tables["default chain"] = report_sites(
-            "default chain", *site_table(prof), graph_busy_ms)
+    if args.only in ("all", "default-chain"):
+        tables["default chain"] = profile_default_chain(
+            "default chain", model, md, chip_smoke.MAIN_SEARCH, 1, args.top)
+    if args.only == "scale-default-chain":
+        scale_model, scale_md = chip_smoke.build_flat_direct(1000, 200_000, 2,
+                                                             seed=42)
+        tables["scale default chain"] = profile_default_chain(
+            "scale default chain", scale_model, scale_md,
+            chip_smoke.SCALE3_SEARCH, 0, args.top)
+    if None in tables.values():
+        return 1
     if args.sites:
         with open(args.sites, "w") as f:
             json.dump(tables, f, indent=1)
