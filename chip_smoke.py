@@ -383,15 +383,23 @@ KERNEL_INFO = {
     "interval_planes": dict(
         source="cruise_control_tpu_torch/csrc/violation.cu",
         replaces="cruise_control_tpu/analyzer/goals.py:510"),
+    "drain_order": dict(
+        source="cruise_control_tpu_torch/csrc/drain_order.cu",
+        replaces="cruise_control_tpu/analyzer/goals.py:505"),
+    "leadership_drain": dict(
+        source="cruise_control_tpu_torch/csrc/leadership_drain.cu",
+        replaces="cruise_control_tpu/analyzer/goals.py:633"),
 }
-#: KM-KR and KT-KW, the goal pass's own kernels, and KO's range table
-#: (once a context): every optimize launches each (KS serves the goals
-#: outside the interval family: phase 13's default chain launches it)
+#: KM-KR, KT-KZ, the goal pass's own kernels, and KO's range table (once
+#: a context): every optimize launches each (KS serves the goals outside
+#: the interval family and KAA the leadership drains: phase 13's default
+#: chain launches them)
 PASS_KERNELS = ("apply_group", "candidate_eligibility",
                 "replica_weight_range", "flow_priority", "flow_match",
                 "bulk_drain_fill", "round_guards", "replica_priority",
                 "assemble_candidates", "top_k", "steer_dest",
-                "proposal_select", "violation_rows", "interval_planes")
+                "proposal_select", "violation_rows", "interval_planes",
+                "drain_order")
 #: KR, KS, KT and KU: the goals' candidate generators (their wrappers, as
 #: ``analyzer/goals.py`` calls them)
 GENERATOR_KERNELS = ("replica_priority", "dest_select", "assemble_candidates",
@@ -1529,6 +1537,131 @@ def _kernel_pass_kernels(rows, model, md, scale_model, scale_md, floor_ms,
             f"N={N}", _max_err(got, want), ms, plain,
             n_slots * 38 + B1 * 60 + N * 25, n_slots * 15 + B1 * B1,
             chain=kp_chain(args[5], n_slots, B1))
+        # --- KZ and KAA: the drains up to KP and whole (first: the kernels
+        # line's rows)
+        _kernel_drains(rows, shape, state, ctx, floor_ms)
+
+
+#: KZ's and KAA's phase-3 cases a model: (kernel, goal, state) — "dead"
+#: phase 3's state (broker 3 dead), "one" every slot (for KAA every
+#: leader) on broker 5, one run of every row; first: the kernels line's
+#: rows
+DRAIN_CASES = {"main": (("drain_order", "ReplicaDistributionGoal", "dead"),
+                        ("drain_order", "DiskUsageDistributionGoal", "dead"),
+                        ("drain_order", "ReplicaDistributionGoal", "one"),
+                        ("leadership_drain", "LeaderReplicaDistributionGoal",
+                         "dead"),
+                        ("leadership_drain", "LeaderBytesInDistributionGoal",
+                         "dead"),
+                        ("leadership_drain", "LeaderReplicaDistributionGoal",
+                         "one")),
+               "scale": (("drain_order", "ReplicaDistributionGoal", "dead"),
+                         ("leadership_drain", "LeaderReplicaDistributionGoal",
+                          "dead"))}
+
+
+def drain_state(state, kernel, case):
+    """Phase 3's state for a drain case (see ``DRAIN_CASES``)."""
+    import dataclasses
+    import torch
+    if case != "one":
+        return state
+    if kernel == "drain_order":
+        return dataclasses.replace(state, rb=torch.full_like(state.rb, 5))
+    rb = state.rb.clone()
+    rb[:, 0] = 5
+    rb[:, 1:] = torch.where(rb[:, 1:] == 5, 6, rb[:, 1:])
+    return dataclasses.replace(state, rb=rb)
+
+
+def drain_bytes_ops(kernel, state, N):
+    """(bytes, operations) of one KZ or KAA call at ``state``: each input
+    read once and each output written once; a slot's (partition's) ~120
+    integer operations of the noise's hash and fields, and a comparison
+    sort's log2 of the longest run a row (two passes for KAA)."""
+    import torch
+    P, R = state.rb.shape
+    B1 = state.util.shape[0]
+    n = P * R
+    if kernel == "drain_order":
+        run = int(torch.bincount(state.rb.reshape(-1), minlength=B1).max())
+        nbytes = n * (8 + 1 + 1) + P * 32 + B1 * 48 + n * 14 + B1 * 16
+        return nbytes, n * (120 + max(1, math.ceil(math.log2(run)))) + B1 * 40
+    run = int(torch.bincount(state.rb[:, 0], minlength=B1).max())
+    nbytes = n * 9 + P * 38 + B1 * 49 + N * 17
+    return nbytes, P * (120 + 2 * max(1, math.ceil(math.log2(run)))) + B1 * 60
+
+
+def _kernel_drains(rows, shape, state, ctx, floor_ms):
+    """KZ (drain_order) and KAA (leadership_drain) at ``DRAIN_CASES``:
+    bit for bit against their twins on the CPU, timed as a CUDA graph of
+    up to 200 launches beside their twins on the card (eager), the eager
+    ``utils/ordered.lexsort`` of their sort keys (three stable torch.sorts
+    for KZ; KAA's two passes' lexsorts, two each) and their bounds."""
+    import torch
+    from cruise_control_tpu_torch import _random, kernels
+    from cruise_control_tpu_torch.analyzer import (SearchConfig,
+                                                   goals_by_name)
+    from cruise_control_tpu_torch.utils.ordered import lexsort
+    dev = state.rb.device
+    cfg = SearchConfig(drain_batch=16_384 if shape == "main" else 25_000)
+    for kernel, name, case in DRAIN_CASES[shape]:
+        st = drain_state(state, kernel, case)
+        cs, cc = to_device(st, "cpu"), to_device(ctx, "cpu")
+        goal = goals_by_name([name])[0]
+        key = _random.fold(_random.PRNGKey(11, device=dev), 70_001)
+        ckey = _random.fold(_random.PRNGKey(11), 70_001)
+        P, R = st.rb.shape
+        if kernel == "drain_order":
+            def call():
+                return kernels.drain_order(goal, st, ctx, key)
+
+            def twin():
+                return kernels.drain_order_plain(goal, st, ctx, key)
+            got = call()
+            want = kernels.drain_order_plain(goal, cs, cc, ckey)
+            w, cand, must = got[6], got[7], got[8]
+            noise = _random.affine(key, (P * R,), 0.01, 1.0)
+            sort_keys = [(-torch.where(cand, w * noise, -1.0), ~must, got[5])]
+            taken = int(cand.sum())
+        else:
+            w_all = goal._leadership_drain_weight(ctx)
+
+            def call():
+                return kernels.leadership_drain(goal, st, ctx, key, cfg)
+
+            def twin():
+                return kernels.leadership_drain_plain(goal, st, ctx, key,
+                                                      cfg, w_all)
+            got = call()
+            want = kernels.leadership_drain_plain(goal, cs, cc, ckey, cfg,
+                                                  w_all.cpu())
+            noise = _random.affine(key, (P,), 0.01, 1.0)
+            sort_w = torch.clamp(w_all, min=0.0) * noise
+            sort_keys = [(-sort_w, st.rb[:, 0]), (-sort_w, st.rb[:, 1])]
+            taken = int(got[2].sum())
+        torch.cuda.synchronize()
+        err = _max_err(got, want)
+        bad = [k for k, (g, w_) in enumerate(zip(got, want))
+               if not torch.equal(g.cpu().contiguous().view(torch.uint8),
+                                  w_.contiguous().view(torch.uint8))]
+        tag = (f"{name} ({case}), [P={P}, R={R}], "
+               f"B1={st.util.shape[0]}")
+        if bad or err != 0.0:
+            fail(f"{kernel} differs from its twin ({tag}): outputs {bad}, "
+                 f"max |err| {err}")
+        ms = time_ms(call, graph=True)
+        plain = time_ms(twin, groups=3)
+        lib = time_ms(lambda: [lexsort(k) for k in sort_keys], groups=3)
+        b_ms, b_by = bound(*drain_bytes_ops(kernel, st, cfg.drain_batch))
+        log(f"{kernel} {tag}: bit-exact vs twin ({taken} "
+            f"{'candidates' if kernel == 'drain_order' else 'placed'}); "
+            f"{ms:.5f} ms ({ms / floor_ms:.1f} launch floors), twin "
+            f"{plain:.4f} ms, lexsort {lib:.5f} ms, bound {b_ms:.7f} ms "
+            f"({b_by})")
+        _keep_first_shape(rows, kernel, err, dict(
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib))
 
 
 #: KN's phase-3 shapes: (N candidates, chain, positions) — a proposal's
@@ -3035,6 +3168,24 @@ def _device_ops(fn):
                  if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def _window(run, attempts=5):
+    """(the names of the kernels and copies that ``run`` ran on the card,
+    by ``torch.profiler``; the launches that ``kernels.LAUNCHES`` counted
+    meanwhile, by wrapper): again, up to ``attempts`` times, where the
+    profiler recorded nothing (it drops a short window's events now and
+    then). Every attempt runs ``run`` whole, so the counts are one
+    window's."""
+    from cruise_control_tpu_torch import kernels
+    for _ in range(attempts):
+        before = dict(kernels.LAUNCHES)
+        _, ops = _device_ops(run)
+        made = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES
+                if kernels.LAUNCHES[k] != before[k]}
+        if ops:
+            break
+    return ops, made
+
+
 def start_profiler():
     """One empty ``torch.profiler`` window: CUPTI, started here, traces the
     kernels of the CUDA graphs instantiated after it (the goal chains')."""
@@ -4436,7 +4587,8 @@ def phase_default_chain(model, md, scale_model, scale_md):
     for i, (got, want) in enumerate(zip(main["a"], REFERENCE_DEFAULT)):
         _check_outcome(f"(a) run {i + 1}", got, want)
     missing = [k for k in ("threefry2x32", "ordered_segment_sum",
-                           "goal_loop", *PASS_KERNELS, "dest_select")
+                           "goal_loop", *PASS_KERNELS, "dest_select",
+                           "leadership_drain")
                if not launches[k]]
     if missing:
         fail(f"(a) kernels never launched by the default chain: {missing}")
@@ -4444,6 +4596,7 @@ def phase_default_chain(model, md, scale_model, scale_md):
     _default_chain_kn(model, md, launches["candidate_eligibility"])
     _default_chain_generators(model, md)
     _default_chain_propose_segments(model, md)
+    _default_chain_drain_segments(model, md)
     rest = default_chain_rest(pkg, model, md)
     log(f"(c) N-1 sweep with the default goals: {rest['walls']['n1']:.3f}s")
     _check_summary("(c) N-1, default goals", rest["c"], REFERENCE_DEFAULT_N1)
@@ -4497,14 +4650,14 @@ def _default_chain_kn(model, md, launches):
         return kernels.candidate_eligibility(state, ctx, c, checks)
     call()
     # the profiler records fewer launches than a window makes (one call's
-    # window has read as none), so the launches are counted over a window
-    # of calls, beside what one call's window records and the wrapper's
-    # own count
+    # window has read as none, and a window of 20 calls now and then), so
+    # the launches are counted over a window of calls, taken again where
+    # it recorded nothing, beside what one call's window records and the
+    # wrapper's own count
     _, one = _device_ops(call)
     reps = 20
-    before = kernels.LAUNCHES["candidate_eligibility"]
-    _, ops = _device_ops(lambda: [call() for _ in range(reps)])
-    made = kernels.LAUNCHES["candidate_eligibility"] - before
+    ops, made = _window(lambda: [call() for _ in range(reps)])
+    made = made.get("candidate_eligibility", 0)
     counts = {o: ops.count(o) for o in sorted(set(ops))}
     ms = time_ms(call, graph=True)
     log(f"(a) KN on the default chain: {launches} wrapper calls in the two "
@@ -4583,14 +4736,15 @@ def _default_chain_generators(model, md):
         def counting_top_k(*args, **kw):
             calls.append(1)
             return real_top_k(*args, **kw)
-        before = dict(kernels.LAUNCHES)
+
+        def run(call=call):
+            calls.clear()
+            return [call() for _ in range(reps)]
         g.top_k = counting_top_k
         try:
-            _, ops = _device_ops(lambda: [call() for _ in range(reps)])
+            ops, made = _window(run)
         finally:
             g.top_k = real_top_k
-        made = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES
-                if kernels.LAUNCHES[k] != before[k]}
         counts = {o: ops.count(o) for o in sorted(set(ops))}
         log(f"(a) {goal.name}'s generators, {reps} calls ({len(calls)} "
             f"top-k; wrapper counts {made}): {counts}")
@@ -4614,8 +4768,8 @@ def _default_chain_generators(model, md):
 def _default_chain_propose_segments(model, md):
     """Phase 13 (a)'s ``propose`` segments: each default-chain pass's
     ``PassSegments.propose`` at phase 3's state (broker 3 dead) over a
-    window of 10 calls (again, up to three times, where the profiler
-    recorded nothing: it drops a short window's events now and then).
+    window of 10 calls (``_window``: again where the profiler recorded
+    nothing).
     Besides its goal's generators (``GENERATOR_OPS``) a segment may
     launch KV, KW and KN and the interval goals' planes (eager torch and
     KB's range form, listed), never a sort; by the wrappers' counts KW
@@ -4638,15 +4792,8 @@ def _default_chain_propose_segments(model, md):
         key = _random.PRNGKey(3, device=state.rb.device)
         seg.propose(state, ctx, key, 0)
         torch.cuda.synchronize()
-        for _attempt in range(3):
-            before = dict(kernels.LAUNCHES)
-            _, ops = _device_ops(lambda: [seg.propose(state, ctx, key, it)
-                                          for it in range(reps)])
-            made = {k: kernels.LAUNCHES[k] - before[k]
-                    for k in kernels.LAUNCHES
-                    if kernels.LAUNCHES[k] != before[k]}
-            if ops:
-                break
+        ops, made = _window(lambda: [seg.propose(state, ctx, key, it)
+                                     for it in range(reps)])
         counts = {o: ops.count(o) for o in sorted(set(ops))}
         sorts = [o for o in counts if is_sort(o)]
         if sorts:
@@ -4667,6 +4814,83 @@ def _default_chain_propose_segments(model, md):
     log(f"(a) the default chain's propose segments, {reps} calls a pass: "
         f"no sort; besides KR-KW, KO, KN and memsets: {rest}")
     return rest
+
+
+#: what a pass's ``drain`` segment launches: KZ's, KAA's, KP's, KT's,
+#: KN's, KM's and KV's kernels and memsets
+DRAIN_OPS = ("order_prep_kernel", "order_starts_kernel", "order_keys_kernel",
+             "order_chunk_kernel", "order_merge_kernel", "lead_prep_kernel",
+             "lead_starts_kernel", "lead_keys_kernel", "lead_chunk_kernel",
+             "lead_merge_kernel", "lead_levels_kernel", "lead_scans_kernel",
+             "lead_take1_kernel", "lead_take2_kernel", "lead_scatter_kernel",
+             "drain_gather_kernel", "drain_keys_kernel", "drain_scans_kernel",
+             "drain_take_kernel", "drain_rank_kernel", "drain_budget_kernel",
+             "drain_scatter_kernel", "assemble_kernel", "eligibility_kernel",
+             "topic_bounds_kernel", "apply_bucket_kernel",
+             "apply_group_kernel", "steer_kernel", "Memset")
+#: KB's kernels, which a drain segment may launch where they are listed
+KB_OPS = ("tile_group_kernel", "tile_chain_kernel",
+          "ordered_segment_sum_kernel", "ordered_range_sum_kernel")
+
+
+def _default_chain_drain_segments(model, md):
+    """Phase 13 (a)'s ``drain`` segments: each drain-capable default-chain
+    goal's ``PassSegments.drain`` at phase 3's state (broker 3 dead), in
+    place on a copy of it (the graphs' form), over a window of 10 rounds
+    (``_window``: again where the profiler recorded nothing). Its
+    device operations must be ``DRAIN_OPS``' and KB's (listed), never a
+    sort; by the wrappers' counts each round launches KZ and KP (a replica
+    drain) or KAA (a leadership drain), KT, KN and KM once, KV once where
+    an earlier goal steers, and nothing else."""
+    import torch
+    from cruise_control_tpu_torch import _random, kernels
+    from cruise_control_tpu_torch.analyzer import SearchConfig, default_goals
+    from cruise_control_tpu_torch.analyzer.engine import PassSegments
+    state, ctx = pass_state(model, md, dead=(3,))
+    goals = [goal.bind(md) for goal in default_goals()]
+    cfg = SearchConfig(**MAIN_SEARCH)
+    reps = 10
+    listed: dict = {}
+    drained = 0
+    for pos, goal in enumerate(goals):
+        if not goal.supports_bulk_drain:
+            continue
+        drained += 1
+        seg = PassSegments(goal, goals[:pos], cfg, all_goals=goals)
+        carry = clone_fields(state)
+        key = _random.PRNGKey(3, device=state.rb.device)
+        seg.drain(carry, ctx, key, 0, out=carry)
+        torch.cuda.synchronize()
+        ops, made = _window(lambda: [
+            seg.drain(carry, ctx, key, r, out=carry)
+            for r in range(1, reps + 1)])
+        counts = {o: ops.count(o) for o in sorted(set(ops))}
+        sorts = [o for o in counts if is_sort(o)]
+        other = [o for o in counts if not any(k in o for k in DRAIN_OPS)]
+        kb = {o: counts[o] for o in other if any(k in o for k in KB_OPS)}
+        log(f"(a) {goal.name}'s drain segment, {reps} rounds (wrapper "
+            f"counts {made}): {counts}")
+        if sorts or set(other) - set(kb):
+            fail(f"(a) {goal.name}'s drain segment ran the sorts {sorts} and "
+                 f"{sorted(set(other) - set(kb))} outside KZ, KAA, KP, KT, "
+                 f"KN, KM, KV and memsets")
+        for o, n in kb.items():
+            listed[o] = listed.get(o, 0) + n
+        want = dict(assemble_candidates=reps, candidate_eligibility=reps,
+                    apply_group=reps)
+        if goal.actions == "replica":
+            want.update(drain_order=reps, bulk_drain_fill=reps)
+        else:
+            want.update(leadership_drain=reps)
+        if seg.steer.n > 0:
+            want["steer_dest"] = reps
+        if made != want:
+            fail(f"(a) {goal.name}'s drain segment counted {made} in {reps} "
+                 f"rounds: {want} expected")
+    if not drained:
+        fail("(a) the default chain has no drain-capable goal")
+    log(f"(a) the default chain's {drained} drain segments, {reps} rounds "
+        f"each: no sort; KB's launches: {listed or 'none'}")
 
 
 def _loop_outcome(res):
@@ -4850,7 +5074,8 @@ def main() -> int:
                     fleet_scenario_failover=fleet_launches[
                         "fleet_scenario_failover"],
                     cell_net_flow=default_launches["cell_net_flow"],
-                    dest_select=default_launches["dest_select"])
+                    dest_select=default_launches["dest_select"],
+                    leadership_drain=default_launches["leadership_drain"])
     kernels_line = [dict(name=name, route="cuda", source=info["source"],
                          replaces=info["replaces"], launches=launches[name],
                          **rows[name])

@@ -28,7 +28,11 @@ A ``propose`` is its generators around KU's ``top_k``
 match, or KS's, ``kernels.dest_select``) and one KT launch
 (``kernels.assemble_candidates``) that builds every candidate of the
 proposal's parts; each goal's ``priority_base`` is the twin of its KR
-base.
+base. A replica drain round is KZ (``kernels.drain_order``: the quota and
+the slots' order), KP (``kernels.bulk_drain_fill``) and KT; a leadership
+drain round KAA (``kernels.leadership_drain``) and KT. ``_shed_quota``,
+``_segment_cum_before`` and ``_capacity_budget_cap`` are their twins'
+steps.
 """
 
 from __future__ import annotations
@@ -43,13 +47,14 @@ from ..config.brokersets import topic_set_array
 from ..core.resources import Resource
 from ..kernels import (Part, ViolationTable, assemble_candidates,
                        bulk_drain_fill, cell_net_flow, dest_select,
-                       flow_match, flow_priority, grid_source_plain,
-                       interval_planes, net_broker_flow, ordered_segment_sum,
+                       drain_order, flow_match, flow_priority,
+                       grid_source_plain, interval_planes, leadership_drain,
+                       net_broker_flow, ordered_segment_sum,
                        replica_priority, shortlist_source_plain, top_k,
                        top_k_plain)
 from ..model.flat import MOVE_INTER_BROKER, MOVE_LEADERSHIP, MOVE_SWAP
-from ..utils.ordered import (fma, lexsort, scan_sum, topic_cell_sum,
-                              tree_sum, tree_sum_last, violation_row_sum)
+from ..utils.ordered import (fma, scan_sum, topic_cell_sum, tree_sum,
+                              tree_sum_last, violation_row_sum)
 from .constraint import BalancingConstraint, SearchConfig
 from .state import (Candidates, SearchContext, SearchState, metric_deltas,
                     metric_values, METRIC_LEADER_COUNT, METRIC_LEADER_NW_IN,
@@ -558,8 +563,7 @@ class IntervalGoal(GoalKernel):
                    cfg: SearchConfig) -> Candidates:
         if self.actions == "replica":
             return self._replica_bulk_drain(state, ctx, key, cfg)
-        return self._leadership_bulk_drain(state, ctx, key, cfg,
-                                           self._leadership_drain_weight(ctx))
+        return self._leadership_bulk_drain(state, ctx, key, cfg)
 
     def _shed_quota(self, values, lo, up, ctx):
         """(excess, deficit, quota, n_alive): over-upper excess (everything
@@ -591,8 +595,8 @@ class IntervalGoal(GoalKernel):
         ``cfg.drain_batch`` partition-disjoint move candidates, sources
         ranked heaviest-first within each over-upper (or dead) broker,
         destinations assigned by a prefix-sum fill over receiver budgets
-        (capped by the replica-count ceiling and every capacity hard goal;
-        KP, ``kernels.bulk_drain_fill``, after the sort)."""
+        (capped by the replica-count ceiling and every capacity hard goal):
+        KZ (:meth:`drain_sort`), KP (``kernels.bulk_drain_fill``), KT."""
         p, r, dst, ok = bulk_drain_fill(self, state, ctx, cfg,
                                         *self.drain_sort(state, ctx, key))
         return assemble_candidates(state, ctx, [Part("move", p=p, r=r,
@@ -603,97 +607,22 @@ class IntervalGoal(GoalKernel):
         order, flat_b, flat_w, flat_cand, flat_must) — the metric, its
         upper bound, the deficits and shed quotas [B1], and the flat [P, R]
         slots' order by (broker, must-first, weight-desc-with-noise), their
-        brokers, weights, candidacy and mandatory moves."""
-        values, lo, up = self._bounds_b1(state, ctx)
-        _, deficit, quota, _ = self._shed_quota(values, lo, up, ctx)
-
-        P, R = state.rb.shape
-        src_b = state.rb
-        w = self._replica_drain_weight(ctx, state.rb)              # [P, R]
-        cand = (ctx.movable & ((w > 0.0) | state.offline)
-                & ((quota[src_b] > 0.0) | state.offline))
-
-        # Sort by (broker, must-first, weight-desc-with-noise).
-        noise = _random.affine(key, (P, R), 0.01, 1.0)
-        flat_b = src_b.reshape(-1)
-        flat_w = w.reshape(-1)
-        flat_cand = cand.reshape(-1)
-        flat_must = state.offline.reshape(-1) & flat_cand
-        sort_w = torch.where(flat_cand, flat_w * noise.reshape(-1), -1.0)
-        order = lexsort((-sort_w, ~flat_must, flat_b))
-        return (values, up, deficit, quota, order, flat_b, flat_w, flat_cand,
-                flat_must)
+        brokers, weights, candidacy and mandatory moves. KZ
+        (``kernels.drain_order``, ``csrc/drain_order.cu``); its twin
+        ``kernels.drain_order_plain`` composes it in torch."""
+        return drain_order(self, state, ctx, key)
 
     def _leadership_bulk_drain(self, state: SearchState, ctx: SearchContext,
-                               key, cfg: SearchConfig,
-                               w_all: torch.Tensor) -> Candidates:
+                               key, cfg: SearchConfig) -> Candidates:
         """Bulk leadership transfers off over-upper leader brokers onto each
-        partition's best-headroom follower broker, with two quota passes
-        (shed per source, intake per destination)."""
-        N = cfg.drain_batch
-        dev = state.rb.device
-        values, lo, up = self._bounds_b1(state, ctx)
-        alive = ctx.broker_alive
-        excess, deficit, quota, n_alive = self._shed_quota(values, lo, up,
-                                                           ctx)
-        budget_b = torch.where(alive & ctx.leader_dest_allowed
-                               & ctx.broker_valid,
-                               torch.clamp(self._upper_minus(values, up, ctx),
-                                           min=0.0), 0.0)
-
-        P, R = state.rb.shape
-        B1 = values.shape[0]
-        src = state.rb[:, 0]                                       # [P]
-        w = torch.clamp(w_all, min=0.0)
-        can = (ctx.leadership_movable & ctx.partition_valid & alive[src]
-               & (quota[src] > 0.0) & (w > 0.0))
-
-        fb = state.rb                                              # [P, R]
-        slot_ok = ((torch.arange(R, device=dev) != 0)[None, :]
-                   & (fb < B1 - 1) & alive[fb] & ctx.leader_dest_allowed[fb]
-                   & ~state.offline)
-        dscore = torch.where(slot_ok, budget_b[fb], _NEG)
-        r_sel = torch.argmax(dscore, dim=1)
-        has_dst = torch.isfinite(dscore.amax(dim=1))
-        can = can & has_dst
-        dstb = fb[torch.arange(P, device=dev), r_sel]
-
-        noise = _random.affine(key, (P,), 0.01, 1.0)
-        sort_w = torch.where(can, w * noise, -1.0)
-
-        # Pass 1 — shed quota per source broker (heaviest transfers first).
-        o1 = lexsort((-sort_w, src))
-        sw1 = torch.where(can[o1], w[o1], 0.0)
-        before1 = _segment_cum_before(sw1, src[o1], B1)
-        t1_sorted = can[o1] & (before1 < quota[src[o1]])
-        take1 = torch.zeros(P, dtype=torch.bool, device=dev)
-        take1[o1] = t1_sorted
-
-        # Aggregate hard-capacity cap, like the replica drain.
-        dload = torch.clamp(ctx.leader_load - ctx.follower_load, min=0.0)
-        ratio = dload / torch.clamp(w, min=1e-9)[:, None]
-        per_unit_max = torch.where(take1[:, None], ratio, 0.0).amax(dim=0)
-        budget_b = _capacity_budget_cap(budget_b, per_unit_max,
-                                        self.constraint,
-                                        ctx.broker_capacity, state.util)
-
-        # Pass 2 — intake budget per destination broker.
-        sort_w2 = torch.where(take1, w * noise, -1.0)
-        o2 = lexsort((-sort_w2, dstb))
-        sw2 = torch.where(take1[o2], w[o2], 0.0)
-        before2 = _segment_cum_before(sw2, dstb[o2], B1)
-        t2_sorted = take1[o2] & (before2 < budget_b[dstb[o2]])
-
-        grank = torch.cumsum(t2_sorted, 0) - 1
-        ok = t2_sorted & (grank < N)
-        slot = torch.where(ok, grank, N)
-
-        def scatter(vals, dtype):
-            out = torch.zeros(N + 1, dtype=dtype, device=dev)
-            return out.scatter_(0, slot, vals.to(dtype))[:N]
-        return assemble_candidates(state, ctx, [Part(
-            "leadership", p=scatter(o2, torch.int64),
-            r=scatter(r_sel[o2], torch.int64), ok=scatter(ok, torch.bool))])
+        partition's best-headroom follower broker (each weighing
+        :meth:`_leadership_drain_weight`), with two quota passes (shed per
+        source, intake per destination): KAA (``kernels.leadership_drain``,
+        ``csrc/leadership_drain.cu``; its twin
+        ``kernels.leadership_drain_plain``), then KT."""
+        p, r, ok = leadership_drain(self, state, ctx, key, cfg)
+        return assemble_candidates(state, ctx, [Part("leadership", p=p, r=r,
+                                                     ok=ok)])
 
     # -- candidate generation -------------------------------------------
     def propose_planes(self, state, ctx):

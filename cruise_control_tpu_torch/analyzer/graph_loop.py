@@ -168,13 +168,22 @@ class Segment:
     stream, in the chain's memory pool. The launches its kernel wrappers
     counted while it was captured are kept in ``launches``, and the apply
     rounds it ran in ``rounds`` (both credited per replay, and taken back
-    out of ``kernels.LAUNCHES`` and ``engine.APPLY_ROUNDS``)."""
+    out of ``kernels.LAUNCHES`` and ``engine.APPLY_ROUNDS``). A refused
+    capture raises and leaves the device's default CUDA generator as it
+    found it."""
 
     def __init__(self, name: str, fn, pool, stream):
         self.name = name
         before = dict(kernels.LAUNCHES)
         rounds = engine.APPLY_ROUNDS
         graph = torch.cuda.CUDAGraph(keep_graph=True)
+        # The capture puts the device's default generator into capture; a
+        # capture that is refused never takes it out (its end raises before
+        # the generator's epilogue), and the next draw outside a capture
+        # would raise. Its state as it was goes back in on a refusal.
+        generator = torch.cuda.default_generators[
+            torch.cuda.current_device()]
+        saved = generator.clone_state()
         # A cyclic collection inside the capture could free an earlier
         # chain's graphs, whose destruction the capture does not allow.
         collecting = gc.isenabled()
@@ -182,6 +191,9 @@ class Segment:
         try:
             with torch.cuda.graph(graph, pool=pool, stream=stream):
                 fn()
+        except BaseException:
+            generator.graphsafe_set_state(saved)
+            raise
         finally:
             if collecting:
                 gc.enable()

@@ -24,6 +24,10 @@
 //     sorted budgets, scan_sum(tw) - tw / 2, searchsorted (left);
 //  6. the scatter of (p, r, dst, ok) into N slots (the rest zero).
 //
+// The scan levels, cum_at and the runs' in-order sums are drain.cuh's,
+// which KAA (leadership_drain.cu) shares; KZ (drain_order.cu) gives KP its
+// order.
+//
 // Bound on the card: bytes at the scale cell (the slots' planes read a
 // few times, ~40 bytes a slot); at the main path's 40,192 slots the
 // launches, each a few memory round trips, and the longest broker run's
@@ -39,7 +43,7 @@
 //  L2 keys: a block a chunk for the chunk's levels of the first scan16 (a
 //     thread sums a 16-block in order, 16 threads the level-1 blocks, one
 //     thread the chunk's 16 level-2 values); a warp a broker for its run's
-//     in-order sum (KB's order; ordered::stream_rows: the run copied
+//     in-order sum (KB's order; drain.cuh:run_sum: the run copied
 //     ahead through a ring in shared memory, one dependent add a slot);
 //     blocks of 64 brokers x 2,048 keys counting each broker's rank in the
 //     stable argsort of -deficit (integer atomics);
@@ -62,11 +66,17 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "drain.cuh"
 #include "ordered.cuh"
 
 namespace {
 
-constexpr int kChunk = 4096;               // slots a chunk (16^3)
+using drain::chunk_scan;
+using drain::kChunk;
+using drain::kStage;
+using drain::pad;
+using drain::staged_scan16;
+
 constexpr int kChunkThreads = 1024;        // four slots a thread
 constexpr int kSlotThreads = 256;          // the launches of a thread a slot
 constexpr int kSmallThreads = 256;         // the one-block launches
@@ -75,8 +85,6 @@ constexpr int kRankRows = 64;              // brokers a rank block ranks
 constexpr int kRankTile = 2048;            // keys a rank block compares
 constexpr int kRing = 8;                   // a broker warp's chunks in flight
 constexpr int kStageBudgets = 4096;        // cumulative budgets in shared
-constexpr int kStage = 2048;               // the one-block launches' arrays
-                                           // in shared memory up to this
 constexpr uint8_t kCand = 1, kMust = 2, kKept = 4, kTake = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -136,77 +144,9 @@ struct DrainArgs {
 
 namespace {
 
-__device__ __forceinline__ int chunk_slots(const DrainArgs& a, int64_t c) {
-  const int64_t left = a.n - c * kChunk;
-  return static_cast<int>(left < kChunk ? left : kChunk);
-}
-
-// Shared-memory index of a chunk's slot k (a gap every 16: a thread's
-// 16-block reads no bank twice).
-__device__ __forceinline__ int pad(int k) { return k + (k >> 4); }
-
-// scan16's value at slot i from the chunk-local levels and the chunks'
-// scanned totals: XLA's down-sweep, level by level from the top.
-__device__ __forceinline__ float cum_at(const DrainArgs& a, int64_t i) {
-  // the four levels' values loaded together (an index out of play reads
-  // entry 0, unused), then added from the top
-  const int64_t k1 = i / 16 - 1, k2 = k1 / 16 - 1, k3 = k2 / 16 - 1;
-  const float v0 = a.loc0[i];
-  float v1 = a.loc1[k1 < 0 ? 0 : k1];
-  float v2 = a.loc2[k2 < 0 ? 0 : k2];
-  const float v3 = a.out3[k3 < 0 ? 0 : k3];
-  if (k2 >= 16) v2 = __fadd_rn(v2, v3);
-  if (k1 >= 16) v1 = __fadd_rn(v1, v2);
-  return i >= 16 ? __fadd_rn(v0, v1) : v0;
-}
-
-// Chunk c's levels of scan16 over the m values in s_x (padded; scanned in
-// place): level 0 in 16-blocks into loc0, level 1 into loc1, level 2 into
-// loc2, the chunk's total into t3. Every thread of the block calls it.
-__device__ void chunk_scan(const DrainArgs& a, int64_t c, int m, float* s_x,
-                           float* s_t1, float* s_t2) {
-  const int t = threadIdx.x;
-  const int nb0 = (m + 15) / 16;
-  if (t < nb0) {
-    const int cnt = m - 16 * t < 16 ? m - 16 * t : 16;
-    float v[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) v[j] = j < cnt ? s_x[pad(16 * t + j)] : 0.0f;
-    float acc = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      if (j < cnt) {
-        acc = __fadd_rn(acc, v[j]);
-        s_x[pad(16 * t + j)] = acc;
-      }
-    }
-    s_t1[t] = acc;
-  }
-  __syncthreads();
-  const int64_t i0 = c * kChunk;
-  for (int k = t; k < m; k += blockDim.x) a.loc0[i0 + k] = s_x[pad(k)];
-  const int nb1 = (nb0 + 15) / 16;
-  if (t < nb1) {
-    float acc = 0.0f;
-    const int hi = 16 * t + 16 < nb0 ? 16 * t + 16 : nb0;
-    for (int k = 16 * t; k < hi; ++k) {
-      acc = __fadd_rn(acc, s_t1[k]);
-      s_t1[k] = acc;
-    }
-    s_t2[t] = acc;
-  }
-  __syncthreads();
-  for (int k = t; k < nb0; k += blockDim.x) {
-    a.loc1[c * (kChunk / 16) + k] = s_t1[k];
-  }
-  if (t == 0) {
-    float acc = 0.0f;
-    for (int k = 0; k < nb1; ++k) {
-      acc = __fadd_rn(acc, s_t2[k]);
-      a.loc2[c * (kChunk / 256) + k] = acc;
-    }
-    a.t3[c] = acc;
-  }
+// KP's scan levels (drain.cuh)
+__device__ __forceinline__ drain::Levels levels(const DrainArgs& a) {
+  return drain::Levels{a.loc0, a.loc1, a.loc2, a.t3, a.out3};
 }
 
 // The sum of v over the block, returned to every thread (``s_red`` holds
@@ -246,7 +186,7 @@ __device__ bool take_at(const DrainArgs& a, int64_t i) {
   // loaded whether or not a candidate: two memory round trips, not four
   const uint8_t f = a.flags[i];
   const int32_t b = a.sb[i];
-  const float sw = a.sw[i], cum = cum_at(a, i);
+  const float sw = a.sw[i], cum = drain::cum_at(levels(a), i);
   const float offset = __fsub_rn(a.oscan[b], a.per_key[b]);
   const float before = __fsub_rn(__fsub_rn(cum, sw), offset);
   return (f & kCand) && (before < a.quota[b] || (f & kMust));
@@ -302,7 +242,7 @@ __global__ void __launch_bounds__(kKeysThreads) drain_keys_kernel(
   if (blockIdx.x < nch) {
     // ---- the chunk's levels of the first scan16 (of the weights)
     const int64_t c = blockIdx.x;
-    const int m = chunk_slots(a, c);
+    const int m = drain::chunk_slots(a.n, c);
     constexpr int kPer = kChunk / kKeysThreads;
     float v[kPer];                             // every load, then the stores
 #pragma unroll
@@ -316,7 +256,7 @@ __global__ void __launch_bounds__(kKeysThreads) drain_keys_kernel(
       if (k < m) s_x[pad(k)] = v[u];
     }
     __syncthreads();
-    chunk_scan(a, c, m, s_x, s_t1, s_t2);
+    chunk_scan(levels(a), c, m, s_x, s_t1, s_t2);
     return;
   }
   if (blockIdx.x < nch + broker_blocks) {
@@ -324,18 +264,9 @@ __global__ void __launch_bounds__(kKeysThreads) drain_keys_kernel(
     const int warp = threadIdx.x >> 5;
     const int64_t b = (blockIdx.x - nch) * (kKeysThreads / 32) + warp;
     if (b >= a.B1) return;
-    const int64_t lo = a.run_start[b], hi = a.run_start[b + 1];
-    int64_t at = lo;
-    float acc = 0.0f;
-    ordered::stream_rows<1, kRing>(
-        a.sw, s_ring[warp][0], s_n[warp],
-        [&](int64_t& row0) {
-          row0 = at;
-          const int64_t n = hi - at < 32 ? hi - at : 32;
-          at += n;
-          return static_cast<int>(n);
-        },
-        [&](float v) { acc = __fadd_rn(acc, v); });
+    const float acc = drain::run_sum<kRing>(
+        a.sw, a.run_start[b], a.run_start[b + 1], s_ring[warp][0],
+        s_n[warp]);
     if ((threadIdx.x & 31) == 0) a.per_key[b] = acc;
     return;
   }
@@ -366,24 +297,6 @@ __global__ void __launch_bounds__(kKeysThreads) drain_keys_kernel(
     r += (kj < key) || (kj == key && j0 + k < i);
   }
   if (r > 0) atomicAdd(a.rank + i, r);
-}
-
-// scan16 of x[0..n) into out[0..n) by the block: staged through shared
-// memory (one memory round trip in, one out) where n fits, else over
-// global memory with ``scr`` (scan_scratch(n) floats) as its levels.
-__device__ void staged_scan16(const float* x, float* out, int64_t n,
-                              float* scr, float* s_in, float* s_out,
-                              float* s_scr) {
-  const ordered::Block blk{};
-  if (n > kStage) {
-    ordered::scan16(blk, [&](int64_t i) { return x[i]; }, out, n, scr);
-    return;
-  }
-  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) s_in[i] = x[i];
-  __syncthreads();
-  ordered::scan16(blk, [&](int64_t i) { return s_in[i]; }, s_out, n, s_scr);
-  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) out[i] = s_out[i];
-  __syncthreads();
 }
 
 __global__ void __launch_bounds__(kSmallThreads) drain_scans_kernel(
@@ -434,7 +347,7 @@ __global__ void __launch_bounds__(kChunkThreads) drain_rank_kernel(
   const int t = threadIdx.x;
   const int64_t c = blockIdx.x;
   const int64_t i0 = c * kChunk;
-  const int m = chunk_slots(a, c);
+  const int m = drain::chunk_slots(a.n, c);
   // the kept slots before the chunk
   int64_t before = 0;
   for (int64_t k = t; k < c; k += blockDim.x) before += a.kept[k];
@@ -545,7 +458,7 @@ __global__ void __launch_bounds__(kChunkThreads) drain_rank_kernel(
     for (int k = t; k < m; k += blockDim.x) a.wsum[k] = s_x[pad(k)];
   }
   __syncthreads();
-  chunk_scan(a, c, m, s_x, s_t1, s_t2);
+  chunk_scan(levels(a), c, m, s_x, s_t1, s_t2);
 }
 
 __global__ void __launch_bounds__(kSmallThreads) drain_budget_kernel(
@@ -681,7 +594,8 @@ __global__ void __launch_bounds__(kSlotThreads) drain_scatter_kernel(
                     + threadIdx.x;
   if (i >= a.n || !(a.flags[i] & kTake)) return;
   const float tw = a.sw[i];
-  const float target = __fsub_rn(cum_at(a, i), __fmul_rn(0.5f, tw));
+  const float target = __fsub_rn(drain::cum_at(levels(a), i),
+                                 __fmul_rn(0.5f, tw));
   const int64_t pos = ordered::lower_bound(cum, a.B1, target);
   if (pos < a.B1 && target < cum[a.B1 - 1]) {
     const int64_t s = a.grank[i];

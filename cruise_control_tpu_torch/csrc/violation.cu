@@ -64,14 +64,22 @@
 
 namespace {
 
+using bounds::Brokers;
+using bounds::IntervalBounds;
+using bounds::View;
+using bounds::block_sum;
+using bounds::interval_bounds;
+using bounds::kAverage;
+using bounds::kCapacity;
+using bounds::kCount;
+using bounds::kLeaders;
+using bounds::staged_sum;
+using bounds::stage_interval;
+
 constexpr int kThreads = 512;
 constexpr int kPlanesThreads = 256;
 constexpr int64_t kMaxShared = 227 * 1024;
 
-enum Metric : int32_t {        // 0-3: a util column
-  kCount = 4, kLeaders = 5, kPotential = 6, kLeaderNwIn = 7
-};
-enum Form : int32_t { kAverage = 0, kCapacity = 1, kConstant = 2 };
 // kernels.ROW_KINDS
 enum Kind : int32_t {
   kInterval = 0, kHardCap = 1, kRackAware = 2, kRackSpread = 3,
@@ -83,25 +91,6 @@ enum TopicSum : int32_t { kMatrix = 0, kRows = 1, kLanes = 2 };
 
 }  // namespace
 
-// One goal's row (kernels._ViolRow): KN's kind and fields, and the row's
-// sum: an interval row's vector loop (vf 0: XLA's tree), a topic row's
-// form (with the rows form's loop, or the lanes form's vf).
-struct ViolRow {
-  int32_t kind;
-  int32_t metric;
-  int32_t form;
-  int32_t upper_only;
-  int32_t integer;
-  int32_t cap_col;
-  int32_t param;               // topic leaders: min_count; broker set: sets
-  int32_t vf, ic, epi, tail;
-  int32_t sum;                 // a topic row's TopicSum
-  float t;                     // topic replica: threshold - 1.0
-  float lower;                 // topic replica: the minimum gap
-  float hi;                    // topic replica: the maximum gap
-  // topic leaders: uint8 interested[T]; broker set: int32 topic_set[param]
-  const void* aux;
-};
 
 // A field and its step between scenarios, in elements (0: shared).
 struct Plane {
@@ -160,177 +149,6 @@ namespace {
 template <class T>
 __device__ __forceinline__ const T* at(const Plane& f, int64_t s) {
   return static_cast<const T*>(f.p) + s * f.s;
-}
-
-// One scenario's broker planes.
-struct Brokers {
-  const float* util;
-  const int32_t* cnt;
-  const int32_t* lead;
-  const float* pot;
-  const float* lni;
-  const float* cap;
-  const uint8_t* bvalid;
-  const uint8_t* balive;
-
-  __device__ float value(int32_t m, int64_t b) const {
-    switch (m) {
-      case kCount: return static_cast<float>(cnt[b]);
-      case kLeaders: return static_cast<float>(lead[b]);
-      case kPotential: return pot[b];
-      case kLeaderNwIn: return lni[b];
-      default: return util[b * 4 + m];
-    }
-  }
-};
-
-// An interval row's broker planes: its metric, capacity column and masks,
-// staged in shared memory (vals, caps, flags: bit 0 valid, bit 1 alive)
-// or read from the planes themselves.
-struct View {
-  Brokers br;
-  int32_t metric, cap_col;
-  const float* vals;           // null: not staged
-  const float* caps;
-  const uint8_t* flags;
-
-  __device__ float value(int64_t b) const {
-    return vals != nullptr ? vals[b] : br.value(metric, b);
-  }
-  __device__ float cap(int64_t b) const {
-    return vals != nullptr ? caps[b] : br.cap[b * 4 + cap_col];
-  }
-  __device__ bool valid(int64_t b) const {
-    return vals != nullptr ? (flags[b] & 1) != 0 : br.bvalid[b] != 0;
-  }
-  __device__ bool alive(int64_t b) const {
-    return vals != nullptr ? (flags[b] & 2) != 0 : br.balive[b] != 0;
-  }
-};
-
-// The block's int64 sum of every thread's ``v`` (exact in any order),
-// returned to every thread; ``red`` holds a word a warp. Opens with a
-// barrier, so what the block wrote before is visible after it.
-__device__ __forceinline__ long long block_sum(long long v, long long* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int warps = (blockDim.x + 31) >> 5;
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
-  __syncthreads();                     // red is free (an earlier sum read)
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  long long total = 0;
-  for (int k = 0; k < warps; ++k) total += red[k];
-  return total;
-}
-
-// A block's sum of f(b) over the B1 brokers in XLA's tree order, or, with
-// vf > 0, thread 0's vector loop (vf, ic, epi, tail), returned to every
-// thread (the loop's to thread 0). With ``work`` (B1 floats of shared
-// memory) the block first writes every f(b) there in one parallel pass
-// and the sum reads that row: f's loads then cost no round trip an
-// element (an accessor read inside the sum's window took ~300 cycles an
-// element). Ends with the block's barrier.
-template <class F>
-__device__ __forceinline__ float staged_sum(F f, int64_t B1, float* work,
-                                            float* scratch, int vf = 0,
-                                            int ic = 0, int epi = 0,
-                                            int tail = 0) {
-  float total;
-  if (work != nullptr) {
-    for (int64_t b = threadIdx.x; b < B1; b += blockDim.x) work[b] = f(b);
-    __syncthreads();
-    auto x = [work](int64_t b) { return work[b]; };
-    total = vf > 0 ? (threadIdx.x == 0
-                          ? ordered::vector_loop_sum(x, static_cast<int>(B1),
-                                                     vf, ic, epi, tail, 0.0f)
-                          : 0.0f)
-                   : ordered::tree_sum(ordered::Block{}, x, B1, scratch);
-  } else {
-    total = vf > 0 ? (threadIdx.x == 0
-                          ? ordered::vector_loop_sum(f, static_cast<int>(B1),
-                                                     vf, ic, epi, tail, 0.0f)
-                          : 0.0f)
-                   : ordered::tree_sum(ordered::Block{}, f, B1, scratch);
-  }
-  __syncthreads();
-  return total;
-}
-
-// Stage an interval row's planes into shared memory (a thread a broker,
-// every load issued in one pass) where ``planes`` holds [4, B1] floats
-// (the metric, the capacity column, a work row, the masks); returns the
-// alive count (clamped at 1) and the view of the planes.
-__device__ __forceinline__ float stage_interval(const ViolRow& row,
-                                                const Brokers& br, int64_t B1,
-                                                float* planes, long long* red,
-                                                View& view) {
-  view = View{br, row.metric, row.cap_col, nullptr, nullptr, nullptr};
-  long long n = 0;
-  if (planes != nullptr) {
-    float* vals = planes;
-    float* caps = planes + B1;
-    uint8_t* flags = reinterpret_cast<uint8_t*>(planes + 3 * B1);
-    const bool cap = row.form == kCapacity;
-    for (int64_t b = threadIdx.x; b < B1; b += blockDim.x) {
-      const float v = br.value(row.metric, b);
-      const float c = cap ? br.cap[b * 4 + row.cap_col] : 0.0f;
-      const uint8_t valid = br.bvalid[b], alive = br.balive[b];
-      vals[b] = v;
-      caps[b] = c;
-      flags[b] = static_cast<uint8_t>((valid != 0) | ((alive != 0) << 1));
-      n += alive != 0;
-    }
-    view.vals = vals;
-    view.caps = caps;
-    view.flags = flags;
-  } else {
-    for (int64_t b = threadIdx.x; b < B1; b += blockDim.x) {
-      n += br.balive[b] != 0;
-    }
-  }
-  n = block_sum(n, red);
-  return static_cast<float>(n < 1 ? 1 : n);
-}
-
-// An interval row's bounds: (lo, up) scalars of an average row, else -inf
-// and the per-broker bound (upper(b)).
-struct IntervalBounds {
-  float lo, up;
-  int32_t form;
-  float t;
-
-  __device__ float lower() const { return form == kAverage ? lo : -INFINITY; }
-  template <class V>
-  __device__ float upper(const V& view, int64_t b) const {
-    if (form == kAverage) return up;
-    return form == kCapacity ? bounds::capacity(view.cap(b), t) : t;
-  }
-  // value - upper over the whole broker axis (IntervalGoal._minus_upper:
-  // one FMA against capacity x t)
-  template <class V>
-  __device__ float minus_upper(const V& view, float v, int64_t b) const {
-    if (form == kCapacity) return bounds::minus_capacity(v, view.cap(b), t);
-    return __fsub_rn(v, upper(view, b));
-  }
-};
-
-template <class V>
-__device__ __forceinline__ IntervalBounds interval_bounds(
-    const ViolRow& row, const V& view, float n_alive, int64_t B1,
-    float* scratch, float* work) {
-  IntervalBounds ib{-INFINITY, 0.0f, row.form, row.t};
-  if (row.form == kAverage) {
-    const float total = staged_sum(
-        [=](int64_t b) {
-          const float v = view.value(b);
-          return view.valid(b) ? v : 0.0f;
-        },
-        B1, work, scratch);
-    bounds::average(total, n_alive, row.t, row.lower, row.upper_only != 0,
-                    row.integer != 0, ib.lo, ib.up);
-  }
-  return ib;
 }
 
 // The row's violation and scale (thread 0 holds them).
@@ -679,8 +497,7 @@ __global__ void __launch_bounds__(kPlanesThreads) interval_planes_kernel(
     const float v = view.value(b);
     const float lo = ib.lower(), up = ib.upper(view, b);
     const bool alive = view.alive(b);
-    const float excess =
-        alive ? ordered::clamp0(ib.minus_upper(view, v, b)) : v;
+    const float excess = ib.excess(view, v, b);
     const float deficit =
         (row.upper_only || !alive || !isfinite(lo))
             ? 0.0f

@@ -69,8 +69,8 @@ One more carries the goal loops:
   (``analyzer/graph_loop.py``); ``csrc/goal_loop.cu`` also holds the
   functions that build those graphs.
 
-Twelve more carry a goal pass's own rounds and proposals (each in a few
-launches where plain torch took dozens):
+Fourteen more carry a goal pass's own rounds and proposals (each in a
+few launches where plain torch took dozens):
 
 - **KM** ``apply_group`` — one partition-disjoint group of candidates
   applied out of place or into the caller's buffers: the slot writes, the
@@ -89,6 +89,15 @@ launches where plain torch took dozens):
 - **KP** ``bulk_drain_fill`` — a replica drain round after its sort: the
   segmented shed, the first slot a partition, the capped budgets and the
   deficit-first fill (seven launches over the whole card);
+- **KZ** ``drain_order`` — a replica drain round up to KP: the shed quota
+  (one block, KY's planes), every slot's weight, candidacy and noise, and
+  the slots' stable order by (broker, must-move first, weight descending
+  with noise): a segmented sort, each broker's run sorted in shared memory
+  (a run past 4,096 slots in chunks, then merged);
+- **KAA** ``leadership_drain`` — a leadership drain round whole: the quota
+  and intake budgets, each partition's best follower, the two quota passes
+  (KZ's segmented sort, KP's cumulative weights) with the capacity cap
+  between them, and the batch's slots for KT;
 - **KQ** ``round_guards`` — the body of an apply round between KN and KM:
   the blocked and prefix masks, every chain goal's collective guard (a
   table of rows, one kind a guard form, :class:`GuardTable`; the flows
@@ -158,9 +167,10 @@ SOURCES = ("threefry.cu", "segment_sum.cu", "net_flow.cu", "cell_flow.cu",
            "eligibility.cu", "flow_candidates.cu", "drain_fill.cu",
            "round_guards.cu", "replica_priority.cu", "dest_select.cu",
            "candidates.cu", "top_k.cu", "steer.cu", "proposal_select.cu",
-           "violation.cu")
+           "violation.cu", "drain_order.cu", "leadership_drain.cu")
 #: headers the sources include (hashed with them)
-HEADERS = ("threefry.cuh", "ordered.cuh", "select.cuh", "bounds.cuh")
+HEADERS = ("threefry.cuh", "ordered.cuh", "select.cuh", "bounds.cuh",
+           "drain.cuh")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -171,7 +181,8 @@ SOURCE_FLAGS = {name: ("-fmad=false",) for name in (
     "apply_group.cu", "eligibility.cu", "flow_candidates.cu",
     "drain_fill.cu", "round_guards.cu", "replica_priority.cu",
     "dest_select.cu", "candidates.cu", "top_k.cu", "steer.cu",
-    "proposal_select.cu", "violation.cu")}
+    "proposal_select.cu", "violation.cu", "drain_order.cu",
+    "leadership_drain.cu")}
 
 #: launches per kernel since the last ``reset_launch_counts()``
 LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
@@ -186,7 +197,7 @@ LAUNCHES = {"threefry2x32": 0, "ordered_segment_sum": 0,
             "replica_priority": 0, "dest_select": 0,
             "assemble_candidates": 0, "top_k": 0, "steer_dest": 0,
             "proposal_select": 0, "violation_rows": 0,
-            "interval_planes": 0}
+            "interval_planes": 0, "drain_order": 0, "leadership_drain": 0}
 #: ``nvcc``/ptxas output of the build this process loaded (register and
 #: spill counts per kernel), empty when the library came from the cache
 BUILD_LOG: list[str] = []
@@ -370,6 +381,12 @@ def load_library():
             lib.cc_proposal_select.argtypes = [p, p]
             lib.cc_violation_rows.argtypes = [p, p]
             lib.cc_interval_planes.argtypes = [p, p]
+            lib.cc_drain_order.argtypes = [p, _DrawPath, p]
+            lib.cc_drain_order_scratch.argtypes = [i64]
+            lib.cc_drain_order_scratch.restype = i64
+            lib.cc_leadership_drain.argtypes = [p, _DrawPath, p]
+            lib.cc_leadership_drain_scratch.argtypes = [i64, i64]
+            lib.cc_leadership_drain_scratch.restype = i64
             for fn in (lib.cc_goal_loop_step,
                        lib.cc_graph_create, lib.cc_graph_destroy,
                        lib.cc_graph_check_body, lib.cc_graph_add_child,
@@ -394,7 +411,8 @@ def load_library():
                        lib.cc_replica_priority, lib.cc_dest_select,
                        lib.cc_assemble_candidates, lib.cc_top_k,
                        lib.cc_steer_dest, lib.cc_proposal_select,
-                       lib.cc_violation_rows, lib.cc_interval_planes):
+                       lib.cc_violation_rows, lib.cc_interval_planes,
+                       lib.cc_drain_order, lib.cc_leadership_drain):
                 fn.restype = ctypes.c_int
             _LIB = lib
             default_collector().record_library(kind,
@@ -407,7 +425,7 @@ def _stream() -> int:
 
 
 def _pass_library():
-    """The kernel library, KM-KW's argument structs checked once against
+    """The kernel library, KM-KAA's argument structs checked once against
     the C structs they mirror (their sizes, from the library)."""
     lib = load_library()
     if not getattr(lib, "_cc_structs_checked", False):
@@ -429,7 +447,9 @@ def _pass_library():
                            ("cc_select_args_size", _SelectArgs),
                            ("cc_viol_args_size", _ViolArgs),
                            ("cc_viol_row_size", _ViolRow),
-                           ("cc_planes_args_size", _PlanesArgs)):
+                           ("cc_planes_args_size", _PlanesArgs),
+                           ("cc_order_args_size", _OrderArgs),
+                           ("cc_lead_args_size", _LeadArgs)):
             size = getattr(lib, fn)
             size.argtypes, size.restype = [], ctypes.c_int64
             if size() != ctypes.sizeof(struct):
@@ -2835,6 +2855,262 @@ def bulk_drain_fill(goal, state, ctx, cfg, values, up, deficit, quota, order,
 
 
 # ---------------------------------------------------------------------------
+# KZ: a replica drain round up to its fill; KAA: a leadership drain round
+# ---------------------------------------------------------------------------
+
+_OrderArgs = _struct(
+    "_OrderArgs",
+    "util cnt lead pot lni cap bvalid balive rows rb off movable leader_load "
+    "follower_load key planes w cand must order counts start chunk_first "
+    "keys runs scratch",
+    [(f, _I64) for f in ("P", "R", "B1")], [("weight", _I32)])
+_LeadArgs = _struct(
+    "_LeadArgs",
+    "util cnt lead pot lni cap bvalid balive rows ldest rb off lmov pvalid "
+    "leader_load follower_load key", [("thr", _F32 * 4)],
+    "p_out r_out ok_out planes scratch counts start chunk_first keys runs "
+    "order sw can take t2 dstb rsel wv wn loc0 loc1 loc2 t3 out3 per_key "
+    "oscan pmax kept",
+    [(f, _I64) for f in ("P", "R", "B1", "N")], [("weight", _I32)])
+
+
+def drain_order_plain(goal, state, ctx, key):
+    """Twin of KZ: ``IntervalGoal.drain_sort`` in plain torch — the goal's
+    planes and shed quota, the slots' weights, candidates and noise, and
+    ``lexsort`` by (broker, must-first, weight-desc-with-noise)."""
+    from . import _random
+    from .utils.ordered import lexsort
+    values, lo, up = goal._bounds_b1(state, ctx)
+    _, deficit, quota, _ = goal._shed_quota(values, lo, up, ctx)
+
+    P, R = state.rb.shape
+    src_b = state.rb
+    w = goal._replica_drain_weight(ctx, state.rb)              # [P, R]
+    cand = (ctx.movable & ((w > 0.0) | state.offline)
+            & ((quota[src_b] > 0.0) | state.offline))
+
+    # Sort by (broker, must-first, weight-desc-with-noise).
+    noise = _random.affine(key, (P, R), 0.01, 1.0)
+    flat_b = src_b.reshape(-1)
+    flat_w = w.reshape(-1)
+    flat_cand = cand.reshape(-1)
+    flat_must = state.offline.reshape(-1) & flat_cand
+    sort_w = torch.where(flat_cand, flat_w * noise.reshape(-1), -1.0)
+    order = lexsort((-sort_w, ~flat_must, flat_b))
+    return (values, up, deficit, quota, order, flat_b, flat_w, flat_cand,
+            flat_must)
+
+
+def _planes_inputs(state, ctx, what: str) -> dict:
+    """The broker planes KY's row code reads (``csrc/bounds.cuh``), each
+    checked contiguous and of its dtype."""
+    ins = dict(util=state.util, cnt=state.replica_count,
+               lead=state.leader_count, pot=state.potential_nw_out,
+               lni=state.leader_nw_in, cap=ctx.broker_capacity,
+               bvalid=ctx.broker_valid, balive=ctx.broker_alive)
+    for name, t in ins.items():
+        if t.dtype != _VIOL_DTYPES[name] or not t.is_contiguous():
+            raise TypeError(f"{what}: {name} must be a contiguous "
+                            f"{_VIOL_DTYPES[name]}")
+    return ins
+
+
+def _interval_rows(goal, state, what: str):
+    """The goal's one-row table (``IntervalGoal.planes_rows``) on the
+    state's device; raises where the goal has no interval row."""
+    table = goal.planes_rows
+    if table.specs[0] is None or table.specs[0]["kind"] not in (
+            "interval", "hard_cap"):
+        raise ValueError(f"{what} has no interval row for {goal.name}")
+    return table.rows_on(state.rb.device, state.util.shape[0],
+                         _topics(state), False)[0]
+
+
+def drain_order(goal, state, ctx, key):
+    """(values, up, deficit, quota f32[B1], order int64[n], flat_b
+    int64[n], flat_w f32[n], flat_cand bool[n], flat_must bool[n]) of an
+    interval goal's replica drain round over the n = P x R slots, the
+    noise drawn from ``key`` (a key or key path) — what KP
+    (:func:`bulk_drain_fill`) takes; see ``csrc/drain_order.cu`` (a memset
+    and five launches: the quota, the slots' keys grouped by broker, each
+    broker's run sorted in shared memory)."""
+    from . import _random
+    if _on_cpu(state.rb):
+        return drain_order_plain(goal, state, ctx, key)
+    which, res = goal.metric
+    if which not in ("count", "util") or _leading(state):
+        raise ValueError(f"drain_order drains an unbatched count or util "
+                         f"goal, not {goal.name}")
+    P, R = state.rb.shape
+    B1 = state.util.shape[0]
+    n = P * R
+    dev = state.rb.device
+    rows = _interval_rows(goal, state, "drain_order")
+    ins = _planes_inputs(state, ctx, "drain_order")
+    kp = _random.path(key)
+    path, keep = _draw_path(kp.words)
+    lib = _pass_library()
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+
+    def buf(size, dtype):
+        return torch.empty(size, dtype=dtype, device=dev)
+    planes = buf((6, B1), f32)
+    outs = dict(w=buf(n, f32), cand=buf(n, torch.bool),
+                must=buf(n, torch.bool), order=buf(n, i64))
+    scratch = dict(counts=buf(2 * B1, i32), start=buf(B1 + 1, i32),
+                   chunk_first=buf(B1 + 1, i32), keys=buf(n, i64),
+                   runs=buf(n, i64),
+                   scratch=buf(lib.cc_drain_order_scratch(B1), f32))
+    args = _fill(
+        _OrderArgs(P=P, R=R, B1=B1,
+                   weight=-1 if which == "count" else int(res)),
+        **ins, rows=rows, rb=state.rb.to(i64).contiguous(),
+        off=state.offline.contiguous(), movable=ctx.movable.contiguous(),
+        leader_load=ctx.leader_load.to(f32).contiguous(),
+        follower_load=ctx.follower_load.to(f32).contiguous(),
+        key=kp.root.contiguous(), planes=planes, **outs, **scratch)
+    rc = lib.cc_drain_order(ctypes.byref(args), path, _stream())
+    LAUNCHES["drain_order"] += 1
+    _check(rc, "drain_order")
+    return (planes[0], planes[1], planes[2], planes[3], outs["order"],
+            state.rb.reshape(-1), outs["w"], outs["cand"], outs["must"])
+
+
+def leadership_drain_plain(goal, state, ctx, key, cfg, w_all):
+    """Twin of KAA: ``IntervalGoal._leadership_bulk_drain`` up to its
+    candidates in plain torch — the shed quota and intake budgets, each
+    partition's best-headroom follower, the two quota passes (shed per
+    source, intake per destination, each a lexsort and
+    ``_segment_cum_before``) with the capacity cap between them, and (p,
+    r, ok) scattered into ``cfg.drain_batch`` slots."""
+    from . import _random
+    from .analyzer.goals import (_NEG, _capacity_budget_cap,
+                                 _segment_cum_before)
+    from .utils.ordered import lexsort
+    N = cfg.drain_batch
+    dev = state.rb.device
+    values, lo, up = goal._bounds_b1(state, ctx)
+    alive = ctx.broker_alive
+    excess, deficit, quota, n_alive = goal._shed_quota(values, lo, up, ctx)
+    budget_b = torch.where(alive & ctx.leader_dest_allowed
+                           & ctx.broker_valid,
+                           torch.clamp(goal._upper_minus(values, up, ctx),
+                                       min=0.0), 0.0)
+
+    P, R = state.rb.shape
+    B1 = values.shape[0]
+    src = state.rb[:, 0]                                       # [P]
+    w = torch.clamp(w_all, min=0.0)
+    can = (ctx.leadership_movable & ctx.partition_valid & alive[src]
+           & (quota[src] > 0.0) & (w > 0.0))
+
+    fb = state.rb                                              # [P, R]
+    slot_ok = ((torch.arange(R, device=dev) != 0)[None, :]
+               & (fb < B1 - 1) & alive[fb] & ctx.leader_dest_allowed[fb]
+               & ~state.offline)
+    dscore = torch.where(slot_ok, budget_b[fb], _NEG)
+    r_sel = torch.argmax(dscore, dim=1)
+    has_dst = torch.isfinite(dscore.amax(dim=1))
+    can = can & has_dst
+    dstb = fb[torch.arange(P, device=dev), r_sel]
+
+    noise = _random.affine(key, (P,), 0.01, 1.0)
+    sort_w = torch.where(can, w * noise, -1.0)
+
+    # Pass 1 — shed quota per source broker (heaviest transfers first).
+    o1 = lexsort((-sort_w, src))
+    sw1 = torch.where(can[o1], w[o1], 0.0)
+    before1 = _segment_cum_before(sw1, src[o1], B1)
+    t1_sorted = can[o1] & (before1 < quota[src[o1]])
+    take1 = torch.zeros(P, dtype=torch.bool, device=dev)
+    take1[o1] = t1_sorted
+
+    # Aggregate hard-capacity cap, like the replica drain.
+    dload = torch.clamp(ctx.leader_load - ctx.follower_load, min=0.0)
+    ratio = dload / torch.clamp(w, min=1e-9)[:, None]
+    per_unit_max = torch.where(take1[:, None], ratio, 0.0).amax(dim=0)
+    budget_b = _capacity_budget_cap(budget_b, per_unit_max, goal.constraint,
+                                    ctx.broker_capacity, state.util)
+
+    # Pass 2 — intake budget per destination broker.
+    sort_w2 = torch.where(take1, w * noise, -1.0)
+    o2 = lexsort((-sort_w2, dstb))
+    sw2 = torch.where(take1[o2], w[o2], 0.0)
+    before2 = _segment_cum_before(sw2, dstb[o2], B1)
+    t2_sorted = take1[o2] & (before2 < budget_b[dstb[o2]])
+
+    grank = torch.cumsum(t2_sorted, 0) - 1
+    ok = t2_sorted & (grank < N)
+    slot = torch.where(ok, grank, N)
+
+    def scatter(vals, dtype):
+        out = torch.zeros(N + 1, dtype=dtype, device=dev)
+        return out.scatter_(0, slot, vals.to(dtype))[:N]
+    return (scatter(o2, torch.int64), scatter(r_sel[o2], torch.int64),
+            scatter(ok, torch.bool))
+
+
+def leadership_drain(goal, state, ctx, key, cfg):
+    """(p, r int64[N], ok bool[N]), N = ``cfg.drain_batch``: one leadership
+    drain round of an interval goal, each partition weighing the goal's
+    ``_leadership_drain_weight`` (the kernel reads it from the context),
+    the noise drawn from ``key`` (a key or key path) — what KT's
+    ``Part("leadership", ...)`` takes; see ``csrc/leadership_drain.cu`` (a
+    memset and fourteen launches)."""
+    from . import _random
+    if _on_cpu(state.rb):
+        return leadership_drain_plain(goal, state, ctx, key, cfg,
+                                      goal._leadership_drain_weight(ctx))
+    which, _res = goal.metric
+    if _leading(state) or which not in ("leaders", "leader_nw_in"):
+        raise ValueError(f"leadership_drain drains an unbatched leader "
+                         f"count or leader NW_IN goal, not {goal.name}")
+    P, R = state.rb.shape
+    B1 = state.util.shape[0]
+    N = int(cfg.drain_batch)
+    dev = state.rb.device
+    rows = _interval_rows(goal, state, "leadership_drain")
+    ins = _planes_inputs(state, ctx, "leadership_drain")
+    kp = _random.path(key)
+    path, keep = _draw_path(kp.words)
+    lib = _pass_library()
+    f32, i32, i64, u8 = torch.float32, torch.int32, torch.int64, torch.uint8
+
+    def buf(size, dtype=f32):
+        return torch.empty(size, dtype=dtype, device=dev)
+    outs = dict(p_out=buf(N, i64), r_out=buf(N, i64),
+                ok_out=buf(N, torch.bool))
+    blocks = -(-P // 256)
+    nch = -(-P // 4096)
+    scratch = dict(
+        planes=buf((8, B1)),
+        scratch=buf(lib.cc_leadership_drain_scratch(P, B1)),
+        counts=buf(4 * B1, i32), start=buf(2 * (B1 + 1), i32),
+        chunk_first=buf(2 * (B1 + 1), i32), keys=buf(P, i64),
+        runs=buf(P, i64), order=buf(2 * P, i64), sw=buf(P),
+        can=buf(P, u8), take=buf(P, u8), t2=buf(P, u8), dstb=buf(P, i32),
+        rsel=buf(P, i32), wv=buf(P), wn=buf(P), loc0=buf(P),
+        loc1=buf(-(-P // 16)), loc2=buf(-(-P // 256)), t3=buf(nch),
+        out3=buf(nch), per_key=buf(B1), oscan=buf(B1),
+        pmax=buf((blocks, 4)), kept=buf(blocks, i32))
+    args = _fill(
+        _LeadArgs(thr=(_F32 * 4)(*goal.constraint.capacity_threshold),
+                  P=P, R=R, B1=B1, N=N,
+                  weight=-1 if which == "leaders" else 1),
+        **ins, rows=rows, ldest=ctx.leader_dest_allowed.contiguous(),
+        rb=state.rb.to(i64).contiguous(), off=state.offline.contiguous(),
+        lmov=ctx.leadership_movable.contiguous(),
+        pvalid=ctx.partition_valid.contiguous(),
+        leader_load=ctx.leader_load.to(f32).contiguous(),
+        follower_load=ctx.follower_load.to(f32).contiguous(),
+        key=kp.root.contiguous(), **outs, **scratch)
+    rc = lib.cc_leadership_drain(ctypes.byref(args), path, _stream())
+    LAUNCHES["leadership_drain"] += 1
+    _check(rc, "leadership_drain")
+    return outs["p_out"], outs["r_out"], outs["ok_out"]
+
+
+# ---------------------------------------------------------------------------
 # KR: the candidate generators' replica priorities
 # ---------------------------------------------------------------------------
 
@@ -4188,14 +4464,7 @@ def interval_planes(table: ViolationTable, state, ctx):
     dev = state.rb.device
     rows, _ = table.rows_on(dev, B1, _topics(state), False)
     out = torch.empty((5, -(-B1 // 4) * 4), dtype=torch.float32, device=dev)
-    ins = dict(util=state.util, cnt=state.replica_count,
-               lead=state.leader_count, pot=state.potential_nw_out,
-               lni=state.leader_nw_in, cap=ctx.broker_capacity,
-               bvalid=ctx.broker_valid, balive=ctx.broker_alive)
-    for name, t in ins.items():
-        if t.dtype != _VIOL_DTYPES[name] or not t.is_contiguous():
-            raise TypeError(f"interval_planes: {name} must be a contiguous "
-                            f"{_VIOL_DTYPES[name]}")
+    ins = _planes_inputs(state, ctx, "interval_planes")
     args = _fill(_PlanesArgs(B1=B1), **ins, rows=rows, out=out)
     rc = _pass_library().cc_interval_planes(ctypes.byref(args), _stream())
     LAUNCHES["interval_planes"] += 1

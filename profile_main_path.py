@@ -100,9 +100,17 @@ HAND_WRITTEN = ("threefry_draw_kernel", "tile_group_kernel",
                 "move_dest_kernel", "light_kernel", "swap_dest_kernel",
                 "assemble_kernel", "top_k_kernel", "steer_kernel",
                 "proposal_select_kernel", "proposal_gather_kernel",
-                "violation_kernel", "interval_planes_kernel")
+                "violation_kernel", "interval_planes_kernel",
+                "order_prep_kernel", "order_starts_kernel",
+                "order_keys_kernel", "order_chunk_kernel",
+                "order_merge_kernel", "lead_prep_kernel",
+                "lead_starts_kernel", "lead_keys_kernel",
+                "lead_chunk_kernel", "lead_merge_kernel",
+                "lead_levels_kernel", "lead_scans_kernel",
+                "lead_take1_kernel", "lead_take2_kernel",
+                "lead_scatter_kernel")
 #: kernel families summed on one line each: KM's, KP's, KN's, KO's, KQ's,
-#: KR's to KY's launches, KB's range form, and every device-to-device copy
+#: KR's to KAA's launches, KB's range form, and every device-to-device copy
 #: (copy kernels and memcpy)
 FAMILIES = (("KM apply_group", ("apply_bucket_kernel", "apply_group_kernel")),
             ("KP bulk_drain_fill", ("drain_",)),
@@ -125,6 +133,19 @@ FAMILIES = (("KM apply_group", ("apply_bucket_kernel", "apply_group_kernel")),
                                     "proposal_gather_kernel")),
             ("KX violation_rows", ("violation_kernel",)),
             ("KY interval_planes", ("interval_planes_kernel",)),
+            ("KZ drain_order", ("order_prep_kernel", "order_starts_kernel",
+                                "order_keys_kernel", "order_chunk_kernel",
+                                "order_merge_kernel")),
+            ("KAA leadership_drain", ("lead_prep_kernel",
+                                      "lead_starts_kernel",
+                                      "lead_keys_kernel",
+                                      "lead_chunk_kernel",
+                                      "lead_merge_kernel",
+                                      "lead_levels_kernel",
+                                      "lead_scans_kernel",
+                                      "lead_take1_kernel",
+                                      "lead_take2_kernel",
+                                      "lead_scatter_kernel")),
             ("KB range form", ("ordered_range_sum_kernel",)),
             ("device copies", ("copy", "DtoD")))
 
@@ -217,8 +238,9 @@ def _op_name(name: str) -> str:
 
 def site_table(prof):
     """({(pass, site): [device us, device events]}, device events linked
-    to no launch, {kernel: [device us, device events]} of the goals'
-    ``propose`` sites): every device event's time on the innermost
+    to no launch, {method: {kernel: [device us, device events]}} of the
+    goals' ``propose`` and ``bulk_drain`` sites): every device event's time
+    on the innermost
     ``site_ranges`` range open when the host launched it (its runtime
     event: a ``cu*`` call of the same correlation id, whose start is the
     launch), the pass from the outermost segment around that; events
@@ -235,7 +257,7 @@ def site_table(prof):
         elif e.name.startswith("cu"):
             runtime[e.id] = e.time_range.start
     table: dict = {}
-    ops: dict = {}
+    ops: dict = {"propose": {}, "bulk_drain": {}}
     unlinked = 0
     for d in device:
         t = runtime.get(d.id)
@@ -250,9 +272,10 @@ def site_table(prof):
             inner = around[-1][1]
             key = (segs[0][1],
                    inner[2] if inner[1] == "" else f"segment {inner[2]}")
+        method = ops.get(key[1].rsplit(".", 1)[-1])
         for cell in (table.setdefault(key, [0.0, 0]),
-                     ops.setdefault(_op_name(d.name), [0.0, 0])
-                     if key[1].endswith(".propose") else [0.0, 0]):
+                     [0.0, 0] if method is None or "." not in key[1]
+                     else method.setdefault(_op_name(d.name), [0.0, 0])):
             cell[0] += d.time_range.end - d.time_range.start
             cell[1] += 1
     return table, unlinked, ops
@@ -261,7 +284,8 @@ def site_table(prof):
 def report_sites(label, table, unlinked, ops, graph_busy_ms) -> dict:
     """Print ``label``'s site table by pass x site, by site and by pass,
     its sum beside the graph path's busy time, and the device ops of the
-    goals' ``propose`` sites by kernel; returns it as a JSON object."""
+    goals' ``propose`` and ``bulk_drain`` sites by kernel; returns it as a
+    JSON object."""
     total = sum(v[0] for v in table.values())
     events = sum(v[1] for v in table.values())
     print(f"== {label} busy time by call site (host loop, seed 1): "
@@ -281,15 +305,18 @@ def report_sites(label, table, unlinked, ops, graph_busy_ms) -> dict:
         print(f"by {label} (ms, device events):")
         for name, (us, n) in sorted(sums.items(), key=lambda kv: -kv[1][0]):
             print(f"  {us / 1e3:9.3f} ms {n:7d}  {name}")
-    print("the goals' propose sites by device op (ms, device events):")
-    for name, (us, n) in sorted(ops.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {us / 1e3:9.3f} ms {n:7d}  {name}")
+    for method, by_op in ops.items():
+        print(f"the goals' {method} sites by device op (ms, device "
+              f"events):")
+        for name, (us, n) in sorted(by_op.items(), key=lambda kv: -kv[1][0]):
+            print(f"  {us / 1e3:9.3f} ms {n:7d}  {name}")
     return {"total_ms": total / 1e3, "events": events,
             "unlinked_events": unlinked, "graph_busy_ms": graph_busy_ms,
             "sites": [{"pass": p_, "site": s_, "ms": us / 1e3, "events": n}
                       for (p_, s_), (us, n) in table.items()],
-            "propose_ops": [{"op": k, "ms": us / 1e3, "events": n}
-                            for k, (us, n) in ops.items()]}
+            **{f"{method}_ops": [{"op": k, "ms": us / 1e3, "events": n}
+                                 for k, (us, n) in by_op.items()]
+               for method, by_op in ops.items()}}
 
 
 def profiled(fn):

@@ -178,3 +178,26 @@ def test_hidden_host_read_raises_at_capture(cuda_device):
         chain.passes[0](state, ctx, _random.PRNGKey(0, device=cuda_device))
     assert engine.HOST_SYNCS == syncs           # no host loop ran instead
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_refused_capture_restores_the_generator(cuda_device):
+    """A capture refused at a hidden host read leaves the default CUDA
+    generator out of capture and as it was: the next draw works and equals
+    a draw from the generator state taken before the capture."""
+    model, md = skewed_cluster(seed=2)
+    goal = copy.copy(goals_by_name(["ReplicaDistributionGoal"])[0])
+    goal.__class__ = _PeekingGoal
+    cfg = SearchConfig(**SEARCH).scaled_for(md.num_partitions,
+                                            md.num_brokers)
+    chain = engine.CompiledGoalChain([goal], cfg)
+    state, ctx = ts.init_state(model), ts.build_context(model)
+    before = torch.cuda.get_rng_state()
+    with pytest.raises(RuntimeError):
+        chain.passes[0](state, ctx, _random.PRNGKey(0, device=cuda_device))
+    got = torch.rand(4096, device=cuda_device)
+    after = torch.cuda.get_rng_state()
+    torch.cuda.set_rng_state(before)
+    want = torch.rand(4096, device=cuda_device)
+    assert torch.equal(got, want)
+    assert torch.equal(after, torch.cuda.get_rng_state())
